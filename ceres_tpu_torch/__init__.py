@@ -1,7 +1,8 @@
 """ceres_tpu_torch: the PyTorch and CUDA port of ceres_tpu.
 
-The first slice: Snavely bundle adjustment solved by fused
-Levenberg-Marquardt with DENSE_SCHUR and mixed precision, on one device
+The ported slices: Snavely bundle adjustment solved by fused
+Levenberg-Marquardt in mixed precision with DENSE_SCHUR, or with
+ITERATIVE_SCHUR on an explicit reduced camera matrix, on one device
 named by SolverOptions.device ("cuda" runs the hand-written Hopper kernels
 of csrc/, "cpu" their plain PyTorch versions). Module names mirror the JAX
 package's; this package imports torch and never jax.

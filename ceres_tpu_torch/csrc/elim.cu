@@ -1,6 +1,7 @@
-// K2: damped point elimination into the reduced camera system.
+// K2: damped point elimination into the reduced camera system, and K6,
+// the same elimination from a given inverse.
 //
-// Replaces ceres_tpu/ops/pallas_lin.py::_elim2_kernel. Per point n:
+// K2 replaces ceres_tpu/ops/pallas_lin.py::_elim2_kernel. Per point n:
 //   M_n   = EtE_s[n] + diag[n] / radius            (3x3 SPD)
 //   inv_n = M_n^-1 (closed-form cofactor inverse)
 //   z_n   = inv_n * (-g_se[n])
@@ -8,12 +9,19 @@
 //   S_corr = sum_n A_n^T inv_n A_n   [nf, nf]
 //   rhs    = sum_n A_n^T z_n         [nf]
 // with A [ne, 3, nf] from the linearize kernel (lin.cu).
+// K6 (ELIM v1) replaces ceres_tpu/ops/pallas_lin.py::_elim_kernel: the
+// same S_corr and rhs from an inv [ne, 3, 3] and z [ne, 3] that the caller
+// gives (the ITERATIVE_SCHUR step forms them in PyTorch). The two share
+// the S_corr and rhs kernels below and differ only in the first one.
 //
 // Bound on the H100: S_corr is a product with a reduction depth of
-// 3 * ne (66k at BAL-16-22106) over nf^2 = 20,736 outputs: 21 flops per
-// (point, i, j), ~9.6 GFLOP counted densely, with A (39 MB) read once per
-// output tile and served mostly from the 50 MB L2. Design:
-// a first kernel writes inv and z per point (kept for the back
+// 3 * ne (66k at BAL-16-22106) over nf^2 = 20,736 outputs: 2.8 GFLOP when
+// Y = inv A is formed first (2 * 3 * nf^2 per point), ~42 us at the f32
+// rate, against 39 MB of A (~12 us of memory time): operations bound it.
+// The kernels below do 21 flops per (point, i, j) (Y recomputed per
+// output), with A read once per output tile and served mostly from the
+// 50 MB L2. Design:
+// a first kernel writes inv and z per point (K2 only; kept for the back
 // substitution); the product runs as 16x16 output tiles with split-K over
 // chunks of points into partial sums, and a last kernel adds the partials
 // in chunk order. No atomics, so a run gives the same bits every time.
@@ -121,17 +129,14 @@ __global__ void reduce_splits_kernel(const float* __restrict__ partial,
   out[o] = acc;
 }
 
-}  // namespace
-
-extern "C" int ceres_elim(const float* A, const float* etes, const float* gse,
-                          const float* diag, float rad, int ne, int nf,
-                          int pts_per_split, float* scorr, float* rhs,
-                          float* inv, float* z, float* scorr_partial,
-                          float* rhs_partial, cudaStream_t stream) {
+// S_corr and rhs from inv and z: split-K partials, then the fixed-order
+// sum over the splits.
+cudaError_t scorr_rhs(const float* A, const float* inv, const float* z,
+                      int ne, int nf, int pts_per_split, float* scorr,
+                      float* rhs, float* scorr_partial, float* rhs_partial,
+                      cudaStream_t stream) {
   const int nsplit = (ne + pts_per_split - 1) / pts_per_split;
   const int tiles = (nf + TILE - 1) / TILE;
-  elim_point_kernel<<<(ne + 127) / 128, 128, 0, stream>>>(etes, gse, diag, rad,
-                                                          ne, inv, z);
   scorr_partial_kernel<<<dim3(tiles * tiles, nsplit), dim3(TILE, TILE), 0,
                          stream>>>(A, inv, ne, nf, pts_per_split,
                                    scorr_partial);
@@ -141,5 +146,26 @@ extern "C" int ceres_elim(const float* A, const float* etes, const float* gse,
       scorr_partial, nsplit, nf * nf, scorr);
   reduce_splits_kernel<<<(nf + 255) / 256, 256, 0, stream>>>(rhs_partial,
                                                              nsplit, nf, rhs);
-  return (int)cudaGetLastError();
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" int ceres_elim(const float* A, const float* etes, const float* gse,
+                          const float* diag, float rad, int ne, int nf,
+                          int pts_per_split, float* scorr, float* rhs,
+                          float* inv, float* z, float* scorr_partial,
+                          float* rhs_partial, cudaStream_t stream) {
+  elim_point_kernel<<<(ne + 127) / 128, 128, 0, stream>>>(etes, gse, diag, rad,
+                                                          ne, inv, z);
+  return (int)scorr_rhs(A, inv, z, ne, nf, pts_per_split, scorr, rhs,
+                        scorr_partial, rhs_partial, stream);
+}
+
+extern "C" int ceres_elim_v1(const float* A, const float* inv, const float* z,
+                             int ne, int nf, int pts_per_split, float* scorr,
+                             float* rhs, float* scorr_partial,
+                             float* rhs_partial, cudaStream_t stream) {
+  return (int)scorr_rhs(A, inv, z, ne, nf, pts_per_split, scorr, rhs,
+                        scorr_partial, rhs_partial, stream);
 }

@@ -3,9 +3,10 @@
 Counterpart of ceres_tpu/minimizers/fused.py (make_fused_tr_solve,
 run_fused). The JAX package runs the loop as one lax.while_loop; here it
 is a Python loop whose tensors stay on the device, with one host read of
-the step's scalars per iteration. The acceptance test, the LM radius
-update and the termination codes (in the same priority order, :206-227)
-are the JAX package's:
+the step's scalars per iteration (the linear solver's iteration count
+among them). The acceptance test, the LM radius update and the
+termination codes (in the same priority order, :206-227) are the JAX
+package's:
 
   0 running, 1 gradient tol, 2 function tol, 3 parameter tol,
   4 min trust-region radius, 5 max iterations, 6 too many invalid steps.
@@ -80,10 +81,11 @@ def fused_tr_solve(program, options, step, x0) -> FusedResult:
         x_new = program.plus(x, out["delta"])
         new_cost_t = step.cost(x_new)
         # one host read for the iteration's scalars
-        cost, grad_max, mcc, step_norm, new_cost, x_norm = torch.stack([
-            out["cost"], out["gradient_max_norm"], out["model_cost_change"],
-            out["step_norm"], new_cost_t, program.state_norm(x)]).cpu(
-        ).numpy()
+        (cost, grad_max, mcc, step_norm, new_cost, x_norm,
+         step_lin_iters) = torch.stack([
+             out["cost"], out["gradient_max_norm"], out["model_cost_change"],
+             out["step_norm"], new_cost_t, program.state_norm(x),
+             out["lin_iters"].double()]).cpu().numpy()
         with np.errstate(all="ignore"):
             step_valid = bool(np.isfinite(mcc) and mcc > 0.0
                               and np.isfinite(step_norm))
@@ -130,7 +132,7 @@ def fused_tr_solve(program, options, step, x0) -> FusedResult:
             x, cost_t = x_new, new_cost_t
         ok_steps += int(accept)
         bad_steps += int(not accept)
-        lin_iters += out["lin_iters"]
+        lin_iters += int(step_lin_iters)
         relin = accept
     return FusedResult(x=x, cost=float(cost_t), initial_cost=float(cost0),
                        iterations=it, successful_steps=ok_steps,

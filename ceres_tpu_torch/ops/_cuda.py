@@ -1,7 +1,8 @@
 """Build and load the hand-written CUDA kernels (``csrc/*.cu``).
 
 All kernels compile with ``nvcc`` into one shared library with a plain C
-interface, loaded with ``ctypes``. The build runs at first use into
+interface, loaded with ``ctypes``: one ``nvcc -c`` per source, all started
+together, then one link. The build runs at first use into
 ``ceres_tpu_torch/_build/``, keyed by a hash of the sources and flags, so a
 fresh checkout builds everything itself. A missing ``nvcc`` or a failed
 build raises: nothing falls back.
@@ -24,7 +25,7 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC"]
+              "-O3", "-Xcompiler", "-fPIC"]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -34,7 +35,10 @@ _SIGNATURES = {
                   _P, _P, _P, _P, _P, _P, _P, _P, _P],
     "ceres_elim": [_P, _P, _P, _P, ctypes.c_float, _I, _I, _I,
                    _P, _P, _P, _P, _P, _P, _P],
+    "ceres_elim_v1": [_P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P],
     "ceres_chol_solve": [_P, _P, _I, _P, _P, _P],
+    "ceres_pcg": [_P, _P, _P, _I, _I, _I, _I, ctypes.c_float, _I,
+                  _P, _P, _P, _P],
     "ceres_cost": [_P, ctypes.c_long, ctypes.c_long, _P, _P, _P, _P, _I,
                    _P, _P],
 }
@@ -67,12 +71,30 @@ def build() -> Path:
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tag = f"{h.hexdigest()[:16]}.{os.getpid()}"
+    nvcc = _nvcc()
+    objs, procs = [], []
+    for src in sorted(CSRC.glob("*.cu")):
+        obj = BUILD_DIR / f"{src.stem}.{tag}.o"
+        cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+        objs.append(obj)
+        procs.append((cmd, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True)))
+    failed = []
+    for cmd, proc in procs:        # wait for every compile, then report
+        log = proc.communicate()[0]
+        if proc.returncode != 0:
+            failed.append(" ".join(cmd) + "\n" + log)
+    if failed:
+        raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           *[str(s) for s in sorted(CSRC.glob("*.cu"))]]
+    cmd = [nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp), *map(str, objs)]
     proc = subprocess.run(cmd, capture_output=True, text=True)
+    for obj in objs:
+        obj.unlink()
     if proc.returncode != 0:
-        raise RuntimeError("nvcc failed:\n" + " ".join(cmd) + "\n"
+        raise RuntimeError("nvcc link failed:\n" + " ".join(cmd) + "\n"
                            + proc.stdout + proc.stderr)
     os.replace(tmp, out)
     return out

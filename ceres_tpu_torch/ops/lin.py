@@ -1,14 +1,16 @@
-"""K1 linearize and K2 damped elimination for the Snavely Schur step.
+"""K1 linearize, K2 damped elimination and K6 elimination from a given
+inverse, for the Snavely Schur step.
 
-Counterpart of ceres_tpu/ops/pallas_lin.py (_lin_kernel, _elim2_kernel).
-Each function takes tensors in the chunk layout of the Schur structure:
-the observations of point n are lanes j < k of row n, with an int32
-camera map cam [ne, k] and a mask [ne, k] (1 on real lanes).
+Counterpart of ceres_tpu/ops/pallas_lin.py (_lin_kernel, _elim2_kernel,
+_elim_kernel). Each function takes tensors in the chunk layout of the
+Schur structure: the observations of point n are lanes j < k of row n,
+with an int32 camera map cam [ne, k] and a mask [ne, k] (1 on real
+lanes).
 
-`lin` and `elim` launch the CUDA kernels of csrc/lin.cu and csrc/elim.cu
-for CUDA tensors and run their plain PyTorch versions (`lin_plain`,
-`elim_plain`) for CPU tensors. Each wrapper counts its launches in its
-`launches` attribute.
+`lin`, `elim` and `elim_v1` launch the CUDA kernels of csrc/lin.cu and
+csrc/elim.cu for CUDA tensors and run their plain PyTorch versions
+(`lin_plain`, `elim_plain`, `elim_v1_plain`) for CPU tensors. Each
+wrapper counts its launches in its `launches` attribute.
 """
 
 from __future__ import annotations
@@ -156,9 +158,7 @@ def elim_plain(A, etes, gse, diag, rad):
     M = etes.view(ne, TE, TE) + torch.diag_embed(diag / rad)
     inv = spd_inv3(M)
     z = torch.einsum("nij,nj->ni", inv, -gse)
-    Y = torch.einsum("nuv,nvf->nuf", inv, A)
-    S_corr = torch.einsum("nui,nuj->ij", A, Y)
-    rhs = torch.einsum("nui,nu->i", A, z)
+    S_corr, rhs = elim_v1_plain(A, inv, z)
     return S_corr, rhs, inv, z
 
 
@@ -187,3 +187,37 @@ def elim(A, etes, gse, diag, rad):
 
 
 elim.launches = 0
+
+
+def elim_v1_plain(A, inv, z):
+    """Plain PyTorch K6. A [ne, 3, nf], inv [ne, 3, 3], z [ne, 3] (f32).
+    Returns (S_corr [nf, nf], rhs [nf]) with S_corr = sum A^T inv A,
+    rhs = sum A^T z."""
+    Y = torch.einsum("nuv,nvf->nuf", inv, A)
+    S_corr = torch.einsum("nui,nuj->ij", A, Y)
+    rhs = torch.einsum("nui,nu->i", A, z)
+    return S_corr, rhs
+
+
+def elim_v1(A, inv, z):
+    """K6: see elim_v1_plain for the contract."""
+    if not A.is_cuda:
+        return elim_v1_plain(A, inv, z)
+    ne, _, nf = A.shape
+    f32 = torch.float32
+    _cuda.check(A, (ne, TE, nf), f32, "elim_v1: A")
+    _cuda.check(inv, (ne, TE, TE), f32, "elim_v1: inv")
+    _cuda.check(z, (ne, TE), f32, "elim_v1: z")
+    dev = A.device
+    nsplit = -(-ne // _ELIM_PTS_PER_SPLIT)
+    S_corr = torch.empty(nf, nf, dtype=f32, device=dev)
+    rhs = torch.empty(nf, dtype=f32, device=dev)
+    s_part = torch.empty(nsplit, nf, nf, dtype=f32, device=dev)
+    r_part = torch.empty(nsplit, nf, dtype=f32, device=dev)
+    _cuda.launch("ceres_elim_v1", A, inv, z, ne, nf, _ELIM_PTS_PER_SPLIT,
+                 S_corr, rhs, s_part, r_part)
+    elim_v1.launches += 1
+    return S_corr, rhs
+
+
+elim_v1.launches = 0

@@ -3,9 +3,9 @@
 Counterpart of the main-path part of ceres_tpu/solver.py (solve, :444;
 the fused-Schur dispatch of make_step_impl, :154): validate, build the
 program on `options.device`, detect the Schur structure, run the fused LM
-loop, write back. Configurations outside the slice raise
-NotImplementedError naming the ROADMAP.md item that ports them; none runs
-another path quietly.
+loop with the DENSE_SCHUR or ITERATIVE_SCHUR step, write back.
+Configurations outside the slices raise NotImplementedError naming the
+ROADMAP.md item that ports them; none runs another path quietly.
 """
 
 from __future__ import annotations
@@ -27,11 +27,12 @@ def _check_slice(options):
     """Raise NotImplementedError for an option outside the slice."""
     if options.minimizer_type != MinimizerType.TRUST_REGION:
         raise NotImplementedError(
-            "line search is not ported yet (ROADMAP.md: slice 5)")
+            "line search is not ported yet (ROADMAP.md item 25, "
+            "minimizers/line_search.py)")
     if (options.trust_region_strategy_type
             != TrustRegionStrategyType.LEVENBERG_MARQUARDT):
         raise NotImplementedError(
-            "dogleg is not ported yet (ROADMAP.md: slice 3, the host-loop "
+            "dogleg is not ported yet (ROADMAP.md item 14, the host-loop "
             "trust-region minimizer)")
     host_loop = (not options.fused_iterations or options.callbacks
                  or options.use_nonmonotonic_steps
@@ -47,7 +48,7 @@ def _check_slice(options):
     if host_loop:
         raise NotImplementedError(
             "these options need the host-loop minimizer, which is not "
-            "ported yet (ROADMAP.md: slice 3, minimizers/trust_region.py); "
+            "ported yet (ROADMAP.md item 14, minimizers/trust_region.py); "
             "the slice runs fused_iterations=True only")
 
 

@@ -1,0 +1,87 @@
+"""Preconditioned conjugate gradients.
+
+Counterpart of ceres_tpu/solvers/cg.py (conjugate_gradients; reference
+conjugate_gradients_solver.h:109): the Q-based forcing-sequence stop
+    i * (Q_i - Q_{i-1}) / Q_i < q_tolerance,   Q = 0.5 x^T (r + b),
+the indefiniteness guard, an r-norm tolerance, max_iterations, and the
+refresh r = b - A x every `residual_reset_period` iterations.
+
+A Python loop that reads `done` on the host every iteration: the plain
+version that K7 (ops/pcg.py dense_pcg) is held against, and the CPU path.
+On the card the fused step runs K7, never this loop. `solve_cgnr` waits
+for the CGNR operator kernel K8 (ROADMAP.md: slice 3).
+"""
+
+from __future__ import annotations
+
+from typing import Callable, NamedTuple
+
+import torch
+
+
+class CGResult(NamedTuple):
+    x: torch.Tensor
+    num_iterations: torch.Tensor     # int32 scalar
+    final_norm: torch.Tensor
+
+
+def conjugate_gradients(
+        apply_A: Callable,
+        b,
+        x0,
+        apply_preconditioner: Callable = None,
+        max_iterations: int = 100,
+        min_iterations: int = 0,
+        q_tolerance: float = 0.0,
+        r_tolerance: float = 0.0,
+        residual_reset_period: int = 10) -> CGResult:
+    """Solve A x = b, A SPD, matrix-free, from x0. x0=None starts from
+    zero with r0 = b, skipping the product A 0 (as the whole-solve kernel
+    K7 does: a NaN in A then stops the solve at y = 0)."""
+    if apply_preconditioner is None:
+        def apply_preconditioner(v):
+            return v
+    zero = torch.zeros((), dtype=b.dtype, device=b.device)
+    one = torch.ones((), dtype=b.dtype, device=b.device)
+    tol_r = r_tolerance * torch.linalg.vector_norm(b)
+
+    if x0 is None:
+        x0, r = torch.zeros_like(b), b
+    else:
+        r = b - apply_A(x0)
+    x = x0
+    z = apply_preconditioner(r)
+    rho = torch.dot(r, z)
+    p = z
+    # Q at the initial point (conjugate_gradients_solver.h:157-159)
+    Q0 = 0.5 * torch.dot(x0, r + b)
+    i = 0
+    done = False
+    while not done and i < max_iterations:
+        Ap = apply_A(p)
+        pAp = torch.dot(p, Ap)
+        # indefiniteness guard (conjugate_gradients_solver.h:159)
+        bad = bool(pAp <= 0) or not bool(torch.isfinite(pAp))
+        alpha = zero if bad else rho / torch.where(pAp == 0, one, pAp)
+        x = x + alpha * p
+        i += 1
+        if i % residual_reset_period == 0:
+            r = b - apply_A(x)
+        else:
+            r = r - alpha * Ap
+        z = apply_preconditioner(r)
+        rho_new = torch.dot(r, z)
+        beta = rho_new / torch.where(rho == 0, one, rho)
+        p = z + beta * p
+        Q1 = 0.5 * torch.dot(x, r + b)
+        zeta = i * (Q1 - Q0) / torch.where(Q1 == 0, one, Q1)
+        q_done = (q_tolerance > 0 and i >= max(min_iterations, 1)
+                  and bool(Q1 != 0) and bool(torch.abs(zeta) < q_tolerance))
+        r_done = (r_tolerance > 0
+                  and bool(torch.linalg.vector_norm(r) <= tol_r))
+        done = bad or q_done or r_done
+        rho, Q0 = rho_new, Q1
+    return CGResult(x=x,
+                    num_iterations=torch.tensor(i, dtype=torch.int32,
+                                                device=b.device),
+                    final_norm=torch.linalg.vector_norm(r))

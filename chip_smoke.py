@@ -4,24 +4,31 @@
     python3 chip_smoke.py
 
 Builds the CUDA kernels of ceres_tpu_torch/csrc/ from the sources in this
-checkout (into ceres_tpu_torch/_build/), then:
+checkout (into ceres_tpu_torch/_build/), then, on Snavely bundle
+adjustment at the BAL-16-22106 shape (16 cameras, 22,106 points, 83,718
+observations; the seeded synthetic problem at its perturbed start):
 
-1. checks each kernel K1-K4 against its plain PyTorch version on the card,
-   at the main path's shapes: Snavely bundle adjustment on the
-   BAL-16-22106 shape (16 cameras, 22,106 points, 83,718 observations),
-   the seeded synthetic problem at its perturbed start; and times both
-   with CUDA events (median of 20 runs);
-2. solves that problem with the main-path options (DENSE_SCHUR, mixed
-   precision, fused LM) on device="cuda": one warm-up and three timed
-   solves, counting the launches of every kernel;
-3. fails unless every kernel agrees within its limit, every solve ends in
-   CONVERGENCE with a final cost within 1e-5 relative of 5.028773e+04,
-   every kernel launched at least once per LM iteration, and TF32 is off.
+1. checks each kernel against its plain PyTorch version on the card, at
+   the shapes its path gives it: K1-K4 (slice 1, DENSE_SCHUR), K6 on the
+   inverse of the first linearization at RADIUS, K7 on that reduced
+   system with SCHUR_JACOBI and with IDENTITY blocks; times each, its
+   plain version and, where one PyTorch call computes the same function,
+   that call, with CUDA events (median of 20 runs); and computes each
+   kernel's bound from this run's inputs;
+2. drives the two paths through ctt.solve on device="cuda", counting the
+   launches of every kernel from zero before each solve:
+   DENSE_SCHUR (slice 1), one warm-up and three timed solves;
+   ITERATIVE_SCHUR with SCHUR_JACOBI (slice 2), one warm-up and two timed;
+3. fails unless every kernel agrees within its limit (K7 with the same CG
+   iteration count), every solve ends in CONVERGENCE with a final cost
+   within 1e-5 relative of 5.028773e+04, every kernel of a path launched
+   at least once per LM iteration, K2 and K3 never on the ITERATIVE_SCHUR
+   path, CG iterated more often than LM did, and TF32 is off.
 
-Prints the card's name and power limit, one line per check, a JSON line
-of the kernels, and as its last line {"ok": true, "device": {...}}. Exits
-non-zero, with no ok line, when there is no CUDA device or any phase
-fails.
+Prints the card's name and power limit, one line per check and solve, a
+JSON line of the kernels, and as its last line {"ok": true, "device":
+{...}}. Exits non-zero, with no ok line, when there is no CUDA device or
+any phase fails.
 """
 
 import json
@@ -36,9 +43,21 @@ SHAPE = dict(num_cameras=16, num_points=22106, num_observations=83718)
 PERTURB = dict(rotation_sigma=0.1, translation_sigma=1.0, point_sigma=0.5)
 REF_FINAL_COST = 50287.73       # the f64 DENSE_SCHUR final cost
 REF_REL_TOL = 1e-5
-F32_LIMIT = 1e-5                # K1-K3: f32 kernels, other summation order
+F32_LIMIT = 1e-5                # K1-K3, K6: f32 kernels, other sum order
 F64_LIMIT = 1e-12               # K4: f64 kernel
+# K7: y relative to the plain CG. Both run the f32 recurrence, but the
+# kernel's warp and block reductions sum in another order than PyTorch's
+# dots and matvec, and each CG iteration carries the difference on,
+# amplified by the conditioning of S; 1e-4 leaves room for that over a few
+# tens of iterations (the JAX package holds its Pallas kernel to 2e-5 at
+# m = 144 on the CPU, where both sides sum alike).
+PCG_LIMIT = 1e-4
 RADIUS = 1e4                    # the initial trust-region radius
+# H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s, f32 and f64 flop/s
+# outside the tensor cores
+HBM_BYTES_PER_S = 3.35e12
+F32_FLOP_PER_S = 67e12
+F64_FLOP_PER_S = 34e12
 
 
 def rel_err(a, b):
@@ -67,8 +86,35 @@ def median_ms(fn, reps=20):
     return statistics.median(times)
 
 
-def check_kernel(name, kernel, plain, compare, limit, source, replaces):
-    """Run kernel and plain version on the same inputs, compare, time."""
+def nbytes(*objs):
+    """Bytes of every tensor in objs (dicts, tuples and lists walked)."""
+    import torch
+    total = 0
+    for o in objs:
+        if isinstance(o, torch.Tensor):
+            total += o.numel() * o.element_size()
+        elif isinstance(o, dict):
+            total += nbytes(*o.values())
+        elif isinstance(o, (tuple, list)):
+            total += nbytes(*o)
+    return total
+
+
+def bound(moved, flops, rate):
+    """The least time the card could take: bytes over the HBM rate or
+    operations over the peak rate, whichever is larger (ms, which)."""
+    t_bytes, t_ops = moved / HBM_BYTES_PER_S, flops / rate
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def check_kernel(name, kernel, plain, compare, limit, source, replaces,
+                 inputs, flops, rate, library=None, reference=None):
+    """Run kernel and plain version on the same inputs, compare, time.
+    `flops` is a number or a function of the kernel's output; `library`
+    is (label, fn) of one PyTorch call that computes the function;
+    `reference` is (label, fn) of a call that computes another function
+    on the same inputs, timed as a yardstick only."""
     import torch
     got = kernel()
     want = plain()
@@ -77,15 +123,71 @@ def check_kernel(name, kernel, plain, compare, limit, source, replaces):
     rel = max(e[0] for e in errs)
     abs_err = max(e[1] for e in errs)
     ms, plain_ms = median_ms(kernel), median_ms(plain)
+    lib_ms = median_ms(library[1]) if library else None
+    ref_ms = median_ms(reference[1]) if reference else None
+    n_flops = flops(got) if callable(flops) else flops
+    bound_ms, bound_by = bound(nbytes(inputs, got), n_flops, rate)
+    lib_txt = (f", {library[0]} {lib_ms:.4f} ms" if library else "")
+    lib_txt += (f", {reference[0]} {ref_ms:.4f} ms" if reference else "")
     print(f"{name}: max rel err {rel:.3e} (limit {limit:.0e}), max abs err "
           f"{abs_err:.3e}; kernel {ms:.4f} ms, plain PyTorch "
-          f"{plain_ms:.4f} ms", flush=True)
+          f"{plain_ms:.4f} ms{lib_txt}; bound {bound_ms:.5f} ms "
+          f"({bound_by}: {nbytes(inputs, got)} B, {n_flops:.4g} flop)",
+          flush=True)
     if not rel <= limit:
         raise SystemExit(f"{name}: kernel and plain version disagree")
     return {"name": name, "route": "cuda", "source": source,
             "replaces": replaces, "max_abs_err": abs_err,
             "max_rel_err": rel, "limit": limit, "ms": ms,
-            "plain_ms": plain_ms}
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": lib_ms,
+            "library_call": library[0] if library else None,
+            "reference_ms": ref_ms,
+            "reference_call": reference[0] if reference else None}
+
+
+def pcg_flops(m, tf, iters, reset):
+    """Operations of one K7 solve of `iters` iterations: per iteration the
+    matvec (2 m^2), the block preconditioner (2 m tf; 0 for IDENTITY) and
+    the dots and vector updates (13 m); a refresh's extra matvec every
+    `reset` iterations; the start (preconditioner and one dot) and the
+    final norm."""
+    return (iters * (2 * m * m + 2 * m * tf + 13 * m)
+            + (iters // reset) * 2 * m * m + 2 * m * tf + 4 * m)
+
+
+def drive(label, options, problem, reset_state, counters, trials, gate):
+    """Solve `trials` times on the card (the first a warm-up), each with
+    every launch count set to 0 just before and read just after; `gate`
+    raises on a wrong summary. Returns the last solve's launches."""
+    import torch
+    import ceres_tpu_torch as ctt
+    launches = {}
+    for trial in range(trials):
+        reset_state()
+        for fn in counters.values():
+            fn.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.time()
+        summary = ctt.solve(options, problem)
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        launches = {name: fn.launches for name, fn in counters.items()}
+        kind = "warm-up solve" if trial == 0 else f"timed solve {trial}"
+        print(f"{label} {kind}: {summary.num_iterations} LM iterations "
+              f"({summary.num_successful_steps} accepted), "
+              f"{summary.num_linear_solver_iterations} linear solver "
+              f"iterations, initial cost {summary.initial_cost:.6e}, final "
+              f"cost {summary.final_cost:.6e}, {summary.termination_type}, "
+              f"wall {wall:.4f} s, launches {launches}", flush=True)
+        if summary.termination_type != ctt.TerminationType.CONVERGENCE:
+            raise SystemExit(f"{label}: solve did not converge")
+        rel = abs(summary.final_cost - REF_FINAL_COST) / REF_FINAL_COST
+        if not rel <= REF_REL_TOL:
+            raise SystemExit(f"{label}: final cost {summary.final_cost} is "
+                             f"{rel:.2e} from {REF_FINAL_COST}")
+        gate(summary, launches)
+    return launches
 
 
 def main():
@@ -99,7 +201,9 @@ def main():
     from ceres_tpu_torch.ops import _cuda
     from ceres_tpu_torch.ops.cost import snavely_sq, snavely_sq_plain
     from ceres_tpu_torch.ops.kernels import chol_solve, chol_solve_plain
-    from ceres_tpu_torch.ops.lin import elim, elim_plain, lin, lin_plain
+    from ceres_tpu_torch.ops.lin import (elim, elim_plain, elim_v1,
+                                         elim_v1_plain, lin, lin_plain)
+    from ceres_tpu_torch.ops.pcg import dense_pcg, dense_pcg_plain
     from ceres_tpu_torch.program import CompiledProgram
     from ceres_tpu_torch.solvers.schur import detect_schur_structure
     from ceres_tpu_torch.solvers.schur_fused import FusedSchurStep
@@ -122,21 +226,26 @@ def main():
     problem, cams, pts = build_bal_ceres_problem(bal)
     cam0 = [c.copy() for c in cams]
     pt0 = [p.copy() for p in pts]
-    options = ctt.SolverOptions(
-        linear_solver_type=ctt.LinearSolverType.DENSE_SCHUR,
+    common = dict(
         preconditioner_type=ctt.PreconditionerType.SCHUR_JACOBI,
         max_num_iterations=50, function_tolerance=1e-6,
         max_linear_solver_iterations=100, use_mixed_precision_solves=True,
         fused_iterations=True, device="cuda")
+    options = ctt.SolverOptions(
+        linear_solver_type=ctt.LinearSolverType.DENSE_SCHUR, **common)
+    it_options = ctt.SolverOptions(
+        linear_solver_type=ctt.LinearSolverType.ITERATIVE_SCHUR, **common)
     program = CompiledProgram.get_cached(problem, options)
     meta = detect_schur_structure(program, options)
     step = FusedSchurStep(program, options, meta)
+    it_step = FusedSchurStep(program, it_options, meta)
     print(f"problem build: {time.time() - t0:.1f} s; ne={step.ne} "
           f"k={step.cam.shape[1]} kf={step.kf} nf={step.nf}", flush=True)
 
     # ---- kernels against their plain versions, at main-path shapes ----
     x0 = program.initial_state()
-    ne, nf = step.ne, step.nf
+    ne, nf, kf = step.ne, step.nf, step.kf
+    nobs = SHAPE["num_observations"]
     xe = x0[step.e_slab:step.e_slab + 3 * ne].view(ne, 3).float()
     xf = x0[step.f_slab:step.f_slab + nf].float()
     se0, sf0 = step.initial_scales()
@@ -144,34 +253,50 @@ def main():
                  True)
     se1 = lin(*lin_first)["se"]
     lin_carry = lin_first[:6] + (se1, False)
+    # K1 operations counted: the Gram, cross and gradient products per
+    # observation (E^T E 36, g_e 12, A 108, F^T F 324, g_f 36); the
+    # residual and Jacobian arithmetic is left out, so this is a floor
+    lin_flops = 516 * nobs
+    # K2/K6: S_corr = sum A^T (inv A) with Y = inv A first (2 * 3 * nf^2
+    # per point), Y itself (18 nf), rhs (6 nf)
+    scorr_flops = ne * (6 * nf * nf + 24 * nf)
 
     def cmp_lin(got, want):
         return [rel_err(got[k], want[k]) for k in want]
+
+    def cmp_all(got, want):
+        return [rel_err(a, b) for a, b in zip(got, want)]
 
     kernels = []
     kernels.append(check_kernel(
         "K1 lin", lambda: lin(*lin_first), lambda: lin_plain(
             *lin_first), cmp_lin, F32_LIMIT,
-        "ceres_tpu_torch/csrc/lin.cu", "ceres_tpu/ops/pallas_lin.py:66"))
+        "ceres_tpu_torch/csrc/lin.cu", "ceres_tpu/ops/pallas_lin.py:66",
+        lin_first, lin_flops, F32_FLOP_PER_S))
     check_kernel(      # the carried-scale branch of the same kernel
         "K1 lin (carried scale)", lambda: lin(*lin_carry),
         lambda: lin_plain(*lin_carry), cmp_lin, F32_LIMIT,
-        "ceres_tpu_torch/csrc/lin.cu", "ceres_tpu/ops/pallas_lin.py:66")
+        "ceres_tpu_torch/csrc/lin.cu", "ceres_tpu/ops/pallas_lin.py:66",
+        lin_carry, lin_flops, F32_FLOP_PER_S)
 
     cost0 = step.cost(x0)
     art = step.linearize(x0, se0, sf0, True, known_cost=cost0)
     elim_args = (art.A, art.etes, art.gse, art.diag_e, RADIUS)
     kernels.append(check_kernel(
         "K2 elim", lambda: elim(*elim_args), lambda: elim_plain(*elim_args),
-        lambda g, w: [rel_err(a, b) for a, b in zip(g, w)], F32_LIMIT,
-        "ceres_tpu_torch/csrc/elim.cu", "ceres_tpu/ops/pallas_lin.py:424"))
+        cmp_all, F32_LIMIT,
+        "ceres_tpu_torch/csrc/elim.cu", "ceres_tpu/ops/pallas_lin.py:424",
+        elim_args[:4], scorr_flops + 45 * ne, F32_FLOP_PER_S))
 
     S, rhs, _, _ = step.reduced_system(art, RADIUS)
     kernels.append(check_kernel(
         "K3 chol_solve", lambda: chol_solve(S, rhs),
         lambda: chol_solve_plain(S, rhs), lambda g, w: [rel_err(g, w)],
         F32_LIMIT, "ceres_tpu_torch/csrc/chol.cu",
-        "ceres_tpu/ops/pallas_kernels.py:190"))
+        "ceres_tpu/ops/pallas_kernels.py:190", (S, rhs),
+        nf ** 3 / 3 + 2 * nf * nf, F32_FLOP_PER_S,
+        library=("torch.linalg.solve(S, rhs)",
+                 lambda: torch.linalg.solve(S, rhs))))
 
     cost_args = (x0, step.e_slab, step.f_slab, step.pt_idx, step.cam_idx,
                  step.obsx64, step.obsy64)
@@ -179,7 +304,8 @@ def main():
         "K4 cost", lambda: snavely_sq(*cost_args),
         lambda: snavely_sq_plain(*cost_args), lambda g, w: [rel_err(g, w)],
         F64_LIMIT, "ceres_tpu_torch/csrc/cost.cu",
-        "ceres_tpu/ops/pallas_cost.py:147"))
+        "ceres_tpu/ops/pallas_cost.py:147", cost_args,
+        60 * nobs, F64_FLOP_PER_S))      # rotation, projection, ||r||^2
     c_ref = program.cost_fn(x0)
     c_rel = abs(float(cost0) - float(c_ref)) / abs(float(c_ref))
     print(f"K4 total cost {float(cost0):.10e} vs program.cost_fn "
@@ -187,9 +313,53 @@ def main():
     if not c_rel <= F64_LIMIT:
         raise SystemExit("K4 cost disagrees with program.cost_fn")
 
-    # ---- the main path: solves on the card ----
+    # ---- slice 2: K6 and K7 on the ITERATIVE_SCHUR step's inputs ----
+    rad = torch.tensor(RADIUS, dtype=torch.float32, device="cuda")
+    inv, z = it_step.point_inverse(art, rad)
+    kernels.append(check_kernel(
+        "K6 elim_v1", lambda: elim_v1(art.A, inv, z),
+        lambda: elim_v1_plain(art.A, inv, z), cmp_all, F32_LIMIT,
+        "ceres_tpu_torch/csrc/elim.cu", "ceres_tpu/ops/pallas_lin.py:387",
+        (art.A, inv, z), scorr_flops, F32_FLOP_PER_S))
+
+    S_it, rhs_it, _, _ = it_step.reduced_system(art, RADIUS)
+    minv = it_step.precond_inverse(art, S_it, rad)
+    pcg_kw = it_step.pcg_args
+    reset = 10                          # dense_pcg's residual_reset_period
+
+    def cmp_pcg(label):
+        def cmp(got, want):
+            print(f"{label}: CG iterations kernel {int(got[1])}, plain "
+                  f"{int(want[1])}; final ||r|| kernel {float(got[2]):.4e},"
+                  f" plain {float(want[2]):.4e}", flush=True)
+            if int(got[1]) != int(want[1]):
+                raise SystemExit(f"{label}: CG iteration counts differ")
+            return [rel_err(got[0], want[0])]
+        return cmp
+
+    kernels.append(check_kernel(
+        "K7 dense_pcg", lambda: dense_pcg(S_it, rhs_it, minv, **pcg_kw),
+        lambda: dense_pcg_plain(S_it, rhs_it, minv, **pcg_kw),
+        cmp_pcg("K7 dense_pcg"), PCG_LIMIT,
+        "ceres_tpu_torch/csrc/pcg.cu", "ceres_tpu/ops/pallas_pcg.py:46",
+        (S_it, rhs_it, minv),
+        lambda got: pcg_flops(nf, 9, int(got[1]), reset), F32_FLOP_PER_S,
+        reference=("torch.linalg.solve(S, rhs) (an exact solve: another "
+                   "function, timed as a yardstick)",
+                   lambda: torch.linalg.solve(S_it, rhs_it))))
+    check_kernel(      # the IDENTITY preconditioner of the same kernel
+        "K7 dense_pcg (IDENTITY)",
+        lambda: dense_pcg(S_it, rhs_it, None, **pcg_kw),
+        lambda: dense_pcg_plain(S_it, rhs_it, None, **pcg_kw),
+        cmp_pcg("K7 dense_pcg (IDENTITY)"), PCG_LIMIT,
+        "ceres_tpu_torch/csrc/pcg.cu", "ceres_tpu/ops/pallas_pcg.py:46",
+        (S_it, rhs_it), lambda got: pcg_flops(nf, 0, int(got[1]), reset),
+        F32_FLOP_PER_S)
+
+    # ---- the two paths: solves on the card ----
     counters = {"K1 lin": lin, "K2 elim": elim,
-                "K3 chol_solve": chol_solve, "K4 cost": snavely_sq}
+                "K3 chol_solve": chol_solve, "K4 cost": snavely_sq,
+                "K6 elim_v1": elim_v1, "K7 dense_pcg": dense_pcg}
 
     def reset_state():
         for c, c0 in zip(cams, cam0):
@@ -197,43 +367,52 @@ def main():
         for p, p0 in zip(pts, pt0):
             p[:] = p0
 
-    launches = {}
-    for trial in range(4):
-        reset_state()
-        for fn in counters.values():
-            fn.launches = 0
-        torch.cuda.synchronize()
-        t0 = time.time()
-        summary = ctt.solve(options, problem)
-        torch.cuda.synchronize()
-        wall = time.time() - t0
-        launches = {name: fn.launches for name, fn in counters.items()}
-        label = "warm-up solve" if trial == 0 else f"timed solve {trial}"
-        print(f"{label}: {summary.num_iterations} LM iterations "
-              f"({summary.num_successful_steps} accepted), initial cost "
-              f"{summary.initial_cost:.6e}, final cost "
-              f"{summary.final_cost:.6e}, {summary.termination_type}, "
-              f"wall {wall:.4f} s, launches {launches}", flush=True)
-        if summary.termination_type != ctt.TerminationType.CONVERGENCE:
-            raise SystemExit("solve did not converge")
-        rel = abs(summary.final_cost - REF_FINAL_COST) / REF_FINAL_COST
-        if not rel <= REF_REL_TOL:
-            raise SystemExit(f"final cost {summary.final_cost} is {rel:.2e} "
-                             f"from {REF_FINAL_COST}")
-        short = [n for n, c in launches.items()
-                 if c < summary.num_iterations]
-        if short:
-            raise SystemExit(f"kernels launched fewer times than LM "
-                             f"iterations: {short}")
+    def gate_path(label, runs, never):
+        def gate(summary, launches):
+            short = [n for n in runs if launches[n] < summary.num_iterations]
+            if short:
+                raise SystemExit(f"{label}: kernels launched fewer times "
+                                 f"than LM iterations: {short}")
+            stray = [n for n in never if launches[n] != 0]
+            if stray:
+                raise SystemExit(f"{label}: kernels of another path "
+                                 f"launched: {stray}")
+        return gate
+
+    def gate_iterative(summary, launches):
+        gate_path("ITERATIVE_SCHUR", ("K1 lin", "K4 cost", "K6 elim_v1",
+                                      "K7 dense_pcg"),
+                  ("K2 elim", "K3 chol_solve"))(summary, launches)
+        if not summary.num_linear_solver_iterations > summary.num_iterations:
+            raise SystemExit("ITERATIVE_SCHUR: CG did not iterate")
+
+    by_path = {
+        "DENSE_SCHUR": drive(
+            "DENSE_SCHUR", options, problem, reset_state, counters, 4,
+            gate_path("DENSE_SCHUR", ("K1 lin", "K2 elim", "K3 chol_solve",
+                                      "K4 cost"),
+                      ("K6 elim_v1", "K7 dense_pcg"))),
+        "ITERATIVE_SCHUR": drive(
+            "ITERATIVE_SCHUR", it_options, problem, reset_state, counters,
+            3, gate_iterative),
+    }
     if torch.backends.cuda.matmul.allow_tf32:
         raise SystemExit("TF32 matmul is enabled")
 
     for rec in kernels:
-        rec["launches"] = launches[rec["name"]]
+        path = ("ITERATIVE_SCHUR" if rec["name"] in ("K6 elim_v1",
+                                                     "K7 dense_pcg")
+                else "DENSE_SCHUR")
+        rec["launches"] = by_path[path][rec["name"]]
+        rec["launches_by_path"] = {p: c[rec["name"]]
+                                   for p, c in by_path.items()}
     print(json.dumps({"kernels": [
         {k: rec[k] for k in ("name", "route", "source", "replaces",
-                             "launches", "max_abs_err", "max_rel_err",
-                             "limit", "ms", "plain_ms")}
+                             "launches", "launches_by_path", "max_abs_err",
+                             "max_rel_err", "limit", "ms", "plain_ms",
+                             "bound_ms", "bound_by", "library_ms",
+                             "library_call", "reference_ms",
+                             "reference_call")}
         for rec in kernels]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

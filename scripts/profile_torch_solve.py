@@ -1,0 +1,163 @@
+#!/usr/bin/env python3
+"""Where the time goes in one ceres_tpu_torch solve on the card.
+
+    python3 scripts/profile_torch_solve.py [--paths dense,iterative]
+                                           [--trace-dir DIR]
+
+Builds chip_smoke.py's problem (BAL-16-22106 shape, generator seed 7,
+PERTURB seed 8) and, for each path (DENSE_SCHUR; ITERATIVE_SCHUR with
+SCHUR_JACOBI; both with chip_smoke.py's options), solves once as a
+warm-up, once timed without the profiler, and once under torch.profiler
+(CPU and CUDA activities). Prints the card's name and power limit, then
+per path: the wall of the plain and the profiled solve, LM and CG
+iterations; device time per kernel, grouped by the ported kernel it
+belongs to (K1-K7; copies and every other kernel are PyTorch glue); the
+device busy time (union of kernel intervals), the device span (first
+kernel start to last kernel end) and the busy share of the span and of
+the plain wall. Prints one JSON line per path, and writes the chrome
+trace to DIR/profile_<path>.json when --trace-dir is given. Needs a
+CUDA device.
+"""
+
+import argparse
+import json
+import os
+import subprocess
+import sys
+import time
+from collections import defaultdict
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+# device kernel name -> the ported kernel it belongs to; the S_corr and
+# rhs kernels of elim.cu serve K2 (DENSE_SCHUR) and K6 (ITERATIVE_SCHUR)
+KERNEL_OF = {
+    "lin_point_kernel": "K1", "ftf_partial_kernel": "K1",
+    "ftf_final_kernel": "K1", "elim_point_kernel": "K2",
+    "scorr_partial_kernel": "K2/K6", "rhs_partial_kernel": "K2/K6",
+    "reduce_splits_kernel": "K2/K6", "chol_solve_kernel": "K3",
+    "cost_kernel": "K4", "pcg_kernel": "K7",
+}
+
+
+def owner(name, path):
+    for key, k in KERNEL_OF.items():
+        if key in name:
+            if k == "K2/K6":
+                return "K6" if path == "iterative" else "K2"
+            return k
+    return "glue"
+
+
+def union_us(intervals):
+    """Total length of the union of [start, end] intervals (us)."""
+    total, cur_s, cur_e = 0.0, None, None
+    for s, e in sorted(intervals):
+        if cur_e is None or s > cur_e:
+            if cur_e is not None:
+                total += cur_e - cur_s
+            cur_s, cur_e = s, e
+        else:
+            cur_e = max(cur_e, e)
+    if cur_e is not None:
+        total += cur_e - cur_s
+    return total
+
+
+def main():
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--paths", default="dense,iterative")
+    ap.add_argument("--trace-dir", default=None)
+    args = ap.parse_args()
+    import torch
+    if not torch.cuda.is_available():
+        raise SystemExit("profile_torch_solve: no CUDA device")
+    sys.path.insert(0, ROOT)
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    import ceres_tpu_torch as ctt
+    from ceres_tpu_torch.io.bal import (build_bal_ceres_problem,
+                                        synthetic_bal_problem)
+    from chip_smoke import PERTURB, SHAPE
+
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], check=True,
+                         capture_output=True, text=True).stdout.strip(),
+          flush=True)
+    bal = synthetic_bal_problem(**SHAPE, seed=7, pixel_noise=1.0)
+    bal.perturb(**PERTURB, seed=8)
+    problem, cams, pts = build_bal_ceres_problem(bal)
+    start = [a.copy() for a in cams + pts]
+
+    def solve(options):
+        for a, a0 in zip(cams + pts, start):
+            a[:] = a0
+        torch.cuda.synchronize()
+        t0 = time.time()
+        summary = ctt.solve(options, problem)
+        torch.cuda.synchronize()
+        return summary, time.time() - t0
+
+    solvers = {"dense": ctt.LinearSolverType.DENSE_SCHUR,
+               "iterative": ctt.LinearSolverType.ITERATIVE_SCHUR}
+    if args.trace_dir:
+        os.makedirs(args.trace_dir, exist_ok=True)
+    for path in args.paths.split(","):
+        options = ctt.SolverOptions(
+            linear_solver_type=solvers[path],
+            preconditioner_type=ctt.PreconditionerType.SCHUR_JACOBI,
+            max_num_iterations=50, function_tolerance=1e-6,
+            max_linear_solver_iterations=100,
+            use_mixed_precision_solves=True, fused_iterations=True,
+            device="cuda")
+        solve(options)                                  # warm-up
+        summary, wall = solve(options)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            _, wall_prof = solve(options)
+        events = [e for e in prof.events()
+                  if e.device_type == DeviceType.CUDA]
+        if not events:
+            raise SystemExit(f"{path}: the trace holds no device time")
+        per_name = defaultdict(lambda: [0.0, 0])
+        per_kernel = defaultdict(float)
+        spans = []
+        for e in events:
+            s, t = e.time_range.start, e.time_range.end
+            spans.append((s, t))
+            per_name[e.name][0] += t - s
+            per_name[e.name][1] += 1
+            per_kernel[owner(e.name, path)] += t - s
+        busy = union_us(spans)
+        span = max(t for _, t in spans) - min(s for s, _ in spans)
+        print(f"{path}: wall {wall:.4f} s (profiled {wall_prof:.4f} s), "
+              f"{summary.num_iterations} LM iterations, "
+              f"{summary.num_linear_solver_iterations} linear solver "
+              f"iterations, {summary.termination_type}, final cost "
+              f"{summary.final_cost:.6e}", flush=True)
+        for name, (us, n) in sorted(per_name.items(),
+                                    key=lambda kv: -kv[1][0])[:25]:
+            print(f"  {us / 1e3:9.4f} ms  {n:5d}x  {owner(name, path):5s} "
+                  f"{name[:90]}")
+        print(f"  device busy {busy / 1e3:.4f} ms of a {span / 1e3:.4f} ms "
+              f"device span ({100 * busy / span:.1f}%); "
+              f"{100 * busy / 1e6 / wall:.1f}% of the plain wall", flush=True)
+        if args.trace_dir:
+            prof.export_chrome_trace(os.path.join(args.trace_dir,
+                                                  f"profile_{path}.json"))
+        print(json.dumps({
+            "path": path, "wall_s": wall, "wall_profiled_s": wall_prof,
+            "lm_iterations": summary.num_iterations,
+            "linear_iterations": summary.num_linear_solver_iterations,
+            "final_cost": summary.final_cost,
+            "device_ms_by_kernel": {k: v / 1e3
+                                    for k, v in sorted(per_kernel.items())},
+            "device_busy_ms": busy / 1e3, "device_span_ms": span / 1e3,
+            "minimizer_s": summary.minimizer_time_in_seconds,
+            "postprocessor_s": summary.postprocessor_time_in_seconds}),
+            flush=True)
+
+
+if __name__ == "__main__":
+    main()

@@ -173,7 +173,8 @@ def test_cpu_solve_launches_no_kernel():
 
 
 @pytest.mark.parametrize("extra", [
-    dict(linear_solver_type=ctt.LinearSolverType.ITERATIVE_SCHUR),
+    dict(linear_solver_type=ctt.LinearSolverType.ITERATIVE_SCHUR,
+         preconditioner_type=ctt.PreconditionerType.CLUSTER_JACOBI),
     dict(use_mixed_precision_solves=False),
     dict(fused_iterations=False),
     dict(trust_region_strategy_type=ctt.TrustRegionStrategyType.DOGLEG),

@@ -1,10 +1,12 @@
 """ceres_tpu_torch: the PyTorch and CUDA port of ceres_tpu.
 
-The ported slices: Snavely bundle adjustment solved by fused
-Levenberg-Marquardt in mixed precision with DENSE_SCHUR, or with
-ITERATIVE_SCHUR on an explicit reduced camera matrix, on one device
-named by SolverOptions.device ("cuda" runs the hand-written Hopper kernels
-of csrc/, "cpu" their plain PyTorch versions). Module names mirror the JAX
+The ported slices, each solved by fused Levenberg-Marquardt in mixed
+precision on one device named by SolverOptions.device ("cuda" runs the
+hand-written Hopper kernels of csrc/, "cpu" their plain PyTorch
+versions): Snavely bundle adjustment with DENSE_SCHUR, or with
+ITERATIVE_SCHUR on an explicit reduced camera matrix; and any problem
+without Schur structure on the generic step with CGNR, pose-graph SLAM
+(examples/slam.py) first. Module names mirror the JAX
 package's; this package imports torch and never jax.
 """
 
@@ -18,7 +20,10 @@ from .loss import (  # noqa: F401
     LossFunctionWrapper, ScaledLoss, SoftLOneLoss, TolerantLoss, TrivialLoss,
     TukeyLoss,
 )
-from .manifolds import EuclideanManifold, Manifold  # noqa: F401
+from .manifolds import (  # noqa: F401
+    AutoDiffManifold, EigenQuaternionManifold, EuclideanManifold, Manifold,
+    QuaternionManifold,
+)
 from .cost import (  # noqa: F401
     AutoDiffCostFunction, CostFunction, SizedCostFunction,
 )

@@ -4,7 +4,8 @@ Counterpart of ceres_tpu/minimizers/fused.py (make_fused_tr_solve,
 run_fused). The JAX package runs the loop as one lax.while_loop; here it
 is a Python loop whose tensors stay on the device, with one host read of
 the step's scalars per iteration (the linear solver's iteration count
-among them). The acceptance test, the LM radius update and the
+among them; the CGNR step's CG loop reads one more flag per CG
+iteration). The acceptance test, the LM radius update and the
 termination codes (in the same priority order, :206-227) are the JAX
 package's:
 
@@ -49,10 +50,15 @@ class FusedResult(NamedTuple):
     termination_code: int
     gradient_max_norm: float
     total_linear_iterations: int
+    linearizations: int
 
 
 def fused_tr_solve(program, options, step, x0) -> FusedResult:
-    """Run the LM loop from x0 with `step` (a FusedSchurStep)."""
+    """Run the LM loop from x0 with `step`: a FusedSchurStep or a
+    GenericLMStep, anything with `initial_scales()` (a tuple of scales),
+    `linearize(x, *scales, first, known_cost)` (an artifact with
+    `.scales`), `solve(art, radius)` (the step's output dict) and
+    `cost(x)`."""
     f64 = np.float64
     gtol, ftol = options.gradient_tolerance, options.function_tolerance
     ptol = options.parameter_tolerance
@@ -66,17 +72,18 @@ def fused_tr_solve(program, options, step, x0) -> FusedResult:
     x, cost_t = x0, cost0
     radius = f64(options.initial_trust_region_radius)
     decrease_factor = f64(2.0)
-    it = invalid = ok_steps = bad_steps = lin_iters = 0
+    it = invalid = ok_steps = bad_steps = lin_iters = lins = 0
     code = 0 if max_iters > 0 else 5
     grad_max = f64(np.inf)
-    s_e, s_f = step.initial_scales()
+    scales = step.initial_scales()
     art = None
     relin = True
     while code == 0:
         if relin:
-            art = step.linearize(x, s_e, s_f, first=(it == 0),
+            art = step.linearize(x, *scales, first=(it == 0),
                                  known_cost=cost_t)
-            s_e, s_f = art.s_e, art.s_f
+            scales = art.scales
+            lins += 1
         out = step.solve(art, float(radius))
         x_new = program.plus(x, out["delta"])
         new_cost_t = step.cost(x_new)
@@ -138,7 +145,8 @@ def fused_tr_solve(program, options, step, x0) -> FusedResult:
                        iterations=it, successful_steps=ok_steps,
                        unsuccessful_steps=bad_steps, termination_code=code,
                        gradient_max_norm=float(grad_max),
-                       total_linear_iterations=lin_iters)
+                       total_linear_iterations=lin_iters,
+                       linearizations=lins)
 
 
 def run_fused(program, options, summary, step):
@@ -153,6 +161,7 @@ def run_fused(program, options, summary, step):
     summary.num_linear_solves = result.iterations
     summary.num_linear_solver_iterations = result.total_linear_iterations
     summary.num_iterations_fused = result.iterations
+    summary.num_linearizations_fused = result.linearizations
     summary.num_jacobian_evaluations = result.successful_steps + 1
     summary.num_residual_evaluations = result.iterations + 1
     term, msg = TERMINATION_BY_CODE.get(

@@ -41,6 +41,8 @@ _SIGNATURES = {
                   _P, _P, _P, _P],
     "ceres_cost": [_P, ctypes.c_long, ctypes.c_long, _P, _P, _P, _P, _I,
                    _P, _P],
+    "ceres_linearize": [_I, _P, _P, _I, _P, _P, _P],
+    "ceres_jtjv": [_P, _P, _I, _I, _I, _P, _P],
 }
 
 _lock = threading.Lock()

@@ -1,0 +1,181 @@
+"""Bucketed block-sparse Jacobian.
+
+Counterpart of ceres_tpu/ops/bsr.py (BucketJacobian, RVec, BlockJacobian,
+block_diag_jtj; the reference's BlockSparseMatrix). Residual blocks are
+grouped into shape-uniform buckets; a bucket's Jacobian is one dense
+tensor [n, r, t_total] in tangent space, and each variable slot s holds
+its global tangent columns cols[s] [n, t_s]. Residual vectors are carried
+as per-bucket [n, r] tensors (RVec).
+
+The transpose-side sums (J^T w, the squared column norms, the per-block
+J^T J diagonal) add many rows into one column or block. The JAX package
+scatter-adds them (with one-hot MXU products for few, heavy blocks, a TPU
+limit the port leaves out). Here they are deterministic gathers: at
+program build, `ColumnSum` sorts the contributions by column, stably, so
+that each column keeps the JAX package's scatter order (bucket, slot,
+row); a sum gathers the contributions in that order and reduces each
+column's run with torch.segment_reduce: in order on the CPU (the same
+bits as the JAX package's scatter), by CUB's segmented reduce on the
+card. Neither uses float atomics, so a run gives the same bits every
+time.
+"""
+
+from __future__ import annotations
+
+from typing import List, Sequence
+
+import numpy as np
+import torch
+
+
+class ColumnSum:
+    """Fixed-order segment sum: out[c] = the sum of the units at the
+    positions listed for c, added in list order."""
+
+    def __init__(self, positions: np.ndarray, columns: np.ndarray,
+                 num_out: int, device, unit=()):
+        """positions/columns: the contributions in scatter order (position
+        in the concatenated inputs, output index). A unit is one element
+        (unit=()) or one trailing block of shape `unit`."""
+        order = np.argsort(columns, kind="stable")
+        self.perm = torch.as_tensor(positions[order], device=device)
+        self.lengths = torch.as_tensor(
+            np.bincount(columns, minlength=num_out), device=device)
+        self.unit = tuple(unit)
+
+    def __call__(self, parts: Sequence[torch.Tensor]) -> torch.Tensor:
+        """Sum the units of the concatenated parts into [num_out, *unit]."""
+        flat = torch.cat([p.reshape((-1,) + self.unit) for p in parts])
+        return torch.segment_reduce(flat[self.perm], "sum",
+                                    lengths=self.lengths, axis=0,
+                                    unsafe=True)
+
+
+def column_sum_for(bucket_cols: Sequence[Sequence[np.ndarray]],
+                   num_cols: int, device) -> ColumnSum:
+    """The ColumnSum of J^T-side products over buckets whose per-row
+    contributions are [n, t_total] (slots concatenated): bucket_cols[b]
+    is the list of the bucket's slot column maps [n, t_s]."""
+    positions, columns, base = [], [], 0
+    for slots in bucket_cols:
+        n = slots[0].shape[0]
+        t_total = sum(c.shape[1] for c in slots)
+        off = 0
+        for c in slots:
+            t_s = c.shape[1]
+            pos = (np.arange(n)[:, None] * t_total + off
+                   + np.arange(t_s)[None, :])
+            positions.append(base + pos.reshape(-1))
+            columns.append(np.asarray(c, dtype=np.int64).reshape(-1))
+            off += t_s
+        base += n * t_total
+    return ColumnSum(np.concatenate(positions), np.concatenate(columns),
+                     num_cols, device)
+
+
+class BucketJacobian:
+    """Jacobian of one bucket: J [n, r, t_total] (tangent space,
+    loss-corrected) and the slots' column maps cols [n, t_s] (int64)."""
+
+    def __init__(self, J, cols: Sequence[torch.Tensor], all_cols=None):
+        self.J = J
+        self.cols = tuple(cols)
+        self.all_cols = (torch.cat(self.cols, dim=1) if all_cols is None
+                         else all_cols)
+
+    def slot_J(self, s: int):
+        """[n, r, t_s] slice of J for variable slot s."""
+        off = sum(c.shape[1] for c in self.cols[:s])
+        return self.J[:, :, off:off + self.cols[s].shape[1]]
+
+    def gather_cols(self, v):
+        """v[all_cols]: [n, t_total]."""
+        return v[self.all_cols]
+
+    def with_J(self, J) -> "BucketJacobian":
+        return BucketJacobian(J, self.cols, self.all_cols)
+
+
+class RVec:
+    """Per-bucket residual-space vector (logical length num_rows)."""
+
+    def __init__(self, parts: Sequence[torch.Tensor]):
+        self.parts = tuple(parts)            # each [n_k, r_k]
+
+    def squared_norm(self):
+        return sum(torch.sum(p * p) for p in self.parts)
+
+
+class BlockJacobian:
+    """The whole Jacobian as BucketJacobians, with the SparseMatrix
+    interface of the reference (sparse_matrix.h: RightMultiply,
+    LeftMultiply, SquaredColumnNorm, ScaleColumns). `col_sum` is the
+    program's ColumnSum over all buckets' [n, t_total] contributions."""
+
+    def __init__(self, buckets: Sequence[BucketJacobian], num_cols: int,
+                 col_sum: ColumnSum):
+        self.buckets = tuple(buckets)
+        self.num_cols = int(num_cols)
+        self.col_sum = col_sum
+
+    def matvec(self, v) -> RVec:
+        """J v: tangent [num_cols] -> residual space."""
+        return RVec([torch.einsum("nrt,nt->nr", b.J, b.gather_cols(v))
+                     for b in self.buckets])
+
+    def rmatvec(self, w: RVec):
+        """J^T w: residual space -> tangent [num_cols]."""
+        return self.col_sum([torch.einsum("nrt,nr->nt", b.J, wp)
+                             for b, wp in zip(self.buckets, w.parts)])
+
+    def squared_column_norms(self):
+        """diag(J^T J) (block_sparse_matrix.h SquaredColumnNorm)."""
+        return self.col_sum([torch.sum(b.J * b.J, dim=1)
+                             for b in self.buckets])
+
+    def scale_columns(self, scale) -> "BlockJacobian":
+        """J <- J diag(scale) (ScaleColumns)."""
+        return BlockJacobian(
+            [b.with_J(b.J * b.gather_cols(scale)[:, None, :])
+             for b in self.buckets],
+            self.num_cols, self.col_sum)
+
+
+class GroupMeta:
+    """Variable parameter blocks of one tangent size: `tan_start` of
+    their contiguous tangent slab, and `bucket_slots`, the (bucket,
+    variable slot, [n] local block ids) that touch them, with the
+    fixed-order `block_sum` over those slots' rows."""
+
+    def __init__(self, tangent_size, num_blocks, tan_start):
+        self.tangent_size = tangent_size
+        self.num_blocks = num_blocks
+        self.tan_start = tan_start
+        self.bucket_slots: List = []
+        self.block_sum = None
+
+    def build_block_sum(self, device):
+        positions, blocks, base = [], [], 0
+        for (_, _, local_ids) in self.bucket_slots:
+            positions.append(base + np.arange(local_ids.size))
+            blocks.append(np.asarray(local_ids, dtype=np.int64))
+            base += local_ids.size
+        t = self.tangent_size
+        self.block_sum = ColumnSum(np.concatenate(positions),
+                                   np.concatenate(blocks), self.num_blocks,
+                                   device, unit=(t, t))
+
+
+def block_diag_jtj(jac: BlockJacobian, groups) -> List[torch.Tensor]:
+    """Block diagonal of J^T J per parameter block, one [k, t, t] tensor
+    per tangent-size group (block_jacobi_preconditioner.h:55): batched
+    per-row Grams summed per block in the fixed order of the group's
+    block_sum."""
+    out = []
+    for g in groups:
+        grams = []
+        for (bi, si, _) in g.bucket_slots:
+            Js = jac.buckets[bi].slot_J(si)
+            grams.append(torch.einsum("nrt,nru->ntu", Js, Js))
+        out.append(g.block_sum(grams))
+    return out

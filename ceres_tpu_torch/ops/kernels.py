@@ -1,10 +1,14 @@
-"""K3: dense SPD solve of the small reduced camera system.
+"""K3, dense SPD solve of the small reduced camera system, and K8, the
+CGNR operator J^T (J v) of one bucket.
 
-Counterpart of ceres_tpu/ops/pallas_kernels.py::chol_solve_small.
-`chol_solve` launches csrc/chol.cu for CUDA tensors and runs
-`chol_solve_plain` for CPU tensors; both factor S = U^T U by the same
-unblocked right-looking Cholesky and give NaN for an indefinite S (the LM
-loop's invalid-step retry relies on it).
+Counterpart of ceres_tpu/ops/pallas_kernels.py (chol_solve_small,
+bucket_jtjv, jac_normal_matvec). `chol_solve` launches csrc/chol.cu for
+CUDA tensors and runs `chol_solve_plain` for CPU tensors; both factor
+S = U^T U by the same unblocked right-looking Cholesky and give NaN for an
+indefinite S (the LM loop's invalid-step retry relies on it).
+`bucket_jtjv` launches csrc/jtjv.cu for CUDA tensors and runs
+`bucket_jtjv_plain` for CPU tensors. Each wrapper counts its launches in
+its `launches` attribute.
 """
 
 from __future__ import annotations
@@ -58,3 +62,36 @@ def chol_solve(S, b):
 
 
 chol_solve.launches = 0
+
+
+def bucket_jtjv_plain(J, vb):
+    """Plain PyTorch K8: u [n, t] = J_n^T (J_n vb_n) for J [n, r, t] and
+    the gathered vb [n, t] (ceres_tpu's two-einsum path)."""
+    w = torch.einsum("nrt,nt->nr", J, vb)
+    return torch.einsum("nrt,nr->nt", J, w)
+
+
+def bucket_jtjv(J, vb):
+    """K8: see bucket_jtjv_plain; f32, r <= 32 on the card."""
+    if not J.is_cuda:
+        return bucket_jtjv_plain(J, vb)
+    n, r, t = J.shape
+    if not 1 <= r <= 32:
+        raise ValueError(f"bucket_jtjv: r = {r} outside 1..32")
+    _cuda.check(J, (n, r, t), torch.float32, "bucket_jtjv: J")
+    _cuda.check(vb, (n, t), torch.float32, "bucket_jtjv: vb")
+    u = torch.empty_like(vb)
+    _cuda.launch("ceres_jtjv", J, vb, n, r, t, u)
+    bucket_jtjv.launches += 1
+    return u
+
+
+bucket_jtjv.launches = 0
+
+
+def jac_normal_matvec(jac, v):
+    """(J^T J) v over a BlockJacobian, one K8 launch per bucket: the
+    gather of v per row and the fixed-order column sum stay outside the
+    kernel (ceres_tpu's jac_normal_matvec)."""
+    return jac.col_sum([bucket_jtjv(b.J, b.gather_cols(v))
+                        for b in jac.buckets])

@@ -1,0 +1,211 @@
+"""K11: bucket linearize of the registered pose-graph functors.
+
+Counterpart of ceres_tpu/ops/pallas_linearize.py: a registry of hand
+specs keyed by the functor's class name, a structural gate, and one
+kernel (csrc/linearize.cu) that gives a bucket's residuals r [n, R] and
+tangent-space Jacobian J [n, R, nt] in one pass, the manifold's Plus
+seeded into the jets. Registered, as in the JAX package:
+
+  PoseGraph3dErrorTerm (SE3): r = 6, slots [3, 4 (EigenQuaternion), 3,
+    4 (EigenQuaternion)], nt = 12; a quaternion slot is seeded through
+    Plus(q, d) = exp(d) * q at d = 0.
+  PoseGraph2dErrorTerm (SE2): r = 3, slots [2, 1 (angle), 2, 1 (angle)],
+    nt = 6; the angle manifold's Plus has derivative 1, so its slots seed
+    like Euclidean ones, and the residual wraps the angle in the
+    branchless form v - 2 pi round(v / 2 pi) (derivative 1), which agrees
+    with the functor's atan2(sin, cos) except at odd multiples of pi.
+
+`linearize_spec(bk)` is the gate: the spec of a bucket whose
+every slot is variable and whose shape, manifolds and data fields match,
+else None. The program decides once, at build, which buckets take K11;
+every other bucket takes the jacfwd path. Auto-compiled specs for other
+functors (ops/jet_compile.py, kernel K5) are ROADMAP.md item 35.
+
+`bucket_linearize(spec, xin, dat)` launches the kernel for CUDA tensors
+and runs `bucket_linearize_plain` (torch.func.jacfwd of the same
+seeded residual) for CPU tensors; `.launches` counts the launches.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import NamedTuple, Optional
+
+import numpy as np
+import torch
+
+from . import _cuda
+from ..manifolds import AutoDiffManifold, EigenQuaternionManifold
+from ..rotation import quaternion_product
+
+
+class Spec(NamedTuple):
+    kernel_id: int                 # ceres_linearize's spec argument
+    r: int
+    nt: int
+    p_in: int                      # parameter floats per row
+    data_fields: tuple             # ((name, width), ...)
+    residual: object               # (delta [nt], x [p_in], dat) -> r [R]
+    slot_sizes: list               # ambient sizes [position, rotation] x 2
+    rotation_slot: object          # manifold -> bool, for slots 1 and 3
+
+    @property
+    def p_dat(self):
+        return sum(w for _, w in self.data_fields)
+
+
+def _mat_vec(m_flat, v, k):
+    """[k*k] row-major matrix times [k] vector, one row at a time."""
+    return torch.cat([torch.sum(m_flat[i * k:(i + 1) * k] * v, dim=0,
+                                keepdim=True) for i in range(k)])
+
+
+def _q_mul(a, b):
+    """Hamilton product in Eigen's (x, y, z, w) storage."""
+    x1, y1, z1, w1 = a[0:1], a[1:2], a[2:3], a[3:4]
+    x2, y2, z2, w2 = b[0:1], b[1:2], b[2:3], b[3:4]
+    return torch.cat([
+        w1 * x2 + x1 * w2 + y1 * z2 - z1 * y2,
+        w1 * y2 - x1 * z2 + y1 * w2 + z1 * x2,
+        w1 * z2 + x1 * y2 - y1 * x2 + z1 * w2,
+        w1 * w2 - x1 * x2 - y1 * y2 - z1 * z2])
+
+
+def _q_conj(q):
+    return torch.cat([-q[:3], q[3:]])
+
+
+def _seed_quaternion(q, d):
+    """exp(d) * q to first order, [1, d] * q in w-first order, returned in
+    (x, y, z, w): the value q and the PlusJacobian of
+    EigenQuaternionManifold at d = 0."""
+    e = torch.cat([torch.ones_like(d[:1]), d])
+    qw = torch.cat([q[3:], q[:3]])
+    p = quaternion_product(e, qw)
+    return torch.cat([p[1:], p[:1]])
+
+
+def _pose3d_residual(d, x, dat):
+    """PoseGraph3dErrorTerm on seeded slots (pallas_linearize.py
+    _pose3d_emit): x = [p_a, q_a, p_b, q_b], d the 12 tangent seeds."""
+    p_a, p_b = x[0:3] + d[0:3], x[7:10] + d[6:9]
+    q_a = _seed_quaternion(x[3:7], d[3:6])
+    q_b = _seed_quaternion(x[10:14], d[9:12])
+    t_ab, q_ab, sqrt_info = dat[0:3], dat[3:7], dat[7:43]
+    qa_inv = _q_conj(q_a)
+    v = torch.cat([p_b - p_a, torch.zeros_like(p_a[:1])])
+    p_ab_est = _q_mul(_q_mul(qa_inv, v), _q_conj(qa_inv))[:3]
+    dq = _q_mul(_q_conj(q_ab), _q_mul(qa_inv, q_b))
+    r6 = torch.cat([p_ab_est - t_ab, 2.0 * dq[:3]])
+    return _mat_vec(sqrt_info, r6, 6)
+
+
+def _pose2d_residual(d, x, dat):
+    """PoseGraph2dErrorTerm on seeded slots (pallas_linearize.py
+    _pose2d_emit): x = [p_a, yaw_a, p_b, yaw_b]."""
+    xs = x + d
+    p_a, yaw_a, p_b, yaw_b = xs[0:2], xs[2:3], xs[3:5], xs[5:6]
+    t_ab, yaw_ab, sqrt_info = dat[0:2], dat[2:3], dat[3:12]
+    s, c = torch.sin(yaw_a), torch.cos(yaw_a)
+    dp = p_b - p_a
+    dyaw = yaw_b - yaw_a - yaw_ab
+    two_pi = 2.0 * math.pi
+    # the round term has derivative 0, so the partials are dyaw's
+    wrapped = dyaw - two_pi * torch.round(dyaw / two_pi)
+    r3 = torch.cat([c * dp[0:1] + s * dp[1:2] - t_ab[0:1],
+                    c * dp[1:2] - s * dp[0:1] - t_ab[1:2], wrapped])
+    return _mat_vec(sqrt_info, r3, 3)
+
+
+def _is_angle_manifold(m) -> bool:
+    """A behavioural probe, as the JAX package's: an AutoDiffManifold of
+    size 1 whose plus wraps x + d to (-pi, pi] (circular distance, on
+    f64 CPU samples)."""
+    if type(m) is not AutoDiffManifold or m.ambient_size != 1 \
+            or m.tangent_size != 1:
+        return False
+    rng = np.random.default_rng(0)
+    for _ in range(4):
+        x = rng.uniform(-10, 10, size=1)
+        d = rng.uniform(-10, 10, size=1)
+        got = m.plus(torch.as_tensor(x), torch.as_tensor(d)).numpy()
+        want = np.arctan2(np.sin(x + d), np.cos(x + d))
+        diff = got - want
+        diff = diff - 2.0 * np.pi * np.round(diff / (2.0 * np.pi))
+        if not np.allclose(diff, 0.0, atol=1e-4):
+            return False
+    return True
+
+
+SPECS = {
+    "PoseGraph3dErrorTerm": Spec(
+        0, 6, 12, 14, (("t_ab", 3), ("q_ab", 4), ("sqrt_information", 36)),
+        _pose3d_residual, [3, 4, 3, 4],
+        lambda m: type(m) is EigenQuaternionManifold),
+    "PoseGraph2dErrorTerm": Spec(
+        1, 3, 6, 6, (("t_ab", 2), ("yaw_ab", 1), ("sqrt_information", 9)),
+        _pose2d_residual, [2, 1, 2, 1], _is_angle_manifold),
+}
+
+
+def linearize_spec(bk) -> Optional[Spec]:
+    """The hand spec for bucket bk, or None (structural gate; nothing is
+    compiled or launched)."""
+    functor = getattr(bk.cost, "functor", None)
+    spec = SPECS.get(type(functor).__name__)
+    if spec is None or bk.r != spec.r:
+        return None
+    if set(bk.data.keys()) != {name for name, _ in spec.data_fields}:
+        return None
+    if [sl.amb_size for sl in bk.slots] != spec.slot_sizes:
+        return None
+    for i, sl in enumerate(bk.slots):
+        if not sl.variable:
+            return None         # the gauge bucket: constant slots
+        if i % 2 == 1:
+            if not spec.rotation_slot(sl.manifold):
+                return None
+        elif sl.manifold is not None:
+            return None
+    return spec
+
+
+def data_planes(spec: Spec, bk) -> torch.Tensor:
+    """The bucket's data fields as one f32 [n, P_dat] tensor (built once
+    per program)."""
+    return torch.cat([bk.data[name].reshape(bk.n, w)
+                      for name, w in spec.data_fields],
+                     dim=1).to(torch.float32).contiguous()
+
+
+def bucket_linearize_plain(spec: Spec, xin, dat):
+    """Plain PyTorch K11: (r [n, R], J [n, R, nt]) by torch.func.jacfwd of
+    the spec's seeded residual at zero tangent, in the dtype of xin."""
+    def one(x, d_row):
+        def f(delta):
+            r = spec.residual(delta, x, d_row)
+            return r, r
+        zero = torch.zeros(spec.nt, dtype=x.dtype, device=x.device)
+        J, r = torch.func.jacfwd(f, has_aux=True)(zero)
+        return r, J
+
+    return torch.func.vmap(one)(xin, dat)
+
+
+def bucket_linearize(spec: Spec, xin, dat):
+    """K11: see bucket_linearize_plain. xin [n, P_in] and dat [n, P_dat],
+    f32, contiguous, on the card."""
+    if not xin.is_cuda:
+        return bucket_linearize_plain(spec, xin, dat)
+    n = xin.shape[0]
+    f32 = torch.float32
+    _cuda.check(xin, (n, spec.p_in), f32, "bucket_linearize: xin")
+    _cuda.check(dat, (n, spec.p_dat), f32, "bucket_linearize: dat")
+    r = torch.empty(n, spec.r, dtype=f32, device=xin.device)
+    J = torch.empty(n, spec.r, spec.nt, dtype=f32, device=xin.device)
+    _cuda.launch("ceres_linearize", spec.kernel_id, xin, dat, n, r, J)
+    bucket_linearize.launches += 1
+    return r, J
+
+
+bucket_linearize.launches = 0

@@ -1,8 +1,8 @@
 """CompiledProgram: a Problem laid out as tensors on one device.
 
-Counterpart of ceres_tpu/program.py for the slice. The layout of the state
-vector x is the JAX package's, so a JAX state (as numpy) drives the port
-exactly (`state_from_numpy`):
+Counterpart of ceres_tpu/program.py for the slices. The layout of the
+state vector x is the JAX package's, so a JAX state (as numpy) drives the
+port exactly (`state_from_numpy`):
   - ambient x: every used parameter block, grouped by size (stable in
     insertion order), so each size group is one contiguous slab;
   - tangent space: the variable blocks grouped by tangent size;
@@ -10,6 +10,13 @@ exactly (`state_from_numpy`):
     signature), each bucket's rows ordered by the block index of its slot
     with the most blocks (the point slot in bundle adjustment).
 Per-bucket data and index maps are tensors on the program's device.
+
+The generic trust-region path reads the program through `plus` (batched
+per manifold group), `cost_fn` and `linearize_fn_mixed`: the f64 cost
+from a residual-only pass, and the f32 tangent Jacobian of each bucket
+from kernel K11 (ops/linearize.py) where a hand spec matches the bucket,
+chosen once here, else from torch.func.jacfwd through the slots'
+manifold Plus (ceres_tpu program.py _bucket_linearize).
 """
 
 from __future__ import annotations
@@ -21,6 +28,9 @@ import torch
 
 from .loss import correct_residuals_and_jacobian
 from .manifolds import EuclideanManifold
+from .ops.bsr import (BlockJacobian, BucketJacobian, GroupMeta, RVec,
+                      column_sum_for)
+from .ops.linearize import bucket_linearize, data_planes, linearize_spec
 
 
 def _loss_key(loss):
@@ -36,21 +46,12 @@ def _loss_key(loss):
 
 class _Slot:
     __slots__ = ("variable", "amb_size", "tangent_size", "manifold",
-                 "cols", "amb_gid", "amb_local")
+                 "cols", "cols_t", "amb_gid", "amb_local")
 
 
 class _Bucket:
     __slots__ = ("cost", "loss", "residual_fn", "data", "slots", "n", "r",
-                 "orig_indices", "_slot_keys")
-
-
-class GroupMeta:
-    """Variable parameter blocks of one tangent size."""
-    __slots__ = ("tangent_size", "num_blocks")
-
-    def __init__(self, tangent_size, num_blocks):
-        self.tangent_size = tangent_size
-        self.num_blocks = num_blocks
+                 "orig_indices", "_slot_keys", "spec", "dat32")
 
 
 class CompiledProgram:
@@ -138,7 +139,8 @@ class CompiledProgram:
             and not isinstance(b.manifold, EuclideanManifold)
             for b in self.variable_blocks)
 
-        # --- Jacobi groups: variable blocks by tangent size ---
+        # --- Jacobi groups: variable blocks by tangent size; the tangent
+        # space is sorted by tangent size, so each is one contiguous slab ---
         size_groups = {}
         for b in self.variable_blocks:
             size_groups.setdefault(b.tangent_size, []).append(b)
@@ -147,7 +149,8 @@ class CompiledProgram:
         for gi, (t, blks) in enumerate(sorted(size_groups.items())):
             for li, b in enumerate(blks):
                 self._group_of_block[id(b.array)] = (gi, li)
-            self.groups.append(GroupMeta(t, len(blks)))
+            self.groups.append(GroupMeta(t, len(blks),
+                                         self.tan_offset[id(blks[0].array)]))
 
         # --- buckets ---
         groups_map = {}
@@ -192,6 +195,7 @@ class CompiledProgram:
             bk.data = {name: (v.to(self.dtype) if v.is_floating_point()
                               else v) for name, v in bk.data.items()}
             bk.slots = []
+            var_si = 0
             for si in range(len(bk.cost.parameter_block_sizes)):
                 sl = _Slot()
                 blk0 = problem._blocks[rbs[0].param_keys[si]]
@@ -205,32 +209,64 @@ class CompiledProgram:
                     (self._amb_group_of_block[rb.param_keys[si]][1]
                      for rb in rbs), dtype=np.int64, count=bk.n),
                     device=self.device)
-                sl.cols = None
+                sl.cols = sl.cols_t = None
                 if sl.variable:
                     tan_off = np.fromiter(
                         (self.tan_offset[rb.param_keys[si]] for rb in rbs),
                         dtype=np.int32, count=bk.n)
                     sl.cols = tan_off[:, None] + np.arange(
                         sl.tangent_size, dtype=np.int32)[None, :]
+                    sl.cols_t = torch.as_tensor(sl.cols.astype(np.int64),
+                                                device=self.device)
+                    gid, _ = self._group_of_block[rbs[0].param_keys[si]]
+                    local_ids = np.fromiter(
+                        (self._group_of_block[rb.param_keys[si]][1]
+                         for rb in rbs), dtype=np.int64, count=bk.n)
+                    self.groups[gid].bucket_slots.append(
+                        (len(self.buckets), var_si, local_ids))
+                    var_si += 1
                 bk.slots.append(sl)
+            # K11 where a hand spec matches, chosen once; its data fields
+            # as one f32 tensor, built once
+            bk.spec = linearize_spec(bk)
+            bk.dat32 = (data_planes(bk.spec, bk) if bk.spec is not None
+                        else None)
             self.buckets.append(bk)
         self.num_rows = sum(bk.n * bk.r for bk in self.buckets)
 
-        # ambient position of every tangent column (Euclidean blocks), for
-        # plus(); the slice raises for other manifolds before it gets here
-        amb_of_tan = np.zeros(self.num_effective, dtype=np.int64)
+        # Plus groups: variable blocks by manifold, each with its ambient
+        # and tangent slabs of x and delta (or index maps where a group's
+        # blocks are not contiguous)
+        plus_map = {}
         var_mask = np.zeros(self.num_ambient, dtype=np.float64)
         for b in self.variable_blocks:
-            o, t = self.amb_offset[id(b.array)], self.tan_offset[id(b.array)]
-            amb_of_tan[t:t + b.size] = np.arange(o, o + b.size)
+            mk = (b.manifold.bucket_key() if b.manifold
+                  else ("euclid", b.size))
+            plus_map.setdefault(mk, []).append(b)
+            o = self.amb_offset[id(b.array)]
             var_mask[o:o + b.size] = 1.0
+        self.plus_groups = []
+        for blks in plus_map.values():
+            amb = np.concatenate([np.arange(self.amb_offset[id(b.array)],
+                                            self.amb_offset[id(b.array)]
+                                            + b.size) for b in blks])
+            tan = np.concatenate([np.arange(self.tan_offset[id(b.array)],
+                                            self.tan_offset[id(b.array)]
+                                            + b.tangent_size) for b in blks])
+            self.plus_groups.append((
+                blks[0].manifold, len(blks), blks[0].size,
+                blks[0].tangent_size, self._index_or_slice(amb),
+                self._index_or_slice(tan)))
         self.tangent_is_ambient = bool(
             self.num_effective == self.num_ambient
-            and np.array_equal(amb_of_tan, np.arange(self.num_ambient)))
-        self._amb_of_tan = torch.as_tensor(amb_of_tan, device=self.device)
+            and all(m is None or isinstance(m, EuclideanManifold)
+                    for m, *_ in self.plus_groups)
+            and all(isinstance(a, slice) and a == t
+                    for *_, a, t in self.plus_groups))
         self._all_variable = len(self.variable_blocks) == len(
             self.used_blocks)
         self._var_mask = torch.as_tensor(var_mask, device=self.device)
+        self._col_sum = None
 
         self.fixed_cost = 0.0
         for rb in fixed_res:
@@ -285,11 +321,25 @@ class CompiledProgram:
             return torch.linalg.vector_norm(x)
         return torch.linalg.vector_norm(x * self._var_mask)
 
+    def _index_or_slice(self, idx: np.ndarray):
+        """A slice when idx is one contiguous run, else an index tensor."""
+        if idx.size and np.array_equal(
+                idx, np.arange(idx[0], idx[0] + idx.size)):
+            return slice(int(idx[0]), int(idx[0]) + idx.size)
+        return torch.as_tensor(idx, device=self.device)
+
     def plus(self, x, delta):
-        """x' = Plus(x, delta) for Euclidean blocks."""
+        """x' = Plus(x, delta), batched per manifold group (ceres_tpu
+        program.py plus); constant blocks keep their values."""
         if self.tangent_is_ambient:
             return x + delta
-        return x.index_add(0, self._amb_of_tan, delta)
+        out = x.clone()
+        for manifold, k, amb, t, a_ix, t_ix in self.plus_groups:
+            xs, ds = x[a_ix].view(k, amb), delta[t_ix].view(k, t)
+            new = xs + ds if manifold is None else manifold.plus_batch(xs,
+                                                                       ds)
+            out[a_ix] = new.reshape(-1)
+        return out
 
     # ------------------------------------------------------------------
     # evaluation
@@ -316,3 +366,69 @@ class CompiledProgram:
                 bk.loss, r, None)
             total = total + torch.sum(cost)
         return total
+
+    def _bucket_linearize32(self, bk, x):
+        """(residuals [n, r], J [n, r, t_total]) of one bucket in f32,
+        tangent space, uncorrected: K11 for a bucket with a hand spec,
+        else jacfwd of the functor through the variable slots' Plus
+        (ceres_tpu program.py _bucket_linearize with cast_dtype=f32)."""
+        params = [p.to(torch.float32) for p in self._bucket_params(bk, x)]
+        if bk.spec is not None:
+            xin = torch.cat(params, dim=1).contiguous()
+            return bucket_linearize(bk.spec, xin, bk.dat32)
+        data = {k: (v.to(torch.float32) if v.is_floating_point() else v)
+                for k, v in bk.data.items()}
+        fn = bk.residual_fn
+        var_slots = [(i, sl) for i, sl in enumerate(bk.slots) if sl.variable]
+
+        def per_block(data, *ps):
+            def g(*deltas):
+                plussed = list(ps)
+                for (i, sl), d in zip(var_slots, deltas):
+                    plussed[i] = (ps[i] + d if sl.manifold is None
+                                  else sl.manifold.plus(ps[i], d))
+                r = fn(data, *plussed)
+                return r, r
+
+            zeros = tuple(torch.zeros(sl.tangent_size, dtype=torch.float32,
+                                      device=x.device)
+                          for _, sl in var_slots)
+            Js, r = torch.func.jacfwd(g, argnums=tuple(range(len(zeros))),
+                                      has_aux=True)(*zeros)
+            return r, torch.cat(Js, dim=-1)
+
+        return torch.func.vmap(per_block)(data, *params)
+
+    def column_sum(self):
+        """The fixed-order ColumnSum of J^T-side products (built once)."""
+        if self._col_sum is None:
+            self._col_sum = column_sum_for(
+                [[sl.cols for sl in bk.slots if sl.variable]
+                 for bk in self.buckets], self.num_effective, self.device)
+            for g in self.groups:
+                g.build_block_sum(self.device)
+        return self._col_sum
+
+    def linearize_fn_mixed(self, x):
+        """Mixed-precision linearize (ceres_tpu program.py
+        linearize_fn_mixed): (cost f64, gradient f32 [num_effective],
+        BlockJacobian f32, residuals RVec f32). The cost comes from an f64
+        residual-only pass, the Jacobian from the f32 pass; both are
+        loss-corrected; gradient = J^T r."""
+        total = torch.tensor(self.fixed_cost, dtype=x.dtype, device=x.device)
+        jac_buckets, res_parts = [], []
+        for bk in self.buckets:
+            r64 = self._bucket_residuals(bk, x)
+            cost, _, _ = correct_residuals_and_jacobian(bk.loss, r64, None)
+            total = total + torch.sum(cost)
+            _, J32 = self._bucket_linearize32(bk, x)
+            _, rc, Jc = correct_residuals_and_jacobian(
+                bk.loss, r64.to(torch.float32), J32)
+            jac_buckets.append(BucketJacobian(
+                Jc.to(torch.float32),
+                [sl.cols_t for sl in bk.slots if sl.variable]))
+            res_parts.append(rc.to(torch.float32))
+        jac = BlockJacobian(jac_buckets, self.num_effective,
+                            self.column_sum())
+        res = RVec(res_parts)
+        return total, jac.rmatvec(res), jac, res

@@ -1,11 +1,12 @@
 """Angle-axis point rotation on torch tensors.
 
-Counterpart of ceres_tpu/rotation.py, as far as the Snavely slice needs
+Counterpart of ceres_tpu/rotation.py, as far as the ported slices need
 it: `angle_axis_rotate_point` (the reference's rotation.h:288) with the
 same small-angle threshold per dtype, since the candidate-cost kernel
-(ops/cost.py) takes the same branch. Both branches are evaluated on safe
-operands and selected with `torch.where`, so forward-mode derivatives stay
-finite.
+(ops/cost.py) takes the same branch, and the w-first quaternion product
+and conjugate of the quaternion manifolds. Both branches are evaluated on
+safe operands and selected with `torch.where`, so forward-mode
+derivatives stay finite.
 """
 
 from __future__ import annotations
@@ -34,3 +35,20 @@ def angle_axis_rotate_point(angle_axis, pt):
     # near zero: R(aa) pt ~= pt + aa x pt  (rotation.h:306)
     small_res = pt + torch.linalg.cross(angle_axis, pt)
     return torch.where(small, small_res, large)
+
+
+def quaternion_product(z, w):
+    """rotation.h:270 zw = z * w (Hamilton product, w-first), over the
+    last dimension."""
+    z0, z1, z2, z3 = z[..., 0], z[..., 1], z[..., 2], z[..., 3]
+    w0, w1, w2, w3 = w[..., 0], w[..., 1], w[..., 2], w[..., 3]
+    return torch.stack([
+        z0 * w0 - z1 * w1 - z2 * w2 - z3 * w3,
+        z0 * w1 + z1 * w0 + z2 * w3 - z3 * w2,
+        z0 * w2 - z1 * w3 + z2 * w0 + z3 * w1,
+        z0 * w3 + z1 * w2 - z2 * w1 + z3 * w0,
+    ], dim=-1)
+
+
+def quaternion_conjugate(q):
+    return torch.cat([q[..., :1], -q[..., 1:]], dim=-1)

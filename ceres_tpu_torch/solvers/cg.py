@@ -6,10 +6,11 @@ conjugate_gradients_solver.h:109): the Q-based forcing-sequence stop
 the indefiniteness guard, an r-norm tolerance, max_iterations, and the
 refresh r = b - A x every `residual_reset_period` iterations.
 
-A Python loop that reads `done` on the host every iteration: the plain
-version that K7 (ops/pcg.py dense_pcg) is held against, and the CPU path.
-On the card the fused step runs K7, never this loop. `solve_cgnr` waits
-for the CGNR operator kernel K8 (ROADMAP.md: slice 3).
+A Python loop whose tensors stay on the device and which reads one
+flag, `done`, on the host per iteration: the plain version that K7
+(ops/pcg.py dense_pcg) is held against, and the CG of `solve_cgnr`, the
+CGNR solver of the generic LM step, whose operator launches K8 once per
+bucket on the card (ops/kernels.py jac_normal_matvec).
 """
 
 from __future__ import annotations
@@ -17,6 +18,8 @@ from __future__ import annotations
 from typing import Callable, NamedTuple
 
 import torch
+
+from ..ops.kernels import jac_normal_matvec
 
 
 class CGResult(NamedTuple):
@@ -57,12 +60,13 @@ def conjugate_gradients(
     Q0 = 0.5 * torch.dot(x0, r + b)
     i = 0
     done = False
+    false = torch.zeros((), dtype=torch.bool, device=b.device)
     while not done and i < max_iterations:
         Ap = apply_A(p)
         pAp = torch.dot(p, Ap)
         # indefiniteness guard (conjugate_gradients_solver.h:159)
-        bad = bool(pAp <= 0) or not bool(torch.isfinite(pAp))
-        alpha = zero if bad else rho / torch.where(pAp == 0, one, pAp)
+        bad = (pAp <= 0) | ~torch.isfinite(pAp)
+        alpha = torch.where(bad, zero, rho / torch.where(pAp == 0, one, pAp))
         x = x + alpha * p
         i += 1
         if i % residual_reset_period == 0:
@@ -75,13 +79,37 @@ def conjugate_gradients(
         p = z + beta * p
         Q1 = 0.5 * torch.dot(x, r + b)
         zeta = i * (Q1 - Q0) / torch.where(Q1 == 0, one, Q1)
-        q_done = (q_tolerance > 0 and i >= max(min_iterations, 1)
-                  and bool(Q1 != 0) and bool(torch.abs(zeta) < q_tolerance))
-        r_done = (r_tolerance > 0
-                  and bool(torch.linalg.vector_norm(r) <= tol_r))
-        done = bad or q_done or r_done
+        q_done = ((Q1 != 0) & (torch.abs(zeta) < q_tolerance)
+                  if q_tolerance > 0 and i >= max(min_iterations, 1)
+                  else false)
+        r_done = (torch.linalg.vector_norm(r) <= tol_r if r_tolerance > 0
+                  else false)
+        done = bool(bad | q_done | r_done)          # the one host read
         rho, Q0 = rho_new, Q1
     return CGResult(x=x,
                     num_iterations=torch.tensor(i, dtype=torch.int32,
                                                 device=b.device),
                     final_norm=torch.linalg.vector_norm(r))
+
+
+def solve_cgnr(jac, res, D, apply_preconditioner=None,
+               max_iterations: int = 100, q_tolerance: float = 1e-1,
+               r_tolerance: float = 0.0, min_iterations: int = 0):
+    """CGNR (ceres_tpu solvers/cg.py solve_cgnr; the reference's
+    cgnr_solver.cc): CG on the normal equations (J^T J + D^T D) d =
+    -J^T r, matrix-free over the bucketed BlockJacobian. The operator
+    J^T (J v) is K8, one launch per bucket (plain PyTorch on the CPU).
+    Starts from x0 = 0 with r0 = b - A 0, as the JAX package does.
+    Returns (d, iterations as an int32 tensor)."""
+    DD = D * D
+
+    def apply_A(v):
+        return jac_normal_matvec(jac, v) + DD * v
+
+    b = -jac.rmatvec(res)
+    result = conjugate_gradients(
+        apply_A, b, torch.zeros_like(b),
+        apply_preconditioner=apply_preconditioner,
+        max_iterations=max_iterations, min_iterations=min_iterations,
+        q_tolerance=q_tolerance, r_tolerance=r_tolerance)
+    return result.x, result.num_iterations

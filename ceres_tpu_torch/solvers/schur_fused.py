@@ -43,17 +43,9 @@ from ..ops.kernels import MAX_M, chol_solve
 from ..ops.lin import elim, elim_v1, lin, spd_inv3
 from ..ops.pcg import dense_pcg
 from ..types import LinearSolverType, PreconditionerType
+from .preconditioners import spd_inv_small
 
 TF, TE = 9, 3
-# ROADMAP.md items that port each linear solver outside the slice
-_SOLVER_ITEMS = {
-    LinearSolverType.DENSE_QR: "item 15, solvers/dense.py",
-    LinearSolverType.DENSE_NORMAL_CHOLESKY: "item 15, solvers/dense.py",
-    LinearSolverType.SPARSE_NORMAL_CHOLESKY:
-        "item 20, solvers/sparse_direct.py",
-    LinearSolverType.SPARSE_SCHUR: "item 19, solvers/schur_sparse.py",
-    LinearSolverType.CGNR: "item 16, solvers/cg.py solve_cgnr with K8",
-}
 # ITERATIVE_SCHUR preconditioners assembled exactly from the step's
 # tensors (ceres_tpu's iterative_options_ok; SPSE is refused apart)
 _FUSED_PRECONDITIONERS = (PreconditionerType.IDENTITY,
@@ -83,8 +75,10 @@ def unsupported_reason(program, options, meta) -> Optional[str]:
     ROADMAP.md item that ports it), or None."""
     lst = options.linear_solver_type
     iterative = lst == LinearSolverType.ITERATIVE_SCHUR
-    if lst in _SOLVER_ITEMS:
-        return f"{lst} (ROADMAP.md {_SOLVER_ITEMS[lst]})"
+    if lst == LinearSolverType.SPARSE_SCHUR:
+        return f"{lst} (ROADMAP.md item 19, solvers/schur_sparse.py)"
+    if not iterative and lst != LinearSolverType.DENSE_SCHUR:
+        return f"{lst}, which is not a Schur solver (solver.py GenericLMStep)"
     if iterative and options.preconditioner_type not in \
             _FUSED_PRECONDITIONERS:
         return (f"ITERATIVE_SCHUR with {options.preconditioner_type} "
@@ -102,8 +96,8 @@ def unsupported_reason(program, options, meta) -> Optional[str]:
         return ("bounds (ROADMAP.md item 11, the rest of "
                 "solvers/schur_fused.py)")
     if program.has_manifolds:
-        return ("non-Euclidean manifolds (ROADMAP.md item 26, all of "
-                "manifolds.py)")
+        return ("non-Euclidean manifolds in the fused Schur step "
+                "(ROADMAP.md item 11, the rest of solvers/schur_fused.py)")
     if meta is None or len(meta.f_groups) != 1:
         return ("no single-group Schur structure (ROADMAP.md item 18, the "
                 "rest of solvers/schur.py)")
@@ -144,21 +138,6 @@ def unsupported_reason(program, options, meta) -> Optional[str]:
     return None
 
 
-def spd_inv_small(M):
-    """[k, t, t] SPD -> inverse by Cholesky and two triangular solves
-    (ceres_tpu's _spd_inv_small for t > 3; the t = 3 point blocks take
-    the closed form spd_inv3). A block that is not positive definite
-    gives NaN, as the JAX package's Cholesky does; nothing is read on the
-    host."""
-    t = M.shape[-1]
-    L, info = torch.linalg.cholesky_ex(M)
-    L = torch.where((info == 0)[..., None, None], L,
-                    torch.full_like(L, float("nan")))
-    eye = torch.eye(t, dtype=M.dtype, device=M.device).expand(M.shape)
-    Y = torch.linalg.solve_triangular(L, eye, upper=False)
-    return torch.linalg.solve_triangular(L.transpose(-1, -2), Y, upper=True)
-
-
 def precond_blocks(P_blocks, S, kf, tf, kind):
     """[kf, tf, tf] preconditioner blocks for the reduced CG, or None for
     IDENTITY. JACOBI: the block diagonal of F^T F_s + D_f^2; SCHUR_JACOBI:
@@ -187,6 +166,10 @@ class Linearization:
     diag_f: torch.Tensor        # [kf, 9] clipped scaled diagonal
     grad_max: torch.Tensor      # f64 max |gradient|
     grad_norm: torch.Tensor     # f64 ||gradient||
+
+    @property
+    def scales(self):
+        return (self.s_e, self.s_f)
 
 
 class FusedSchurStep:

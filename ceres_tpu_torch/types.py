@@ -490,6 +490,9 @@ class SolverSummary:
 
     # set by the fused minimizer, which has no per-iteration records
     num_iterations_fused: int = 0
+    # linearizations the port's fused loop ran: the first, and one after
+    # each accepted step that another iteration follows
+    num_linearizations_fused: int = 0
 
     @property
     def num_iterations(self) -> int:

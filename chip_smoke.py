@@ -6,24 +6,35 @@
 Builds the CUDA kernels of ceres_tpu_torch/csrc/ from the sources in this
 checkout (into ceres_tpu_torch/_build/), then, on Snavely bundle
 adjustment at the BAL-16-22106 shape (16 cameras, 22,106 points, 83,718
-observations; the seeded synthetic problem at its perturbed start):
+observations; the seeded synthetic problem at its perturbed start) and on
+two pose graphs (io/g2o.py's generators: SE3 with 2,000 poses, SE2 with
+1,000; POSE_GRAPHS):
 
 1. checks each kernel against its plain PyTorch version on the card, at
    the shapes its path gives it: K1-K4 (slice 1, DENSE_SCHUR), K6 on the
    inverse of the first linearization at RADIUS, K7 on that reduced
-   system with SCHUR_JACOBI and with IDENTITY blocks; times each, its
-   plain version and, where one PyTorch call computes the same function,
-   that call, with CUDA events (median of 20 runs); and computes each
-   kernel's bound from this run's inputs;
-2. drives the two paths through ctt.solve on device="cuda", counting the
+   system with SCHUR_JACOBI and with IDENTITY blocks; K11 (slice 3) on
+   each graph's main bucket (SE3 at the start and at a perturbed state,
+   SE2 at the start), K8 on the scaled Jacobian of each graph's first
+   linearization; times each, its plain version and, where one PyTorch
+   call computes the same function, that call, with CUDA events (median
+   of 20 runs); and computes each kernel's bound from this run's inputs;
+2. drives the paths through ctt.solve on device="cuda", counting the
    launches of every kernel from zero before each solve:
    DENSE_SCHUR (slice 1), one warm-up and three timed solves;
    ITERATIVE_SCHUR with SCHUR_JACOBI (slice 2), one warm-up and two timed;
+   CGNR with JACOBI on each pose graph (slice 3), one warm-up and two
+   timed;
 3. fails unless every kernel agrees within its limit (K7 with the same CG
-   iteration count), every solve ends in CONVERGENCE with a final cost
-   within 1e-5 relative of 5.028773e+04, every kernel of a path launched
-   at least once per LM iteration, K2 and K3 never on the ITERATIVE_SCHUR
-   path, CG iterated more often than LM did, and TF32 is off.
+   iteration count), every BA solve ends in CONVERGENCE with a final cost
+   within 1e-5 relative of 5.028773e+04, every kernel of a BA path
+   launched at least once per LM iteration, K2 and K3 never on the
+   ITERATIVE_SCHUR path, CG iterated more often than LM did; every
+   pose-graph solve ends in CONVERGENCE within 1e-4 relative of the JAX
+   package's final cost, cuts the mean position error below its share of
+   the start, launches K11 at least once per linearization and K8 at
+   least once per CG iteration and no K1-K7, and repeats the same LM and
+   CG counts and final cost in every solve; and TF32 is off.
 
 Prints the card's name and power limit, one line per check and solve, a
 JSON line of the kernels, and as its last line {"ok": true, "device":
@@ -53,6 +64,52 @@ F64_LIMIT = 1e-12               # K4: f64 kernel
 # m = 144 on the CPU, where both sides sum alike).
 PCG_LIMIT = 1e-4
 RADIUS = 1e4                    # the initial trust-region radius
+# slice 3: the pose graphs of io/g2o.py's generators, solved by LM with
+# CGNR. `ref_cost` is the JAX package's final cost on the CPU with the
+# same options (scripts/pose_graph_reference.py: 67 LM / 31,974 CG
+# iterations in 3D, 17 / 4,139 in 2D); `error_cut` the share of the
+# starting mean position error that the solve must get under. 2D takes
+# tests/test_slam.py's 0.5 (the JAX solve reaches 0.082). In 3D the
+# loop closures span 5 poses only, so the 2,000-pose chain keeps its
+# drift: the JAX solve reaches 0.771 (14.394777 -> 11.098473), and the
+# cut is 0.8, not test_slam.py's 0.65 for 30 poses.
+POSE_GRAPHS = {
+    "3d": dict(generator="synthetic_pose_graph_3d",
+               args=dict(num_poses=2000, loop_every=5, seed=2),
+               build="build_pose_graph_3d_problem",
+               ref_cost=1114.9860075070787, error_cut=0.8),
+    "2d": dict(generator="synthetic_pose_graph_2d",
+               args=dict(num_poses=1000, loop_every=15, seed=1),
+               build="build_pose_graph_2d_problem",
+               ref_cost=98.97160674926891, error_cut=0.5),
+}
+POSE_REF_REL_TOL = 1e-4
+# K11 relative limits on r and J (J: tests/test_pallas_linearize.py's)
+K11_R_LIMIT, K11_J_LIMIT = 1e-5, 2e-4
+# K11's dense-jet arithmetic per row, counted by hand from
+# csrc/linearize.cu (a jet product 3N+1 flops, a sum N+1, N channels)
+K11_FLOPS_PER_ROW = {"3d": 4984, "2d": 344}
+
+
+def pose_graph_options(mod, **extra):
+    """Slice 3's options in package `mod` (ceres_tpu or ceres_tpu_torch);
+    `extra` adds or overrides options."""
+    kw = dict(linear_solver_type=mod.LinearSolverType.CGNR,
+              preconditioner_type=mod.PreconditionerType.JACOBI,
+              use_mixed_precision_solves=True, fused_iterations=True,
+              max_num_iterations=100)
+    kw.update(extra)
+    return mod.SolverOptions(**kw)
+
+
+def position_error(positions, gt):
+    """Mean distance of the positions {id: array} to the ground-truth
+    poses (Pose2d or Pose3d), as tests/test_slam.py measures it."""
+    import numpy as np
+    return float(np.mean([
+        np.linalg.norm(positions[i] - (g.p if hasattr(g, "p")
+                                       else np.asarray([g.x, g.y])))
+        for i, g in enumerate(gt)]))
 # H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s, f32 and f64 flop/s
 # outside the tensor cores
 HBM_BYTES_PER_S = 3.35e12
@@ -120,6 +177,9 @@ def check_kernel(name, kernel, plain, compare, limit, source, replaces,
     want = plain()
     torch.cuda.synchronize()
     errs = compare(got, want)
+    limits = limit if isinstance(limit, (list, tuple)) else [limit] * len(
+        errs)
+    ok = all(e[0] <= lim for e, lim in zip(errs, limits))
     rel = max(e[0] for e in errs)
     abs_err = max(e[1] for e in errs)
     ms, plain_ms = median_ms(kernel), median_ms(plain)
@@ -129,12 +189,14 @@ def check_kernel(name, kernel, plain, compare, limit, source, replaces,
     bound_ms, bound_by = bound(nbytes(inputs, got), n_flops, rate)
     lib_txt = (f", {library[0]} {lib_ms:.4f} ms" if library else "")
     lib_txt += (f", {reference[0]} {ref_ms:.4f} ms" if reference else "")
-    print(f"{name}: max rel err {rel:.3e} (limit {limit:.0e}), max abs err "
+    rel_txt = ", ".join(f"{e[0]:.3e}" for e in errs)
+    lim_txt = ", ".join(f"{lim:.0e}" for lim in limits)
+    print(f"{name}: max rel err {rel_txt} (limit {lim_txt}), max abs err "
           f"{abs_err:.3e}; kernel {ms:.4f} ms, plain PyTorch "
           f"{plain_ms:.4f} ms{lib_txt}; bound {bound_ms:.5f} ms "
           f"({bound_by}: {nbytes(inputs, got)} B, {n_flops:.4g} flop)",
           flush=True)
-    if not rel <= limit:
+    if not ok:
         raise SystemExit(f"{name}: kernel and plain version disagree")
     return {"name": name, "route": "cuda", "source": source,
             "replaces": replaces, "max_abs_err": abs_err,
@@ -156,7 +218,8 @@ def pcg_flops(m, tf, iters, reset):
             + (iters // reset) * 2 * m * m + 2 * m * tf + 4 * m)
 
 
-def drive(label, options, problem, reset_state, counters, trials, gate):
+def drive(label, options, problem, reset_state, counters, trials, gate,
+          ref_cost=REF_FINAL_COST, ref_tol=REF_REL_TOL):
     """Solve `trials` times on the card (the first a warm-up), each with
     every launch count set to 0 just before and read just after; `gate`
     raises on a wrong summary. Returns the last solve's launches."""
@@ -182,15 +245,16 @@ def drive(label, options, problem, reset_state, counters, trials, gate):
               f"wall {wall:.4f} s, launches {launches}", flush=True)
         if summary.termination_type != ctt.TerminationType.CONVERGENCE:
             raise SystemExit(f"{label}: solve did not converge")
-        rel = abs(summary.final_cost - REF_FINAL_COST) / REF_FINAL_COST
-        if not rel <= REF_REL_TOL:
+        rel = abs(summary.final_cost - ref_cost) / ref_cost
+        if not rel <= ref_tol:
             raise SystemExit(f"{label}: final cost {summary.final_cost} is "
-                             f"{rel:.2e} from {REF_FINAL_COST}")
+                             f"{rel:.2e} from {ref_cost}")
         gate(summary, launches)
     return launches
 
 
 def main():
+    import numpy as np
     import torch
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device")
@@ -200,7 +264,12 @@ def main():
                                         synthetic_bal_problem)
     from ceres_tpu_torch.ops import _cuda
     from ceres_tpu_torch.ops.cost import snavely_sq, snavely_sq_plain
-    from ceres_tpu_torch.ops.kernels import chol_solve, chol_solve_plain
+    from ceres_tpu_torch.examples import slam
+    from ceres_tpu_torch.io import g2o
+    from ceres_tpu_torch.ops.kernels import (bucket_jtjv, bucket_jtjv_plain,
+                                             chol_solve, chol_solve_plain)
+    from ceres_tpu_torch.ops.linearize import (bucket_linearize,
+                                               bucket_linearize_plain)
     from ceres_tpu_torch.ops.lin import (elim, elim_plain, elim_v1,
                                          elim_v1_plain, lin, lin_plain)
     from ceres_tpu_torch.ops.pcg import dense_pcg, dense_pcg_plain
@@ -356,10 +425,92 @@ def main():
         (S_it, rhs_it), lambda got: pcg_flops(nf, 0, int(got[1]), reset),
         F32_FLOP_PER_S)
 
-    # ---- the two paths: solves on the card ----
+    # ---- slice 3: K11 and K8 on the pose graphs' main buckets ----
+    graphs = {}
+    for key, spec in POSE_GRAPHS.items():
+        t0 = time.time()
+        poses, constraints, gt = getattr(g2o, spec["generator"])(
+            **spec["args"])
+        g_problem, positions, rotations = getattr(slam, spec["build"])(
+            poses, constraints)
+        g_options = pose_graph_options(ctt, device="cuda")
+        g_program = CompiledProgram.get_cached(g_problem, g_options)
+        main_bi = [i for i, bk in enumerate(g_program.buckets)
+                   if bk.spec is not None]
+        if len(main_bi) != 1:
+            raise SystemExit(f"pose graph {key}: {len(main_bi)} buckets "
+                             "take K11, expected 1")
+        arrays = list(positions.values()) + list(rotations.values())
+        graphs[key] = dict(
+            problem=g_problem, options=g_options, program=g_program,
+            bi=main_bi[0], positions=positions, gt=gt, arrays=arrays,
+            start=[a.copy() for a in arrays],
+            error0=position_error(positions, gt))
+        print(f"pose graph {key}: {len(poses)} poses, {len(constraints)} "
+              f"edges, bucket rows {[bk.n for bk in g_program.buckets]}, "
+              f"{g_program.num_effective} tangent parameters; build "
+              f"{time.time() - t0:.1f} s", flush=True)
+
+    def k11_args(g, x):
+        prog, bk = g["program"], g["program"].buckets[g["bi"]]
+        xin = torch.cat([p.float() for p in prog._bucket_params(bk, x)],
+                        dim=1).contiguous()
+        return bk.spec, xin, bk.dat32
+
+    def cmp_k11(got, want):
+        return [rel_err(got[0], want[0]), rel_err(got[1], want[1])]
+
+    k11_points = [("3d", "at the start", 0.0), ("3d", "perturbed", 0.05),
+                  ("2d", "at the start", 0.0)]
+    for key, where, sigma in k11_points:
+        g = graphs[key]
+        x = g["program"].initial_state()
+        if sigma:
+            x = x + sigma * torch.as_tensor(
+                np.random.default_rng(0).standard_normal(x.shape[0]),
+                device=x.device)
+        args = k11_args(g, x)
+        n = args[1].shape[0]
+        rec = check_kernel(
+            f"K11 bucket_linearize ({key.upper()}, {where})",
+            lambda: bucket_linearize(*args),
+            lambda: bucket_linearize_plain(*args), cmp_k11,
+            [K11_R_LIMIT, K11_J_LIMIT], "ceres_tpu_torch/csrc/linearize.cu",
+            "ceres_tpu/ops/pallas_linearize.py:324", args[1:],
+            K11_FLOPS_PER_ROW[key] * n, F32_FLOP_PER_S)
+        if (key, sigma) == ("3d", 0.0):
+            rec["name"] = "K11 bucket_linearize"
+            kernels.append(rec)
+
+    for key in POSE_GRAPHS:
+        g = graphs[key]
+        _, _, jac, _ = g["program"].linearize_fn_mixed(
+            g["program"].initial_state())
+        jac_s = jac.scale_columns(
+            1.0 / (1.0 + torch.sqrt(jac.squared_column_norms())))
+        J = jac_s.buckets[g["bi"]].J
+        v = torch.as_tensor(np.random.default_rng(1).standard_normal(
+            jac.num_cols), dtype=torch.float32, device=J.device)
+        vb = jac_s.buckets[g["bi"]].gather_cols(v).contiguous()
+        n, r, t = J.shape
+        rec = check_kernel(
+            f"K8 bucket_jtjv ({key.upper()})", lambda: bucket_jtjv(J, vb),
+            lambda: bucket_jtjv_plain(J, vb), lambda g_, w: [rel_err(g_, w)],
+            F32_LIMIT, "ceres_tpu_torch/csrc/jtjv.cu",
+            "ceres_tpu/ops/pallas_kernels.py:111", (J, vb), 4 * n * r * t,
+            F32_FLOP_PER_S,
+            library=("torch.einsum('nrt,nru,nu->nt', J, J, vb)",
+                     lambda: torch.einsum("nrt,nru,nu->nt", J, J, vb)))
+        if key == "3d":
+            rec["name"] = "K8 bucket_jtjv"
+            kernels.append(rec)
+
+    # ---- the paths: solves on the card ----
     counters = {"K1 lin": lin, "K2 elim": elim,
                 "K3 chol_solve": chol_solve, "K4 cost": snavely_sq,
-                "K6 elim_v1": elim_v1, "K7 dense_pcg": dense_pcg}
+                "K6 elim_v1": elim_v1, "K7 dense_pcg": dense_pcg,
+                "K8 bucket_jtjv": bucket_jtjv,
+                "K11 bucket_linearize": bucket_linearize}
 
     def reset_state():
         for c, c0 in zip(cams, cam0):
@@ -386,6 +537,47 @@ def main():
         if not summary.num_linear_solver_iterations > summary.num_iterations:
             raise SystemExit("ITERATIVE_SCHUR: CG did not iterate")
 
+    def gate_pose(key):
+        g = graphs[key]
+        seen = []
+
+        def gate(summary, launches):
+            err = position_error(g["positions"], g["gt"])
+            cut = POSE_GRAPHS[key]["error_cut"]
+            print(f"  mean position error {g['error0']:.6f} -> {err:.6f} "
+                  f"(limit {cut} of the start); linearizations "
+                  f"{summary.num_linearizations_fused}", flush=True)
+            if not err < cut * g["error0"]:
+                raise SystemExit(f"pose graph {key}: position error not cut")
+            if launches["K11 bucket_linearize"] != \
+                    summary.num_linearizations_fused or \
+                    launches["K11 bucket_linearize"] < \
+                    summary.num_successful_steps:
+                raise SystemExit(f"pose graph {key}: K11 did not run once "
+                                 "per linearization")
+            if launches["K8 bucket_jtjv"] < \
+                    summary.num_linear_solver_iterations:
+                raise SystemExit(f"pose graph {key}: K8 launched fewer "
+                                 "times than CG iterated")
+            stray = [n for n, c in launches.items()
+                     if c and n not in ("K8 bucket_jtjv",
+                                        "K11 bucket_linearize")]
+            if stray:
+                raise SystemExit(f"pose graph {key}: kernels of another "
+                                 f"path launched: {stray}")
+            seen.append((summary.num_iterations,
+                         summary.num_linear_solver_iterations,
+                         summary.final_cost))
+            if len(set(seen)) != 1:
+                raise SystemExit(f"pose graph {key}: solves differ: {seen}")
+        return gate
+
+    def reset_graph(key):
+        def reset():
+            for a, a0 in zip(graphs[key]["arrays"], graphs[key]["start"]):
+                a[:] = a0
+        return reset
+
     by_path = {
         "DENSE_SCHUR": drive(
             "DENSE_SCHUR", options, problem, reset_state, counters, 4,
@@ -396,13 +588,21 @@ def main():
             "ITERATIVE_SCHUR", it_options, problem, reset_state, counters,
             3, gate_iterative),
     }
+    for key in POSE_GRAPHS:
+        g = graphs[key]
+        by_path[f"POSE_GRAPH_{key.upper()}"] = drive(
+            f"POSE_GRAPH_{key.upper()} (CGNR, JACOBI)", g["options"],
+            g["problem"], reset_graph(key), counters, 3, gate_pose(key),
+            ref_cost=POSE_GRAPHS[key]["ref_cost"], ref_tol=POSE_REF_REL_TOL)
     if torch.backends.cuda.matmul.allow_tf32:
         raise SystemExit("TF32 matmul is enabled")
 
     for rec in kernels:
-        path = ("ITERATIVE_SCHUR" if rec["name"] in ("K6 elim_v1",
-                                                     "K7 dense_pcg")
-                else "DENSE_SCHUR")
+        path = {"K6 elim_v1": "ITERATIVE_SCHUR",
+                "K7 dense_pcg": "ITERATIVE_SCHUR",
+                "K8 bucket_jtjv": "POSE_GRAPH_3D",
+                "K11 bucket_linearize": "POSE_GRAPH_3D"}.get(
+                    rec["name"], "DENSE_SCHUR")
         rec["launches"] = by_path[path][rec["name"]]
         rec["launches_by_path"] = {p: c[rec["name"]]
                                    for p, c in by_path.items()}

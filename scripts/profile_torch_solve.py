@@ -1,22 +1,26 @@
 #!/usr/bin/env python3
 """Where the time goes in one ceres_tpu_torch solve on the card.
 
-    python3 scripts/profile_torch_solve.py [--paths dense,iterative]
-                                           [--trace-dir DIR]
+    python3 scripts/profile_torch_solve.py
+        [--paths dense,iterative,pose3d,pose2d] [--trace-dir DIR]
 
-Builds chip_smoke.py's problem (BAL-16-22106 shape, generator seed 7,
-PERTURB seed 8) and, for each path (DENSE_SCHUR; ITERATIVE_SCHUR with
-SCHUR_JACOBI; both with chip_smoke.py's options), solves once as a
-warm-up, once timed without the profiler, and once under torch.profiler
-(CPU and CUDA activities). Prints the card's name and power limit, then
-per path: the wall of the plain and the profiled solve, LM and CG
-iterations; device time per kernel, grouped by the ported kernel it
-belongs to (K1-K7; copies and every other kernel are PyTorch glue); the
-device busy time (union of kernel intervals), the device span (first
-kernel start to last kernel end) and the busy share of the span and of
-the plain wall. Prints one JSON line per path, and writes the chrome
-trace to DIR/profile_<path>.json when --trace-dir is given. Needs a
-CUDA device.
+Builds chip_smoke.py's problems (BAL-16-22106 shape, generator seed 7,
+PERTURB seed 8; the pose graphs of POSE_GRAPHS) and, for each path
+(DENSE_SCHUR; ITERATIVE_SCHUR with SCHUR_JACOBI; CGNR with JACOBI on the
+SE3 and the SE2 pose graph; each with chip_smoke.py's options), solves
+once as a warm-up, once timed without the profiler, and once under
+torch.profiler (CPU and CUDA activities). Prints the card's name and
+power limit, then per path: the wall of the plain and the profiled
+solve, LM and CG iterations; device time per kernel, grouped by the
+ported kernel it belongs to (K1-K8, K11; copies and every other kernel
+are PyTorch glue, split by kind); the device busy time (union of kernel
+intervals), the device span (first kernel start to last kernel end), the
+busy share of the span and of the plain wall; kernel launches and host
+reads of a device scalar (aten::_local_scalar_dense) per solve and per
+CG iteration. Prints one JSON line per path, and writes the chrome trace
+to DIR/profile_<path>.json when --trace-dir is given. Needs a CUDA
+device. The SE3 path records ~1.5M device kernels; its trace takes a
+minute or two to collect.
 """
 
 import argparse
@@ -36,8 +40,16 @@ KERNEL_OF = {
     "ftf_final_kernel": "K1", "elim_point_kernel": "K2",
     "scorr_partial_kernel": "K2/K6", "rhs_partial_kernel": "K2/K6",
     "reduce_splits_kernel": "K2/K6", "chol_solve_kernel": "K3",
-    "cost_kernel": "K4", "pcg_kernel": "K7",
+    "cost_kernel": "K4", "pcg_kernel": "K7", "jtjv_kernel": "K8",
+    "linearize_pose3d_kernel": "K11", "linearize_pose2d_kernel": "K11",
 }
+# the PyTorch glue by kind (first match), for the breakdown
+GLUE_OF = [("segment_reduce", "glue: segment sums"),
+           ("SegmentedReduce", "glue: segment sums"),
+           ("DeviceScan", "glue: segment sums"),
+           ("index", "glue: gathers"), ("reduce", "glue: reductions"),
+           ("elementwise", "glue: elementwise"), ("Memcpy", "glue: copies"),
+           ("Memset", "glue: copies"), ("CatArray", "glue: cat")]
 
 
 def owner(name, path):
@@ -46,7 +58,10 @@ def owner(name, path):
             if k == "K2/K6":
                 return "K6" if path == "iterative" else "K2"
             return k
-    return "glue"
+    for key, kind in GLUE_OF:
+        if key in name:
+            return kind
+    return "glue: other"
 
 
 def union_us(intervals):
@@ -66,7 +81,7 @@ def union_us(intervals):
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--paths", default="dense,iterative")
+    ap.add_argument("--paths", default="dense,iterative,pose2d,pose3d")
     ap.add_argument("--trace-dir", default=None)
     args = ap.parse_args()
     import torch
@@ -77,47 +92,70 @@ def main():
     from torch.profiler import ProfilerActivity, profile
 
     import ceres_tpu_torch as ctt
+    from ceres_tpu_torch.examples import slam
+    from ceres_tpu_torch.io import g2o
     from ceres_tpu_torch.io.bal import (build_bal_ceres_problem,
                                         synthetic_bal_problem)
-    from chip_smoke import PERTURB, SHAPE
+    from chip_smoke import (PERTURB, POSE_GRAPHS, SHAPE, pose_graph_options,
+                            position_error)
 
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], check=True,
                          capture_output=True, text=True).stdout.strip(),
           flush=True)
-    bal = synthetic_bal_problem(**SHAPE, seed=7, pixel_noise=1.0)
-    bal.perturb(**PERTURB, seed=8)
-    problem, cams, pts = build_bal_ceres_problem(bal)
-    start = [a.copy() for a in cams + pts]
 
-    def solve(options):
-        for a, a0 in zip(cams + pts, start):
-            a[:] = a0
-        torch.cuda.synchronize()
-        t0 = time.time()
-        summary = ctt.solve(options, problem)
-        torch.cuda.synchronize()
-        return summary, time.time() - t0
+    def problem_of(path):
+        """(problem, arrays to reset, options, (positions, ground truth)
+        or None) of a path."""
+        if path in ("dense", "iterative"):
+            bal = synthetic_bal_problem(**SHAPE, seed=7, pixel_noise=1.0)
+            bal.perturb(**PERTURB, seed=8)
+            problem, cams, pts = build_bal_ceres_problem(bal)
+            options = ctt.SolverOptions(
+                linear_solver_type=(ctt.LinearSolverType.DENSE_SCHUR
+                                    if path == "dense" else
+                                    ctt.LinearSolverType.ITERATIVE_SCHUR),
+                preconditioner_type=ctt.PreconditionerType.SCHUR_JACOBI,
+                max_num_iterations=50, function_tolerance=1e-6,
+                max_linear_solver_iterations=100,
+                use_mixed_precision_solves=True, fused_iterations=True,
+                device="cuda")
+            return problem, cams + pts, options, None
+        spec = POSE_GRAPHS[path[len("pose"):]]
+        poses, constraints, gt = getattr(g2o, spec["generator"])(
+            **spec["args"])
+        problem, positions, rotations = getattr(slam, spec["build"])(
+            poses, constraints)
+        arrays = list(positions.values()) + list(rotations.values())
+        return (problem, arrays, pose_graph_options(ctt, device="cuda"),
+                (positions, gt))
 
-    solvers = {"dense": ctt.LinearSolverType.DENSE_SCHUR,
-               "iterative": ctt.LinearSolverType.ITERATIVE_SCHUR}
     if args.trace_dir:
         os.makedirs(args.trace_dir, exist_ok=True)
     for path in args.paths.split(","):
-        options = ctt.SolverOptions(
-            linear_solver_type=solvers[path],
-            preconditioner_type=ctt.PreconditionerType.SCHUR_JACOBI,
-            max_num_iterations=50, function_tolerance=1e-6,
-            max_linear_solver_iterations=100,
-            use_mixed_precision_solves=True, fused_iterations=True,
-            device="cuda")
-        solve(options)                                  # warm-up
-        summary, wall = solve(options)
+        problem, arrays, options, traj = problem_of(path)
+        start = [a.copy() for a in arrays]
+
+        def solve():
+            for a, a0 in zip(arrays, start):
+                a[:] = a0
+            torch.cuda.synchronize()
+            t0 = time.time()
+            summary = ctt.solve(options, problem)
+            torch.cuda.synchronize()
+            return summary, time.time() - t0
+
+        solve()                                         # warm-up
+        summary, wall = solve()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
-            _, wall_prof = solve(options)
-        events = [e for e in prof.events()
+            _, wall_prof = solve()
+        t_collect = time.time()
+        all_events = prof.events()
+        events = [e for e in all_events
                   if e.device_type == DeviceType.CUDA]
+        host_reads = sum(1 for e in all_events
+                         if e.name == "aten::_local_scalar_dense")
         if not events:
             raise SystemExit(f"{path}: the trace holds no device time")
         per_name = defaultdict(lambda: [0.0, 0])
@@ -131,15 +169,27 @@ def main():
             per_kernel[owner(e.name, path)] += t - s
         busy = union_us(spans)
         span = max(t for _, t in spans) - min(s for s, _ in spans)
+        cg = max(summary.num_linear_solver_iterations, 1)
         print(f"{path}: wall {wall:.4f} s (profiled {wall_prof:.4f} s), "
               f"{summary.num_iterations} LM iterations, "
               f"{summary.num_linear_solver_iterations} linear solver "
               f"iterations, {summary.termination_type}, final cost "
-              f"{summary.final_cost:.6e}", flush=True)
+              f"{summary.final_cost:.6e}; trace collected in "
+              f"{time.time() - t_collect:.1f} s", flush=True)
+        if traj is not None:
+            print(f"  mean position error {position_error(*traj):.6f}")
+        print(f"  {len(events)} device kernels and copies, {host_reads} "
+              f"host reads of a device scalar; per linear solver "
+              f"iteration: {len(events) / cg:.1f} kernels, "
+              f"{host_reads / cg:.2f} host reads, {1e3 * wall / cg:.4f} ms "
+              f"of plain wall, {busy / 1e3 / cg:.4f} ms device busy",
+              flush=True)
+        for k, us in sorted(per_kernel.items(), key=lambda kv: -kv[1]):
+            print(f"  {us / 1e3:10.4f} ms  {k}")
         for name, (us, n) in sorted(per_name.items(),
                                     key=lambda kv: -kv[1][0])[:25]:
-            print(f"  {us / 1e3:9.4f} ms  {n:5d}x  {owner(name, path):5s} "
-                  f"{name[:90]}")
+            print(f"  {us / 1e3:9.4f} ms  {n:7d}x  {owner(name, path):20s} "
+                  f"{name[:80]}")
         print(f"  device busy {busy / 1e3:.4f} ms of a {span / 1e3:.4f} ms "
               f"device span ({100 * busy / span:.1f}%); "
               f"{100 * busy / 1e6 / wall:.1f}% of the plain wall", flush=True)
@@ -154,6 +204,7 @@ def main():
             "device_ms_by_kernel": {k: v / 1e3
                                     for k, v in sorted(per_kernel.items())},
             "device_busy_ms": busy / 1e3, "device_span_ms": span / 1e3,
+            "device_kernels": len(events), "host_reads": host_reads,
             "minimizer_s": summary.minimizer_time_in_seconds,
             "postprocessor_s": summary.postprocessor_time_in_seconds}),
             flush=True)

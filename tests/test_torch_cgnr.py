@@ -1,0 +1,205 @@
+"""Slice 3 of ceres_tpu_torch end to end against ceres_tpu: pose-graph
+SLAM on the generic LM step with CGNR (mixed precision, fused loop), on
+the graphs of tests/test_pallas_linearize.py (SE3: 25 poses; SE2: 40),
+for JACOBI and IDENTITY: the state layout and the f64 cost with the
+quaternion and angle manifolds; one LM step against the JAX step
+(make_step_fn on the CPU, where every bucket takes jacfwd and CGNR the
+two-einsum operator); whole solves against ceres_tpu.solve; the
+ITERATIVE_SCHUR -> CGNR downgrade; the configurations that still raise.
+
+Tolerances: the f64 cost to 1e-12; one step's gradient to 1e-5 and its
+model cost change, step and step norm to 5e-4 (the f32 CG amplifies
+rounding by the damped system's conditioning, as in
+test_torch_iterative.py), with the same CG count; a whole solve with the
+same termination, LM count and accepted steps and a final cost within
+1e-6 relative. The total CG count is equal on the SE3 graph; on SE2 graphs
+it moves with f32 rounding of J, by up to 1 per cent (ROADMAP.md section
+3: on this SE2 graph with IDENTITY, JAX 221, the port 222, and the port
+with jacfwd instead of K11's plain version 224, all in 6 LM iterations to
+the same cost).
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from torch_parity_kit import ct, ctt, rel
+
+from ceres_tpu import solver as jax_solver
+from ceres_tpu.examples import slam as jax_slam
+from ceres_tpu.io import g2o as jax_g2o
+from ceres_tpu.program import CompiledProgram as JaxProgram
+from ceres_tpu_torch.examples import slam
+from ceres_tpu_torch.io import g2o
+from ceres_tpu_torch.ops.kernels import bucket_jtjv
+from ceres_tpu_torch.ops.linearize import bucket_linearize
+from ceres_tpu_torch.program import CompiledProgram as TorchProgram
+from ceres_tpu_torch.solver import GenericLMStep
+from chip_smoke import pose_graph_options
+
+torch.set_num_threads(1)
+
+GRAPHS = {"3d": dict(num_poses=25, seed=4, loop_every=5),
+          "2d": dict(num_poses=40, seed=6)}
+PRECONDITIONERS = ["JACOBI", "IDENTITY"]
+RADIUS = 1e4                       # the initial trust-region radius
+
+
+def _problem(mod, dim):
+    pkg_slam, pkg_g2o = (jax_slam, jax_g2o) if mod is ct else (slam, g2o)
+    poses, constraints, gt = getattr(
+        pkg_g2o, f"synthetic_pose_graph_{dim}")(**GRAPHS[dim])
+    problem, positions, rotations = getattr(
+        pkg_slam, f"build_pose_graph_{dim}_problem")(poses, constraints)
+    return problem, positions, rotations
+
+
+def _options(mod, preconditioner, **extra):
+    if mod is ctt:
+        extra.setdefault("device", "cpu")
+    extra.setdefault("preconditioner_type",
+                     getattr(mod.PreconditionerType, preconditioner))
+    return pose_graph_options(mod, **extra)
+
+
+@pytest.mark.parametrize("dim", list(GRAPHS))
+def test_state_layout_plus_and_cost_match_jax(dim):
+    """A JAX state drives the port bitwise (state_from_numpy); Plus with
+    the quaternion and angle manifolds and the f64 cost agree to 1e-12."""
+    jp = JaxProgram(_problem(ct, dim)[0])
+    tp = TorchProgram(_problem(ctt, dim)[0], device="cpu")
+    xj = np.asarray(jp.initial_state())
+    assert np.array_equal(tp.state_to_numpy(tp.initial_state()), xj)
+    assert (tp.num_effective, tp.num_rows) == (jp.num_effective, jp.num_rows)
+    assert np.array_equal(tp.state_to_numpy(tp.state_from_numpy(xj)), xj)
+    rng = np.random.default_rng(0)
+    d = 0.3 * rng.standard_normal(jp.num_effective)
+    pj = np.asarray(jp.plus(jnp.asarray(xj), jnp.asarray(d)))
+    pt = tp.state_to_numpy(tp.plus(tp.state_from_numpy(xj),
+                                   torch.as_tensor(d)))
+    assert rel(pt, pj) <= 1e-12
+    cj = float(jp.cost_fn(jnp.asarray(pj)))
+    assert abs(float(tp.cost_fn(tp.state_from_numpy(pj))) - cj) <= \
+        1e-12 * cj
+
+
+@pytest.mark.parametrize("preconditioner", PRECONDITIONERS)
+@pytest.mark.parametrize("dim", list(GRAPHS))
+def test_one_lm_step_matches_jax(dim, preconditioner):
+    jp = JaxProgram.get_cached(_problem(ct, dim)[0],
+                               _options(ct, preconditioner))
+    opts_j = _options(ct, preconditioner)
+    x0 = jp.initial_state()
+    a = jax_solver.make_step_fn(jp, opts_j)(
+        x0, jnp.asarray(RADIUS, jp.dtype),
+        jax_solver.make_scale_fn(jp, opts_j)(x0))
+    opts_t = _options(ctt, preconditioner)
+    tp = TorchProgram.get_cached(_problem(ctt, dim)[0], opts_t)
+    step = GenericLMStep(tp, opts_t)
+    art = step.linearize(tp.initial_state(), *step.initial_scales(),
+                         first=True)
+    b = step.solve(art, RADIUS)
+    assert int(b["lin_iters"]) == int(a["lin_iters"]) > 1
+    assert b["lin_iters"].dtype == torch.int32
+    assert abs(float(b["cost"]) - float(a["cost"])) <= 1e-12 * float(
+        a["cost"])
+    for k in ["gradient_max_norm", "gradient_norm", "model_cost_change",
+              "delta", "step_norm"]:
+        tol = 1e-5 if k.startswith("gradient") else 5e-4
+        assert rel(b[k].numpy(), np.asarray(a[k])) < tol, k
+
+
+@pytest.mark.parametrize("preconditioner", PRECONDITIONERS)
+@pytest.mark.parametrize("dim", list(GRAPHS))
+def test_cgnr_solve_matches_jax(dim, preconditioner):
+    s_j = ct.solve(_options(ct, preconditioner), _problem(ct, dim)[0])
+    problem, _, rotations = _problem(ctt, dim)
+    bucket_jtjv.launches = bucket_linearize.launches = 0
+    s_t = ctt.solve(_options(ctt, preconditioner), problem)
+    assert bucket_jtjv.launches == bucket_linearize.launches == 0
+    assert s_t.termination_type == ctt.TerminationType.CONVERGENCE
+    assert str(s_t.termination_type) == str(s_j.termination_type)
+    assert s_t.num_iterations == s_j.num_iterations
+    assert s_t.num_successful_steps == s_j.num_successful_steps
+    cg_t, cg_j = (s_t.num_linear_solver_iterations,
+                  s_j.num_linear_solver_iterations)
+    assert cg_j > s_j.num_iterations
+    assert abs(cg_t - cg_j) <= (0 if dim == "3d" else 0.01 * cg_j)
+    assert abs(s_t.initial_cost - s_j.initial_cost) <= \
+        1e-12 * s_j.initial_cost
+    assert abs(s_t.final_cost - s_j.final_cost) <= 1e-6 * s_j.final_cost
+    assert str(s_t.linear_solver_type_used) == "CGNR"
+    assert str(s_t.preconditioner_type_used) == preconditioner
+    if dim == "3d":        # the manifold keeps the quaternions unit
+        for q in rotations.values():
+            np.testing.assert_allclose(np.linalg.norm(q), 1.0, rtol=1e-9)
+    else:                  # and the angles wrapped
+        assert all(-np.pi <= y[0] <= np.pi for y in rotations.values())
+
+
+def _curve_fit(mod, lib):
+    """One parameter block [m, c], y = exp(m x + c): no Schur structure."""
+    mc = np.array([0.0, 0.0])
+    problem = mod.Problem()
+
+    class Residual:
+        def __init__(self, x, y):
+            self.x, self.y = x, y
+
+        def __call__(self, mc):
+            return self.y - lib.exp(mc[0:1] * self.x + mc[1:2])
+
+    for x in np.linspace(0.0, 5.0, 30):
+        problem.add_residual_block(mod.AutoDiffCostFunction(
+            Residual(x, float(np.exp(0.3 * x + 0.1))), 1, [2]), None, mc)
+    return problem, mc
+
+
+def test_iterative_schur_without_structure_downgrades_to_cgnr():
+    """ITERATIVE_SCHUR on a problem with no Schur structure runs CGNR +
+    JACOBI, as ceres_tpu's _maybe_downgrade_options decides."""
+    def opts(mod, **extra):
+        return mod.SolverOptions(
+            linear_solver_type=mod.LinearSolverType.ITERATIVE_SCHUR,
+            preconditioner_type=mod.PreconditionerType.SCHUR_JACOBI,
+            use_mixed_precision_solves=True, fused_iterations=True, **extra)
+
+    pj, mj = _curve_fit(ct, jnp)
+    pt, mt = _curve_fit(ctt, torch)
+    s_j = ct.solve(opts(ct), pj)
+    s_t = ctt.solve(opts(ctt, device="cpu"), pt)
+    for s in (s_j, s_t):
+        assert str(s.linear_solver_type_used) == "CGNR"
+        assert str(s.preconditioner_type_used) == "JACOBI"
+    assert (s_t.num_iterations, s_t.num_linear_solver_iterations) == \
+        (s_j.num_iterations, s_j.num_linear_solver_iterations)
+    np.testing.assert_allclose(mt, [0.3, 0.1], atol=1e-8)
+    np.testing.assert_allclose(mt, mj, atol=1e-9)
+
+
+@pytest.mark.parametrize("extra,item", [
+    (dict(use_mixed_precision_solves=False), "item 16"),
+    (dict(max_num_refinement_iterations=2), "item 15"),
+    (dict(preconditioner_type="SUBSET"), "item 20"),
+    (dict(linear_solver_type="DENSE_QR"), "item 15"),
+    (dict(linear_solver_type="DENSE_NORMAL_CHOLESKY"), "item 15"),
+    (dict(linear_solver_type="SPARSE_NORMAL_CHOLESKY"), "item 20"),
+    (dict(trust_region_strategy_type="DOGLEG"), "item 14"),
+    (dict(fused_iterations=False), "item 14"),
+    ("bounds", "item 14"),
+])
+def test_out_of_slice_raises(extra, item):
+    """Configurations of the generic path that are not ported raise
+    NotImplementedError naming the ROADMAP.md item that ports them."""
+    problem, positions, _ = _problem(ctt, "2d")
+    if extra == "bounds":
+        problem.set_parameter_lower_bound(positions[3], 0, -100.0)
+        extra = {}
+    enums = {"preconditioner_type": ctt.PreconditionerType,
+             "linear_solver_type": ctt.LinearSolverType,
+             "trust_region_strategy_type": ctt.TrustRegionStrategyType}
+    extra = {k: (getattr(enums[k], v) if isinstance(v, str) else v)
+             for k, v in extra.items()}
+    with pytest.raises(NotImplementedError, match=item):
+        ctt.solve(_options(ctt, "JACOBI", **extra), problem)

@@ -1,0 +1,188 @@
+"""K11, the bucket-linearize kernel of the pose graphs, against ceres_tpu:
+the plain version of ops/linearize.py against the JAX package's Pallas
+kernel (make_pallas_bucket_linearize) in interpret mode on the graphs of
+tests/test_pallas_linearize.py (SE3: 25 poses; SE2: 40 poses), at the
+start and at a perturbed state; the gauge bucket (constant slots, no hand
+spec) through the port's jacfwd path against the JAX jacfwd path; and,
+on a card, the CUDA kernel against the plain version at odd row counts.
+
+Tolerances are test_pallas_linearize.py's: 2e-5 (r) and 2e-4 (J),
+relative and absolute, f32 on both sides with another operation order.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from torch_parity_kit import pallas_interpret
+
+from ceres_tpu.examples import slam as jax_slam
+from ceres_tpu.io import g2o as jax_g2o
+from ceres_tpu.ops.pallas_linearize import make_pallas_bucket_linearize
+from ceres_tpu.program import CompiledProgram as JaxProgram
+from ceres_tpu_torch.examples import slam
+from ceres_tpu_torch.io import g2o
+from ceres_tpu_torch.ops.linearize import (SPECS, bucket_linearize,
+                                           bucket_linearize_plain,
+                                           linearize_spec)
+from ceres_tpu_torch.program import CompiledProgram as TorchProgram
+
+torch.set_num_threads(1)
+
+GRAPHS = {
+    "3d": dict(args=dict(num_poses=25, seed=4, loop_every=5), sigma=0.05,
+               seed=0),
+    "2d": dict(args=dict(num_poses=40, seed=6), sigma=0.1, seed=1),
+}
+
+
+def _programs(dim):
+    gen = f"synthetic_pose_graph_{dim}"
+    build = f"build_pose_graph_{dim}_problem"
+    args = GRAPHS[dim]["args"]
+    jp = JaxProgram(getattr(jax_slam, build)(
+        *getattr(jax_g2o, gen)(**args)[:2])[0])
+    tp = TorchProgram(getattr(slam, build)(
+        *getattr(g2o, gen)(**args)[:2])[0], device="cpu")
+    return jp, tp
+
+
+def _states(jp, dim):
+    x0 = np.asarray(jp.initial_state())
+    rng = np.random.default_rng(GRAPHS[dim]["seed"])
+    return {"start": x0,
+            "perturbed": x0 + GRAPHS[dim]["sigma"]
+            * rng.standard_normal(x0.shape)}
+
+
+@pytest.fixture(scope="module")
+def graphs():
+    """Both packages' programs and the JAX kernel's (r, J) on the main
+    bucket at each state, the interpret-mode kernel built once per
+    graph."""
+    out = {}
+    for dim in GRAPHS:
+        jp, tp = _programs(dim)
+        bi = [i for i, bk in enumerate(tp.buckets) if bk.spec is not None]
+        states = _states(jp, dim)
+        with pallas_interpret():
+            lin = make_pallas_bucket_linearize(jp, jp.buckets[bi[0]])
+            assert lin is not None
+            ref = {k: tuple(np.asarray(a) for a in
+                            lin(jnp.asarray(x).astype(jnp.float32)))
+                   for k, x in states.items()}
+        out[dim] = dict(jp=jp, tp=tp, bi=bi, states=states, ref=ref)
+    return out
+
+
+def _xin(tp, bk, x):
+    return torch.cat([p.float() for p in tp._bucket_params(
+        bk, tp.state_from_numpy(x))], dim=1).contiguous()
+
+
+@pytest.mark.parametrize("dim", list(GRAPHS))
+def test_gate_takes_the_main_bucket_only(graphs, dim):
+    """One bucket (all slots variable) matches the hand spec; the gauge
+    bucket (the edges of the constant first pose) does not, as
+    _pose3d_match / _pose2d_match decide in the JAX package."""
+    g = graphs[dim]
+    tp, jp = g["tp"], g["jp"]
+    assert [bk.n for bk in tp.buckets] == [bk.n for bk in jp.buckets]
+    assert len(g["bi"]) == 1 and len(tp.buckets) == 2
+    main = tp.buckets[g["bi"][0]]
+    gauge = tp.buckets[1 - g["bi"][0]]
+    name = "PoseGraph3dErrorTerm" if dim == "3d" else "PoseGraph2dErrorTerm"
+    assert main.spec is SPECS[name] and linearize_spec(main) is main.spec
+    assert gauge.spec is None and not all(sl.variable for sl in gauge.slots)
+    assert main.dat32.shape == (main.n, main.spec.p_dat)
+
+
+@pytest.mark.parametrize("where", ["start", "perturbed"])
+@pytest.mark.parametrize("dim", list(GRAPHS))
+def test_k11_plain_matches_jax_kernel(graphs, dim, where):
+    g = graphs[dim]
+    tp = g["tp"]
+    bk = tp.buckets[g["bi"][0]]
+    r, J = bucket_linearize_plain(bk.spec, _xin(tp, bk, g["states"][where]),
+                                  bk.dat32)
+    r_ref, J_ref = g["ref"][where]
+    assert r.dtype == J.dtype == torch.float32
+    assert r.shape == r_ref.shape and J.shape == J_ref.shape
+    np.testing.assert_allclose(r.numpy(), r_ref, rtol=2e-5, atol=2e-5)
+    np.testing.assert_allclose(J.numpy(), J_ref, rtol=2e-4, atol=2e-4)
+
+
+@pytest.mark.parametrize("dim", list(GRAPHS))
+def test_k11_wrapper_takes_the_plain_version_on_cpu(graphs, dim):
+    g = graphs[dim]
+    tp = g["tp"]
+    bk = tp.buckets[g["bi"][0]]
+    xin = _xin(tp, bk, g["states"]["start"])
+    bucket_linearize.launches = 0
+    got = bucket_linearize(bk.spec, xin, bk.dat32)
+    want = bucket_linearize_plain(bk.spec, xin, bk.dat32)
+    assert bucket_linearize.launches == 0
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+@pytest.mark.parametrize("dim", list(GRAPHS))
+def test_jacfwd_path_matches_jax(graphs, dim):
+    """Every bucket through the port's generic linearize against the JAX
+    jacfwd path in f32 (_bucket_linearize with cast_dtype=f32; on the CPU
+    without interpret mode it takes no kernel): the gauge bucket (the
+    port's jacfwd path, seeded through the manifolds' Plus) and the main
+    bucket (K11's plain version, whose spec is the functor)."""
+    g = graphs[dim]
+    jp, tp = g["jp"], g["tp"]
+    x = g["states"]["perturbed"]
+    for bj, bt in zip(jp.buckets, tp.buckets):
+        r_ref, J_ref = jp._bucket_linearize(bj, jnp.asarray(x),
+                                            cast_dtype=jnp.float32)
+        r, J = tp._bucket_linearize32(bt, tp.state_from_numpy(x))
+        assert J.shape == J_ref.shape
+        np.testing.assert_allclose(r.numpy(), np.asarray(r_ref), rtol=2e-5,
+                                   atol=2e-5)
+        np.testing.assert_allclose(J.numpy(), np.asarray(J_ref), rtol=2e-4,
+                                   atol=2e-4)
+
+
+def _random_rows(spec, n, rng):
+    """Random K11 inputs: unit quaternions in the rotation slots (SE3) and
+    an upper-triangular sqrt_information, as build_pose_graph_*_problem
+    gives them."""
+    xin = rng.standard_normal((n, spec.p_in))
+    dat = rng.standard_normal((n, spec.p_dat))
+    k = spec.r
+    tri = np.triu(rng.uniform(0.5, 2.0, size=(n, k, k)))
+    dat[:, -k * k:] = tri.reshape(n, k * k)
+    if spec.p_in == 14:
+        for a in (3, 10):
+            xin[:, a:a + 4] /= np.linalg.norm(xin[:, a:a + 4], axis=1,
+                                              keepdims=True)
+        dat[:, 3:7] /= np.linalg.norm(dat[:, 3:7], axis=1, keepdims=True)
+    return (torch.as_tensor(xin, dtype=torch.float32),
+            torch.as_tensor(dat, dtype=torch.float32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 7, 513])
+@pytest.mark.parametrize("name", list(SPECS))
+def test_k11_kernel_matches_plain_on_the_card(name, n):
+    """The CUDA kernel against its plain version on the card, at row
+    counts that leave the last block partly empty. Run on a machine with
+    a card: python -m pytest tests -m cuda."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    spec = SPECS[name]
+    xin, dat = _random_rows(spec, n, np.random.default_rng(n))
+    xin, dat = xin.cuda(), dat.cuda()
+    bucket_linearize.launches = 0
+    r, J = bucket_linearize(spec, xin, dat)
+    r_ref, J_ref = bucket_linearize_plain(spec, xin, dat)
+    torch.cuda.synchronize()
+    assert bucket_linearize.launches == 1
+    np.testing.assert_allclose(r.cpu().numpy(), r_ref.cpu().numpy(),
+                               rtol=2e-5, atol=2e-5)
+    np.testing.assert_allclose(J.cpu().numpy(), J_ref.cpu().numpy(),
+                               rtol=2e-4, atol=2e-4)

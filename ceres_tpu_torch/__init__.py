@@ -4,7 +4,9 @@ The ported slices, each solved by fused Levenberg-Marquardt in mixed
 precision on one device named by SolverOptions.device ("cuda" runs the
 hand-written Hopper kernels of csrc/, "cpu" their plain PyTorch
 versions): Snavely bundle adjustment with DENSE_SCHUR, or with
-ITERATIVE_SCHUR on an explicit reduced camera matrix; and any problem
+ITERATIVE_SCHUR on an explicit reduced camera matrix; bundle adjustment
+past the explicit cap (nf > 4096 camera columns) with ITERATIVE_SCHUR in
+the implicit, matrix-free mode (K10 as the CG operator); and any problem
 without Schur structure on the generic step with CGNR, pose-graph SLAM
 (examples/slam.py) first. Module names mirror the JAX
 package's; this package imports torch and never jax.

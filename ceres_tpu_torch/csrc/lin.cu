@@ -28,7 +28,7 @@
 
 #include <cuda_runtime.h>
 
-#include "jet.cuh"
+#include "snavely.cuh"
 
 namespace {
 
@@ -38,32 +38,6 @@ constexpr int NT = TF + TE;                // jet channels: camera first
 constexpr int NPAIR = TF * (TF + 1) / 2;   // 45
 constexpr int NQ = NPAIR + TF;             // 54 F-side terms per lane
 typedef Jet<NT> J;
-
-// Rodrigues rotation with jets, including the small-angle branch of
-// rotation.py angle_axis_rotate_point (threshold 1e-6 in f32).
-__device__ void aa_rotate(const J aa[3], const J pt[3], J out[3]) {
-  J theta_sq = aa[0] * aa[0] + aa[1] * aa[1] + aa[2] * aa[2];
-  const bool small = theta_sq.v < 1e-6f;
-  J safe = theta_sq;
-  if (small) safe.v = 1.f;
-  J theta = jsqrt(safe);
-  J sin_t, cos_t;
-  jsincos(theta, &sin_t, &cos_t);
-  J inv_theta = jconst<NT>(1.f) / theta;
-  J w[3] = {aa[0] * inv_theta, aa[1] * inv_theta, aa[2] * inv_theta};
-  J wxp[3] = {w[1] * pt[2] - w[2] * pt[1], w[2] * pt[0] - w[0] * pt[2],
-              w[0] * pt[1] - w[1] * pt[0]};
-  J wdp = w[0] * pt[0] + w[1] * pt[1] + w[2] * pt[2];
-  J omc = jconst<NT>(1.f) - cos_t;
-  J axp[3] = {aa[1] * pt[2] - aa[2] * pt[1], aa[2] * pt[0] - aa[0] * pt[2],
-              aa[0] * pt[1] - aa[1] * pt[0]};
-#pragma unroll
-  for (int i = 0; i < 3; ++i) {
-    J large = pt[i] * cos_t + wxp[i] * sin_t + (w[i] * wdp) * omc;
-    J sres = pt[i] + axp[i];
-    out[i] = small ? sres : large;
-  }
-}
 
 __global__ void lin_point_kernel(
     const float* __restrict__ xf, const float* __restrict__ xe,
@@ -95,19 +69,8 @@ __global__ void lin_point_kernel(
 #pragma unroll
     for (int a = 0; a < TE; ++a) pt[a] = jvar<NT>(xe[n * TE + a], TF + a);
 
-    J p[3];
-    aa_rotate(cp, pt, p);
-#pragma unroll
-    for (int i = 0; i < 3; ++i) p[i] = p[i] + cp[3 + i];
-    // an inactive lane divides by 1, so its values stay finite and the
-    // mask can zero them (NaN * 0 would survive the mask)
-    J z = valid ? p[2] : jconst<NT>(1.f);
-    J xp = -(p[0] / z);
-    J yp = -(p[1] / z);
-    J r2 = xp * xp + yp * yp;
-    J dist = jshift(r2 * (cp[7] + cp[8] * r2), 1.f);
-    J fd = cp[6] * dist;
-    J r[2] = {jshift(fd * xp, -obsx[row]), jshift(fd * yp, -obsy[row])};
+    J r[2];
+    snavely_residual<NT>(cp, pt, valid, obsx[row], obsy[row], r);
 
     float rv[2], Jr[2][NT];
 #pragma unroll

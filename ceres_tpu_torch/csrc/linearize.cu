@@ -1,29 +1,36 @@
-// K11: bucket linearize of a registered pose-graph functor: per row, the
-// residual and its Jacobian in tangent space, the manifold's Plus seeded
-// into the jet channels.
+// K11: bucket linearize of a registered functor: per row, the residual
+// and its Jacobian in tangent space, the manifold's Plus seeded into the
+// jet channels.
 //
 // Replaces ceres_tpu/ops/pallas_linearize.py::_lin_kernel with its two
 // hand specs, _pose3d_emit (SE3: PoseGraph3dErrorTerm, quaternion slots
 // seeded by _seed_eigen_quaternion) and _pose2d_emit (SE2:
-// PoseGraph2dErrorTerm, the angle wrapped by _jnormangle). Same
-// quantities, row-major layout instead of the TPU's rows-on-lanes planes:
-//   xin [n, P_in]   the slots' parameters, concatenated (SE3 14, SE2 6)
+// PoseGraph2dErrorTerm, the angle wrapped by _jnormangle), and with the
+// auto spec that ops/jet_compile.py builds there for
+// SnavelyReprojectionError, written here by hand (snavely.cuh, K1's jet
+// chain). Same quantities, row-major layout instead of the TPU's
+// rows-on-lanes planes:
+//   xin [n, P_in]   the slots' parameters, concatenated (SE3 14, SE2 6,
+//                   Snavely 12: camera 9, point 3)
 //   dat [n, P_dat]  the functor's data fields, concatenated
 //                   (SE3 t_ab 3, q_ab 4, sqrt_information 36;
-//                    SE2 t_ab 2, yaw_ab 1, sqrt_information 9)
-//   r   [n, R]      residuals (SE3 6, SE2 3)
-//   J   [n, R, nt]  tangent Jacobian, row-major (SE3 6x12, SE2 3x6)
+//                    SE2 t_ab 2, yaw_ab 1, sqrt_information 9;
+//                    Snavely observed_x 1, observed_y 1)
+//   r   [n, R]      residuals (SE3 6, SE2 3, Snavely 2)
+//   J   [n, R, nt]  tangent Jacobian, row-major (SE3 6x12, SE2 3x6,
+//                   Snavely 2x12)
 //
 // Bound on the H100: bytes. Per SE3 row the kernel reads 57 floats and
-// writes 78 (540 B), against ~3k flops of 13-wide jet arithmetic, far
-// below the card's ratio of ~20 flops per byte. Design: one thread per
+// writes 78 (540 B), against ~5k flops of 13-wide jet arithmetic; per
+// Snavely row 14 and 26 (160 B) against ~2k flops; both below the card's
+// ratio of ~20 flops per byte. Design: one thread per
 // row (rows are independent, nothing is reduced across threads), the
 // jets in registers. A warp's loads and stores cover contiguous spans of
 // 32 rows, so the L1 and L2 merge the strided accesses into full lines.
 
 #include <cuda_runtime.h>
 
-#include "jet.cuh"
+#include "snavely.cuh"
 
 namespace {
 
@@ -157,6 +164,20 @@ __device__ void pose2d_row(const float* x, const float* dat, J2 res[3]) {
   }
 }
 
+// ---- Snavely --------------------------------------------------------------
+
+constexpr int NS = 12;            // tangent channels: camera 9, point 3
+typedef Jet<NS> JS;
+
+__device__ void snavely_row(const float* x, const float* dat, JS res[2]) {
+  JS cp[9], pt[3];
+#pragma unroll
+  for (int a = 0; a < 9; ++a) cp[a] = jvar<NS>(x[a], a);
+#pragma unroll
+  for (int a = 0; a < 3; ++a) pt[a] = jvar<NS>(x[9 + a], 9 + a);
+  snavely_residual<NS>(cp, pt, true, dat[0], dat[1], res);
+}
+
 template <int R, int N>
 __device__ __forceinline__ void store_row(const Jet<N> res[R], int row,
                                           float* __restrict__ r,
@@ -193,9 +214,21 @@ __global__ void linearize_pose2d_kernel(const float* __restrict__ xin,
   store_row<3, N2>(res, row, r, J);
 }
 
+__global__ void linearize_snavely_kernel(const float* __restrict__ xin,
+                                         const float* __restrict__ dat, int n,
+                                         float* __restrict__ r,
+                                         float* __restrict__ J) {
+  const int row = blockIdx.x * blockDim.x + threadIdx.x;
+  if (row >= n) return;
+  JS res[2];
+  snavely_row(xin + (size_t)row * 12, dat + (size_t)row * 2, res);
+  store_row<2, NS>(res, row, r, J);
+}
+
 }  // namespace
 
-// spec 0: SE3 pose graph, spec 1: SE2 pose graph (ops/linearize.py SPECS)
+// spec 0: SE3 pose graph, spec 1: SE2 pose graph, spec 2: Snavely
+// (ops/linearize.py SPECS)
 extern "C" int ceres_linearize(int spec, const float* xin, const float* dat,
                                int n, float* r, float* J,
                                cudaStream_t stream) {
@@ -206,6 +239,9 @@ extern "C" int ceres_linearize(int spec, const float* xin, const float* dat,
     linearize_pose3d_kernel<<<blocks, threads, 0, stream>>>(xin, dat, n, r, J);
   } else if (spec == 1) {
     linearize_pose2d_kernel<<<blocks, threads, 0, stream>>>(xin, dat, n, r, J);
+  } else if (spec == 2) {
+    linearize_snavely_kernel<<<blocks, threads, 0, stream>>>(xin, dat, n, r,
+                                                             J);
   } else {
     return (int)cudaErrorInvalidValue;
   }

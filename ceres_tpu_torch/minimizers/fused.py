@@ -54,8 +54,8 @@ class FusedResult(NamedTuple):
 
 
 def fused_tr_solve(program, options, step, x0) -> FusedResult:
-    """Run the LM loop from x0 with `step`: a FusedSchurStep or a
-    GenericLMStep, anything with `initial_scales()` (a tuple of scales),
+    """Run the LM loop from x0 with `step`: a FusedSchurStep, an
+    ImplicitSchurStep or a GenericLMStep, anything with `initial_scales()` (a tuple of scales),
     `linearize(x, *scales, first, known_cost)` (an artifact with
     `.scales`), `solve(art, radius)` (the step's output dict) and
     `cost(x)`."""

@@ -43,6 +43,8 @@ _SIGNATURES = {
                    _P, _P],
     "ceres_linearize": [_I, _P, _P, _I, _P, _P, _P],
     "ceres_jtjv": [_P, _P, _I, _I, _I, _P, _P],
+    "ceres_implicit_apply": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                             _P, _P],
 }
 
 _lock = threading.Lock()

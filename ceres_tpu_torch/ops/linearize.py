@@ -1,10 +1,10 @@
-"""K11: bucket linearize of the registered pose-graph functors.
+"""K11: bucket linearize of the registered functors.
 
 Counterpart of ceres_tpu/ops/pallas_linearize.py: a registry of hand
 specs keyed by the functor's class name, a structural gate, and one
 kernel (csrc/linearize.cu) that gives a bucket's residuals r [n, R] and
 tangent-space Jacobian J [n, R, nt] in one pass, the manifold's Plus
-seeded into the jets. Registered, as in the JAX package:
+seeded into the jets. Registered, the pose graphs as in the JAX package:
 
   PoseGraph3dErrorTerm (SE3): r = 6, slots [3, 4 (EigenQuaternion), 3,
     4 (EigenQuaternion)], nt = 12; a quaternion slot is seeded through
@@ -14,6 +14,11 @@ seeded into the jets. Registered, as in the JAX package:
     like Euclidean ones, and the residual wraps the angle in the
     branchless form v - 2 pi round(v / 2 pi) (derivative 1), which agrees
     with the functor's atan2(sin, cos) except at odd multiples of pi.
+  SnavelyReprojectionError: r = 2, slots [9 (camera), 3 (point)], both
+    Euclidean, nt = 12. The JAX package runs this bucket through the
+    same kernel with the spec its jet compiler derives from the functor
+    (pallas_linearize.py _spec_for, ops/jet_compile.py); here the spec is
+    written by hand (K1's jet chain, csrc/snavely.cuh).
 
 `linearize_spec(bk)` is the gate: the spec of a bucket whose
 every slot is variable and whose shape, manifolds and data fields match,
@@ -35,6 +40,7 @@ import numpy as np
 import torch
 
 from . import _cuda
+from ..examples.snavely import SnavelyReprojectionError
 from ..manifolds import AutoDiffManifold, EigenQuaternionManifold
 from ..rotation import quaternion_product
 
@@ -46,8 +52,8 @@ class Spec(NamedTuple):
     p_in: int                      # parameter floats per row
     data_fields: tuple             # ((name, width), ...)
     residual: object               # (delta [nt], x [p_in], dat) -> r [R]
-    slot_sizes: list               # ambient sizes [position, rotation] x 2
-    rotation_slot: object          # manifold -> bool, for slots 1 and 3
+    slot_sizes: list               # ambient size of each slot
+    slot_manifolds: tuple          # manifold -> bool, for each slot
 
     @property
     def p_dat(self):
@@ -117,6 +123,22 @@ def _pose2d_residual(d, x, dat):
     return _mat_vec(sqrt_info, r3, 3)
 
 
+def _snavely_residual(d, x, dat):
+    """SnavelyReprojectionError on seeded slots: x = [camera, point],
+    dat = [observed_x, observed_y]; the functor itself, so the plain
+    version is the jacfwd path's arithmetic."""
+    xs = x + d
+    return SnavelyReprojectionError(dat[0], dat[1])(xs[:9], xs[9:])
+
+
+def _is_euclidean(m) -> bool:
+    return m is None
+
+
+def _is_eigen_quaternion(m) -> bool:
+    return type(m) is EigenQuaternionManifold
+
+
 def _is_angle_manifold(m) -> bool:
     """A behavioural probe, as the JAX package's: an AutoDiffManifold of
     size 1 whose plus wraps x + d to (-pi, pi] (circular distance, on
@@ -141,10 +163,14 @@ SPECS = {
     "PoseGraph3dErrorTerm": Spec(
         0, 6, 12, 14, (("t_ab", 3), ("q_ab", 4), ("sqrt_information", 36)),
         _pose3d_residual, [3, 4, 3, 4],
-        lambda m: type(m) is EigenQuaternionManifold),
+        (_is_euclidean, _is_eigen_quaternion) * 2),
     "PoseGraph2dErrorTerm": Spec(
         1, 3, 6, 6, (("t_ab", 2), ("yaw_ab", 1), ("sqrt_information", 9)),
-        _pose2d_residual, [2, 1, 2, 1], _is_angle_manifold),
+        _pose2d_residual, [2, 1, 2, 1],
+        (_is_euclidean, _is_angle_manifold) * 2),
+    "SnavelyReprojectionError": Spec(
+        2, 2, 12, 12, (("observed_x", 1), ("observed_y", 1)),
+        _snavely_residual, [9, 3], (_is_euclidean, _is_euclidean)),
 }
 
 
@@ -159,13 +185,10 @@ def linearize_spec(bk) -> Optional[Spec]:
         return None
     if [sl.amb_size for sl in bk.slots] != spec.slot_sizes:
         return None
-    for i, sl in enumerate(bk.slots):
+    for sl, manifold_ok in zip(bk.slots, spec.slot_manifolds):
         if not sl.variable:
             return None         # the gauge bucket: constant slots
-        if i % 2 == 1:
-            if not spec.rotation_slot(sl.manifold):
-                return None
-        elif sl.manifold is not None:
+        if not manifold_ok(sl.manifold):
             return None
     return spec
 

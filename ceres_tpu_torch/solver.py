@@ -5,7 +5,9 @@ _make_linear_solver, :34; make_scale_impl, :94; _maybe_downgrade_options,
 :612): validate, build the program on `options.device`, downgrade a Schur
 solver on a problem without Schur structure, then run the fused LM loop
 with the step of the configuration: the fused Schur step (DENSE_SCHUR,
-ITERATIVE_SCHUR) or the generic LM step (CGNR). Write back.
+ITERATIVE_SCHUR on an explicit S, or ITERATIVE_SCHUR in the implicit mode
+past the explicit cap; the summary's message names the mode) or the
+generic LM step (CGNR). Write back.
 Configurations outside the slices raise NotImplementedError naming the
 ROADMAP.md item that ports them; none runs another path quietly.
 """
@@ -25,7 +27,7 @@ from .program import CompiledProgram
 from .solvers.cg import solve_cgnr
 from .solvers.preconditioners import make_block_jacobi_preconditioner
 from .solvers.schur import detect_schur_structure
-from .solvers.schur_fused import FusedSchurStep
+from .solvers.schur_fused import SchurStep, schur_step
 from .types import (DumpFormatType, LinearSolverType, MinimizerType,
                     PreconditionerType, SolverOptions, SolverSummary,
                     TerminationType, TrustRegionStrategyType)
@@ -301,7 +303,7 @@ def solve(options: SolverOptions, problem,
     key = options.cache_key()
     if key not in steps:
         if options.linear_solver_type in _SCHUR_SOLVERS:
-            steps[key] = FusedSchurStep(
+            steps[key] = schur_step(
                 program, options, detect_schur_structure(program, options))
         else:
             steps[key] = GenericLMStep(program, options)
@@ -311,6 +313,8 @@ def solve(options: SolverOptions, problem,
     summary.preprocessor_time_in_seconds = time.time() - t0
 
     x = run_fused(program, options, summary, step)
+    if isinstance(step, SchurStep):
+        summary.message += f" Schur step: {step.mode}."
 
     t0 = time.time()
     if summary.is_solution_usable():

@@ -1,5 +1,8 @@
-"""Fused Schur LM step for Snavely bundle adjustment (mixed precision):
-DENSE_SCHUR, and ITERATIVE_SCHUR on an explicit reduced camera matrix S.
+"""Fused Schur LM steps for bundle adjustment (mixed precision):
+FusedSchurStep, DENSE_SCHUR and ITERATIVE_SCHUR on an explicit reduced
+camera matrix S, for the Snavely bucket; ImplicitSchurStep,
+ITERATIVE_SCHUR in the implicit (matrix-free) mode for any functor with
+the [points | cameras] layout; `schur_step` picks one of them.
 
 Counterpart of ceres_tpu/solvers/schur_fused.py (make_fused_schur_lm_step
 with the Pallas lin phase, :386-416; _lin_phase_pallas, :477-554; the
@@ -27,6 +30,23 @@ places as the JAX package:
     an inexact CG step breaks the direct solve's identity.
   cost (every candidate): K4 -> f64 ||r||^2 per observation; rho and the
     sum in f64.
+
+The implicit mode (ceres_tpu's _lin_phase_generic implicit branches,
+:556-795, and _solve_phase's implicit branch, :887-1038, :1059-1092)
+runs where S and A = E^T F are too large to form (_explicit_viable):
+  linearize: per bucket the f64 residual pass, the f32 Jacobian (K11
+    where a hand spec matches, Snavely among them; else jacfwd), the
+    loss correction and the chunk gather; E^T E, g_e, and F^T F, g_f
+    by camera-chunk gather and sum; the scales and scaled Grams as above;
+    the unscaled chunk tensors Je [ne, k, r, te], Jf [ne, k, r, tf] kept.
+  solve: inv, z, the scaled chunks, the reduced rhs, the preconditioner
+    blocks (SCHUR_JACOBI exactly, with the within-chunk and cross-bucket
+    duplicate-camera terms); CG from y = 0 whose operator S v is one K10
+    launch, a camera-chunk reduce and + D_f^2 v when the program has one
+    bucket with e and f slots, plain PyTorch over the buckets otherwise
+    (as in the JAX package); the back-substitution; ||J_s d||^2 from the
+    chunk tensors.
+  cost: K4 for a single Snavely bucket, else the program's f64 pass.
 """
 
 from __future__ import annotations
@@ -38,11 +58,14 @@ import numpy as np
 import torch
 
 from ..examples.snavely import SnavelyReprojectionError
+from ..loss import correct_residuals_and_jacobian
 from ..ops.cost import snavely_sq
+from ..ops.implicit import MAX_R, MAX_TE, MAX_TF, implicit_apply
 from ..ops.kernels import MAX_M, chol_solve
 from ..ops.lin import elim, elim_v1, lin, spd_inv3
 from ..ops.pcg import dense_pcg
 from ..types import LinearSolverType, PreconditionerType
+from .cg import conjugate_gradients
 from .preconditioners import spd_inv_small
 
 TF, TE = 9, 3
@@ -66,13 +89,58 @@ def _slab_of(cols: np.ndarray) -> Optional[int]:
 
 def _explicit_viable(meta) -> bool:
     """Dense S and the materialized A = E^T F affordable? Past these caps
-    the JAX package runs the matrix-free implicit mode."""
+    ITERATIVE_SCHUR runs the matrix-free implicit mode."""
     return meta.nf <= 4096 and meta.ne * meta.te * meta.nf <= 4.2e8
 
 
-def unsupported_reason(program, options, meta) -> Optional[str]:
-    """Why this configuration is outside the ported slice (naming the
-    ROADMAP.md item that ports it), or None."""
+def implicit_mode(options, meta) -> bool:
+    """Does ITERATIVE_SCHUR run the implicit (matrix-free) step? Exactly
+    when the explicit S is not viable (ceres_tpu schur_fused.py:263;
+    building ImplicitSchurStep directly forces the mode, as
+    CERES_TPU_FORCE_IMPLICIT does there)."""
+    return (options.linear_solver_type == LinearSolverType.ITERATIVE_SCHUR
+            and meta is not None and not _explicit_viable(meta))
+
+
+def _k10_bucket(program, meta) -> bool:
+    """One bucket with both an e and an f slot: the CG operator is K10
+    (the JAX package's gate, schur_fused.py:344-347)."""
+    return (len(program.buckets) == 1 and meta.buckets[0].e_slot is not None
+            and meta.buckets[0].f_cols is not None)
+
+
+def _implicit_unsupported(program, options, meta) -> Optional[str]:
+    """unsupported_reason's checks of the implicit step: ITERATIVE_SCHUR,
+    every e-bucket in the chunk layout, one f slot per bucket (ceres_tpu's
+    fused_structure_ok without one-hots), the [points | cameras] state
+    layout, and K10's compile-time maxima on the card."""
+    if options.linear_solver_type != LinearSolverType.ITERATIVE_SCHUR:
+        return (f"{options.linear_solver_type} in the implicit mode, which "
+                "serves ITERATIVE_SCHUR only (as in the JAX package)")
+    for bs in meta.buckets:
+        if bs.e_slot is not None and bs.chunk_rows is None:
+            return ("a bucket with no chunk layout (ROADMAP.md item 18, "
+                    "the rest of solvers/schur.py)")
+        if bs.f_cols is not None and len(bs.f_slots) != 1:
+            return ("a residual block on two f blocks (ROADMAP.md item 18, "
+                    "the rest of solvers/schur.py)")
+    grp = meta.f_groups[0]
+    if not program.tangent_is_ambient or _slab_of(meta.e_cols) != 0 or \
+            _slab_of(meta.f_global_cols[grp["cols"]]) != meta.ne * meta.te:
+        return ("constant blocks or another state layout than [points | "
+                "cameras] (ROADMAP.md item 11, the rest of "
+                "solvers/schur_fused.py)")
+    if torch.device(options.device).type == "cuda" and \
+            _k10_bucket(program, meta) and (
+                meta.te > MAX_TE or grp["t"] > MAX_TF
+                or program.buckets[0].r > MAX_R):
+        return (f"K10 past r <= {MAX_R}, te <= {MAX_TE}, tf <= {MAX_TF} "
+                "(ROADMAP.md item 39)")
+    return None
+
+
+def _common_unsupported(program, options, meta) -> Optional[str]:
+    """unsupported_reason's checks of both Schur steps."""
     lst = options.linear_solver_type
     iterative = lst == LinearSolverType.ITERATIVE_SCHUR
     if lst == LinearSolverType.SPARSE_SCHUR:
@@ -101,6 +169,12 @@ def unsupported_reason(program, options, meta) -> Optional[str]:
     if meta is None or len(meta.f_groups) != 1:
         return ("no single-group Schur structure (ROADMAP.md item 18, the "
                 "rest of solvers/schur.py)")
+    return None
+
+
+def _explicit_unsupported(program, options, meta) -> Optional[str]:
+    """unsupported_reason's checks of the explicit step (K1 on one
+    Snavely bucket, S formed densely)."""
     if len(program.buckets) != 1 or len(meta.buckets) != 1:
         return ("more than one residual-block bucket (ROADMAP.md item 11, "
                 "the generic fused lin phase)")
@@ -125,17 +199,39 @@ def unsupported_reason(program, options, meta) -> Optional[str]:
         return ("a robust loss on the CUDA path (ROADMAP.md item 9, "
                 "robust-loss K1)")
     if not _explicit_viable(meta):
-        if iterative:
-            return ("the implicit (matrix-free) ITERATIVE_SCHUR regime, "
-                    "where S and A are too large to form (ROADMAP.md item "
-                    "23, slice 4)")
-        return ("a reduced camera system too large to form densely "
-                "(ROADMAP.md item 18, the rest of solvers/schur.py)")
+        return (f"{options.linear_solver_type} on a reduced camera system "
+                "too large to form densely (ROADMAP.md item 18, the rest of "
+                "solvers/schur.py; ITERATIVE_SCHUR runs ImplicitSchurStep "
+                "there)")
     if meta.nf > MAX_M:
         return (f"a reduced camera system of m = {meta.nf} > {MAX_M}, past "
                 "the one-block K3 and K7 (ROADMAP.md item 37, K7 and K3 "
                 "beyond m = 1024)")
     return None
+
+
+def unsupported_reason(program, options, meta,
+                       implicit: Optional[bool] = None) -> Optional[str]:
+    """Why this configuration is outside the ported slice (naming the
+    ROADMAP.md item that ports it), or None: for the implicit step
+    (implicit=True), the explicit one (False), or the one `schur_step`
+    picks (None)."""
+    reason = _common_unsupported(program, options, meta)
+    if reason is not None:
+        return reason
+    if implicit is None:
+        implicit = implicit_mode(options, meta)
+    check = _implicit_unsupported if implicit else _explicit_unsupported
+    return check(program, options, meta)
+
+
+def schur_step(program, options, meta):
+    """The Schur step of the configuration: ImplicitSchurStep exactly
+    when implicit_mode holds, else FusedSchurStep. Both raise
+    NotImplementedError outside the ported slices."""
+    cls = ImplicitSchurStep if implicit_mode(options, meta) else \
+        FusedSchurStep
+    return cls(program, options, meta)
 
 
 def precond_blocks(P_blocks, S, kf, tf, kind):
@@ -148,6 +244,151 @@ def precond_blocks(P_blocks, S, kf, tf, kind):
         ii = torch.arange(kf, device=S.device)
         return S.view(kf, tf, kf, tf)[ii, :, ii, :]
     return P_blocks
+
+
+# ----------------------------------------------------------------------
+# camera-chunk layouts of the implicit mode (numpy, once per program)
+
+def cam_chunk_layout(cams, positions, kf: int):
+    """Group `positions` (row ids) by f-block id `cams` into a dense
+    [kf, kc] index layout with a validity mask, kc the most rows of one
+    f block: the camera-chunk form the implicit reductions gather over
+    (ceres_tpu's cam_chunk_layout)."""
+    cams = np.asarray(cams, dtype=np.int64)
+    positions = np.asarray(positions)
+    counts = np.bincount(cams, minlength=kf)
+    kc = max(1, int(counts.max()) if counts.size else 1)
+    order = np.argsort(cams, kind="stable")
+    starts = np.zeros(kf, dtype=np.int64)
+    starts[1:] = np.cumsum(counts)[:-1]
+    rank = np.arange(len(cams), dtype=np.int64) - starts[cams[order]]
+    rows = np.zeros((kf, kc), dtype=np.int32)
+    mask = np.zeros((kf, kc), dtype=np.float32)
+    rows[cams[order], rank] = positions[order].astype(np.int32)
+    mask[cams[order], rank] = 1.0
+    return rows, mask
+
+
+def chunk_has_dup_cams(fids, mask) -> bool:
+    """Does any chunk row observe the same f block through more than one
+    valid lane? Then the implicit SCHUR_JACOBI assembly needs the
+    within-chunk cross terms."""
+    fs = np.sort(np.where(np.asarray(mask) > 0, np.asarray(fids), -1),
+                 axis=1)
+    return bool(np.any((fs[:, 1:] == fs[:, :-1]) & (fs[:, 1:] >= 0)))
+
+
+def build_cam_chunks(local, chunk_rows, chunk_mask, kf):
+    """Camera-chunk layout of one bucket (ceres_tpu's _build_cam_chunks,
+    which registers the same arrays as program constants): (rows [kf, kc]
+    int32, mask [kf, kc] f32) of flat positions into the point-chunk
+    layout, or into observation order when chunk_rows is None; padded
+    lanes are masked and point at position 0."""
+    n = local.shape[0]
+    if chunk_rows is not None:
+        flat_rows = chunk_rows.reshape(-1)
+        flat_valid = chunk_mask.reshape(-1) > 0
+        pos_of_row = np.zeros(n, dtype=np.int64)
+        pos_of_row[flat_rows[flat_valid]] = np.nonzero(flat_valid)[0]
+    else:
+        pos_of_row = np.arange(n, dtype=np.int64)
+    return cam_chunk_layout(local, pos_of_row, kf)
+
+
+def detect_cross_bucket_dups(e_entries):
+    """Which ordered pairs (i < j) of e-buckets share a (point, camera)
+    observation? e_entries: list of (fids [ne, k], valid [ne, k] bool)."""
+    stride = 1 + max((int(np.asarray(f).max(initial=0))
+                      for f, _ in e_entries), default=0)
+    keys = []
+    for fids, valid in e_entries:
+        fids = np.asarray(fids, dtype=np.int64)
+        valid = np.asarray(valid, dtype=bool)
+        n_idx = np.broadcast_to(
+            np.arange(fids.shape[0], dtype=np.int64)[:, None], fids.shape)
+        keys.append(np.unique(n_idx[valid] * stride + fids[valid]))
+    return [(i, j)
+            for i in range(len(keys)) for j in range(i + 1, len(keys))
+            if np.intersect1d(keys[i], keys[j], assume_unique=True).size]
+
+
+# ----------------------------------------------------------------------
+# implicit-mode tensor helpers (ceres_tpu schur_fused.py :62-82, :1258-1374)
+
+def _chunk_gather(T, rows, mask):
+    """T [n, ...] -> T[rows] * mask for rows, mask [ne, k]."""
+    return T[rows] * mask.view(mask.shape + (1,) * (T.dim() - 1))
+
+
+def _outer_rt(Ja, Jb):
+    """sum_r Ja[..., r, :] (x) Jb[..., r, :] -> [..., ta, tb]."""
+    return torch.einsum("...ra,...rb->...ab", Ja, Jb)
+
+
+def mv(J, v):
+    """[..., r, t] x [..., t] -> [..., r]."""
+    return torch.einsum("...rt,...t->...r", J, v)
+
+
+def rvec_rt(J, w):
+    """sum_r J[..., r, :] * w[..., r] -> [..., t]."""
+    return torch.einsum("...rt,...r->...t", J, w)
+
+
+def cam_reduce(contrib, camr, camm):
+    """[rows..., w] -> [kf, w] by camera-chunk gather and a sum over each
+    chunk in lane order (camr [kf, kc] positions into the flattened
+    rows)."""
+    flat = contrib.reshape(-1, contrib.shape[-1])
+    return torch.sum(flat[camr] * camm[..., None], dim=1)
+
+
+def _spd_inv_e(M):
+    """[n, t, t] SPD -> inverse: by cofactors for t = 3, as ceres_tpu's
+    _spd_inv_small; by Cholesky otherwise."""
+    return spd_inv3(M) if M.shape[-1] == 3 else spd_inv_small(M)
+
+
+def sj_chunk_blocks(Ge_s, M, fids, dup: bool):
+    """Per-lane contributions [ne, k, tf, tf] to the block diagonal of S
+    (ceres_tpu's _sj_chunk_blocks, which returns them transposed as
+    [tf*tf, k, ne] for the TPU's tiling): Ge^T inv Ge per lane with
+    M = inv Ge; with dup=True (a camera sees a point through several
+    lanes) the cross terms between same-camera lanes too, so the
+    SCHUR_JACOBI blocks stay the exact diagonal of S."""
+    if not dup:
+        return torch.einsum("nkut,nkuv->nktv", Ge_s, M)
+    out = None
+    for k2 in range(Ge_s.shape[1]):
+        eq = (fids == fids[:, k2:k2 + 1]).to(Ge_s.dtype)        # [ne, k]
+        C = torch.einsum("nkut,nuv->nktv", Ge_s, M[:, k2]) \
+            * eq[:, :, None, None]
+        out = C if out is None else out + C
+    return out
+
+
+def sj_cross_pair_blocks(Ge1_s, Ge2_s, inv_ete, fids1, fids2):
+    """Cross-bucket correction [ne, k1, tf, tf] of the implicit
+    SCHUR_JACOBI blocks where the same (camera, point) pair has rows in
+    two buckets (ceres_tpu's _sj_cross_pair_blocks): C + C^T with
+    C[n, k1] = sum over k2 with fids2[n, k2] == fids1[n, k1] of
+    Ge1[n, k1]^T inv[n] Ge2[n, k2], reduced with bucket 1's layout."""
+    MG2 = torch.einsum("nuv,nlvt->nlut", inv_ete, Ge2_s)
+    eq = (fids1[:, :, None] == fids2[:, None, :]).to(Ge1_s.dtype)
+    C = torch.einsum("nkut,nlum,nkl->nktm", Ge1_s, MG2, eq)
+    return C + C.transpose(-1, -2)
+
+
+def precond_from_blocks(blocks):
+    """Block-diagonal preconditioner apply from [kf, tf, tf] SPD blocks,
+    inverted once (ceres_tpu's _precond_from_blocks)."""
+    kf, tf, _ = blocks.shape
+    inv = spd_inv_small(blocks)
+
+    def apply(v):
+        return torch.sum(inv * v.view(kf, 1, tf), dim=-1).reshape(kf * tf)
+
+    return apply
 
 
 @dataclass
@@ -172,22 +413,48 @@ class Linearization:
         return (self.s_e, self.s_f)
 
 
-class FusedSchurStep:
-    """The slice's LM step: `linearize`, `solve` and `cost` over the
-    tensors of one program, for DENSE_SCHUR or ITERATIVE_SCHUR. Holds the
-    chunk-layout constants on the program's device."""
+@dataclass
+class ImplicitLinearization:
+    """Radius-independent artifacts of one linearization in the implicit
+    mode (f32 unless noted), with the unscaled chunk tensors the damped
+    solves read (ceres_tpu's keep_chunks)."""
+    cost: torch.Tensor          # f64 total cost at x
+    EtE_s: torch.Tensor         # [ne, te, te] scaled point Grams
+    FtF_s: torch.Tensor         # [kf, tf, tf] scaled camera Grams
+    g_se: torch.Tensor          # [ne, te] scaled e gradient
+    g_sf: torch.Tensor          # [nf] scaled f gradient
+    diag_e: torch.Tensor        # [ne, te] clipped scaled diagonal
+    diag_f: torch.Tensor        # [kf, tf] clipped scaled diagonal
+    s_e: torch.Tensor           # [ne, te]
+    s_f: torch.Tensor           # [kf, tf]
+    grad_max: torch.Tensor      # f64 max |gradient|
+    grad_norm: torch.Tensor     # f64 ||gradient||
+    chunks: list                # (kind, Je, Jf, plan) per bucket
+
+    @property
+    def scales(self):
+        return (self.s_e, self.s_f)
+
+
+class _BucketPlan:
+    """One bucket of the implicit mode: its kind ("e": e and f slots in
+    the chunk layout, "e0": e slot only, "f": f slot only), the offsets
+    of its slots in the bucket Jacobian and its layouts on the device."""
+    __slots__ = ("bk", "kind", "eo", "fo", "rows", "mask", "fids",
+                 "fids32", "camr", "camm", "dup")
+
+
+class SchurStep:
+    """What the explicit and the implicit Schur steps share: the options,
+    the shape of the single f group, the zero initial scales and the
+    candidate cost (K4 for a single Snavely bucket). Holds the layout
+    constants on the program's device."""
 
     def __init__(self, program, options, meta):
-        reason = unsupported_reason(program, options, meta)
-        if reason is not None:
-            raise NotImplementedError(f"not in the ported slice: {reason}")
         self.program = program
         self.use_scaling = bool(options.jacobi_scaling)
         self.min_diag = options.min_lm_diagonal
         self.max_diag = options.max_lm_diagonal
-        self.loss = program.buckets[0].loss
-        self.iterative = (options.linear_solver_type
-                          == LinearSolverType.ITERATIVE_SCHUR)
         self.preconditioner = options.preconditioner_type
         self.pcg_args = dict(
             max_iterations=options.max_linear_solver_iterations,
@@ -196,11 +463,64 @@ class FusedSchurStep:
         bk, bs = program.buckets[0], meta.buckets[0]
         grp = meta.f_groups[0]
         self.ne, self.kf = meta.ne, grp["kf"]
-        self.nf = self.kf * TF
+        self.te, self.tf = meta.te, grp["t"]
+        self.nf = self.kf * self.tf
         self.e_slab = _slab_of(meta.e_cols)
         self.f_slab = _slab_of(meta.f_global_cols[grp["cols"]])
+        self.loss = bk.loss
+        # K4 prices the candidates of a single Snavely bucket
+        self.k4 = (len(program.buckets) == 1
+                   and isinstance(getattr(bk.cost, "functor", None),
+                                  SnavelyReprojectionError)
+                   and bs.e_slot is not None and bs.f_cols is not None
+                   and (self.te, self.tf, bk.r) == (TE, TF, 2))
+        if self.k4:
+            # K4 inputs, bucket row order
+            dev = program.device
+            local = next(s[2] for s in grp["slots"] if s[0] == 0)
+            self.pt_idx = torch.as_tensor(bs.e_ids.astype(np.int32),
+                                          device=dev)
+            self.cam_idx = torch.as_tensor(np.asarray(local, np.int32),
+                                           device=dev)
+            self.obsx64 = bk.data["observed_x"].contiguous()
+            self.obsy64 = bk.data["observed_y"].contiguous()
+
+    def initial_scales(self):
+        """Zero scales for the first linearization (which derives them)."""
+        dev = self.program.device
+        return (torch.zeros(self.ne, self.te, dtype=torch.float32,
+                            device=dev),
+                torch.zeros(self.kf, self.tf, dtype=torch.float32,
+                            device=dev))
+
+    def cost(self, x):
+        """f64 total cost at x: K4 for a single Snavely bucket, else the
+        program's f64 residual pass."""
+        if not self.k4:
+            return self.program.cost_fn(x)
+        sq = snavely_sq(x, self.e_slab, self.f_slab, self.pt_idx,
+                        self.cam_idx, self.obsx64, self.obsy64)
+        rho = sq if self.loss is None else self.loss.evaluate(sq)[0]
+        return self.program.fixed_cost + 0.5 * torch.sum(rho)
+
+
+class FusedSchurStep(SchurStep):
+    """The explicit Schur LM step: `linearize`, `solve` and `cost` for
+    DENSE_SCHUR, or ITERATIVE_SCHUR on an explicit S, over the Snavely
+    bucket through K1."""
+
+    mode = "explicit reduced camera matrix"
+
+    def __init__(self, program, options, meta):
+        reason = unsupported_reason(program, options, meta, implicit=False)
+        if reason is not None:
+            raise NotImplementedError(f"not in the ported slice: {reason}")
+        super().__init__(program, options, meta)
+        self.iterative = (options.linear_solver_type
+                          == LinearSolverType.ITERATIVE_SCHUR)
+        bk, bs = program.buckets[0], meta.buckets[0]
         dev = program.device
-        (_, _, local) = [s for s in grp["slots"] if s[0] == 0][0]
+        local = next(s[2] for s in meta.f_groups[0]["slots"] if s[0] == 0)
         rows, cmask = bs.chunk_rows, bs.chunk_mask       # [ne, k]
         obs_x = bk.data["observed_x"].cpu().numpy()
         obs_y = bk.data["observed_y"].cpu().numpy()
@@ -216,31 +536,10 @@ class FusedSchurStep:
                                     device=dev)
         self.obsx = chunk(obs_x.astype(np.float32), np.float32)
         self.obsy = chunk(obs_y.astype(np.float32), np.float32)
-        # K4 inputs, bucket row order
-        self.pt_idx = torch.as_tensor(bs.e_ids.astype(np.int32),
-                                      device=dev)
-        self.cam_idx = torch.as_tensor(np.asarray(local, np.int32),
-                                       device=dev)
-        self.obsx64 = bk.data["observed_x"].contiguous()
-        self.obsy64 = bk.data["observed_y"].contiguous()
         # a direct solve is one linear iteration (kept on the device)
         self.one = torch.ones((), dtype=torch.int32, device=dev)
 
-    def initial_scales(self):
-        """Zero scales for the first linearization (which derives them)."""
-        dev = self.program.device
-        return (torch.zeros(self.ne, TE, dtype=torch.float32, device=dev),
-                torch.zeros(self.kf, TF, dtype=torch.float32, device=dev))
-
-    def cost(self, x):
-        """f64 total cost at x through K4."""
-        sq = snavely_sq(x, self.e_slab, self.f_slab, self.pt_idx,
-                        self.cam_idx, self.obsx64, self.obsy64)
-        rho = sq if self.loss is None else self.loss.evaluate(sq)[0]
-        return self.program.fixed_cost + 0.5 * torch.sum(rho)
-
-    def linearize(self, x, s_e, s_f, first: bool,
-                  known_cost=None) -> Linearization:
+    def linearize(self, x, s_e, s_f, first: bool, known_cost=None):
         """Linearize at x. first=True derives the Jacobi scales from this
         linearization's Gram diagonals; otherwise s_e/s_f are used."""
         if known_cost is None:
@@ -353,4 +652,280 @@ class FusedSchurStep:
             "model_cost_change": mcc.double(),
             "step_norm": torch.linalg.vector_norm(delta),
             "lin_iters": lin_iters,
+        }
+
+
+class ImplicitSchurStep(SchurStep):
+    """The implicit (matrix-free) ITERATIVE_SCHUR LM step, with the same
+    linearize/solve/cost/initial_scales protocol as FusedSchurStep, for
+    any functor with the [points | cameras] layout (its Jacobian by K11
+    where a hand spec matches, else by jacfwd) and any number of buckets
+    (ceres_tpu schur_fused.py _lin_phase_generic's implicit branches,
+    :556-795; _solve_phase's implicit branch, :887-1038, and its model
+    cost change, :1059-1092). `schur_step` picks it exactly when the
+    explicit S is not viable; building it directly forces the mode, as
+    ceres_tpu's CERES_TPU_FORCE_IMPLICIT does (for the tests). Holds the
+    per-bucket plans and layouts (ceres_tpu schur_fused.py :275-331):
+    chunk rows and masks, the camera of each lane, the camera-chunk
+    layouts, duplicate cameras within a chunk and cross-bucket duplicate
+    (camera, point) pairs."""
+
+    def __init__(self, program, options, meta):
+        reason = unsupported_reason(program, options, meta, implicit=True)
+        if reason is not None:
+            raise NotImplementedError(f"not in the ported slice: {reason}")
+        super().__init__(program, options, meta)
+        grp = meta.f_groups[0]
+        dev = program.device
+
+        def on_dev(a, dtype=None):
+            return torch.as_tensor(np.ascontiguousarray(a), dtype=dtype,
+                                   device=dev)
+
+        self.plans, e_entries = [], []
+        for bi, (bk, bs) in enumerate(zip(program.buckets, meta.buckets)):
+            var = [sl for sl in bk.slots if sl.variable]
+            offs = np.cumsum([0] + [sl.tangent_size for sl in var])
+            p = _BucketPlan()
+            p.bk = bk
+            p.kind = ("e" if bs.f_cols is not None else "e0") \
+                if bs.e_slot is not None else "f"
+            p.eo = int(offs[bs.e_slot]) if bs.e_slot is not None else None
+            p.fo = int(offs[bs.f_slots[0]]) if bs.f_slots else None
+            p.rows = p.mask = p.fids = p.fids32 = p.camr = p.camm = None
+            p.dup = False
+            local = None
+            if bs.f_cols is not None:
+                local = [s for s in grp["slots"] if s[0] == bi][0][2]
+                chunked = p.kind == "e"
+                camr, camm = build_cam_chunks(
+                    local, bs.chunk_rows if chunked else None,
+                    bs.chunk_mask if chunked else None, self.kf)
+                p.camr, p.camm = on_dev(camr, torch.long), on_dev(camm)
+            if bs.e_slot is not None:
+                p.rows = on_dev(bs.chunk_rows, torch.long)
+                p.mask = on_dev(bs.chunk_mask, torch.float32)
+            if p.kind == "e":
+                fids = np.asarray(local)[bs.chunk_rows]         # [ne, k]
+                p.fids = on_dev(fids, torch.long)
+                p.fids32 = on_dev(fids, torch.int32)
+                p.dup = chunk_has_dup_cams(fids, bs.chunk_mask)
+                e_entries.append((fids, bs.chunk_mask > 0))
+            elif p.kind == "f":
+                p.fids = on_dev(local, torch.long)
+            self.plans.append(p)
+        self.k10 = _k10_bucket(program, meta)
+        self.cross_pairs = detect_cross_bucket_dups(e_entries)
+        self.mode = ("implicit (matrix-free) Schur complement, CG operator "
+                     + ("K10" if self.k10 else "in plain PyTorch over "
+                        f"{len(self.plans)} buckets"))
+
+    def linearize(self, x, s_e_in, s_f_in, first: bool,
+                  known_cost=None):
+        """Per bucket: the f64 residual pass (the cost, unless the loop
+        carries it), the f32 Jacobian (K11 where a hand spec matches, else
+        jacfwd), the robust-loss correction, the chunk gather, and the
+        bucket's part of E^T E, g_e, F^T F and g_f (the camera parts by
+        camera-chunk gather and sum). Then the Jacobi scales, the scaled
+        Grams and the clipped diagonals."""
+        program = self.program
+        ne, te, kf, tf = self.ne, self.te, self.kf, self.tf
+        f32, dev = torch.float32, program.device
+        total = torch.tensor(program.fixed_cost, dtype=torch.float64,
+                             device=dev)
+        EtE = torch.zeros(ne, te, te, dtype=f32, device=dev)
+        g_e = torch.zeros(ne, te, dtype=f32, device=dev)
+        FtF = torch.zeros(kf, tf, tf, dtype=f32, device=dev)
+        g_f = torch.zeros(kf, tf, dtype=f32, device=dev)
+        chunks = []
+        for p in self.plans:
+            r64 = program._bucket_residuals(p.bk, x)
+            if known_cost is None:
+                cost, _, _ = correct_residuals_and_jacobian(p.bk.loss, r64,
+                                                            None)
+                total = total + torch.sum(cost)
+            _, J32 = program._bucket_linearize32(p.bk, x)
+            _, rc, Jc = correct_residuals_and_jacobian(
+                p.bk.loss, r64.to(f32), J32.to(f32))
+            rc, Jc = rc.to(f32), Jc.to(f32)
+            Je = Jf = None
+            if p.kind == "f":
+                Jf = Jc[..., p.fo:p.fo + tf]                    # [n, r, tf]
+                FtF = FtF + cam_reduce(
+                    _outer_rt(Jf, Jf).reshape(-1, tf * tf), p.camr,
+                    p.camm).view(kf, tf, tf)
+                g_f = g_f + cam_reduce(rvec_rt(Jf, rc), p.camr, p.camm)
+            else:
+                Jg = _chunk_gather(Jc, p.rows, p.mask)          # [ne,k,r,t]
+                rg = _chunk_gather(rc, p.rows, p.mask)          # [ne,k,r]
+                Je = Jg[..., p.eo:p.eo + te]
+                EtE = EtE + torch.sum(_outer_rt(Je, Je), dim=1)
+                g_e = g_e + torch.sum(rvec_rt(Je, rg), dim=1)
+                if p.kind == "e":
+                    Jf = Jg[..., p.fo:p.fo + tf]
+                    FtF = FtF + cam_reduce(
+                        _outer_rt(Jf, Jf).reshape(-1, tf * tf), p.camr,
+                        p.camm).view(kf, tf, tf)
+                    g_f = g_f + cam_reduce(rvec_rt(Jf, rg), p.camr,
+                                           p.camm)
+            chunks.append((p.kind, Je, Jf, p))
+        if known_cost is not None:
+            total = known_cost
+
+        cn_e = torch.diagonal(EtE, dim1=-2, dim2=-1)            # [ne, te]
+        cn_f = torch.diagonal(FtF, dim1=-2, dim2=-1)            # [kf, tf]
+        if not self.use_scaling:
+            s_e, s_f = torch.ones_like(cn_e), torch.ones_like(cn_f)
+        elif first:
+            s_e = 1.0 / (1.0 + torch.sqrt(cn_e))
+            s_f = 1.0 / (1.0 + torch.sqrt(cn_f))
+        else:
+            s_e, s_f = s_e_in, s_f_in
+        g_f_flat = g_f.reshape(-1)
+        return ImplicitLinearization(
+            cost=total,
+            EtE_s=EtE * (s_e[:, :, None] * s_e[:, None, :]),
+            FtF_s=FtF * (s_f[:, :, None] * s_f[:, None, :]),
+            g_se=g_e * s_e, g_sf=(g_f * s_f).reshape(-1),
+            diag_e=torch.clamp(s_e * s_e * cn_e, self.min_diag,
+                               self.max_diag),
+            diag_f=torch.clamp(s_f * s_f * cn_f, self.min_diag,
+                               self.max_diag),
+            s_e=s_e, s_f=s_f,
+            grad_max=torch.maximum(g_e.abs().max(),
+                                   g_f_flat.abs().max()).double(),
+            grad_norm=torch.sqrt(torch.dot(g_e.reshape(-1), g_e.reshape(-1))
+                                 + torch.dot(g_f_flat, g_f_flat)).double(),
+            chunks=chunks)
+
+    def damped_inverse(self, art: ImplicitLinearization, rad):
+        """inv = (E^T E_s + D_e^2)^-1 [ne, te, te] at the f32 radius
+        tensor `rad`."""
+        return _spd_inv_e(art.EtE_s + torch.diag_embed(art.diag_e / rad))
+
+    def scaled_chunks(self, art: ImplicitLinearization):
+        """The scaled chunk tensors of the e and f buckets: (kind, Je_s,
+        Jf_s, plan), contiguous (K10's inputs for the "e" kind)."""
+        out = []
+        for kind, Je, Jf, p in art.chunks:
+            if kind == "e0":
+                continue          # no F part: enters only through E^T E
+            sfrow = art.s_f[p.fids]                 # [ne, k, tf] or [n, tf]
+            if kind == "e":
+                out.append((kind,
+                            (Je * art.s_e[:, None, None, :]).contiguous(),
+                            (Jf * sfrow[:, :, None, :]).contiguous(), p))
+            else:
+                out.append((kind, None,
+                            (Jf * sfrow[:, None, :]).contiguous(), p))
+        return out
+
+    def solve(self, art: ImplicitLinearization, radius: float) -> dict:
+        """The matrix-free damped solve: inv and z, the scaled chunks,
+        the reduced rhs, the preconditioner blocks, CG from y = 0 with
+        the operator S v (K10 for a single e+f bucket), the
+        back-substitution, and the model cost change from the stored
+        chunk tensors (an inexact CG step breaks the direct solve's
+        identity)."""
+        ne, te, kf, tf, nf = self.ne, self.te, self.kf, self.tf, self.nf
+        f32, dev = torch.float32, self.program.device
+        rad = torch.tensor(radius, dtype=f32, device=dev)
+        D2_f = art.diag_f / rad                                 # [kf, tf]
+        inv = self.damped_inverse(art, rad)
+        b_e, b_f = -art.g_se, -art.g_sf
+        z = torch.einsum("nij,nj->ni", inv, b_e)
+        sstore = self.scaled_chunks(art)
+        es = [c for c in sstore if c[0] == "e"]
+
+        if self.k10:
+            _, Je_s0, Jf_s0, p0 = sstore[0]
+
+            def apply_S(v):
+                C = implicit_apply(Je_s0, Jf_s0, inv, p0.fids32, v)
+                return (cam_reduce(C, p0.camr, p0.camm)
+                        + D2_f * v.view(kf, tf)).reshape(nf)
+        else:
+            def apply_S(v):
+                vb = v.view(kf, tf)
+                u = torch.zeros(ne, te, dtype=f32, device=dev)
+                ws = []
+                for kind, Je_s, Jf_s, p in sstore:
+                    w = mv(Jf_s, vb[p.fids])
+                    if kind == "e":
+                        u = u + torch.sum(rvec_rt(Je_s, w), dim=1)
+                    ws.append(w)
+                zz = torch.sum(inv * u[:, None, :], dim=-1)
+                out = torch.zeros(kf, tf, dtype=f32, device=dev)
+                for (kind, Je_s, Jf_s, p), w in zip(sstore, ws):
+                    if kind == "e":
+                        w = w - mv(Je_s, zz[:, None, :])
+                    out = out + cam_reduce(rvec_rt(Jf_s, w), p.camr,
+                                           p.camm)
+                return (out + D2_f * vb).reshape(nf)
+
+        # reduced rhs: b_f - F_s^T E_s z
+        acc = torch.zeros(kf, tf, dtype=f32, device=dev)
+        for _, Je_s, Jf_s, p in es:
+            acc = acc + cam_reduce(rvec_rt(Jf_s, mv(Je_s, z[:, None, :])),
+                                   p.camr, p.camm)
+        rhs = b_f - acc.reshape(nf)
+
+        precond = None
+        if self.preconditioner != PreconditionerType.IDENTITY:
+            blocks = art.FtF_s + torch.diag_embed(D2_f)
+            if self.preconditioner == PreconditionerType.SCHUR_JACOBI:
+                Ges = [_outer_rt(Je_s, Jf_s) for _, Je_s, Jf_s, _ in es]
+                for Ge_s, (_, _, _, p) in zip(Ges, es):
+                    M = torch.einsum("nij,nkjt->nkit", inv, Ge_s)
+                    blocks = blocks - cam_reduce(
+                        sj_chunk_blocks(Ge_s, M, p.fids, p.dup).reshape(
+                            ne, -1, tf * tf), p.camr, p.camm).view(kf, tf,
+                                                                   tf)
+                for i1, i2 in self.cross_pairs:
+                    p1, p2 = es[i1][3], es[i2][3]
+                    blocks = blocks - cam_reduce(
+                        sj_cross_pair_blocks(Ges[i1], Ges[i2], inv,
+                                             p1.fids, p2.fids).reshape(
+                            ne, -1, tf * tf), p1.camr, p1.camm).view(
+                                kf, tf, tf)
+            precond = precond_from_blocks(blocks)
+
+        result = conjugate_gradients(apply_S, rhs, torch.zeros_like(rhs),
+                                     apply_preconditioner=precond,
+                                     **self.pcg_args)
+        y = result.x
+
+        # back-substitution: d_e = inv (b_e - E_s^T F_s y)
+        yb = y.view(kf, tf)
+        u2 = torch.zeros(ne, te, dtype=f32, device=dev)
+        for _, Je_s, Jf_s, p in es:
+            u2 = u2 + torch.sum(rvec_rt(Je_s, mv(Jf_s, yb[p.fids])), dim=1)
+        d_e = torch.sum(inv * (b_e - u2)[:, None, :], dim=-1)
+
+        # ||J_s d||^2 from the unscaled chunks and the scaled step
+        d_dot_g = torch.dot(d_e.reshape(-1), art.g_se.reshape(-1)) \
+            + torch.dot(y, art.g_sf)
+        dw_e = art.s_e * d_e
+        dw_fb = (art.s_f.reshape(-1) * y).view(kf, tf)
+        Jd_sq = torch.zeros((), dtype=f32, device=dev)
+        for kind, Je, Jf, p in art.chunks:
+            if kind == "f":
+                Jd = mv(Jf, dw_fb[p.fids])
+            else:
+                Jd = torch.einsum("nkrt,nt->nkr", Je, dw_e)
+                if kind == "e":
+                    Jd = Jd + mv(Jf, dw_fb[p.fids])
+            Jd_sq = Jd_sq + torch.sum(Jd * Jd)
+        mcc = -(d_dot_g + 0.5 * Jd_sq)
+        # the state layout is [points | cameras] (unsupported_reason)
+        delta = torch.cat([dw_e.double().reshape(-1),
+                           dw_fb.double().reshape(-1)])
+        return {
+            "cost": art.cost,
+            "gradient_max_norm": art.grad_max,
+            "gradient_norm": art.grad_norm,
+            "delta": delta,
+            "model_cost_change": mcc.double(),
+            "step_norm": torch.linalg.vector_norm(delta),
+            "lin_iters": result.num_iterations,
         }

@@ -6,9 +6,10 @@
 Builds the CUDA kernels of ceres_tpu_torch/csrc/ from the sources in this
 checkout (into ceres_tpu_torch/_build/), then, on Snavely bundle
 adjustment at the BAL-16-22106 shape (16 cameras, 22,106 points, 83,718
-observations; the seeded synthetic problem at its perturbed start) and on
+observations; the seeded synthetic problem at its perturbed start), on
 two pose graphs (io/g2o.py's generators: SE3 with 2,000 poses, SE2 with
-1,000; POSE_GRAPHS):
+1,000; POSE_GRAPHS) and on the JAX package's large-BA case (1,024
+cameras, 200,000 points, 1,000,000 observations; IMPLICIT_SHAPE):
 
 1. checks each kernel against its plain PyTorch version on the card, at
    the shapes its path gives it: K1-K4 (slice 1, DENSE_SCHUR), K6 on the
@@ -16,28 +17,40 @@ two pose graphs (io/g2o.py's generators: SE3 with 2,000 poses, SE2 with
    system with SCHUR_JACOBI and with IDENTITY blocks; K11 (slice 3) on
    each graph's main bucket (SE3 at the start and at a perturbed state,
    SE2 at the start), K8 on the scaled Jacobian of each graph's first
-   linearization; times each, its plain version and, where one PyTorch
-   call computes the same function, that call, with CUDA events (median
-   of 20 runs); and computes each kernel's bound from this run's inputs;
-2. drives the paths through ctt.solve on device="cuda", counting the
-   launches of every kernel from zero before each solve:
-   DENSE_SCHUR (slice 1), one warm-up and three timed solves;
-   ITERATIVE_SCHUR with SCHUR_JACOBI (slice 2), one warm-up and two timed;
-   CGNR with JACOBI on each pose graph (slice 3), one warm-up and two
-   timed;
+   linearization; K10 (slice 4) on the scaled chunk tensors of the large
+   case's first linearization at RADIUS and a seeded v, K11 on the large
+   case's Snavely bucket (1M rows) at its start; times each, its
+   plain version and, where one PyTorch call computes the same function,
+   that call, with CUDA events (median of 20 runs); and computes each
+   kernel's bound from this run's inputs;
+2. drives the paths, counting the launches of every kernel from zero
+   before each solve: through ctt.solve on device="cuda", DENSE_SCHUR
+   (slice 1), one warm-up and three timed solves; ITERATIVE_SCHUR with
+   SCHUR_JACOBI (slice 2), one warm-up and two timed; CGNR with JACOBI on
+   each pose graph (slice 3), one warm-up and two timed; ITERATIVE_SCHUR
+   with SCHUR_JACOBI on the large case (slice 4, the implicit mode: nf =
+   9,216 is past the explicit cap), one warm-up and two timed; and the
+   implicit mode forced on BAL-16-22106 through the step and run_fused,
+   one warm-up and one timed;
 3. fails unless every kernel agrees within its limit (K7 with the same CG
-   iteration count), every BA solve ends in CONVERGENCE with a final cost
-   within 1e-5 relative of 5.028773e+04, every kernel of a BA path
-   launched at least once per LM iteration, K2 and K3 never on the
-   ITERATIVE_SCHUR path, CG iterated more often than LM did; every
-   pose-graph solve ends in CONVERGENCE within 1e-4 relative of the JAX
-   package's final cost, cuts the mean position error below its share of
-   the start, launches K11 at least once per linearization and K8 at
-   least once per CG iteration and no K1-K7, and repeats the same LM and
-   CG counts and final cost in every solve; and TF32 is off.
+   iteration count), every BAL-16-22106 solve ends in CONVERGENCE with a
+   final cost within 1e-5 relative of 5.028773e+04, every kernel of a
+   path (MAIN_PATH) launched at least once per LM iteration, K2 and K3
+   never on the ITERATIVE_SCHUR path, CG iterated more often than LM did;
+   every pose-graph solve ends in CONVERGENCE within 1e-4 relative of the
+   JAX package's final cost, cuts the mean position error below its share
+   of the start, launches K11 at least once per linearization and K8 at
+   least once per CG iteration and no K1-K7 or K10; every implicit solve
+   ends in CONVERGENCE (the large case within IMPLICIT_REF_REL_TOL of the
+   JAX package's final cost), launches K10 at least once per CG iteration
+   and K4 at least once per LM iteration, K11 once per linearization,
+   and no K1-K3, K6-K8; the
+   pose-graph and large-case solves repeat the same LM and CG counts and
+   final cost in every solve; and TF32 is off.
 
 Prints the card's name and power limit, one line per check and solve, a
-JSON line of the kernels, and as its last line {"ok": true, "device":
+JSON line of the kernels (each kernel's launches from its MAIN_PATH solve
+and from every path), and as its last line {"ok": true, "device":
 {...}}. Exits non-zero, with no ok line, when there is no CUDA device or
 any phase fails.
 """
@@ -88,7 +101,49 @@ POSE_REF_REL_TOL = 1e-4
 K11_R_LIMIT, K11_J_LIMIT = 1e-5, 2e-4
 # K11's dense-jet arithmetic per row, counted by hand from
 # csrc/linearize.cu (a jet product 3N+1 flops, a sum N+1, N channels)
-K11_FLOPS_PER_ROW = {"3d": 4984, "2d": 344}
+K11_FLOPS_PER_ROW = {"3d": 4984, "2d": 344, "snavely": 1991}
+# slice 4: the JAX package's large-BA case
+# (benchmarks/ba_scaling_benchmark.py --large), whose nf = 9,216 camera
+# columns are past the explicit reduced-system cap, so ITERATIVE_SCHUR
+# runs the matrix-free (implicit) step with K10 as its CG operator.
+IMPLICIT_SHAPE = dict(num_cameras=1024, num_points=200000,
+                      num_observations=1000000)
+IMPLICIT_PERTURB = dict(rotation_sigma=0.01, translation_sigma=0.1,
+                        point_sigma=0.05)
+
+
+# The JAX package's final cost on the CPU with the same options
+# (scripts/implicit_reference.py: 32 LM / 989 CG iterations). Its TPU
+# trajectories ended between 694,240.006 and 694,297.702
+# (benchmarks/hw_r5/ba_scaling_large*.log,
+# benchmarks/hw_extra_20260819_091249/ba_scaling_large.log), 8e-5
+# relative apart from f32 summation order alone; 2e-4 leaves room for the
+# card's order as well.
+IMPLICIT_REF_COST = 694294.6414661948
+IMPLICIT_REF_REL_TOL = 2e-4
+# each kernel's main path: its "launches" in the kernels line are the
+# counts of that path's last solve (K11 has two entries, the SE3 spec's
+# and the Snavely spec's, each read from the counter of bucket_linearize)
+MAIN_PATH = {"K1 lin": "DENSE_SCHUR", "K2 elim": "DENSE_SCHUR",
+             "K3 chol_solve": "DENSE_SCHUR", "K4 cost": "DENSE_SCHUR",
+             "K6 elim_v1": "ITERATIVE_SCHUR",
+             "K7 dense_pcg": "ITERATIVE_SCHUR",
+             "K8 bucket_jtjv": "POSE_GRAPH_3D",
+             "K10 implicit_apply": "IMPLICIT_SCHUR",
+             "K11 bucket_linearize": "POSE_GRAPH_3D",
+             "K11 bucket_linearize (Snavely)": "IMPLICIT_SCHUR"}
+
+
+def large_options(mod, **extra):
+    """The large-BA case's options in package `mod` (ceres_tpu or
+    ceres_tpu_torch); `extra` adds or overrides options."""
+    kw = dict(linear_solver_type=mod.LinearSolverType.ITERATIVE_SCHUR,
+              preconditioner_type=mod.PreconditionerType.SCHUR_JACOBI,
+              use_mixed_precision_solves=True, fused_iterations=True,
+              function_tolerance=1e-6, max_linear_solver_iterations=100,
+              max_num_iterations=45)
+    kw.update(extra)
+    return mod.SolverOptions(**kw)
 
 
 def pose_graph_options(mod, **extra):
@@ -219,12 +274,14 @@ def pcg_flops(m, tf, iters, reset):
 
 
 def drive(label, options, problem, reset_state, counters, trials, gate,
-          ref_cost=REF_FINAL_COST, ref_tol=REF_REL_TOL):
-    """Solve `trials` times on the card (the first a warm-up), each with
-    every launch count set to 0 just before and read just after; `gate`
-    raises on a wrong summary. Returns the last solve's launches."""
+          ref_cost=REF_FINAL_COST, ref_tol=REF_REL_TOL, solve=None):
+    """Solve `trials` times on the card (the first a warm-up) with
+    `solve(options, problem)` (ctt.solve unless given), each with every
+    launch count set to 0 just before and read just after; `gate` raises
+    on a wrong summary. Returns the last solve's launches."""
     import torch
     import ceres_tpu_torch as ctt
+    solve = solve or ctt.solve
     launches = {}
     for trial in range(trials):
         reset_state()
@@ -232,7 +289,7 @@ def drive(label, options, problem, reset_state, counters, trials, gate,
             fn.launches = 0
         torch.cuda.synchronize()
         t0 = time.time()
-        summary = ctt.solve(options, problem)
+        summary = solve(options, problem)
         torch.cuda.synchronize()
         wall = time.time() - t0
         launches = {name: fn.launches for name, fn in counters.items()}
@@ -241,7 +298,7 @@ def drive(label, options, problem, reset_state, counters, trials, gate,
               f"({summary.num_successful_steps} accepted), "
               f"{summary.num_linear_solver_iterations} linear solver "
               f"iterations, initial cost {summary.initial_cost:.6e}, final "
-              f"cost {summary.final_cost:.6e}, {summary.termination_type}, "
+              f"cost {summary.final_cost:.10e}, {summary.termination_type}, "
               f"wall {wall:.4f} s, launches {launches}", flush=True)
         if summary.termination_type != ctt.TerminationType.CONVERGENCE:
             raise SystemExit(f"{label}: solve did not converge")
@@ -256,6 +313,7 @@ def drive(label, options, problem, reset_state, counters, trials, gate,
 def main():
     import numpy as np
     import torch
+    t_start = time.time()
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device")
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
@@ -268,14 +326,19 @@ def main():
     from ceres_tpu_torch.io import g2o
     from ceres_tpu_torch.ops.kernels import (bucket_jtjv, bucket_jtjv_plain,
                                              chol_solve, chol_solve_plain)
+    from ceres_tpu_torch.ops.implicit import (implicit_apply,
+                                              implicit_apply_plain)
     from ceres_tpu_torch.ops.linearize import (bucket_linearize,
                                                bucket_linearize_plain)
     from ceres_tpu_torch.ops.lin import (elim, elim_plain, elim_v1,
                                          elim_v1_plain, lin, lin_plain)
     from ceres_tpu_torch.ops.pcg import dense_pcg, dense_pcg_plain
+    from ceres_tpu_torch.minimizers.fused import run_fused
     from ceres_tpu_torch.program import CompiledProgram
     from ceres_tpu_torch.solvers.schur import detect_schur_structure
-    from ceres_tpu_torch.solvers.schur_fused import FusedSchurStep
+    from ceres_tpu_torch.solvers.schur_fused import (FusedSchurStep,
+                                                     ImplicitSchurStep,
+                                                     schur_step)
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], check=True,
@@ -505,11 +568,80 @@ def main():
             rec["name"] = "K8 bucket_jtjv"
             kernels.append(rec)
 
+    # ---- slice 4: K10 on the large case's first linearization ----
+    t0 = time.time()
+    big_bal = synthetic_bal_problem(**IMPLICIT_SHAPE, seed=7,
+                                    pixel_noise=1.0)
+    big_bal.perturb(**IMPLICIT_PERTURB, seed=8)
+    big_problem, big_cams, big_pts = build_bal_ceres_problem(big_bal)
+    big_arrays = big_cams + big_pts
+    big_start = [a.copy() for a in big_arrays]
+    t_build = time.time() - t0
+    big_options = large_options(ctt, device="cuda")
+    big_program = CompiledProgram.get_cached(big_problem, big_options)
+    big_step = schur_step(big_program, big_options,
+                          detect_schur_structure(big_program, big_options))
+    if not (isinstance(big_step, ImplicitSchurStep) and big_step.k10):
+        raise SystemExit(f"large case: step mode {big_step.mode}")
+    k_big = big_step.plans[0].fids32.shape[1]
+    print(f"large case: problem build {t_build:.1f} s, program and step "
+          f"{time.time() - t0 - t_build:.1f} s; ne={big_step.ne} k={k_big} "
+          f"kf={big_step.kf} nf={big_step.nf}; {big_step.mode}", flush=True)
+    bx0 = big_program.initial_state()
+    big_art = big_step.linearize(bx0, *big_step.initial_scales(), first=True,
+                                 known_cost=big_step.cost(bx0))
+    lin_ms = []
+    for _ in range(3):        # the implicit linearize at 1M rows
+        torch.cuda.synchronize()
+        t0 = time.time()
+        big_step.linearize(bx0, *big_art.scales, first=False,
+                           known_cost=big_art.cost)
+        torch.cuda.synchronize()
+        lin_ms.append((time.time() - t0) * 1e3)
+    print(f"large case: implicit linearize (K11, "
+          f"{IMPLICIT_SHAPE['num_observations']} rows) "
+          f"{statistics.median(lin_ms):.1f} ms (median of {lin_ms})",
+          flush=True)
+    big_inv = big_step.damped_inverse(big_art, rad)
+    _, Je_s, Jf_s, plan0 = big_step.scaled_chunks(big_art)[0]
+    k10_args = (Je_s, Jf_s, big_inv, plan0.fids32, torch.as_tensor(
+        np.random.default_rng(2).standard_normal(big_step.nf),
+        dtype=torch.float32, device="cuda"))
+    r_big = Je_s.shape[2]
+    kernels.append(check_kernel(
+        "K10 implicit_apply", lambda: implicit_apply(*k10_args),
+        lambda: implicit_apply_plain(*k10_args),
+        lambda g_, w: [rel_err(g_, w)], F32_LIMIT,
+        "ceres_tpu_torch/csrc/implicit.cu",
+        "ceres_tpu/ops/pallas_implicit.py:49", k10_args,
+        # per lane w twice, u, w2, C; per point zz
+        big_step.ne * k_big * r_big * (6 * big_step.tf + 4 * big_step.te)
+        + 2 * big_step.ne * big_step.te ** 2, F32_FLOP_PER_S))
+    del big_art, big_inv, Je_s, Jf_s, plan0, k10_args
+    big_bk = big_program.buckets[0]
+    if big_bk.spec is None or big_bk.spec.kernel_id != 2:
+        raise SystemExit("large case: the Snavely bucket has no K11 spec")
+    k11_big = (big_bk.spec, torch.cat(
+        [p.float() for p in big_program._bucket_params(big_bk, bx0)],
+        dim=1).contiguous(), big_bk.dat32)
+    rec = check_kernel(
+        "K11 bucket_linearize (Snavely)", lambda: bucket_linearize(*k11_big),
+        lambda: bucket_linearize_plain(*k11_big), cmp_k11,
+        # relative to the largest entry (projections minus observations
+        # cancel), as tests/test_torch_linearize.py holds it
+        [F32_LIMIT, F32_LIMIT], "ceres_tpu_torch/csrc/linearize.cu",
+        "ceres_tpu/ops/pallas_linearize.py:324", k11_big[1:],
+        K11_FLOPS_PER_ROW["snavely"] * big_bk.n, F32_FLOP_PER_S)
+    rec["counter"] = "K11 bucket_linearize"
+    kernels.append(rec)
+    del k11_big
+
     # ---- the paths: solves on the card ----
     counters = {"K1 lin": lin, "K2 elim": elim,
                 "K3 chol_solve": chol_solve, "K4 cost": snavely_sq,
                 "K6 elim_v1": elim_v1, "K7 dense_pcg": dense_pcg,
                 "K8 bucket_jtjv": bucket_jtjv,
+                "K10 implicit_apply": implicit_apply,
                 "K11 bucket_linearize": bucket_linearize}
 
     def reset_state():
@@ -533,9 +665,56 @@ def main():
     def gate_iterative(summary, launches):
         gate_path("ITERATIVE_SCHUR", ("K1 lin", "K4 cost", "K6 elim_v1",
                                       "K7 dense_pcg"),
-                  ("K2 elim", "K3 chol_solve"))(summary, launches)
+                  ("K2 elim", "K3 chol_solve",
+                   "K10 implicit_apply"))(summary, launches)
         if not summary.num_linear_solver_iterations > summary.num_iterations:
             raise SystemExit("ITERATIVE_SCHUR: CG did not iterate")
+
+    def gate_implicit(label):
+        seen = []
+
+        def gate(summary, launches):
+            gate_path(label, ("K4 cost",),
+                      [n for n in counters
+                       if n not in ("K4 cost", "K10 implicit_apply",
+                                    "K11 bucket_linearize")])(
+                           summary, launches)
+            if launches["K11 bucket_linearize"] != \
+                    summary.num_linearizations_fused or \
+                    launches["K11 bucket_linearize"] < \
+                    summary.num_successful_steps:
+                raise SystemExit(f"{label}: K11 did not run once per "
+                                 "linearization")
+            if "K10" not in summary.message:
+                raise SystemExit(f"{label}: not the K10 route: "
+                                 f"{summary.message}")
+            if launches["K10 implicit_apply"] < \
+                    summary.num_linear_solver_iterations:
+                raise SystemExit(f"{label}: K10 launched fewer times than "
+                                 "CG iterated")
+            if not summary.num_linear_solver_iterations > \
+                    summary.num_iterations:
+                raise SystemExit(f"{label}: CG did not iterate")
+            seen.append((summary.num_iterations,
+                         summary.num_linear_solver_iterations,
+                         summary.final_cost))
+            if len(set(seen)) != 1:
+                raise SystemExit(f"{label}: solves differ: {seen}")
+        return gate
+
+    forced_step = ImplicitSchurStep(program, it_options, meta)
+
+    def forced_solve(options_, problem_):
+        """ctt.solve's work with the implicit step forced on BAL-16."""
+        summary = ctt.SolverSummary()
+        program.write_back(run_fused(program, options_, summary,
+                                     forced_step))
+        summary.message += f" Schur step: {forced_step.mode}."
+        return summary
+
+    def reset_big():
+        for a, a0 in zip(big_arrays, big_start):
+            a[:] = a0
 
     def gate_pose(key):
         g = graphs[key]
@@ -587,6 +766,10 @@ def main():
         "ITERATIVE_SCHUR": drive(
             "ITERATIVE_SCHUR", it_options, problem, reset_state, counters,
             3, gate_iterative),
+        "IMPLICIT_FORCED": drive(
+            "IMPLICIT_SCHUR forced on BAL-16-22106", it_options, problem,
+            reset_state, counters, 2,
+            gate_implicit("IMPLICIT_SCHUR forced"), solve=forced_solve),
     }
     for key in POSE_GRAPHS:
         g = graphs[key]
@@ -594,18 +777,20 @@ def main():
             f"POSE_GRAPH_{key.upper()} (CGNR, JACOBI)", g["options"],
             g["problem"], reset_graph(key), counters, 3, gate_pose(key),
             ref_cost=POSE_GRAPHS[key]["ref_cost"], ref_tol=POSE_REF_REL_TOL)
+    by_path["IMPLICIT_SCHUR"] = drive(
+        "IMPLICIT_SCHUR (1,024 cameras, 1M observations)", big_options,
+        big_problem, reset_big, counters, 3,
+        gate_implicit("IMPLICIT_SCHUR"), ref_cost=IMPLICIT_REF_COST,
+        ref_tol=IMPLICIT_REF_REL_TOL)
     if torch.backends.cuda.matmul.allow_tf32:
         raise SystemExit("TF32 matmul is enabled")
 
     for rec in kernels:
-        path = {"K6 elim_v1": "ITERATIVE_SCHUR",
-                "K7 dense_pcg": "ITERATIVE_SCHUR",
-                "K8 bucket_jtjv": "POSE_GRAPH_3D",
-                "K11 bucket_linearize": "POSE_GRAPH_3D"}.get(
-                    rec["name"], "DENSE_SCHUR")
-        rec["launches"] = by_path[path][rec["name"]]
-        rec["launches_by_path"] = {p: c[rec["name"]]
+        counter = rec.get("counter", rec["name"])
+        rec["launches"] = by_path[MAIN_PATH[rec["name"]]][counter]
+        rec["launches_by_path"] = {p: c[counter]
                                    for p, c in by_path.items()}
+    print(f"chip_smoke: {time.time() - t_start:.1f} s in all", flush=True)
     print(json.dumps({"kernels": [
         {k: rec[k] for k in ("name", "route", "source", "replaces",
                              "launches", "launches_by_path", "max_abs_err",

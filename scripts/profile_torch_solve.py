@@ -2,18 +2,21 @@
 """Where the time goes in one ceres_tpu_torch solve on the card.
 
     python3 scripts/profile_torch_solve.py
-        [--paths dense,iterative,pose3d,pose2d] [--trace-dir DIR]
+        [--paths dense,iterative,pose3d,pose2d,implicit] [--trace-dir DIR]
 
 Builds chip_smoke.py's problems (BAL-16-22106 shape, generator seed 7,
-PERTURB seed 8; the pose graphs of POSE_GRAPHS) and, for each path
-(DENSE_SCHUR; ITERATIVE_SCHUR with SCHUR_JACOBI; CGNR with JACOBI on the
-SE3 and the SE2 pose graph; each with chip_smoke.py's options), solves
+PERTURB seed 8; the pose graphs of POSE_GRAPHS; the large-BA case of
+IMPLICIT_SHAPE) and, for each path (DENSE_SCHUR; ITERATIVE_SCHUR with
+SCHUR_JACOBI; CGNR with JACOBI on the SE3 and the SE2 pose graph;
+ITERATIVE_SCHUR in the implicit mode on the large case; each with
+chip_smoke.py's options), solves
 once as a warm-up, once timed without the profiler, and once under
 torch.profiler (CPU and CUDA activities). Prints the card's name and
 power limit, then per path: the wall of the plain and the profiled
 solve, LM and CG iterations; device time per kernel, grouped by the
-ported kernel it belongs to (K1-K8, K11; copies and every other kernel
-are PyTorch glue, split by kind); the device busy time (union of kernel
+ported kernel it belongs to (K1-K8, K10, K11; copies and every other kernel
+are PyTorch glue, split by kind), and the PyTorch operators with the
+most device time of their own; the device busy time (union of kernel
 intervals), the device span (first kernel start to last kernel end), the
 busy share of the span and of the plain wall; kernel launches and host
 reads of a device scalar (aten::_local_scalar_dense) per solve and per
@@ -41,7 +44,9 @@ KERNEL_OF = {
     "scorr_partial_kernel": "K2/K6", "rhs_partial_kernel": "K2/K6",
     "reduce_splits_kernel": "K2/K6", "chol_solve_kernel": "K3",
     "cost_kernel": "K4", "pcg_kernel": "K7", "jtjv_kernel": "K8",
+    "implicit_apply_kernel": "K10",
     "linearize_pose3d_kernel": "K11", "linearize_pose2d_kernel": "K11",
+    "linearize_snavely_kernel": "K11",
 }
 # the PyTorch glue by kind (first match), for the breakdown
 GLUE_OF = [("segment_reduce", "glue: segment sums"),
@@ -49,7 +54,9 @@ GLUE_OF = [("segment_reduce", "glue: segment sums"),
            ("DeviceScan", "glue: segment sums"),
            ("index", "glue: gathers"), ("reduce", "glue: reductions"),
            ("elementwise", "glue: elementwise"), ("Memcpy", "glue: copies"),
-           ("Memset", "glue: copies"), ("CatArray", "glue: cat")]
+           ("Memset", "glue: copies"), ("CatArray", "glue: cat"),
+           ("gemm", "glue: einsum products"), ("gemv", "glue: einsum products"),
+           ("cutlass", "glue: einsum products")]
 
 
 def owner(name, path):
@@ -96,8 +103,9 @@ def main():
     from ceres_tpu_torch.io import g2o
     from ceres_tpu_torch.io.bal import (build_bal_ceres_problem,
                                         synthetic_bal_problem)
-    from chip_smoke import (PERTURB, POSE_GRAPHS, SHAPE, pose_graph_options,
-                            position_error)
+    from chip_smoke import (IMPLICIT_PERTURB, IMPLICIT_SHAPE, PERTURB,
+                            POSE_GRAPHS, SHAPE, large_options,
+                            pose_graph_options, position_error)
 
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], check=True,
@@ -107,6 +115,13 @@ def main():
     def problem_of(path):
         """(problem, arrays to reset, options, (positions, ground truth)
         or None) of a path."""
+        if path == "implicit":
+            bal = synthetic_bal_problem(**IMPLICIT_SHAPE, seed=7,
+                                        pixel_noise=1.0)
+            bal.perturb(**IMPLICIT_PERTURB, seed=8)
+            problem, cams, pts = build_bal_ceres_problem(bal)
+            return (problem, cams + pts, large_options(ctt, device="cuda"),
+                    None)
         if path in ("dense", "iterative"):
             bal = synthetic_bal_problem(**SHAPE, seed=7, pixel_noise=1.0)
             bal.perturb(**PERTURB, seed=8)
@@ -190,6 +205,14 @@ def main():
                                     key=lambda kv: -kv[1][0])[:25]:
             print(f"  {us / 1e3:9.4f} ms  {n:7d}x  {owner(name, path):20s} "
                   f"{name[:80]}")
+        ops = prof.key_averages()
+        self_dev = ("self_device_time_total"
+                    if hasattr(ops[0], "self_device_time_total")
+                    else "self_cuda_time_total")
+        print("  operators by device time of their own:")
+        for e in sorted(ops, key=lambda e: -getattr(e, self_dev))[:12]:
+            print(f"  {getattr(e, self_dev) / 1e3:9.4f} ms  {e.count:7d}x  "
+                  f"{e.key[:60]}")
         print(f"  device busy {busy / 1e3:.4f} ms of a {span / 1e3:.4f} ms "
               f"device span ({100 * busy / span:.1f}%); "
               f"{100 * busy / 1e6 / wall:.1f}% of the plain wall", flush=True)

@@ -136,16 +136,18 @@ def _bal_problem(num_cameras, num_points):
 
 
 @pytest.mark.parametrize("case,item", [
-    ("implicit", "item 23"), ("spse", "item 14"), ("m_over_1024", "item 37"),
+    ("implicit", "item 11"), ("spse", "item 14"), ("m_over_1024", "item 37"),
     ("cluster_jacobi", "item 36")])
 def test_out_of_slice_raises(case, item):
-    """The implicit regime (nf > 4096), the SPSE warm start, a reduced
-    system past the one-block kernels (m > 1024) and a preconditioner the
-    fused path does not serve raise NotImplementedError naming the
-    ROADMAP.md item that ports them."""
+    """The f64 step in the implicit regime (nf > 4096; the mixed step
+    there is slice 4, tests/test_torch_implicit.py), the SPSE warm start,
+    a reduced system past the one-block kernels (m > 1024) and a
+    preconditioner the fused path does not serve raise
+    NotImplementedError naming the ROADMAP.md item that ports them."""
     extra, problem = {}, None
     if case == "implicit":
         problem = _bal_problem(500, 5000)          # nf = 4,500
+        extra["use_mixed_precision_solves"] = False
     elif case == "m_over_1024":
         problem = _bal_problem(130, 1000)          # nf = 1,170
     elif case == "spse":

@@ -1,13 +1,18 @@
-"""K11, the bucket-linearize kernel of the pose graphs, against ceres_tpu:
-the plain version of ops/linearize.py against the JAX package's Pallas
-kernel (make_pallas_bucket_linearize) in interpret mode on the graphs of
-tests/test_pallas_linearize.py (SE3: 25 poses; SE2: 40 poses), at the
-start and at a perturbed state; the gauge bucket (constant slots, no hand
-spec) through the port's jacfwd path against the JAX jacfwd path; and,
-on a card, the CUDA kernel against the plain version at odd row counts.
+"""K11, the bucket-linearize kernel, against ceres_tpu: the plain version
+of ops/linearize.py against the JAX package's Pallas kernel
+(make_pallas_bucket_linearize) in interpret mode on the graphs of
+tests/test_pallas_linearize.py (SE3: 25 poses; SE2: 40 poses) and on the
+Snavely bucket of a small BA problem (the JAX kernel with its jet
+compiler's auto spec), at the start and at a perturbed state; the gauge
+bucket (constant slots, no hand spec) through the port's jacfwd path
+against the JAX jacfwd path; the Snavely spec's plain version against
+the port's jacfwd path; and, on a card, the CUDA kernel against the
+plain version at odd row counts.
 
 Tolerances are test_pallas_linearize.py's: 2e-5 (r) and 2e-4 (J),
 relative and absolute, f32 on both sides with another operation order.
+Snavely's residuals are projections minus observations, which cancel,
+so there r and J are held to 1e-5 relative to their largest entry.
 """
 
 import jax.numpy as jnp
@@ -15,7 +20,8 @@ import numpy as np
 import pytest
 import torch
 
-from torch_parity_kit import pallas_interpret
+from torch_parity_kit import (jax_problem, pallas_interpret, rel,
+                              small_bal, torch_problem)
 
 from ceres_tpu.examples import slam as jax_slam
 from ceres_tpu.io import g2o as jax_g2o
@@ -147,10 +153,74 @@ def test_jacfwd_path_matches_jax(graphs, dim):
                                    atol=2e-4)
 
 
+@pytest.fixture(scope="module")
+def snavely():
+    """Both packages' programs of small_bal and the JAX kernel's (r, J) on
+    its Snavely bucket at each state (the auto spec, interpret mode)."""
+    bal = small_bal()
+    jp = JaxProgram(jax_problem(bal))
+    tp = TorchProgram(torch_problem(bal), device="cpu")
+    x0 = np.asarray(jp.initial_state())
+    rng = np.random.default_rng(2)
+    states = {"start": x0,
+              "perturbed": x0 + 0.01 * rng.standard_normal(x0.shape)}
+    with pallas_interpret():
+        lin = make_pallas_bucket_linearize(jp, jp.buckets[0])
+        assert lin is not None
+        ref = {k: tuple(np.asarray(a) for a in
+                        lin(jnp.asarray(x).astype(jnp.float32)))
+               for k, x in states.items()}
+    return dict(tp=tp, states=states, ref=ref)
+
+
+def test_snavely_bucket_takes_k11(snavely):
+    tp = snavely["tp"]
+    assert len(tp.buckets) == 1
+    bk = tp.buckets[0]
+    assert bk.spec is SPECS["SnavelyReprojectionError"]
+    assert bk.dat32.shape == (bk.n, 2)
+
+
+@pytest.mark.parametrize("where", ["start", "perturbed"])
+def test_k11_snavely_plain_matches_jax_kernel(snavely, where):
+    tp = snavely["tp"]
+    bk = tp.buckets[0]
+    r, J = bucket_linearize_plain(bk.spec,
+                                  _xin(tp, bk, snavely["states"][where]),
+                                  bk.dat32)
+    r_ref, J_ref = snavely["ref"][where]
+    assert r.shape == r_ref.shape and J.shape == J_ref.shape
+    assert rel(r.numpy(), r_ref) < 1e-5
+    assert rel(J.numpy(), J_ref) < 1e-5
+
+
+def test_k11_snavely_plain_is_the_jacfwd_path(snavely, monkeypatch):
+    """The Snavely spec's plain version calls the functor, so on the CPU
+    the bucket gives the jacfwd path's bits."""
+    tp = snavely["tp"]
+    bk = tp.buckets[0]
+    x = tp.state_from_numpy(snavely["states"]["perturbed"])
+    r, J = tp._bucket_linearize32(bk, x)
+    monkeypatch.setattr(bk, "spec", None)
+    r_j, J_j = tp._bucket_linearize32(bk, x)
+    assert torch.equal(r, r_j) and torch.equal(J, J_j)
+
+
 def _random_rows(spec, n, rng):
     """Random K11 inputs: unit quaternions in the rotation slots (SE3) and
     an upper-triangular sqrt_information, as build_pose_graph_*_problem
-    gives them."""
+    gives them; for Snavely a camera a few units from points in front of
+    it, with BAL-like focal length and small distortion."""
+    if spec.p_in == 12:
+        cam = np.concatenate([0.1 * rng.standard_normal((n, 3)),
+                              0.1 * rng.standard_normal((n, 3)),
+                              rng.uniform(400, 600, size=(n, 1)),
+                              1e-3 * rng.standard_normal((n, 2))], axis=1)
+        pt = rng.standard_normal((n, 3)) + [0.0, 0.0, -5.0]
+        dat = 100.0 * rng.standard_normal((n, 2))
+        return (torch.as_tensor(np.concatenate([cam, pt], axis=1),
+                                dtype=torch.float32),
+                torch.as_tensor(dat, dtype=torch.float32))
     xin = rng.standard_normal((n, spec.p_in))
     dat = rng.standard_normal((n, spec.p_dat))
     k = spec.r
@@ -170,8 +240,9 @@ def _random_rows(spec, n, rng):
 @pytest.mark.parametrize("name", list(SPECS))
 def test_k11_kernel_matches_plain_on_the_card(name, n):
     """The CUDA kernel against its plain version on the card, at row
-    counts that leave the last block partly empty. Run on a machine with
-    a card: python -m pytest tests -m cuda."""
+    counts that leave the last block partly empty (Snavely relative to
+    the largest entry, as above). Run on a machine with a card:
+    python -m pytest tests -m cuda."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     spec = SPECS[name]
@@ -182,7 +253,11 @@ def test_k11_kernel_matches_plain_on_the_card(name, n):
     r_ref, J_ref = bucket_linearize_plain(spec, xin, dat)
     torch.cuda.synchronize()
     assert bucket_linearize.launches == 1
-    np.testing.assert_allclose(r.cpu().numpy(), r_ref.cpu().numpy(),
-                               rtol=2e-5, atol=2e-5)
-    np.testing.assert_allclose(J.cpu().numpy(), J_ref.cpu().numpy(),
-                               rtol=2e-4, atol=2e-4)
+    assert r.dtype == J.dtype == torch.float32
+    r, J = r.cpu().numpy(), J.cpu().numpy()
+    r_ref, J_ref = r_ref.cpu().numpy(), J_ref.cpu().numpy()
+    if name == "SnavelyReprojectionError":
+        assert rel(r, r_ref) < 1e-5 and rel(J, J_ref) < 1e-5
+        return
+    np.testing.assert_allclose(r, r_ref, rtol=2e-5, atol=2e-5)
+    np.testing.assert_allclose(J, J_ref, rtol=2e-4, atol=2e-4)

@@ -2,7 +2,8 @@
 
 Counterpart of ceres_tpu/examples/snavely.py (the reference's
 examples/snavely_reprojection_error.h:53): 9-parameter camera and
-3-parameter point. The evaluator maps the functor over all observations
+3-parameter point, and the quaternion variant (:102), a 10-parameter
+camera. The evaluator maps the functor over all observations
 with torch.func.vmap.
 """
 
@@ -31,5 +32,25 @@ class SnavelyReprojectionError:
         r2 = xp * xp + yp * yp
         distortion = 1.0 + r2 * (camera[7] + camera[8] * r2)
         focal = camera[6]
+        return torch.stack([focal * distortion * xp - self.observed_x,
+                            focal * distortion * yp - self.observed_y])
+
+
+class SnavelyReprojectionErrorWithQuaternions:
+    """camera: [quaternion(4, w-first), translation(3), f, k1, k2]; point:
+    [3] (snavely_reprojection_error.h:102)."""
+
+    def __init__(self, observed_x: float, observed_y: float):
+        self.observed_x = observed_x
+        self.observed_y = observed_y
+
+    def __call__(self, camera, point):
+        p = rot.unit_quaternion_rotate_point(camera[:4], point)
+        p = p + camera[4:7]
+        xp = -p[0] / p[2]
+        yp = -p[1] / p[2]
+        r2 = xp * xp + yp * yp
+        distortion = 1.0 + r2 * (camera[8] + camera[9] * r2)
+        focal = camera[7]
         return torch.stack([focal * distortion * xp - self.observed_x,
                             focal * distortion * yp - self.observed_y])

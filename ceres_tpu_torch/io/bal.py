@@ -278,23 +278,36 @@ def build_bal_ceres_problem(bal: BALProblem, loss=None,
                             use_quaternions: bool = False,
                             use_manifolds: bool = True):
     """Build a ceres_tpu_torch Problem from a BALProblem (the reference's
-    simple_bundle_adjuster.cc model). Returns (problem, camera_arrays,
-    point_arrays); the solve writes back into those numpy arrays."""
+    simple_bundle_adjuster.cc / bundle_adjuster.cc model). Returns
+    (problem, camera_arrays, point_arrays); the solve writes back into
+    those numpy arrays.
+
+    Quaternion cameras (use_quaternions, or a BALProblem already in
+    quaternion form) take SnavelyReprojectionErrorWithQuaternions;
+    use_manifolds=False treats the quaternion as a plain Euclidean
+    4-block (bundle_adjuster.cc --use_manifolds=false)."""
     from ..cost import AutoDiffCostFunction
-    from ..examples.snavely import SnavelyReprojectionError
+    from ..examples.snavely import (SnavelyReprojectionError,
+                                    SnavelyReprojectionErrorWithQuaternions)
     from ..problem import Problem
 
-    if use_quaternions or bal.use_quaternions:
+    if use_quaternions and not bal.use_quaternions:
+        bal = bal.to_quaternions()
+    if bal.use_quaternions and use_manifolds:
         raise NotImplementedError(
-            "quaternion cameras are not ported yet (ROADMAP.md, module "
-            "list item 23: the rest of manifolds.py)")
+            "quaternion cameras on the quaternion x Euclidean product "
+            "manifold are not ported yet (ROADMAP.md item 26, the rest of "
+            "manifolds.py); use_manifolds=False keeps the quaternion "
+            "Euclidean")
+    functor, cam_size = ((SnavelyReprojectionErrorWithQuaternions, 10)
+                         if bal.use_quaternions
+                         else (SnavelyReprojectionError, 9))
     cam_arrays = [bal.cameras[i].copy() for i in range(bal.num_cameras)]
     pt_arrays = [bal.points[i].copy() for i in range(bal.num_points)]
     problem = Problem()
     for i in range(bal.num_observations):
         ox, oy = bal.observations[i]
-        cost = AutoDiffCostFunction(SnavelyReprojectionError(ox, oy), 2,
-                                    [9, 3])
+        cost = AutoDiffCostFunction(functor(ox, oy), 2, [cam_size, 3])
         problem.add_residual_block(cost, loss,
                                    cam_arrays[bal.camera_index[i]],
                                    pt_arrays[bal.point_index[i]])

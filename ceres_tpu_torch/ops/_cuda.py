@@ -7,6 +7,13 @@ together, then one link. The build runs at first use into
 fresh checkout builds everything itself. A missing ``nvcc`` or a failed
 build raises: nothing falls back.
 
+A second route builds generated units (`build_generated`): a source
+that a module writes at run time (K5's unit, the jet chain of one
+functor emitted by ops/jet_compile.py around ``csrc/lin_auto.cuh``) goes
+to ``_build/<tag>_<hash>.cu`` and compiles with the same flags and ``-I
+csrc`` into its own shared library, keyed by a hash of the headers, the
+source and the flags, loaded with ``ctypes``; it raises as `build` does.
+
 Each C entry point launches on the stream it is given, synchronises
 nothing, allocates nothing, and returns ``cudaGetLastError()``.
 """
@@ -49,6 +56,7 @@ _SIGNATURES = {
 
 _lock = threading.Lock()
 _lib = None
+_generated = {}                 # library path -> loaded ctypes.CDLL
 
 
 def _sources():
@@ -118,15 +126,57 @@ def library() -> ctypes.CDLL:
     return _lib
 
 
-def launch(name: str, *args) -> None:
-    """Call one C entry point on the current CUDA stream; raise if the
+def build_generated(tag: str, source: str) -> ctypes.CDLL:
+    """Compile a generated CUDA unit (which may include csrc/*.cuh) into
+    its own shared library under _build/, unless one with the same hash
+    of headers, source and flags exists, and load it. The caller sets the
+    argtypes of its entry points."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for hdr in sorted(CSRC.glob("*.cuh")):
+        h.update(hdr.name.encode())
+        h.update(hdr.read_bytes())
+    h.update(source.encode())
+    stem = f"{tag}_{h.hexdigest()[:16]}"
+    out = BUILD_DIR / f"lib{stem}.so"
+    with _lock:
+        if str(out) in _generated:
+            return _generated[str(out)]
+    if not out.exists():
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        src = BUILD_DIR / f"{stem}.cu"
+        tmp_src = src.with_suffix(f".{os.getpid()}.{threading.get_ident()}"
+                                  ".cu")
+        tmp_src.write_text(source)
+        os.replace(tmp_src, src)
+        tmp = out.with_suffix(f".{os.getpid()}.{threading.get_ident()}.tmp")
+        cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-shared", "-o",
+               str(tmp), str(src)]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError("nvcc failed on a generated unit:\n"
+                               + " ".join(cmd) + "\n" + proc.stdout
+                               + proc.stderr)
+        os.replace(tmp, out)
+    with _lock:
+        if str(out) not in _generated:
+            _generated[str(out)] = ctypes.CDLL(str(out))
+        return _generated[str(out)]
+
+
+def call(fn, name: str, *args) -> None:
+    """Call the C entry point `fn` on the current CUDA stream; raise if the
     launch failed. Tensor arguments must already be checked by the caller."""
     import torch
     stream = torch.cuda.current_stream().cuda_stream
     conv = [a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args]
-    err = getattr(library(), name)(*conv, stream)
+    err = fn(*conv, stream)
     if err != 0:
         raise RuntimeError(f"{name}: CUDA launch failed with error {err}")
+
+
+def launch(name: str, *args) -> None:
+    """Call one entry point of the kernel library (see `call`)."""
+    call(getattr(library(), name), name, *args)
 
 
 def check(t, shape, dtype, name: str) -> None:

@@ -3,8 +3,9 @@
 Counterpart of ceres_tpu/rotation.py, as far as the ported slices need
 it: `angle_axis_rotate_point` (the reference's rotation.h:288) with the
 same small-angle threshold per dtype, since the candidate-cost kernel
-(ops/cost.py) takes the same branch, and the w-first quaternion product
-and conjugate of the quaternion manifolds. Both branches are evaluated on
+(ops/cost.py) takes the same branch, the w-first quaternion product
+and conjugate of the quaternion manifolds, and the quaternion point
+rotations of the quaternion BAL cameras. Both branches are evaluated on
 safe operands and selected with `torch.where`, so forward-mode
 derivatives stay finite.
 """
@@ -52,3 +53,17 @@ def quaternion_product(z, w):
 
 def quaternion_conjugate(q):
     return torch.cat([q[..., :1], -q[..., 1:]], dim=-1)
+
+
+def unit_quaternion_rotate_point(q, pt):
+    """rotation.h:254 UnitQuaternionRotatePoint (assumes |q| = 1): with
+    uv = 2 q_vec x pt, pt + q_w uv + q_vec x uv."""
+    qvec = q[..., 1:]
+    uv = 2.0 * torch.linalg.cross(qvec, pt)
+    return pt + q[..., :1] * uv + torch.linalg.cross(qvec, uv)
+
+
+def quaternion_rotate_point(q, pt):
+    """rotation.h QuaternionRotatePoint: normalizes q first."""
+    scale = 1.0 / torch.sqrt(torch.sum(q * q, dim=-1, keepdim=True))
+    return unit_quaternion_rotate_point(q * scale, pt)

@@ -1,6 +1,7 @@
 """Fused Schur LM steps for bundle adjustment (mixed precision):
 FusedSchurStep, DENSE_SCHUR and ITERATIVE_SCHUR on an explicit reduced
-camera matrix S, for the Snavely bucket; ImplicitSchurStep,
+camera matrix S, for one bucket of two slots (the Snavely functor through
+K1, any functor that the jet compiler traces through K5); ImplicitSchurStep,
 ITERATIVE_SCHUR in the implicit (matrix-free) mode for any functor with
 the [points | cameras] layout; `schur_step` picks one of them.
 
@@ -14,7 +15,8 @@ elimination and the reduced solve run in f32 and cast back at the same
 places as the JAX package:
 
   linearize (radius-independent, once per accepted step):
-    K1 -> E^T E, g_e, s_e, A = (s_e E)^T F, F^T F, g_f;
+    K1 (Snavely) or K5 (any other traced functor, ops/lin_auto.py) ->
+    E^T E, g_e, s_e, A = (s_e E)^T F, F^T F, g_f;
     the scaled point Grams, the clipped diagonal, the scaled camera Grams.
   solve (once per damped trial), DENSE_SCHUR:
     K2 -> S_corr, rhs part, inv, z;  S = blockdiag(F^T F_s + D_f^2) - S_corr;
@@ -29,7 +31,8 @@ places as the JAX package:
     d_e^T E^T E_s d_e + 2 d_e.(A y) + y^T blockdiag(F^T F_s) y, since
     an inexact CG step breaks the direct solve's identity.
   cost (every candidate): K4 -> f64 ||r||^2 per observation; rho and the
-    sum in f64.
+    sum in f64 (Snavely); the program's f64 residual pass otherwise, as
+    the JAX package prices candidates (pallas_cost.py:229-233).
 
 The implicit mode (ceres_tpu's _lin_phase_generic implicit branches,
 :556-795, and _solve_phase's implicit branch, :887-1038, :1059-1092)
@@ -59,8 +62,11 @@ import torch
 
 from ..examples.snavely import SnavelyReprojectionError
 from ..loss import correct_residuals_and_jacobian
+from ..ops import lin_auto as k5
 from ..ops.cost import snavely_sq
 from ..ops.implicit import MAX_R, MAX_TE, MAX_TF, implicit_apply
+from ..ops.jet_compile import (loss_param_values, make_auto_spec,
+                               make_loss_spec)
 from ..ops.kernels import MAX_M, chol_solve
 from ..ops.lin import elim, elim_v1, lin, spd_inv3
 from ..ops.pcg import dense_pcg
@@ -68,7 +74,7 @@ from ..types import LinearSolverType, PreconditionerType
 from .cg import conjugate_gradients
 from .preconditioners import spd_inv_small
 
-TF, TE = 9, 3
+TF, TE = 9, 3                   # the Snavely shape of K1
 # ITERATIVE_SCHUR preconditioners assembled exactly from the step's
 # tensors (ceres_tpu's iterative_options_ok; SPSE is refused apart)
 _FUSED_PRECONDITIONERS = (PreconditionerType.IDENTITY,
@@ -172,30 +178,67 @@ def _common_unsupported(program, options, meta) -> Optional[str]:
     return None
 
 
+def _is_snavely(bk) -> bool:
+    return isinstance(getattr(bk.cost, "functor", None),
+                      SnavelyReprojectionError)
+
+
+def _k5_unsupported(program, options, meta) -> Optional[str]:
+    """The JAX package's gate of K5 (pallas_lin.py:525-567) for a bucket
+    that is not Snavely's: two variable slots with no manifold, te <= 6,
+    tf <= 12, r <= 8 (its kf <= 64 is a TPU cost cap, not kept), a
+    functor the jet compiler traces, and a loss it traces. Every bucket
+    of the port is differentiated by autodiff (its jac_mode "ad"). K2 and
+    K6 take te = 3 only."""
+    bk, grp = program.buckets[0], meta.f_groups[0]
+    if len(bk.slots) != 2 or any(not sl.variable or sl.manifold is not None
+                                 for sl in bk.slots):
+        return ("a functor of other than two slots, or with a manifold, in "
+                "the explicit step (ROADMAP.md item 11, the generic fused "
+                "lin phase)")
+    if meta.te > k5.MAX_TE or grp["t"] > k5.MAX_TF or bk.r > k5.MAX_R:
+        return (f"K5 past te <= {k5.MAX_TE}, tf <= {k5.MAX_TF}, r <= "
+                f"{k5.MAX_R} (ROADMAP.md item 11, the generic fused lin "
+                "phase)")
+    if make_auto_spec(program, bk) is None:
+        return ("a functor that the jet compiler does not trace "
+                "(ROADMAP.md item 11, the generic fused lin phase)")
+    if meta.te != TE:
+        return (f"a point block of te = {meta.te} in the explicit step, "
+                "whose K2 and K6 take te = 3 (ROADMAP.md item 40)")
+    if bk.loss is not None and (
+            make_loss_spec(bk.loss) is None or len(loss_param_values(
+                bk.loss)) > k5.MAX_LOSS_PARAMS):
+        return ("a robust loss that does not trace to scalar code "
+                "(ROADMAP.md item 9)")
+    return None
+
+
 def _explicit_unsupported(program, options, meta) -> Optional[str]:
     """unsupported_reason's checks of the explicit step (K1 on one
-    Snavely bucket, S formed densely)."""
+    Snavely bucket, K5 on one bucket of any other traced functor; S formed
+    densely)."""
     if len(program.buckets) != 1 or len(meta.buckets) != 1:
         return ("more than one residual-block bucket (ROADMAP.md item 11, "
                 "the generic fused lin phase)")
     bk, bs = program.buckets[0], meta.buckets[0]
-    if not isinstance(getattr(bk.cost, "functor", None),
-                      SnavelyReprojectionError):
-        return ("a functor other than SnavelyReprojectionError (ROADMAP.md "
-                "item 11, the generic fused lin phase; item 35, K5)")
     grp = meta.f_groups[0]
-    if meta.te != TE or grp["t"] != TF or bk.r != 2:
+    if _is_snavely(bk) and (meta.te != TE or grp["t"] != TF or bk.r != 2):
         return ("a Schur shape other than Snavely's (2, 3, 9) (ROADMAP.md "
                 "item 11, the generic fused lin phase)")
     if bs.e_slot is None or bs.f_cols is None or bs.chunk_rows is None:
         return ("no chunk layout for the bucket (ROADMAP.md item 18, the "
                 "rest of solvers/schur.py)")
     if not program.tangent_is_ambient or _slab_of(meta.e_cols) != 0 or \
-            _slab_of(meta.f_global_cols[grp["cols"]]) != meta.ne * TE:
+            _slab_of(meta.f_global_cols[grp["cols"]]) != meta.ne * meta.te:
         return ("constant blocks or another state layout than [points | "
                 "cameras] (ROADMAP.md item 11, the rest of "
                 "solvers/schur_fused.py)")
-    if bk.loss is not None and torch.device(options.device).type == "cuda":
+    if not _is_snavely(bk):
+        reason = _k5_unsupported(program, options, meta)
+        if reason is not None:
+            return reason
+    elif bk.loss is not None and torch.device(options.device).type == "cuda":
         return ("a robust loss on the CUDA path (ROADMAP.md item 9, "
                 "robust-loss K1)")
     if not _explicit_viable(meta):
@@ -396,15 +439,15 @@ class Linearization:
     """Radius-independent artifacts of one linearization (f32 unless
     noted). s_e/s_f are the Jacobi scales carried to the next one."""
     cost: torch.Tensor          # f64 total cost at x
-    A: torch.Tensor             # [ne, 3, nf] e-scaled cross tensor
-    etes: torch.Tensor          # [ne, 9] scaled point Grams
-    gse: torch.Tensor           # [ne, 3] scaled e gradient
-    diag_e: torch.Tensor        # [ne, 3] clipped scaled diagonal
-    s_e: torch.Tensor           # [ne, 3]
-    s_f: torch.Tensor           # [kf, 9]
-    FtF_s: torch.Tensor         # [kf, 9, 9] scaled camera Grams
+    A: torch.Tensor             # [ne, te, nf] e-scaled cross tensor
+    etes: torch.Tensor          # [ne, te*te] scaled point Grams
+    gse: torch.Tensor           # [ne, te] scaled e gradient
+    diag_e: torch.Tensor        # [ne, te] clipped scaled diagonal
+    s_e: torch.Tensor           # [ne, te]
+    s_f: torch.Tensor           # [kf, tf]
+    FtF_s: torch.Tensor         # [kf, tf, tf] scaled camera Grams
     g_sf: torch.Tensor          # [nf] scaled f gradient
-    diag_f: torch.Tensor        # [kf, 9] clipped scaled diagonal
+    diag_f: torch.Tensor        # [kf, tf] clipped scaled diagonal
     grad_max: torch.Tensor      # f64 max |gradient|
     grad_norm: torch.Tensor     # f64 ||gradient||
 
@@ -469,9 +512,7 @@ class SchurStep:
         self.f_slab = _slab_of(meta.f_global_cols[grp["cols"]])
         self.loss = bk.loss
         # K4 prices the candidates of a single Snavely bucket
-        self.k4 = (len(program.buckets) == 1
-                   and isinstance(getattr(bk.cost, "functor", None),
-                                  SnavelyReprojectionError)
+        self.k4 = (len(program.buckets) == 1 and _is_snavely(bk)
                    and bs.e_slot is not None and bs.f_cols is not None
                    and (self.te, self.tf, bk.r) == (TE, TF, 2))
         if self.k4:
@@ -506,10 +547,9 @@ class SchurStep:
 
 class FusedSchurStep(SchurStep):
     """The explicit Schur LM step: `linearize`, `solve` and `cost` for
-    DENSE_SCHUR, or ITERATIVE_SCHUR on an explicit S, over the Snavely
-    bucket through K1."""
-
-    mode = "explicit reduced camera matrix"
+    DENSE_SCHUR, or ITERATIVE_SCHUR on an explicit S, over one bucket:
+    the Snavely bucket through K1, any other traced functor through K5
+    (chosen once, here, from the functor, as the JAX package chooses)."""
 
     def __init__(self, program, options, meta):
         reason = unsupported_reason(program, options, meta, implicit=False)
@@ -520,22 +560,38 @@ class FusedSchurStep(SchurStep):
                           == LinearSolverType.ITERATIVE_SCHUR)
         bk, bs = program.buckets[0], meta.buckets[0]
         dev = program.device
-        local = next(s[2] for s in meta.f_groups[0]["slots"] if s[0] == 0)
+        local = np.asarray(
+            next(s[2] for s in meta.f_groups[0]["slots"] if s[0] == 0))
         rows, cmask = bs.chunk_rows, bs.chunk_mask       # [ne, k]
-        obs_x = bk.data["observed_x"].cpu().numpy()
-        obs_y = bk.data["observed_y"].cpu().numpy()
-
-        def chunk(a, dtype):
-            return torch.as_tensor(
-                np.ascontiguousarray(a[rows] * cmask).astype(dtype),
-                device=dev)
-
-        # K1 inputs, chunk layout (masked lanes: camera 0, obs 0, mask 0)
-        self.cam = chunk(np.asarray(local), np.int32)
         self.mask = torch.as_tensor(np.ascontiguousarray(cmask, np.float32),
                                     device=dev)
-        self.obsx = chunk(obs_x.astype(np.float32), np.float32)
-        self.obsy = chunk(obs_y.astype(np.float32), np.float32)
+        if _is_snavely(bk):
+            self.k5 = None
+            obs_x = bk.data["observed_x"].cpu().numpy()
+            obs_y = bk.data["observed_y"].cpu().numpy()
+
+            def chunk(a, dtype):
+                return torch.as_tensor(
+                    np.ascontiguousarray(a[rows] * cmask).astype(dtype),
+                    device=dev)
+
+            # K1 inputs, chunk layout (masked lanes: camera 0, obs 0)
+            self.cam = chunk(local, np.int32)
+            self.obsx = chunk(obs_x.astype(np.float32), np.float32)
+            self.obsy = chunk(obs_y.astype(np.float32), np.float32)
+        else:
+            # K5 inputs, chunk layout; a masked lane carries its point's
+            # first valid lane's camera and data (ops/lin_auto.py)
+            auto = make_auto_spec(program, bk)
+            var = [i for i, sl in enumerate(bk.slots) if sl.variable]
+            self.k5 = k5.lin_auto_spec(auto, var[bs.e_slot])
+            safe = torch.as_tensor(k5.safe_rows(rows, cmask).astype(np.int64),
+                                   device=dev)
+            self.cam = torch.as_tensor(local.astype(np.int32),
+                                       device=dev)[safe].contiguous()
+            self.dat = auto.data_matrix(bk)[safe].contiguous()
+        self.mode = ("explicit reduced camera matrix, linearize "
+                     + ("K1" if self.k5 is None else "K5"))
         # a direct solve is one linear iteration (kept on the device)
         self.one = torch.ones((), dtype=torch.int32, device=dev)
 
@@ -544,11 +600,16 @@ class FusedSchurStep(SchurStep):
         linearization's Gram diagonals; otherwise s_e/s_f are used."""
         if known_cost is None:
             known_cost = self.program.cost_fn(x)
-        ne, kf, nf = self.ne, self.kf, self.nf
-        xe = x[self.e_slab:self.e_slab + ne * TE].view(ne, TE).float()
+        ne, kf, nf, te = self.ne, self.kf, self.nf, self.te
+        xe = x[self.e_slab:self.e_slab + ne * te].view(ne, te).float()
         xf = x[self.f_slab:self.f_slab + nf].float()
-        out = lin(xf, xe, self.cam, self.mask, self.obsx, self.obsy,
-                  s_e.contiguous(), first, self.use_scaling, self.loss)
+        if self.k5 is None:
+            out = lin(xf, xe, self.cam, self.mask, self.obsx, self.obsy,
+                      s_e.contiguous(), first, self.use_scaling, self.loss)
+        else:
+            out = k5.lin_auto(self.k5, xf, xe, self.cam, self.mask,
+                              self.dat, s_e.contiguous(), first,
+                              self.use_scaling, self.loss)
         ete, ge, se = out["ete"], out["ge"], out["se"]
         FtF, g_f = out["ftf"], out["gf"]
         cn_f = torch.diagonal(FtF, dim1=-2, dim2=-1)
@@ -556,8 +617,8 @@ class FusedSchurStep(SchurStep):
             s_f = torch.ones_like(cn_f)
         elif first:
             s_f = 1.0 / (1.0 + torch.sqrt(cn_f))
-        se_outer = (se[:, :, None] * se[:, None, :]).reshape(ne, TE * TE)
-        cn_e = ete[:, ::TE + 1]
+        se_outer = (se[:, :, None] * se[:, None, :]).reshape(ne, te * te)
+        cn_e = ete[:, ::te + 1]
         g_f_flat = g_f.reshape(nf)
         grad_max = torch.maximum(ge.abs().max(), g_f_flat.abs().max())
         grad_norm = torch.sqrt(torch.dot(ge.reshape(-1), ge.reshape(-1))
@@ -573,18 +634,18 @@ class FusedSchurStep(SchurStep):
             grad_max=grad_max.double(), grad_norm=grad_norm.double())
 
     def point_inverse(self, art: Linearization, rad):
-        """inv = (E^T E_s + D_e^2)^-1 [ne, 3, 3] and z = inv (-g_se)
-        [ne, 3] at the f32 radius tensor `rad` (K6's inputs)."""
-        inv = spd_inv3(art.etes.view(self.ne, TE, TE)
-                       + torch.diag_embed(art.diag_e / rad))
+        """inv = (E^T E_s + D_e^2)^-1 [ne, te, te] and z = inv (-g_se)
+        [ne, te] at the f32 radius tensor `rad` (K6's inputs)."""
+        inv = _spd_inv_e(art.etes.view(self.ne, self.te, self.te)
+                         + torch.diag_embed(art.diag_e / rad))
         return inv, torch.einsum("nij,nj->ni", inv, -art.gse)
 
     def reduced_system(self, art: Linearization, radius: float):
         """The elimination (K2 for DENSE_SCHUR; inv, z and K6 for
         ITERATIVE_SCHUR) and the assembly of the reduced camera system at
-        `radius`: returns (S [nf, nf], rhs [nf], inv [ne, 3, 3], rad f32
+        `radius`: returns (S [nf, nf], rhs [nf], inv [ne, te, te], rad f32
         tensor)."""
-        kf, nf = self.kf, self.nf
+        kf, nf, tf = self.kf, self.nf, self.tf
         rad = torch.tensor(radius, dtype=torch.float32,
                            device=self.program.device)
         sA = art.s_f.reshape(nf)
@@ -597,16 +658,17 @@ class FusedSchurStep(SchurStep):
                                             float(np.float32(radius)))
         rhs = -art.g_sf - sA * rhsa_u
         S = -(S_corr_u * (sA[:, None] * sA[None, :]))
-        S = S.view(kf, TF, kf, TF)
+        S = S.view(kf, tf, kf, tf)
         ii = torch.arange(kf, device=S.device)
         S[ii, :, ii, :] += art.FtF_s + torch.diag_embed(art.diag_f / rad)
         return S.view(nf, nf).contiguous(), rhs.contiguous(), inv, rad
 
     def precond_inverse(self, art: Linearization, S, rad):
-        """The inverted [kf, 9, 9] preconditioner blocks of the reduced
+        """The inverted [kf, tf, tf] preconditioner blocks of the reduced
         CG, or None for IDENTITY."""
         blocks = precond_blocks(
-            art.FtF_s + torch.diag_embed(art.diag_f / rad), S, self.kf, TF,
+            art.FtF_s + torch.diag_embed(art.diag_f / rad), S, self.kf,
+            self.tf,
             self.preconditioner)
         return None if blocks is None else spd_inv_small(blocks).contiguous()
 
@@ -630,9 +692,10 @@ class FusedSchurStep(SchurStep):
         if self.iterative:
             # the Gram identity: J^T J = [[EtE, A], [A^T, blockdiag(FtF)]]
             # for the BA structure, with Ay reused from the back-substitution
-            yb = y.view(kf, TF)
+            yb = y.view(kf, self.tf)
             Jd_sq = (torch.sum(d_e * torch.einsum(
-                         "nuv,nv->nu", art.etes.view(-1, TE, TE), d_e))
+                         "nuv,nv->nu", art.etes.view(-1, self.te, self.te),
+                         d_e))
                      + 2.0 * torch.sum(d_e * Ay)
                      + torch.sum(yb * torch.einsum("ctu,cu->ct", art.FtF_s,
                                                    yb)))

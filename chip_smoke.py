@@ -8,8 +8,10 @@ checkout (into ceres_tpu_torch/_build/), then, on Snavely bundle
 adjustment at the BAL-16-22106 shape (16 cameras, 22,106 points, 83,718
 observations; the seeded synthetic problem at its perturbed start), on
 two pose graphs (io/g2o.py's generators: SE3 with 2,000 poses, SE2 with
-1,000; POSE_GRAPHS) and on the JAX package's large-BA case (1,024
-cameras, 200,000 points, 1,000,000 observations; IMPLICIT_SHAPE):
+1,000; POSE_GRAPHS), on the JAX package's large-BA case (1,024
+cameras, 200,000 points, 1,000,000 observations; IMPLICIT_SHAPE) and on
+the BAL-16-22106 problem with its cameras written as quaternions
+(QUAT_PATHS):
 
 1. checks each kernel against its plain PyTorch version on the card, at
    the shapes its path gives it: K1-K4 (slice 1, DENSE_SCHUR), K6 on the
@@ -19,7 +21,9 @@ cameras, 200,000 points, 1,000,000 observations; IMPLICIT_SHAPE):
    SE2 at the start), K8 on the scaled Jacobian of each graph's first
    linearization; K10 (slice 4) on the scaled chunk tensors of the large
    case's first linearization at RADIUS and a seeded v, K11 on the large
-   case's Snavely bucket (1M rows) at its start; times each, its
+   case's Snavely bucket (1M rows) at its start; K5 (slice 5) on the
+   quaternion problem's first linearization, with no loss and with
+   HuberLoss(1.0); times each, its
    plain version and, where one PyTorch call computes the same function,
    that call, with CUDA events (median of 20 runs); and computes each
    kernel's bound from this run's inputs;
@@ -31,7 +35,10 @@ cameras, 200,000 points, 1,000,000 observations; IMPLICIT_SHAPE):
    with SCHUR_JACOBI on the large case (slice 4, the implicit mode: nf =
    9,216 is past the explicit cap), one warm-up and two timed; and the
    implicit mode forced on BAL-16-22106 through the step and run_fused,
-   one warm-up and one timed;
+   one warm-up and one timed; the three quaternion paths (slice 5:
+   DENSE_SCHUR, one warm-up and two timed; ITERATIVE_SCHUR with
+   SCHUR_JACOBI, and DENSE_SCHUR with HuberLoss(1.0) and a cap of 100
+   iterations, one warm-up and one timed each);
 3. fails unless every kernel agrees within its limit (K7 with the same CG
    iteration count), every BAL-16-22106 solve ends in CONVERGENCE with a
    final cost within 1e-5 relative of 5.028773e+04, every kernel of a
@@ -44,9 +51,13 @@ cameras, 200,000 points, 1,000,000 observations; IMPLICIT_SHAPE):
    ends in CONVERGENCE (the large case within IMPLICIT_REF_REL_TOL of the
    JAX package's final cost), launches K10 at least once per CG iteration
    and K4 at least once per LM iteration, K11 once per linearization,
-   and no K1-K3, K6-K8; the
-   pose-graph and large-case solves repeat the same LM and CG counts and
-   final cost in every solve; and TF32 is off.
+   and no K1-K3, K6-K8; every quaternion solve ends in CONVERGENCE
+   within its tolerance of the JAX package's final cost, launches K5 at
+   least once per accepted step and at most once per LM iteration plus
+   one, K2 and K3 (DENSE) or K6 and K7 (ITERATIVE) at least once per LM
+   iteration, and no K1, K4 or a kernel of another path; the
+   pose-graph, large-case and quaternion solves repeat the same LM and CG
+   counts and final cost in every solve; and TF32 is off.
 
 Prints the card's name and power limit, one line per check and solve, a
 JSON line of the kernels (each kernel's launches from its MAIN_PATH solve
@@ -121,6 +132,49 @@ IMPLICIT_PERTURB = dict(rotation_sigma=0.01, translation_sigma=0.1,
 # card's order as well.
 IMPLICIT_REF_COST = 694294.6414661948
 IMPLICIT_REF_REL_TOL = 2e-4
+# slice 5: the main path's problem with its cameras written as w-first
+# quaternions (Ceres's bundle_adjuster -use_quaternions, with its default
+# -use_manifolds=false, so the quaternion is a plain Euclidean 4-block;
+# the functor SnavelyReprojectionErrorWithQuaternions), solved through
+# K5. `ref_cost` and `ref_iterations` are the JAX package's on the CPU
+# with the same options (scripts/quaternion_reference.py); DENSE and
+# ITERATIVE end 1.2e-5 apart there, so the gate `tol` cannot be tighter.
+QUAT_PATHS = {
+    "QUAT_DENSE_SCHUR": dict(
+        solver="DENSE_SCHUR", huber=None, max_num_iterations=50,
+        ref_cost=50279.85472566241, ref_iterations=16, tol=5e-5, trials=3),
+    "QUAT_ITERATIVE_SCHUR": dict(
+        solver="ITERATIVE_SCHUR", huber=None, max_num_iterations=50,
+        ref_cost=50279.246067487875, ref_iterations=18, tol=5e-5, trials=2),
+    "QUAT_DENSE_SCHUR_HUBER": dict(
+        solver="DENSE_SCHUR", huber=1.0, max_num_iterations=100,
+        ref_cost=42797.78733273453, ref_iterations=27, tol=1e-4, trials=2),
+}
+
+
+def quaternion_bal(bal_module):
+    """The quaternion problem from package `bal_module` (ceres_tpu.io.bal
+    or ceres_tpu_torch.io.bal; both build the same bits): the main path's
+    problem, converted to quaternion cameras before the perturbation."""
+    bal = bal_module.synthetic_bal_problem(**SHAPE, seed=7,
+                                           pixel_noise=1.0).to_quaternions()
+    bal.perturb(**PERTURB, seed=8)
+    return bal
+
+
+def quaternion_options(mod, path, **extra):
+    """The options of QUAT_PATHS[path] in package `mod` (ceres_tpu or
+    ceres_tpu_torch); `extra` adds or overrides options."""
+    cfg = QUAT_PATHS[path]
+    kw = dict(linear_solver_type=getattr(mod.LinearSolverType, cfg["solver"]),
+              preconditioner_type=mod.PreconditionerType.SCHUR_JACOBI,
+              max_num_iterations=cfg["max_num_iterations"],
+              function_tolerance=1e-6, max_linear_solver_iterations=100,
+              use_mixed_precision_solves=True, fused_iterations=True)
+    kw.update(extra)
+    return mod.SolverOptions(**kw)
+
+
 # each kernel's main path: its "launches" in the kernels line are the
 # counts of that path's last solve (K11 has two entries, the SE3 spec's
 # and the Snavely spec's, each read from the counter of bucket_linearize)
@@ -131,7 +185,8 @@ MAIN_PATH = {"K1 lin": "DENSE_SCHUR", "K2 elim": "DENSE_SCHUR",
              "K8 bucket_jtjv": "POSE_GRAPH_3D",
              "K10 implicit_apply": "IMPLICIT_SCHUR",
              "K11 bucket_linearize": "POSE_GRAPH_3D",
-             "K11 bucket_linearize (Snavely)": "IMPLICIT_SCHUR"}
+             "K11 bucket_linearize (Snavely)": "IMPLICIT_SCHUR",
+             "K5 lin_auto": "QUAT_DENSE_SCHUR"}
 
 
 def large_options(mod, **extra):
@@ -318,6 +373,7 @@ def main():
         raise SystemExit("chip_smoke: no CUDA device")
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     import ceres_tpu_torch as ctt
+    from ceres_tpu_torch.io import bal as bal_io
     from ceres_tpu_torch.io.bal import (build_bal_ceres_problem,
                                         synthetic_bal_problem)
     from ceres_tpu_torch.ops import _cuda
@@ -332,6 +388,8 @@ def main():
                                                bucket_linearize_plain)
     from ceres_tpu_torch.ops.lin import (elim, elim_plain, elim_v1,
                                          elim_v1_plain, lin, lin_plain)
+    from ceres_tpu_torch.ops import lin_auto as k5
+    from ceres_tpu_torch.ops.jet_compile import make_loss_spec
     from ceres_tpu_torch.ops.pcg import dense_pcg, dense_pcg_plain
     from ceres_tpu_torch.minimizers.fused import run_fused
     from ceres_tpu_torch.program import CompiledProgram
@@ -636,13 +694,66 @@ def main():
     kernels.append(rec)
     del k11_big
 
+    # ---- slice 5: K5 on the quaternion problem's first linearization ----
+    t0 = time.time()
+    q_bal = quaternion_bal(bal_io)
+    quat = {}            # problem, arrays and start of each loss
+    for loss_name, loss in (("none", None), ("huber", ctt.HuberLoss(1.0))):
+        q_problem, q_cams, q_pts = build_bal_ceres_problem(
+            q_bal, loss=loss, use_quaternions=True, use_manifolds=False)
+        quat[loss_name] = dict(problem=q_problem, loss=loss,
+                               arrays=q_cams + q_pts,
+                               start=[a.copy() for a in q_cams + q_pts])
+    q_options = quaternion_options(ctt, "QUAT_DENSE_SCHUR", device="cuda")
+    q_program = CompiledProgram.get_cached(quat["none"]["problem"], q_options)
+    q_step = FusedSchurStep(q_program, q_options,
+                            detect_schur_structure(q_program, q_options))
+    if q_step.k5 is None or "K5" not in q_step.mode:
+        raise SystemExit(f"quaternion problem: step mode {q_step.mode}")
+    print(f"quaternion problem build: {time.time() - t0:.1f} s; "
+          f"ne={q_step.ne} k={q_step.cam.shape[1]} kf={q_step.kf} "
+          f"nf={q_step.nf} te={q_step.te} tf={q_step.tf}; {q_step.mode}",
+          flush=True)
+    qx0 = q_program.initial_state()
+    q_se0, _ = q_step.initial_scales()
+    q_te, q_tf, q_r = q_step.te, q_step.tf, q_step.k5.r
+    for loss_name in ("none", "huber"):
+        loss = quat[loss_name]["loss"]
+        k5_args = (q_step.k5,
+                   qx0[q_step.f_slab:q_step.f_slab + q_step.nf].float(),
+                   qx0[q_step.e_slab:q_step.e_slab + q_te * q_step.ne].view(
+                       q_step.ne, q_te).float(),
+                   q_step.cam, q_step.mask, q_step.dat, q_se0, True, True,
+                   loss)
+        t0 = time.time()
+        k5.build(q_step.k5, loss)
+        print(f"K5 build ({loss_name}): {time.time() - t0:.1f} s", flush=True)
+        # operations: the emitted chain (one operation a line) and the
+        # epilogue's products per observation (E^T E, g_e, A, F^T F, g_f)
+        chain_ops = sum(
+            1 for ln in k5.chain_source(
+                q_step.k5, None if loss is None else make_loss_spec(loss)
+            ).splitlines() if ln.lstrip().startswith("const "))
+        epi_ops = 2 * q_r * (q_te * (q_te + 1) // 2 + q_te + q_te * q_tf
+                             + q_tf * (q_tf + 1) // 2 + q_tf)
+        rec = check_kernel(
+            "K5 lin_auto" + ("" if loss is None else " (HuberLoss(1.0))"),
+            lambda: k5.lin_auto(*k5_args),
+            lambda: k5.lin_auto_plain(*k5_args), cmp_lin, F32_LIMIT,
+            "ceres_tpu_torch/csrc/lin_auto.cuh",
+            "ceres_tpu/ops/pallas_lin.py:272", k5_args[1:7],
+            (chain_ops + epi_ops) * nobs, F32_FLOP_PER_S)
+        if loss is None:
+            kernels.append(rec)
+
     # ---- the paths: solves on the card ----
     counters = {"K1 lin": lin, "K2 elim": elim,
                 "K3 chol_solve": chol_solve, "K4 cost": snavely_sq,
                 "K6 elim_v1": elim_v1, "K7 dense_pcg": dense_pcg,
                 "K8 bucket_jtjv": bucket_jtjv,
                 "K10 implicit_apply": implicit_apply,
-                "K11 bucket_linearize": bucket_linearize}
+                "K11 bucket_linearize": bucket_linearize,
+                "K5 lin_auto": k5.lin_auto}
 
     def reset_state():
         for c, c0 in zip(cams, cam0):
@@ -751,6 +862,40 @@ def main():
                 raise SystemExit(f"pose graph {key}: solves differ: {seen}")
         return gate
 
+    def reset_quat(loss_name):
+        def reset():
+            for a, a0 in zip(quat[loss_name]["arrays"],
+                             quat[loss_name]["start"]):
+                a[:] = a0
+        return reset
+
+    def gate_quat(label, runs, never):
+        seen = []
+
+        def gate(summary, launches):
+            gate_path(label, runs, never + ("K1 lin", "K4 cost"))(
+                summary, launches)
+            n5 = launches["K5 lin_auto"]
+            if not summary.num_successful_steps <= n5 <= \
+                    summary.num_iterations + 1:
+                raise SystemExit(f"{label}: K5 launched {n5} times for "
+                                 f"{summary.num_successful_steps} accepted "
+                                 f"steps of {summary.num_iterations}")
+            if "K5" not in summary.message:
+                raise SystemExit(f"{label}: not the K5 route: "
+                                 f"{summary.message}")
+            cfg = QUAT_PATHS[label]
+            print(f"  JAX package on the CPU: {cfg['ref_iterations']} LM "
+                  f"iterations, final cost {cfg['ref_cost']!r}; this solve "
+                  f"{summary.num_iterations}, {summary.final_cost!r}",
+                  flush=True)
+            seen.append((summary.num_iterations,
+                         summary.num_linear_solver_iterations,
+                         summary.final_cost))
+            if len(set(seen)) != 1:
+                raise SystemExit(f"{label}: solves differ: {seen}")
+        return gate
+
     def reset_graph(key):
         def reset():
             for a, a0 in zip(graphs[key]["arrays"], graphs[key]["start"]):
@@ -782,6 +927,18 @@ def main():
         big_problem, reset_big, counters, 3,
         gate_implicit("IMPLICIT_SCHUR"), ref_cost=IMPLICIT_REF_COST,
         ref_tol=IMPLICIT_REF_REL_TOL)
+    other = ("K8 bucket_jtjv", "K10 implicit_apply", "K11 bucket_linearize")
+    quat_runs = {"DENSE_SCHUR": (("K2 elim", "K3 chol_solve"),
+                                 ("K6 elim_v1", "K7 dense_pcg") + other),
+                 "ITERATIVE_SCHUR": (("K6 elim_v1", "K7 dense_pcg"),
+                                     ("K2 elim", "K3 chol_solve") + other)}
+    for path, cfg in QUAT_PATHS.items():
+        loss_name = "none" if cfg["huber"] is None else "huber"
+        by_path[path] = drive(
+            path, quaternion_options(ctt, path, device="cuda"),
+            quat[loss_name]["problem"], reset_quat(loss_name), counters,
+            cfg["trials"], gate_quat(path, *quat_runs[cfg["solver"]]),
+            ref_cost=cfg["ref_cost"], ref_tol=cfg["tol"])
     if torch.backends.cuda.matmul.allow_tf32:
         raise SystemExit("TF32 matmul is enabled")
 

@@ -2,14 +2,16 @@
 """Where the time goes in one ceres_tpu_torch solve on the card.
 
     python3 scripts/profile_torch_solve.py
-        [--paths dense,iterative,pose3d,pose2d,implicit] [--trace-dir DIR]
+        [--paths dense,iterative,pose3d,pose2d,implicit,quat-dense,
+                 quat-iterative,quat-huber] [--trace-dir DIR]
 
 Builds chip_smoke.py's problems (BAL-16-22106 shape, generator seed 7,
 PERTURB seed 8; the pose graphs of POSE_GRAPHS; the large-BA case of
-IMPLICIT_SHAPE) and, for each path (DENSE_SCHUR; ITERATIVE_SCHUR with
-SCHUR_JACOBI; CGNR with JACOBI on the SE3 and the SE2 pose graph;
-ITERATIVE_SCHUR in the implicit mode on the large case; each with
-chip_smoke.py's options), solves
+IMPLICIT_SHAPE; the quaternion-camera problem of QUAT_PATHS) and, for
+each path (DENSE_SCHUR; ITERATIVE_SCHUR with SCHUR_JACOBI; CGNR with
+JACOBI on the SE3 and the SE2 pose graph; ITERATIVE_SCHUR in the
+implicit mode on the large case; the three quaternion paths through K5;
+each with chip_smoke.py's options), solves
 once as a warm-up, once timed without the profiler, and once under
 torch.profiler (CPU and CUDA activities). Prints the card's name and
 power limit, then per path: the wall of the plain and the profiled
@@ -39,7 +41,7 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 # device kernel name -> the ported kernel it belongs to; the S_corr and
 # rhs kernels of elim.cu serve K2 (DENSE_SCHUR) and K6 (ITERATIVE_SCHUR)
 KERNEL_OF = {
-    "lin_point_kernel": "K1", "ftf_partial_kernel": "K1",
+    "lin_auto::": "K5", "lin_point_kernel": "K1", "ftf_partial_kernel": "K1",
     "ftf_final_kernel": "K1", "elim_point_kernel": "K2",
     "scorr_partial_kernel": "K2/K6", "rhs_partial_kernel": "K2/K6",
     "reduce_splits_kernel": "K2/K6", "chol_solve_kernel": "K3",
@@ -63,7 +65,7 @@ def owner(name, path):
     for key, k in KERNEL_OF.items():
         if key in name:
             if k == "K2/K6":
-                return "K6" if path == "iterative" else "K2"
+                return "K6" if "iterative" in path else "K2"
             return k
     for key, kind in GLUE_OF:
         if key in name:
@@ -103,9 +105,11 @@ def main():
     from ceres_tpu_torch.io import g2o
     from ceres_tpu_torch.io.bal import (build_bal_ceres_problem,
                                         synthetic_bal_problem)
+    from ceres_tpu_torch.io import bal as bal_io
     from chip_smoke import (IMPLICIT_PERTURB, IMPLICIT_SHAPE, PERTURB,
-                            POSE_GRAPHS, SHAPE, large_options,
-                            pose_graph_options, position_error)
+                            POSE_GRAPHS, QUAT_PATHS, SHAPE, large_options,
+                            pose_graph_options, position_error,
+                            quaternion_bal, quaternion_options)
 
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], check=True,
@@ -122,6 +126,17 @@ def main():
             problem, cams, pts = build_bal_ceres_problem(bal)
             return (problem, cams + pts, large_options(ctt, device="cuda"),
                     None)
+        if path.startswith("quat-"):
+            name = "QUAT_" + {"dense": "DENSE_SCHUR",
+                              "iterative": "ITERATIVE_SCHUR",
+                              "huber": "DENSE_SCHUR_HUBER"}[path[5:]]
+            huber = QUAT_PATHS[name]["huber"]
+            problem, cams, pts = build_bal_ceres_problem(
+                quaternion_bal(bal_io),
+                loss=None if huber is None else ctt.HuberLoss(huber),
+                use_quaternions=True, use_manifolds=False)
+            return (problem, cams + pts,
+                    quaternion_options(ctt, name, device="cuda"), None)
         if path in ("dense", "iterative"):
             bal = synthetic_bal_problem(**SHAPE, seed=7, pixel_noise=1.0)
             bal.perturb(**PERTURB, seed=8)

@@ -29,6 +29,42 @@ def small_bal():
     return bal
 
 
+def quaternion_bal():
+    """tests/test_autolin.py's problem (6 cameras, 150 points, 600
+    observations) with its cameras written as w-first quaternions before
+    the perturbation, as chip_smoke.py's quaternion problem is made."""
+    bal = synthetic_bal_problem(num_cameras=6, num_points=150,
+                                num_observations=600, seed=3,
+                                pixel_noise=0.5).to_quaternions()
+    bal.perturb(rotation_sigma=0.05, translation_sigma=0.3,
+                point_sigma=0.2, seed=5)
+    return bal
+
+
+def quaternion_solve_bal():
+    """A quaternion problem whose LM solves converge in both packages:
+    8 cameras, 500 points, 4,000 observations, chip_smoke.py's seeds and
+    perturbation. (With Euclidean quaternions, the 600-observation problem
+    creeps on for more than 50 iterations without converging.)"""
+    bal = synthetic_bal_problem(num_cameras=8, num_points=500,
+                                num_observations=4000, seed=7,
+                                pixel_noise=1.0).to_quaternions()
+    bal.perturb(rotation_sigma=0.1, translation_sigma=1.0, point_sigma=0.5,
+                seed=8)
+    return bal
+
+
+def jax_quaternion_problem(bal, loss=None):
+    """Euclidean quaternion blocks (bundle_adjuster -use_quaternions)."""
+    return jax_build(bal, loss=loss, use_quaternions=True,
+                     use_manifolds=False)[0]
+
+
+def torch_quaternion_problem(bal, loss=None):
+    return torch_build(bal, loss=loss, use_quaternions=True,
+                       use_manifolds=False)[0]
+
+
 def main_path_options(mod, **extra):
     """The main path's options (bench.py's DENSE_SCHUR configuration) in
     package `mod` (ceres_tpu or ceres_tpu_torch)."""

@@ -9,7 +9,8 @@ build raises: nothing falls back.
 
 A second route builds generated units (`build_generated`): a source
 that a module writes at run time (K5's unit, the jet chain of one
-functor emitted by ops/jet_compile.py around ``csrc/lin_auto.cuh``) goes
+functor emitted by ops/jet_compile.py around ``csrc/lin_auto.cuh``;
+K11's auto-spec unit, a row chain around ``csrc/linearize_auto.cuh``) goes
 to ``_build/<tag>_<hash>.cu`` and compiles with the same flags and ``-I
 csrc`` into its own shared library, keyed by a hash of the headers, the
 source and the flags, loaded with ``ctypes``; it raises as `build` does.
@@ -50,6 +51,7 @@ _SIGNATURES = {
                    _P, _P],
     "ceres_linearize": [_I, _P, _P, _I, _P, _P, _P],
     "ceres_jtjv": [_P, _P, _I, _I, _I, _P, _P],
+    "ceres_gram": [_P, _I, _I, _I, ctypes.c_long, ctypes.c_long, _P, _P],
     "ceres_implicit_apply": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                              _P, _P],
 }

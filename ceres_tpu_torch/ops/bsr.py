@@ -27,6 +27,8 @@ from typing import List, Sequence
 import numpy as np
 import torch
 
+from .kernels import bucket_gram_blocks
+
 
 class ColumnSum:
     """Fixed-order segment sum: out[c] = the sum of the units at the
@@ -168,14 +170,10 @@ class GroupMeta:
 
 def block_diag_jtj(jac: BlockJacobian, groups) -> List[torch.Tensor]:
     """Block diagonal of J^T J per parameter block, one [k, t, t] tensor
-    per tangent-size group (block_jacobi_preconditioner.h:55): batched
-    per-row Grams summed per block in the fixed order of the group's
-    block_sum."""
-    out = []
-    for g in groups:
-        grams = []
-        for (bi, si, _) in g.bucket_slots:
-            Js = jac.buckets[bi].slot_J(si)
-            grams.append(torch.einsum("nrt,nru->ntu", Js, Js))
-        out.append(g.block_sum(grams))
-    return out
+    per tangent-size group (block_jacobi_preconditioner.h:55): the
+    per-row Grams of each slot by K9 (one launch per variable slot of
+    each bucket, reading the slot's columns in place) summed per block in
+    the fixed order of the group's block_sum."""
+    return [g.block_sum([bucket_gram_blocks(jac.buckets[bi].slot_J(si))
+                         for (bi, si, _) in g.bucket_slots])
+            for g in groups]

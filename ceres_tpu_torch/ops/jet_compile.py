@@ -14,7 +14,9 @@ constant indices, ...) run on an arange of positions and move the jets
 the way they moved the positions (the arange trick, :308). Evaluated
 over tensor scalars this is a CPU forward-mode derivative (the tests hold
 it to jacfwd); evaluated over emitter scalars it writes the CUDA code of
-the chain, which K5 (ops/lin_auto.py, csrc/lin_auto.cuh) compiles.
+the chain: K5's lane chain (ops/lin_auto.py, csrc/lin_auto.cuh) and
+K11's row chain (`row_chain_source`; ops/linearize.py,
+csrc/linearize_auto.cuh), both through `chain_body`.
 
 A graph with an op outside the rule table makes `make_auto_spec` return
 None (`_validate`, :449), and the caller keeps another path. The spec is
@@ -41,6 +43,7 @@ from . import jetlib as jl
 from .jetlib import Jet, const
 
 __all__ = ["make_auto_spec", "make_loss_spec", "loss_param_values",
+           "loss_structure", "chain_body", "row_chain_source",
            "eval_loss", "AutoSpec", "LossSpec"]
 
 _WARNED: set = set()
@@ -52,7 +55,7 @@ def _warn_once(key, msg):
         print(f"ceres_tpu_torch: {msg}", file=sys.stderr)
 
 
-class _Unsupported(Exception):
+class _Unsupported(TypeError):
     pass
 
 
@@ -479,10 +482,9 @@ class AutoSpec(NamedTuple):
         """The bucket's data fields as one f32 [n, p_dat] tensor."""
         cols = [bk.data[name].reshape(bk.n, w) for name, w in
                 zip(self.data_names, self.data_widths)]
-        if not cols:
+        if not cols:            # a functor without data fields
             return torch.zeros(bk.n, 0, dtype=torch.float32,
-                               device=next(iter(bk.data.values())).device
-                               if bk.data else None)
+                               device=bk.slots[0].amb_local.device)
         return torch.cat(cols, dim=1).to(torch.float32).contiguous()
 
     def split_data(self, row):
@@ -519,6 +521,61 @@ class AutoSpec(NamedTuple):
             ch += t
         out = evaluate_graph(self.graph, args)
         return list(_as_obj(out).reshape(-1))
+
+    def row_jacobian(self, slots, d_row):
+        """(r [R], J [R, nt]) of one row by torch.func.jacfwd of per_row
+        at zero tangent, in the dtype of the slots: slots, per slot its
+        ambient values; d_row, a [p_dat] row of data_matrix. Under vmap
+        this is the plain version of the kernels that run the chain."""
+        c = slots[0]
+
+        def g(*deltas):
+            r = self.per_row(*self.split_data(d_row), *slots, *deltas)
+            return r, r
+
+        zeros = tuple(torch.zeros(t, dtype=c.dtype, device=c.device)
+                      for t in self.tan_sizes)
+        Js, r = torch.func.jacfwd(g, argnums=tuple(range(len(zeros))),
+                                  has_aux=True)(*zeros)
+        return r, torch.cat([j.to(c.dtype) for j in Js], dim=-1)
+
+
+def chain_body(em, jets, nt: int) -> str:
+    """The lines of a chain's run(): the emitter's straight-line f32
+    code, then the stores of the R residual jets into rv[R] and a dense
+    J[R][nt], 0.0f where a channel is structurally zero."""
+    out = []
+    for s, jet in enumerate(jets):
+        out.append(f"rv[{s}] = {jl.operand(jet.v)};")
+        for c, p in enumerate(jl.dense_partials(jet, nt)):
+            out.append(f"J[{s}][{c}] = "
+                       f"{'0.0f' if p is None else jl.operand(p)};")
+    return "\n".join("    " + ln for ln in em.lines + out)
+
+
+def row_chain_source(spec: "AutoSpec", name: str = "RowChain") -> str:
+    """The C++ struct of one row's residual jet chain for K11's auto
+    spec (csrc/linearize_auto.cuh states its interface): any number of
+    slots, read from the row's slot-concatenated ambient values x[P_IN]
+    and data d[P_DAT]; the variable slots' tangents seeded through the
+    traced program, which holds each slot's Plus; no loss (K11 returns
+    the uncorrected r and J)."""
+    em = jl.Emitter()
+    offs = np.cumsum((0,) + spec.slot_sizes)
+    jets = spec.jets(
+        [[em.input(f"x[{o + a}]") for a in range(size)]
+         for o, size in zip(offs, spec.slot_sizes)],
+        [em.input(f"d[{i}]") for i in range(spec.p_dat)])
+    return f"""struct {name} {{
+  static constexpr int R = {spec.r}, NT = {spec.nt};
+  static constexpr int P_IN = {int(offs[-1])}, P_DAT = {spec.p_dat};
+  static __device__ __forceinline__ void run(
+      const float* __restrict__ x, const float* __restrict__ d,
+      float (&rv)[R], float (&J)[R][NT]) {{
+{chain_body(em, jets, spec.nt)}
+  }}
+}};
+"""
 
 
 def _functor_name(bk) -> str:
@@ -612,19 +669,21 @@ class LossSpec(NamedTuple):
     digest: str
 
 
-def _loss_structure(loss):
+def loss_structure(loss):
     """(structure key, scalar values) of a loss, nested losses walked in
-    attribute order; raises _Unsupported on any other attribute."""
+    attribute order; a bool or str attribute is part of the structure
+    with its value; raises _Unsupported (a TypeError) on any other
+    attribute. The program keys its buckets by it, K5 its builds."""
     from ..loss import LossFunction
     parts, values = [], []
     for k, v in vars(loss).items():
         if isinstance(v, LossFunction):
-            sub, vals = _loss_structure(v)
+            sub, vals = loss_structure(v)
             parts.append((k, sub))
             values += vals
-        elif v is None:
-            parts.append((k, None))
-        elif isinstance(v, (int, float)) and not isinstance(v, bool):
+        elif v is None or isinstance(v, (bool, str)):
+            parts.append((k, v))
+        elif isinstance(v, (int, float)):
             parts.append((k, "scalar"))
             values.append(float(v))
         else:
@@ -650,7 +709,7 @@ _LOSS_SPECS: dict = {}
 
 def loss_param_values(loss) -> list:
     """The loss's scalars, in the order of make_loss_spec's params."""
-    return _loss_structure(loss)[1]
+    return loss_structure(loss)[1]
 
 
 def make_loss_spec(loss) -> Optional[LossSpec]:
@@ -658,7 +717,7 @@ def make_loss_spec(loss) -> Optional[LossSpec]:
     the loss has other attributes than scalars and nested losses, or does
     not trace."""
     try:
-        key, values = _loss_structure(loss)
+        key, values = loss_structure(loss)
     except _Unsupported:
         return None
     if key not in _LOSS_SPECS:

@@ -1,14 +1,16 @@
-"""K3, dense SPD solve of the small reduced camera system, and K8, the
-CGNR operator J^T (J v) of one bucket.
+"""K3, dense SPD solve of the small reduced camera system; K8, the CGNR
+operator J^T (J v) of one bucket; K9, the per-row Gram blocks J^T J of
+one bucket's slot.
 
 Counterpart of ceres_tpu/ops/pallas_kernels.py (chol_solve_small,
-bucket_jtjv, jac_normal_matvec). `chol_solve` launches csrc/chol.cu for
-CUDA tensors and runs `chol_solve_plain` for CPU tensors; both factor
-S = U^T U by the same unblocked right-looking Cholesky and give NaN for an
-indefinite S (the LM loop's invalid-step retry relies on it).
-`bucket_jtjv` launches csrc/jtjv.cu for CUDA tensors and runs
-`bucket_jtjv_plain` for CPU tensors. Each wrapper counts its launches in
-its `launches` attribute.
+bucket_jtjv, jac_normal_matvec, bucket_gram_blocks). `chol_solve`
+launches csrc/chol.cu for CUDA tensors and runs `chol_solve_plain` for
+CPU tensors; both factor S = U^T U by the same unblocked right-looking
+Cholesky and give NaN for an indefinite S (the LM loop's invalid-step
+retry relies on it). `bucket_jtjv` launches csrc/jtjv.cu and
+`bucket_gram_blocks` csrc/gram.cu for CUDA tensors, and run
+`bucket_jtjv_plain` and `bucket_gram_blocks_plain` for CPU tensors. Each
+wrapper counts its launches in its `launches` attribute.
 """
 
 from __future__ import annotations
@@ -95,3 +97,28 @@ def jac_normal_matvec(jac, v):
     kernel (ceres_tpu's jac_normal_matvec)."""
     return jac.col_sum([bucket_jtjv(b.J, b.gather_cols(v))
                         for b in jac.buckets])
+
+
+def bucket_gram_blocks_plain(J):
+    """Plain PyTorch K9: G [n, t, t] = J_n^T J_n for J [n, r, t]."""
+    return torch.einsum("nrt,nru->ntu", J, J)
+
+
+def bucket_gram_blocks(J):
+    """K9: see bucket_gram_blocks_plain; f32 on the card, J a view whose
+    last dimension is contiguous (a slot's columns of a bucket's
+    Jacobian, read in place)."""
+    if not J.is_cuda:
+        return bucket_gram_blocks_plain(J)
+    n, r, t = J.shape
+    if J.dtype != torch.float32 or (t > 1 and J.stride(2) != 1):
+        raise ValueError(f"bucket_gram_blocks: expected f32 with unit "
+                         f"column stride, got {J.dtype}, strides "
+                         f"{J.stride()}")
+    G = torch.empty(n, t, t, dtype=torch.float32, device=J.device)
+    _cuda.launch("ceres_gram", J, n, r, t, J.stride(0), J.stride(1), G)
+    bucket_gram_blocks.launches += 1
+    return G
+
+
+bucket_gram_blocks.launches = 0

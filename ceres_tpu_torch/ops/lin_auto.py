@@ -33,8 +33,8 @@ import torch
 
 from . import _cuda
 from . import jetlib as jl
-from .jet_compile import (AutoSpec, LossSpec, eval_loss, loss_param_values,
-                          make_loss_spec)
+from .jet_compile import (AutoSpec, LossSpec, chain_body, eval_loss,
+                          loss_param_values, make_loss_spec)
 from ..loss import correct_residuals_and_jacobian
 
 # the JAX package's caps of its gate (pallas_lin.py:563): the unrolled
@@ -96,13 +96,6 @@ def chain_source(spec: LinAutoSpec, loss_spec: Optional[LossSpec] = None,
         jets = jl.correct_jets(
             jets, lambda sq: eval_loss(loss_spec, sq, lp),
             em.input("valid", "b"))
-    out = []
-    for s, jet in enumerate(jets):
-        out.append(f"rv[{s}] = {jl.operand(jet.v)};")
-        for c, p in enumerate(jl.dense_partials(jet, auto.nt)):
-            out.append(f"J[{s}][{c}] = "
-                       f"{'0.0f' if p is None else jl.operand(p)};")
-    body = "\n".join("    " + ln for ln in em.lines + out)
     return f"""struct {name} {{
   static constexpr int TE = {spec.te}, TF = {spec.tf}, R = {spec.r};
   static constexpr int NT = {auto.nt}, EO = {spec.eo}, FO = {spec.fo};
@@ -111,7 +104,7 @@ def chain_source(spec: LinAutoSpec, loss_spec: Optional[LossSpec] = None,
       const float* __restrict__ xf_c, const float* __restrict__ xe_n,
       const float* __restrict__ d, const LossParams& lp, bool valid,
       float (&rv)[R], float (&J)[R][NT]) {{
-{body}
+{chain_body(em, jets, auto.nt)}
   }}
 }};
 """
@@ -217,18 +210,8 @@ def lin_auto_plain(spec: LinAutoSpec, xf, xe, cam, mask, dat, se_in,
     P = xe[:, None, :].expand(ne, k, te)
 
     def lane(c, p, d):
-        fields = auto.split_data(d)
-        slots = [c if kind == "f" else p for kind in spec.slot_kinds]
-
-        def g(*deltas):
-            r = auto.per_row(*fields, *slots, *deltas)
-            return r, r
-
-        zeros = tuple(torch.zeros(t, dtype=c.dtype, device=c.device)
-                      for t in auto.tan_sizes)
-        Js, r = torch.func.jacfwd(g, argnums=tuple(range(len(zeros))),
-                                  has_aux=True)(*zeros)
-        return r, torch.cat([j.to(c.dtype) for j in Js], dim=-1)
+        return auto.row_jacobian(
+            [c if kind == "f" else p for kind in spec.slot_kinds], d)
 
     r, J = torch.func.vmap(lane)(C.reshape(-1, tf), P.reshape(-1, te),
                                  dat.reshape(ne * k, -1))

@@ -1,10 +1,12 @@
-"""K11: bucket linearize of the registered functors.
+"""K11: bucket linearize, through hand specs and auto specs.
 
 Counterpart of ceres_tpu/ops/pallas_linearize.py: a registry of hand
-specs keyed by the functor's class name, a structural gate, and one
-kernel (csrc/linearize.cu) that gives a bucket's residuals r [n, R] and
-tangent-space Jacobian J [n, R, nt] in one pass, the manifold's Plus
-seeded into the jets. Registered, the pose graphs as in the JAX package:
+specs keyed by the port's own functor classes and matched by exact type
+(a subclass, or another class of the same name, gets no hand spec: each
+spec hard-codes its residual), a structural gate, and kernels that
+give a bucket's residuals r [n, R] and tangent-space Jacobian J
+[n, R, nt] in one pass, the manifold's Plus seeded into the jets.
+Registered, the pose graphs as in the JAX package:
 
   PoseGraph3dErrorTerm (SE3): r = 6, slots [3, 4 (EigenQuaternion), 3,
     4 (EigenQuaternion)], nt = 12; a quaternion slot is seeded through
@@ -14,25 +16,38 @@ seeded into the jets. Registered, the pose graphs as in the JAX package:
     like Euclidean ones, and the residual wraps the angle in the
     branchless form v - 2 pi round(v / 2 pi) (derivative 1), which agrees
     with the functor's atan2(sin, cos) except at odd multiples of pi.
-  SnavelyReprojectionError: r = 2, slots [9 (camera), 3 (point)], both
-    Euclidean, nt = 12. The JAX package runs this bucket through the
-    same kernel with the spec its jet compiler derives from the functor
-    (pallas_linearize.py _spec_for, ops/jet_compile.py); here the spec is
+  SnavelyReprojectionError, with data fields observed_x and observed_y:
+    r = 2, slots [9 (camera), 3 (point)], both Euclidean, nt = 12. The
+    JAX package runs this bucket through its auto spec; here the spec is
     written by hand (K1's jet chain, csrc/snavely.cuh).
 
-`linearize_spec(bk)` is the gate: the spec of a bucket whose
-every slot is variable and whose shape, manifolds and data fields match,
-else None. The program decides once, at build, which buckets take K11;
-every other bucket takes the jacfwd path. Auto-compiled specs for other
-functors (ops/jet_compile.py, kernel K5) are ROADMAP.md item 35.
+The hand specs run one kernel (csrc/linearize.cu). Any other bucket gets
+an auto spec (pallas_linearize.py _spec_for :271-302): the per-row
+program that ops/jet_compile.py traces (`make_auto_spec`), emitted as a
+row chain (`row_chain_source`) into a generated unit around
+csrc/linearize_auto.cuh, built at first use by `_cuda.build_generated`
+(tag "linearize_auto", one build per traced program).
 
-`bucket_linearize(spec, xin, dat)` launches the kernel for CUDA tensors
-and runs `bucket_linearize_plain` (torch.func.jacfwd of the same
-seeded residual) for CPU tensors; `.launches` counts the launches.
+`linearize_spec(program, bk)` is the gate, decided once at build: the
+hand spec of a bucket whose functor is of a registered class, whose
+every slot is variable and whose shape, manifolds and data fields
+match; else an AutoSpec when every slot is
+variable, the bucket has at least MIN_AUTO_ROWS rows and MIN_AUTO_TANGENT
+tangent columns (the JAX package's floors on its hardware, kept on both
+devices so that the CPU takes the card's route), the functor traces and
+its chain is within MAX_AUTO_OUTPUTS; else None, and the program takes
+its jacfwd path.
+
+`bucket_linearize(spec, xin, dat)` (hand specs) and
+`bucket_linearize_auto(spec, xin, dat)` (auto specs) launch their
+kernels for CUDA tensors and run `bucket_linearize_plain` and
+`bucket_linearize_auto_plain` (torch.func.jacfwd of the same seeded
+residual) for CPU tensors; each counts its own launches in `.launches`.
 """
 
 from __future__ import annotations
 
+import ctypes
 import math
 from typing import NamedTuple, Optional
 
@@ -40,6 +55,8 @@ import numpy as np
 import torch
 
 from . import _cuda
+from .jet_compile import AutoSpec, make_auto_spec, row_chain_source
+from ..examples.slam import PoseGraph2dErrorTerm, PoseGraph3dErrorTerm
 from ..examples.snavely import SnavelyReprojectionError
 from ..manifolds import AutoDiffManifold, EigenQuaternionManifold
 from ..rotation import quaternion_product
@@ -58,6 +75,13 @@ class Spec(NamedTuple):
     @property
     def p_dat(self):
         return sum(w for _, w in self.data_fields)
+
+    def data_matrix(self, bk) -> torch.Tensor:
+        """The bucket's data fields as one f32 [n, P_dat] tensor, in the
+        spec's field order (built once per program)."""
+        return torch.cat([bk.data[name].reshape(bk.n, w)
+                          for name, w in self.data_fields],
+                         dim=1).to(torch.float32).contiguous()
 
 
 def _mat_vec(m_flat, v, k):
@@ -160,25 +184,33 @@ def _is_angle_manifold(m) -> bool:
 
 
 SPECS = {
-    "PoseGraph3dErrorTerm": Spec(
+    PoseGraph3dErrorTerm: Spec(
         0, 6, 12, 14, (("t_ab", 3), ("q_ab", 4), ("sqrt_information", 36)),
         _pose3d_residual, [3, 4, 3, 4],
         (_is_euclidean, _is_eigen_quaternion) * 2),
-    "PoseGraph2dErrorTerm": Spec(
+    PoseGraph2dErrorTerm: Spec(
         1, 3, 6, 6, (("t_ab", 2), ("yaw_ab", 1), ("sqrt_information", 9)),
         _pose2d_residual, [2, 1, 2, 1],
         (_is_euclidean, _is_angle_manifold) * 2),
-    "SnavelyReprojectionError": Spec(
+    SnavelyReprojectionError: Spec(
         2, 2, 12, 12, (("observed_x", 1), ("observed_y", 1)),
         _snavely_residual, [9, 3], (_is_euclidean, _is_euclidean)),
 }
 
 
-def linearize_spec(bk) -> Optional[Spec]:
-    """The hand spec for bucket bk, or None (structural gate; nothing is
-    compiled or launched)."""
-    functor = getattr(bk.cost, "functor", None)
-    spec = SPECS.get(type(functor).__name__)
+def is_snavely_bucket(bk) -> bool:
+    """The port's own SnavelyReprojectionError, by exact type, with its
+    two data fields (the JAX package's gate, pallas_lin.py:555-557,
+    :575): K1, K4 and the hand spec hard-code its residual, so a
+    subclass, or another class of the same name, takes the generic
+    routes (K5, the auto spec)."""
+    return (type(getattr(bk.cost, "functor", None))
+            is SnavelyReprojectionError
+            and set(bk.data.keys()) == {"observed_x", "observed_y"})
+
+
+def _hand_spec(bk) -> Optional[Spec]:
+    spec = SPECS.get(type(getattr(bk.cost, "functor", None)))
     if spec is None or bk.r != spec.r:
         return None
     if set(bk.data.keys()) != {name for name, _ in spec.data_fields}:
@@ -193,12 +225,28 @@ def linearize_spec(bk) -> Optional[Spec]:
     return spec
 
 
-def data_planes(spec: Spec, bk) -> torch.Tensor:
-    """The bucket's data fields as one f32 [n, P_dat] tensor (built once
-    per program)."""
-    return torch.cat([bk.data[name].reshape(bk.n, w)
-                      for name, w in spec.data_fields],
-                     dim=1).to(torch.float32).contiguous()
+# the auto spec's floors (pallas_linearize.py:285-301: below them the
+# launch costs more than the kernel saves on the JAX package's hardware)
+MIN_AUTO_ROWS, MIN_AUTO_TANGENT = 64, 6
+# csrc/linearize_auto.cuh keeps a row's J [R][NT] in registers (255 a
+# thread at most, beside the chain's temporaries); past this the build
+# refuses and the gate never picks the auto spec
+MAX_AUTO_OUTPUTS = 128
+
+
+def linearize_spec(program, bk):
+    """The hand Spec or the AutoSpec for bucket bk, or None (see the
+    module docstring; nothing is compiled or launched)."""
+    spec = _hand_spec(bk)
+    if spec is not None:
+        return spec
+    if not all(sl.variable for sl in bk.slots) or bk.n < MIN_AUTO_ROWS \
+            or sum(sl.tangent_size for sl in bk.slots) < MIN_AUTO_TANGENT:
+        return None
+    auto = make_auto_spec(program, bk)
+    if auto is None or auto.r * auto.nt > MAX_AUTO_OUTPUTS:
+        return None
+    return auto
 
 
 def bucket_linearize_plain(spec: Spec, xin, dat):
@@ -232,3 +280,79 @@ def bucket_linearize(spec: Spec, xin, dat):
 
 
 bucket_linearize.launches = 0
+
+
+# ----------------------------------------------------------------------
+# auto specs
+
+def generated_unit(spec: AutoSpec) -> str:
+    """The whole CUDA unit of K11 for this traced program."""
+    return f"""// K11 for {spec.name} (graph {spec.digest}), generated by
+// ceres_tpu_torch/ops/linearize.py; the kernel is
+// csrc/linearize_auto.cuh.
+#include "linearize_auto.cuh"
+
+{row_chain_source(spec)}
+extern "C" int ceres_linearize_auto(const float* xin, const float* dat,
+                                    int n, float* r, float* J,
+                                    cudaStream_t stream) {{
+  return linearize_auto_launch<RowChain>(xin, dat, n, r, J, stream);
+}}
+"""
+
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+_AUTO_ENTRIES: dict = {}
+
+
+def build_auto(spec: AutoSpec):
+    """The ceres_linearize_auto entry point of this traced program (built
+    into ceres_tpu_torch/_build/ at first use)."""
+    if spec.r * spec.nt > MAX_AUTO_OUTPUTS:
+        raise ValueError(
+            f"bucket_linearize_auto: {spec.name} has R * NT = "
+            f"{spec.r} * {spec.nt} outputs a row, past the register cap "
+            f"{MAX_AUTO_OUTPUTS} of csrc/linearize_auto.cuh")
+    key = (spec.digest, spec.slot_sizes, spec.data_widths)
+    if key not in _AUTO_ENTRIES:
+        lib = _cuda.build_generated("linearize_auto", generated_unit(spec))
+        fn = lib.ceres_linearize_auto
+        fn.argtypes = [_P, _P, _I, _P, _P, _P]
+        fn.restype = ctypes.c_int
+        _AUTO_ENTRIES[key] = fn
+    return _AUTO_ENTRIES[key]
+
+
+def _split_slots(spec: AutoSpec, x):
+    offs = np.cumsum((0,) + spec.slot_sizes)
+    return [x[int(a):int(b)] for a, b in zip(offs[:-1], offs[1:])]
+
+
+def bucket_linearize_auto_plain(spec: AutoSpec, xin, dat):
+    """Plain PyTorch K11 for an auto spec: (r [n, R], J [n, R, nt]) by
+    vmap of jacfwd of the traced per_row at zero tangent, in the dtype of
+    xin."""
+    return torch.func.vmap(
+        lambda x, d: spec.row_jacobian(_split_slots(spec, x), d))(xin, dat)
+
+
+def bucket_linearize_auto(spec: AutoSpec, xin, dat):
+    """K11 through an auto spec: see bucket_linearize_auto_plain. xin
+    [n, P_in] and dat [n, P_dat] (spec.data_matrix), f32, contiguous, on
+    the card."""
+    if not xin.is_cuda:
+        return bucket_linearize_auto_plain(spec, xin, dat)
+    n = xin.shape[0]
+    f32 = torch.float32
+    _cuda.check(xin, (n, sum(spec.slot_sizes)), f32,
+                "bucket_linearize_auto: xin")
+    _cuda.check(dat, (n, spec.p_dat), f32, "bucket_linearize_auto: dat")
+    fn = build_auto(spec)
+    r = torch.empty(n, spec.r, dtype=f32, device=xin.device)
+    J = torch.empty(n, spec.r, spec.nt, dtype=f32, device=xin.device)
+    _cuda.call(fn, "ceres_linearize_auto", xin, dat, n, r, J)
+    bucket_linearize_auto.launches += 1
+    return r, J
+
+
+bucket_linearize_auto.launches = 0

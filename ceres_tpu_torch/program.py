@@ -14,9 +14,9 @@ Per-bucket data and index maps are tensors on the program's device.
 The generic trust-region path reads the program through `plus` (batched
 per manifold group), `cost_fn` and `linearize_fn_mixed`: the f64 cost
 from a residual-only pass, and the f32 tangent Jacobian of each bucket
-from kernel K11 (ops/linearize.py) where a hand spec matches the bucket,
-chosen once here, else from torch.func.jacfwd through the slots'
-manifold Plus (ceres_tpu program.py _bucket_linearize).
+from kernel K11 (ops/linearize.py) where a hand spec or an auto spec
+matches the bucket, chosen once here, else from torch.func.jacfwd through
+the slots' manifold Plus (ceres_tpu program.py _bucket_linearize).
 """
 
 from __future__ import annotations
@@ -30,18 +30,24 @@ from .loss import correct_residuals_and_jacobian
 from .manifolds import EuclideanManifold
 from .ops.bsr import (BlockJacobian, BucketJacobian, GroupMeta, RVec,
                       column_sum_for)
-from .ops.linearize import bucket_linearize, data_planes, linearize_spec
+from .ops.jet_compile import AutoSpec, loss_structure
+from .ops.linearize import (bucket_linearize, bucket_linearize_auto,
+                            linearize_spec)
 
 
 def _loss_key(loss):
+    """Losses with equal keys share a bucket: the class, its scalar
+    attributes and its bool and str attributes, nested losses walked
+    (ScaledLoss(HuberLoss(0.1), 1) and ScaledLoss(CauchyLoss(10), 1)
+    differ, as in Ceres); a loss with any other attribute is its own
+    key."""
     if loss is None:
         return None
     try:
-        items = tuple(sorted((k, v) for k, v in vars(loss).items()
-                             if isinstance(v, (int, float, bool, str))))
-        return (type(loss).__name__, items)
+        structure, values = loss_structure(loss)
     except TypeError:
         return ("loss-id", id(loss))
+    return (structure, tuple(values))
 
 
 class _Slot:
@@ -226,10 +232,10 @@ class CompiledProgram:
                         (len(self.buckets), var_si, local_ids))
                     var_si += 1
                 bk.slots.append(sl)
-            # K11 where a hand spec matches, chosen once; its data fields
-            # as one f32 tensor, built once
-            bk.spec = linearize_spec(bk)
-            bk.dat32 = (data_planes(bk.spec, bk) if bk.spec is not None
+            # K11 where a hand or auto spec matches, chosen once; its
+            # data fields as one f32 tensor, built once
+            bk.spec = linearize_spec(self, bk)
+            bk.dat32 = (bk.spec.data_matrix(bk) if bk.spec is not None
                         else None)
             self.buckets.append(bk)
         self.num_rows = sum(bk.n * bk.r for bk in self.buckets)
@@ -369,13 +375,15 @@ class CompiledProgram:
 
     def _bucket_linearize32(self, bk, x):
         """(residuals [n, r], J [n, r, t_total]) of one bucket in f32,
-        tangent space, uncorrected: K11 for a bucket with a hand spec,
-        else jacfwd of the functor through the variable slots' Plus
+        tangent space, uncorrected: K11 for a bucket with a hand or auto
+        spec, else jacfwd of the functor through the variable slots' Plus
         (ceres_tpu program.py _bucket_linearize with cast_dtype=f32)."""
         params = [p.to(torch.float32) for p in self._bucket_params(bk, x)]
         if bk.spec is not None:
             xin = torch.cat(params, dim=1).contiguous()
-            return bucket_linearize(bk.spec, xin, bk.dat32)
+            k11 = (bucket_linearize_auto if isinstance(bk.spec, AutoSpec)
+                   else bucket_linearize)
+            return k11(bk.spec, xin, bk.dat32)
         data = {k: (v.to(torch.float32) if v.is_floating_point() else v)
                 for k, v in bk.data.items()}
         fn = bk.residual_fn

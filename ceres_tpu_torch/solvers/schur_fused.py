@@ -38,7 +38,8 @@ The implicit mode (ceres_tpu's _lin_phase_generic implicit branches,
 :556-795, and _solve_phase's implicit branch, :887-1038, :1059-1092)
 runs where S and A = E^T F are too large to form (_explicit_viable):
   linearize: per bucket the f64 residual pass, the f32 Jacobian (K11
-    where a hand spec matches, Snavely among them; else jacfwd), the
+    where a hand or auto spec matches, Snavely's hand spec and the
+    quaternion functor's auto spec among them; else jacfwd), the
     loss correction and the chunk gather; E^T E, g_e, and F^T F, g_f
     by camera-chunk gather and sum; the scales and scaled Grams as above;
     the unscaled chunk tensors Je [ne, k, r, te], Jf [ne, k, r, tf] kept.
@@ -60,7 +61,6 @@ from typing import Optional
 import numpy as np
 import torch
 
-from ..examples.snavely import SnavelyReprojectionError
 from ..loss import correct_residuals_and_jacobian
 from ..ops import lin_auto as k5
 from ..ops.cost import snavely_sq
@@ -68,6 +68,7 @@ from ..ops.implicit import MAX_R, MAX_TE, MAX_TF, implicit_apply
 from ..ops.jet_compile import (loss_param_values, make_auto_spec,
                                make_loss_spec)
 from ..ops.kernels import MAX_M, chol_solve
+from ..ops.linearize import is_snavely_bucket
 from ..ops.lin import elim, elim_v1, lin, spd_inv3
 from ..ops.pcg import dense_pcg
 from ..types import LinearSolverType, PreconditionerType
@@ -178,11 +179,6 @@ def _common_unsupported(program, options, meta) -> Optional[str]:
     return None
 
 
-def _is_snavely(bk) -> bool:
-    return isinstance(getattr(bk.cost, "functor", None),
-                      SnavelyReprojectionError)
-
-
 def _k5_unsupported(program, options, meta) -> Optional[str]:
     """The JAX package's gate of K5 (pallas_lin.py:525-567) for a bucket
     that is not Snavely's: two variable slots with no manifold, te <= 6,
@@ -223,7 +219,8 @@ def _explicit_unsupported(program, options, meta) -> Optional[str]:
                 "the generic fused lin phase)")
     bk, bs = program.buckets[0], meta.buckets[0]
     grp = meta.f_groups[0]
-    if _is_snavely(bk) and (meta.te != TE or grp["t"] != TF or bk.r != 2):
+    if is_snavely_bucket(bk) and (meta.te != TE or grp["t"] != TF
+                                  or bk.r != 2):
         return ("a Schur shape other than Snavely's (2, 3, 9) (ROADMAP.md "
                 "item 11, the generic fused lin phase)")
     if bs.e_slot is None or bs.f_cols is None or bs.chunk_rows is None:
@@ -234,7 +231,7 @@ def _explicit_unsupported(program, options, meta) -> Optional[str]:
         return ("constant blocks or another state layout than [points | "
                 "cameras] (ROADMAP.md item 11, the rest of "
                 "solvers/schur_fused.py)")
-    if not _is_snavely(bk):
+    if not is_snavely_bucket(bk):
         reason = _k5_unsupported(program, options, meta)
         if reason is not None:
             return reason
@@ -512,7 +509,7 @@ class SchurStep:
         self.f_slab = _slab_of(meta.f_global_cols[grp["cols"]])
         self.loss = bk.loss
         # K4 prices the candidates of a single Snavely bucket
-        self.k4 = (len(program.buckets) == 1 and _is_snavely(bk)
+        self.k4 = (len(program.buckets) == 1 and is_snavely_bucket(bk)
                    and bs.e_slot is not None and bs.f_cols is not None
                    and (self.te, self.tf, bk.r) == (TE, TF, 2))
         if self.k4:
@@ -565,7 +562,7 @@ class FusedSchurStep(SchurStep):
         rows, cmask = bs.chunk_rows, bs.chunk_mask       # [ne, k]
         self.mask = torch.as_tensor(np.ascontiguousarray(cmask, np.float32),
                                     device=dev)
-        if _is_snavely(bk):
+        if is_snavely_bucket(bk):
             self.k5 = None
             obs_x = bk.data["observed_x"].cpu().numpy()
             obs_y = bk.data["observed_y"].cpu().numpy()
@@ -722,16 +719,16 @@ class ImplicitSchurStep(SchurStep):
     """The implicit (matrix-free) ITERATIVE_SCHUR LM step, with the same
     linearize/solve/cost/initial_scales protocol as FusedSchurStep, for
     any functor with the [points | cameras] layout (its Jacobian by K11
-    where a hand spec matches, else by jacfwd) and any number of buckets
-    (ceres_tpu schur_fused.py _lin_phase_generic's implicit branches,
-    :556-795; _solve_phase's implicit branch, :887-1038, and its model
-    cost change, :1059-1092). `schur_step` picks it exactly when the
-    explicit S is not viable; building it directly forces the mode, as
-    ceres_tpu's CERES_TPU_FORCE_IMPLICIT does (for the tests). Holds the
-    per-bucket plans and layouts (ceres_tpu schur_fused.py :275-331):
-    chunk rows and masks, the camera of each lane, the camera-chunk
-    layouts, duplicate cameras within a chunk and cross-bucket duplicate
-    (camera, point) pairs."""
+    where a hand or auto spec matches, else by jacfwd) and any number of
+    buckets (ceres_tpu schur_fused.py _lin_phase_generic's implicit
+    branches, :556-795; _solve_phase's implicit branch, :887-1038, and
+    its model cost change, :1059-1092). `schur_step` picks it exactly
+    when the explicit S is not viable; building it directly forces the
+    mode, as ceres_tpu's CERES_TPU_FORCE_IMPLICIT does (for the tests).
+    Holds the per-bucket plans and layouts (ceres_tpu schur_fused.py
+    :275-331): chunk rows and masks, the camera of each lane, the
+    camera-chunk layouts, duplicate cameras within a chunk and
+    cross-bucket duplicate (camera, point) pairs."""
 
     def __init__(self, program, options, meta):
         reason = unsupported_reason(program, options, meta, implicit=True)
@@ -786,11 +783,11 @@ class ImplicitSchurStep(SchurStep):
     def linearize(self, x, s_e_in, s_f_in, first: bool,
                   known_cost=None):
         """Per bucket: the f64 residual pass (the cost, unless the loop
-        carries it), the f32 Jacobian (K11 where a hand spec matches, else
-        jacfwd), the robust-loss correction, the chunk gather, and the
-        bucket's part of E^T E, g_e, F^T F and g_f (the camera parts by
-        camera-chunk gather and sum). Then the Jacobi scales, the scaled
-        Grams and the clipped diagonals."""
+        carries it), the f32 Jacobian (K11 where a hand or auto spec
+        matches, else jacfwd), the robust-loss correction, the chunk
+        gather, and the bucket's part of E^T E, g_e, F^T F and g_f (the
+        camera parts by camera-chunk gather and sum). Then the Jacobi
+        scales, the scaled Grams and the clipped diagonals."""
         program = self.program
         ne, te, kf, tf = self.ne, self.te, self.kf, self.tf
         f32, dev = torch.float32, program.device

@@ -9,9 +9,10 @@ adjustment at the BAL-16-22106 shape (16 cameras, 22,106 points, 83,718
 observations; the seeded synthetic problem at its perturbed start), on
 two pose graphs (io/g2o.py's generators: SE3 with 2,000 poses, SE2 with
 1,000; POSE_GRAPHS), on the JAX package's large-BA case (1,024
-cameras, 200,000 points, 1,000,000 observations; IMPLICIT_SHAPE) and on
+cameras, 200,000 points, 1,000,000 observations; IMPLICIT_SHAPE), on
 the BAL-16-22106 problem with its cameras written as quaternions
-(QUAT_PATHS):
+(QUAT_PATHS) and on the large case with its cameras written as
+quaternions (QUAT_IMPLICIT_SCHUR):
 
 1. checks each kernel against its plain PyTorch version on the card, at
    the shapes its path gives it: K1-K4 (slice 1, DENSE_SCHUR), K6 on the
@@ -19,14 +20,16 @@ the BAL-16-22106 problem with its cameras written as quaternions
    system with SCHUR_JACOBI and with IDENTITY blocks; K11 (slice 3) on
    each graph's main bucket (SE3 at the start and at a perturbed state,
    SE2 at the start), K8 on the scaled Jacobian of each graph's first
-   linearization; K10 (slice 4) on the scaled chunk tensors of the large
-   case's first linearization at RADIUS and a seeded v, K11 on the large
-   case's Snavely bucket (1M rows) at its start; K5 (slice 5) on the
-   quaternion problem's first linearization, with no loss and with
-   HuberLoss(1.0); times each, its
-   plain version and, where one PyTorch call computes the same function,
-   that call, with CUDA events (median of 20 runs); and computes each
-   kernel's bound from this run's inputs;
+   linearization, K9 (slice 6) on each slot view of the SE3 graph's
+   scaled Jacobian; K10 (slice 4) on the scaled chunk tensors of the
+   large case's first linearization at RADIUS and a seeded v, K11 on the
+   large case's Snavely bucket (1M rows) at its start; K5 (slice 5) on
+   the quaternion problem's first linearization, with no loss and with
+   HuberLoss(1.0); K11's auto spec (slice 6) on the quaternion large
+   case's bucket (1M rows) at its start; times each, its plain version
+   and, where one PyTorch call computes the same function, that call,
+   with CUDA events (median of 20 runs); and computes each kernel's
+   bound from this run's inputs;
 2. drives the paths, counting the launches of every kernel from zero
    before each solve: through ctt.solve on device="cuda", DENSE_SCHUR
    (slice 1), one warm-up and three timed solves; ITERATIVE_SCHUR with
@@ -38,7 +41,9 @@ the BAL-16-22106 problem with its cameras written as quaternions
    one warm-up and one timed; the three quaternion paths (slice 5:
    DENSE_SCHUR, one warm-up and two timed; ITERATIVE_SCHUR with
    SCHUR_JACOBI, and DENSE_SCHUR with HuberLoss(1.0) and a cap of 100
-   iterations, one warm-up and one timed each);
+   iterations, one warm-up and one timed each); ITERATIVE_SCHUR with
+   SCHUR_JACOBI on the quaternion large case (slice 6, implicit: nf =
+   10,240), one warm-up and one timed;
 3. fails unless every kernel agrees within its limit (K7 with the same CG
    iteration count), every BAL-16-22106 solve ends in CONVERGENCE with a
    final cost within 1e-5 relative of 5.028773e+04, every kernel of a
@@ -46,18 +51,24 @@ the BAL-16-22106 problem with its cameras written as quaternions
    never on the ITERATIVE_SCHUR path, CG iterated more often than LM did;
    every pose-graph solve ends in CONVERGENCE within 1e-4 relative of the
    JAX package's final cost, cuts the mean position error below its share
-   of the start, launches K11 at least once per linearization and K8 at
-   least once per CG iteration and no K1-K7 or K10; every implicit solve
+   of the start, launches K11 once per linearization, K9 at least once
+   per linearization and K8 at least once per CG iteration, and no K1-K7
+   or K10; every implicit solve
    ends in CONVERGENCE (the large case within IMPLICIT_REF_REL_TOL of the
    JAX package's final cost), launches K10 at least once per CG iteration
    and K4 at least once per LM iteration, K11 once per linearization,
-   and no K1-K3, K6-K8; every quaternion solve ends in CONVERGENCE
+   and no K1-K3, K6-K9; every quaternion solve ends in CONVERGENCE
    within its tolerance of the JAX package's final cost, launches K5 at
    least once per accepted step and at most once per LM iteration plus
    one, K2 and K3 (DENSE) or K6 and K7 (ITERATIVE) at least once per LM
-   iteration, and no K1, K4 or a kernel of another path; the
-   pose-graph, large-case and quaternion solves repeat the same LM and CG
-   counts and final cost in every solve; and TF32 is off.
+   iteration, and no K1, K4 or a kernel of another path; every
+   quaternion large-case solve ends in CONVERGENCE within
+   QUAT_IMPLICIT_REF_REL_TOL of the JAX package's final cost, launches
+   K11's auto spec once per linearization and K10 at least once per CG
+   iteration, and no other kernel; the pose-graph, large-case and
+   quaternion solves repeat the same LM and CG counts and final cost in
+   every solve (the quaternion solves' counts are compared with the JAX
+   package's in print only); and TF32 is off.
 
 Prints the card's name and power limit, one line per check and solve, a
 JSON line of the kernels (each kernel's launches from its MAIN_PATH solve
@@ -175,17 +186,47 @@ def quaternion_options(mod, path, **extra):
     return mod.SolverOptions(**kw)
 
 
+# slice 6: the large case with its cameras written as w-first
+# quaternions before IMPLICIT_PERTURB (bundle_adjuster -use_quaternions,
+# Euclidean quaternion blocks): nf = 10,240 camera columns, past the
+# explicit cap, so ITERATIVE_SCHUR runs the implicit step, its Jacobian
+# from K11's auto spec (SnavelyReprojectionErrorWithQuaternions has no
+# hand spec) and its CG operator K10 (te 3, tf 10, r 2). The reference is
+# the JAX package's final cost on the CPU with large_options and a cap of
+# QUAT_IMPLICIT_MAX_ITERATIONS (scripts/implicit_reference.py
+# --quaternions: 44 LM / 862 CG iterations to 693780.9325983456, the
+# same bits with one XLA thread). Quaternion trajectories are chaotic in
+# f32 (ROADMAP.md section 3): the JAX package from the perturbed start
+# scaled by 1 - 1e-7, 1 + 1e-7 and 1 + 2e-7 (--start-scale) takes 52 /
+# 1,051, 83 / 2,962 and 88 / 2,635 to 693778.3902993316,
+# 693589.9797274848 and 693607.4398342273; the port on the CPU (plain
+# kernels) 51 / 1,008 to 693814.7147862421 with one thread and 86 /
+# 3,035 to 693605.4250193927 with four. These CPU runs end 3.24e-4 of
+# the reference apart, so the gate on the final cost is twice that
+# spread, not the angle-axis case's 2e-4, and the LM and CG counts are
+# reported, not gated. The cap is the largest LM count of those runs
+# (88) with a quarter of headroom, not large_options' 45, at which the
+# port on the CPU (one thread) and the card stop without converging.
+QUAT_IMPLICIT_REF_COST = 693780.9325983456
+QUAT_IMPLICIT_REF_ITERATIONS = (44, 862)
+QUAT_IMPLICIT_REF_REL_TOL = 6.5e-4
+QUAT_IMPLICIT_MAX_ITERATIONS = 110
+
+
 # each kernel's main path: its "launches" in the kernels line are the
-# counts of that path's last solve (K11 has two entries, the SE3 spec's
-# and the Snavely spec's, each read from the counter of bucket_linearize)
+# counts of that path's last solve (K11 has three entries, the SE3 spec's
+# and the Snavely spec's, each read from the counter of bucket_linearize,
+# and the auto spec's, from bucket_linearize_auto's)
 MAIN_PATH = {"K1 lin": "DENSE_SCHUR", "K2 elim": "DENSE_SCHUR",
              "K3 chol_solve": "DENSE_SCHUR", "K4 cost": "DENSE_SCHUR",
              "K6 elim_v1": "ITERATIVE_SCHUR",
              "K7 dense_pcg": "ITERATIVE_SCHUR",
              "K8 bucket_jtjv": "POSE_GRAPH_3D",
+             "K9 bucket_gram_blocks": "POSE_GRAPH_3D",
              "K10 implicit_apply": "IMPLICIT_SCHUR",
              "K11 bucket_linearize": "POSE_GRAPH_3D",
              "K11 bucket_linearize (Snavely)": "IMPLICIT_SCHUR",
+             "K11 bucket_linearize (auto)": "QUAT_IMPLICIT_SCHUR",
              "K5 lin_auto": "QUAT_DENSE_SCHUR"}
 
 
@@ -380,12 +421,15 @@ def main():
     from ceres_tpu_torch.ops.cost import snavely_sq, snavely_sq_plain
     from ceres_tpu_torch.examples import slam
     from ceres_tpu_torch.io import g2o
-    from ceres_tpu_torch.ops.kernels import (bucket_jtjv, bucket_jtjv_plain,
-                                             chol_solve, chol_solve_plain)
+    from ceres_tpu_torch.ops.kernels import (
+        bucket_gram_blocks, bucket_gram_blocks_plain, bucket_jtjv,
+        bucket_jtjv_plain, chol_solve, chol_solve_plain)
     from ceres_tpu_torch.ops.implicit import (implicit_apply,
                                               implicit_apply_plain)
-    from ceres_tpu_torch.ops.linearize import (bucket_linearize,
-                                               bucket_linearize_plain)
+    from ceres_tpu_torch.ops.linearize import (
+        bucket_linearize, bucket_linearize_auto, bucket_linearize_auto_plain,
+        bucket_linearize_plain, build_auto)
+    from ceres_tpu_torch.ops.jet_compile import AutoSpec, row_chain_source
     from ceres_tpu_torch.ops.lin import (elim, elim_plain, elim_v1,
                                          elim_v1_plain, lin, lin_plain)
     from ceres_tpu_torch.ops import lin_auto as k5
@@ -625,6 +669,24 @@ def main():
         if key == "3d":
             rec["name"] = "K8 bucket_jtjv"
             kernels.append(rec)
+            # K9 on each slot view of the same scaled Jacobian, read in
+            # place (the blocks that block Jacobi sums)
+            for si in range(len(jac_s.buckets[g["bi"]].cols)):
+                Js = jac_s.buckets[g["bi"]].slot_J(si)
+                ns, rs, ts = Js.shape
+                rec = check_kernel(
+                    f"K9 bucket_gram_blocks (SE3 slot {si})",
+                    lambda: bucket_gram_blocks(Js),
+                    lambda: bucket_gram_blocks_plain(Js),
+                    lambda g_, w: [rel_err(g_, w)], F32_LIMIT,
+                    "ceres_tpu_torch/csrc/gram.cu",
+                    "ceres_tpu/ops/pallas_kernels.py:289", (Js,),
+                    2 * ns * rs * ts * ts, F32_FLOP_PER_S,
+                    library=("torch.einsum('nrt,nru->ntu', J, J)",
+                             lambda: torch.einsum("nrt,nru->ntu", Js, Js)))
+                if si == 0:
+                    rec["name"] = "K9 bucket_gram_blocks"
+                    kernels.append(rec)
 
     # ---- slice 4: K10 on the large case's first linearization ----
     t0 = time.time()
@@ -746,13 +808,62 @@ def main():
         if loss is None:
             kernels.append(rec)
 
+    # ---- slice 6: K11's auto spec on the quaternion large case ----
+    t0 = time.time()
+    qbig_bal = synthetic_bal_problem(**IMPLICIT_SHAPE, seed=7,
+                                     pixel_noise=1.0).to_quaternions()
+    qbig_bal.perturb(**IMPLICIT_PERTURB, seed=8)
+    qbig_problem, qbig_cams, qbig_pts = build_bal_ceres_problem(
+        qbig_bal, use_quaternions=True, use_manifolds=False)
+    del qbig_bal
+    qbig_arrays = qbig_cams + qbig_pts
+    qbig_start = [a.copy() for a in qbig_arrays]
+    t_build = time.time() - t0
+    qbig_options = large_options(
+        ctt, device="cuda", max_num_iterations=QUAT_IMPLICIT_MAX_ITERATIONS)
+    qbig_program = CompiledProgram.get_cached(qbig_problem, qbig_options)
+    qbig_step = schur_step(qbig_program, qbig_options,
+                           detect_schur_structure(qbig_program, qbig_options))
+    qbig_bk = qbig_program.buckets[0]
+    if not (isinstance(qbig_step, ImplicitSchurStep) and qbig_step.k10
+            and isinstance(qbig_bk.spec, AutoSpec)):
+        raise SystemExit(f"quaternion large case: step mode "
+                         f"{qbig_step.mode}, spec {qbig_bk.spec}")
+    print(f"quaternion large case: problem build {t_build:.1f} s, program "
+          f"and step {time.time() - t0 - t_build:.1f} s; ne={qbig_step.ne} "
+          f"kf={qbig_step.kf} nf={qbig_step.nf} te={qbig_step.te} "
+          f"tf={qbig_step.tf}; {qbig_step.mode}; K11 {qbig_bk.spec.name}",
+          flush=True)
+    t0 = time.time()
+    build_auto(qbig_bk.spec)
+    print(f"K11 auto-spec build: {time.time() - t0:.1f} s", flush=True)
+    qx0 = qbig_program.initial_state()
+    k11_auto = (qbig_bk.spec, torch.cat(
+        [p.float() for p in qbig_program._bucket_params(qbig_bk, qx0)],
+        dim=1).contiguous(), qbig_bk.dat32)
+    # operations: the emitted row chain, one operation a line
+    row_ops = sum(1 for ln in row_chain_source(qbig_bk.spec).splitlines()
+                  if ln.lstrip().startswith("const "))
+    rec = check_kernel(
+        "K11 bucket_linearize (auto)",
+        lambda: bucket_linearize_auto(*k11_auto),
+        lambda: bucket_linearize_auto_plain(*k11_auto), cmp_k11,
+        # relative to the largest entry, as for the Snavely spec
+        [F32_LIMIT, F32_LIMIT], "ceres_tpu_torch/csrc/linearize_auto.cuh",
+        "ceres_tpu/ops/pallas_linearize.py:324", k11_auto[1:],
+        row_ops * qbig_bk.n, F32_FLOP_PER_S)
+    kernels.append(rec)
+    del k11_auto
+
     # ---- the paths: solves on the card ----
     counters = {"K1 lin": lin, "K2 elim": elim,
                 "K3 chol_solve": chol_solve, "K4 cost": snavely_sq,
                 "K6 elim_v1": elim_v1, "K7 dense_pcg": dense_pcg,
                 "K8 bucket_jtjv": bucket_jtjv,
+                "K9 bucket_gram_blocks": bucket_gram_blocks,
                 "K10 implicit_apply": implicit_apply,
                 "K11 bucket_linearize": bucket_linearize,
+                "K11 bucket_linearize (auto)": bucket_linearize_auto,
                 "K5 lin_auto": k5.lin_auto}
 
     def reset_state():
@@ -781,20 +892,22 @@ def main():
         if not summary.num_linear_solver_iterations > summary.num_iterations:
             raise SystemExit("ITERATIVE_SCHUR: CG did not iterate")
 
-    def gate_implicit(label):
+    def gate_implicit(label, k11="K11 bucket_linearize",
+                      runs=("K4 cost",)):
+        """The implicit paths' gate: K11 (counter `k11`) once per
+        linearization, K10 at least once per CG iteration, the kernels
+        of `runs` once per LM iteration, no other kernel, and the same
+        counts and cost in every solve."""
         seen = []
 
         def gate(summary, launches):
-            gate_path(label, ("K4 cost",),
+            gate_path(label, runs,
                       [n for n in counters
-                       if n not in ("K4 cost", "K10 implicit_apply",
-                                    "K11 bucket_linearize")])(
+                       if n not in runs + ("K10 implicit_apply", k11)])(
                            summary, launches)
-            if launches["K11 bucket_linearize"] != \
-                    summary.num_linearizations_fused or \
-                    launches["K11 bucket_linearize"] < \
-                    summary.num_successful_steps:
-                raise SystemExit(f"{label}: K11 did not run once per "
+            if launches[k11] != summary.num_linearizations_fused or \
+                    launches[k11] < summary.num_successful_steps:
+                raise SystemExit(f"{label}: {k11} did not run once per "
                                  "linearization")
             if "K10" not in summary.message:
                 raise SystemExit(f"{label}: not the K10 route: "
@@ -849,8 +962,13 @@ def main():
                     summary.num_linear_solver_iterations:
                 raise SystemExit(f"pose graph {key}: K8 launched fewer "
                                  "times than CG iterated")
+            if launches["K9 bucket_gram_blocks"] < \
+                    summary.num_linearizations_fused:
+                raise SystemExit(f"pose graph {key}: K9 launched fewer "
+                                 "times than the solve linearized")
             stray = [n for n, c in launches.items()
                      if c and n not in ("K8 bucket_jtjv",
+                                        "K9 bucket_gram_blocks",
                                         "K11 bucket_linearize")]
             if stray:
                 raise SystemExit(f"pose graph {key}: kernels of another "
@@ -927,7 +1045,8 @@ def main():
         big_problem, reset_big, counters, 3,
         gate_implicit("IMPLICIT_SCHUR"), ref_cost=IMPLICIT_REF_COST,
         ref_tol=IMPLICIT_REF_REL_TOL)
-    other = ("K8 bucket_jtjv", "K10 implicit_apply", "K11 bucket_linearize")
+    other = ("K8 bucket_jtjv", "K9 bucket_gram_blocks", "K10 implicit_apply",
+             "K11 bucket_linearize", "K11 bucket_linearize (auto)")
     quat_runs = {"DENSE_SCHUR": (("K2 elim", "K3 chol_solve"),
                                  ("K6 elim_v1", "K7 dense_pcg") + other),
                  "ITERATIVE_SCHUR": (("K6 elim_v1", "K7 dense_pcg"),
@@ -939,6 +1058,22 @@ def main():
             quat[loss_name]["problem"], reset_quat(loss_name), counters,
             cfg["trials"], gate_quat(path, *quat_runs[cfg["solver"]]),
             ref_cost=cfg["ref_cost"], ref_tol=cfg["tol"])
+
+    def reset_qbig():
+        for a, a0 in zip(qbig_arrays, qbig_start):
+            a[:] = a0
+
+    ref_lm, ref_cg = QUAT_IMPLICIT_REF_ITERATIONS
+    print(f"QUAT_IMPLICIT_SCHUR: the JAX package on the CPU takes {ref_lm} "
+          f"LM / {ref_cg} CG iterations to {QUAT_IMPLICIT_REF_COST!r}",
+          flush=True)
+    by_path["QUAT_IMPLICIT_SCHUR"] = drive(
+        "QUAT_IMPLICIT_SCHUR (1,024 quaternion cameras, 1M observations)",
+        qbig_options, qbig_problem, reset_qbig, counters, 2,
+        gate_implicit("QUAT_IMPLICIT_SCHUR",
+                      k11="K11 bucket_linearize (auto)", runs=()),
+        ref_cost=QUAT_IMPLICIT_REF_COST,
+        ref_tol=QUAT_IMPLICIT_REF_REL_TOL)
     if torch.backends.cuda.matmul.allow_tf32:
         raise SystemExit("TF32 matmul is enabled")
 

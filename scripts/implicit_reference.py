@@ -4,6 +4,7 @@ packages.
 
     JAX_PLATFORMS=cpu python3 scripts/implicit_reference.py
         [--packages jax,torch] [--threads 1,4] [--scale 1.0]
+        [--quaternions] [--start-scale 1.0]
 
 Builds the JAX package's large-BA case
 (benchmarks/ba_scaling_benchmark.py --large: synthetic_bal_problem(1024,
@@ -22,7 +23,18 @@ and solve times and the peak resident memory of the process so far. The
 JAX package's final cost is chip_smoke.py's IMPLICIT reference.
 --scale < 1 shrinks cameras, points and observations alike (sizing runs;
 below ~0.45 the problem becomes explicit-viable and the run forces
-nothing). Takes tens of minutes and a few GB at the full size.
+nothing). --quaternions writes the cameras as w-first quaternions before
+the perturbation (Ceres's bundle_adjuster -use_quaternions, Euclidean
+quaternion blocks: SnavelyReprojectionErrorWithQuaternions, nf = 10,240
+camera columns) and caps LM at QUAT_IMPLICIT_MAX_ITERATIONS; its JAX
+final cost is chip_smoke.py's QUAT_IMPLICIT_SCHUR reference.
+--start-scale multiplies every camera and point value of the perturbed
+start by that factor (1.0000001: a witness of how far a trajectory
+spreads from a change in the last bits of its start). The XLA thread
+count of the JAX solve follows XLA_FLAGS (for one thread:
+XLA_FLAGS="--xla_cpu_multi_thread_eigen=false
+intra_op_parallelism_threads=1"). Takes tens of minutes and a few GB at
+the full size.
 """
 
 import argparse
@@ -39,9 +51,12 @@ def main():
     ap.add_argument("--packages", default="jax,torch")
     ap.add_argument("--threads", default="1,4")
     ap.add_argument("--scale", type=float, default=1.0)
+    ap.add_argument("--quaternions", action="store_true")
+    ap.add_argument("--start-scale", type=float, default=1.0)
     args = ap.parse_args()
     sys.path.insert(0, ROOT)
-    from chip_smoke import IMPLICIT_PERTURB, IMPLICIT_SHAPE, large_options
+    from chip_smoke import (IMPLICIT_PERTURB, IMPLICIT_SHAPE,
+                            QUAT_IMPLICIT_MAX_ITERATIONS, large_options)
 
     shape = {k: max(1, int(round(v * args.scale)))
              for k, v in IMPLICIT_SHAPE.items()}
@@ -65,15 +80,27 @@ def main():
             torch.set_num_threads(threads)
         t0 = time.time()
         bal = bal_mod.synthetic_bal_problem(**shape, seed=7, pixel_noise=1.0)
+        if args.quaternions:
+            bal = bal.to_quaternions()
         bal.perturb(**IMPLICIT_PERTURB, seed=8)
-        problem = bal_mod.build_bal_ceres_problem(bal)[0]
+        bal.cameras *= args.start_scale
+        bal.points *= args.start_scale
+        problem = bal_mod.build_bal_ceres_problem(
+            bal, use_quaternions=args.quaternions, use_manifolds=False)[0]
         t_build = time.time() - t0
         t0 = time.time()
+        if args.quaternions:
+            extra = dict(extra,
+                         max_num_iterations=QUAT_IMPLICIT_MAX_ITERATIONS)
         s = mod.solve(large_options(mod, **extra), problem)
         t_solve = time.time() - t0
         rss_gb = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2**20
-        print(f"{name} {shape}: {s.termination_type}, {s.num_iterations} LM "
-              f"iterations ({s.num_successful_steps} accepted), "
+        kind = "quaternion " if args.quaternions else ""
+        if args.start_scale != 1.0:
+            kind += f"start x {args.start_scale!r} "
+        print(f"{name} {kind}{shape}: {s.termination_type}, "
+              f"{s.num_iterations} LM iterations "
+              f"({s.num_successful_steps} accepted), "
               f"{s.num_linear_solver_iterations} CG iterations, initial "
               f"cost {s.initial_cost!r}, final cost {s.final_cost!r}; "
               f"build {t_build:.1f} s, solve {t_solve:.1f} s, peak RSS "

@@ -3,20 +3,23 @@
 
     python3 scripts/profile_torch_solve.py
         [--paths dense,iterative,pose3d,pose2d,implicit,quat-dense,
-                 quat-iterative,quat-huber] [--trace-dir DIR]
+                 quat-iterative,quat-huber,quat-implicit] [--trace-dir DIR]
+        [--compare-gram]
 
 Builds chip_smoke.py's problems (BAL-16-22106 shape, generator seed 7,
 PERTURB seed 8; the pose graphs of POSE_GRAPHS; the large-BA case of
-IMPLICIT_SHAPE; the quaternion-camera problem of QUAT_PATHS) and, for
-each path (DENSE_SCHUR; ITERATIVE_SCHUR with SCHUR_JACOBI; CGNR with
-JACOBI on the SE3 and the SE2 pose graph; ITERATIVE_SCHUR in the
-implicit mode on the large case; the three quaternion paths through K5;
-each with chip_smoke.py's options), solves
+IMPLICIT_SHAPE; the quaternion-camera problem of QUAT_PATHS; the large
+case with quaternion cameras) and, for each path (DENSE_SCHUR;
+ITERATIVE_SCHUR with SCHUR_JACOBI; CGNR with JACOBI on the SE3 and the
+SE2 pose graph; ITERATIVE_SCHUR in the implicit mode on the large case;
+the three quaternion paths through K5; the implicit mode on the
+quaternion large case, through K11's auto spec and K10; each with
+chip_smoke.py's options), solves
 once as a warm-up, once timed without the profiler, and once under
 torch.profiler (CPU and CUDA activities). Prints the card's name and
 power limit, then per path: the wall of the plain and the profiled
 solve, LM and CG iterations; device time per kernel, grouped by the
-ported kernel it belongs to (K1-K8, K10, K11; copies and every other kernel
+ported kernel it belongs to (K1-K11; copies and every other kernel
 are PyTorch glue, split by kind), and the PyTorch operators with the
 most device time of their own; the device busy time (union of kernel
 intervals), the device span (first kernel start to last kernel end), the
@@ -26,6 +29,15 @@ CG iteration. Prints one JSON line per path, and writes the chrome trace
 to DIR/profile_<path>.json when --trace-dir is given. Needs a CUDA
 device. The SE3 path records ~1.5M device kernels; its trace takes a
 minute or two to collect.
+
+--compare-gram profiles nothing: for each path it solves once as a
+warm-up on each route of block Jacobi's per-row Gram blocks, then times
+the solve in the order K9, einsum, einsum, K9 (K9 is
+ops/kernels.py bucket_gram_blocks; einsum is its plain version, the
+torch.einsum that ops/bsr.py block_diag_jtj called before K9), and
+prints per solve the wall, LM and CG iterations, the final cost, the K9
+launches and, for a pose graph, the position error, with one JSON line
+per solve.
 """
 
 import argparse
@@ -46,6 +58,7 @@ KERNEL_OF = {
     "scorr_partial_kernel": "K2/K6", "rhs_partial_kernel": "K2/K6",
     "reduce_splits_kernel": "K2/K6", "chol_solve_kernel": "K3",
     "cost_kernel": "K4", "pcg_kernel": "K7", "jtjv_kernel": "K8",
+    "gram_kernel": "K9", "linearize_auto::": "K11 (auto)",
     "implicit_apply_kernel": "K10",
     "linearize_pose3d_kernel": "K11", "linearize_pose2d_kernel": "K11",
     "linearize_snavely_kernel": "K11",
@@ -92,6 +105,7 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--paths", default="dense,iterative,pose2d,pose3d")
     ap.add_argument("--trace-dir", default=None)
+    ap.add_argument("--compare-gram", action="store_true")
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -107,7 +121,8 @@ def main():
                                         synthetic_bal_problem)
     from ceres_tpu_torch.io import bal as bal_io
     from chip_smoke import (IMPLICIT_PERTURB, IMPLICIT_SHAPE, PERTURB,
-                            POSE_GRAPHS, QUAT_PATHS, SHAPE, large_options,
+                            POSE_GRAPHS, QUAT_IMPLICIT_MAX_ITERATIONS,
+                            QUAT_PATHS, SHAPE, large_options,
                             pose_graph_options, position_error,
                             quaternion_bal, quaternion_options)
 
@@ -119,13 +134,19 @@ def main():
     def problem_of(path):
         """(problem, arrays to reset, options, (positions, ground truth)
         or None) of a path."""
-        if path == "implicit":
+        if path in ("implicit", "quat-implicit"):
+            quat = path == "quat-implicit"
             bal = synthetic_bal_problem(**IMPLICIT_SHAPE, seed=7,
                                         pixel_noise=1.0)
+            if quat:
+                bal = bal.to_quaternions()
             bal.perturb(**IMPLICIT_PERTURB, seed=8)
-            problem, cams, pts = build_bal_ceres_problem(bal)
-            return (problem, cams + pts, large_options(ctt, device="cuda"),
-                    None)
+            problem, cams, pts = build_bal_ceres_problem(
+                bal, use_quaternions=quat, use_manifolds=False)
+            cap = ({"max_num_iterations": QUAT_IMPLICIT_MAX_ITERATIONS}
+                   if quat else {})
+            return (problem, cams + pts,
+                    large_options(ctt, device="cuda", **cap), None)
         if path.startswith("quat-"):
             name = "QUAT_" + {"dense": "DENSE_SCHUR",
                               "iterative": "ITERATIVE_SCHUR",
@@ -175,6 +196,9 @@ def main():
             torch.cuda.synchronize()
             return summary, time.time() - t0
 
+        if args.compare_gram:
+            compare_gram(path, solve, traj, position_error)
+            continue
         solve()                                         # warm-up
         summary, wall = solve()
         with profile(activities=[ProfilerActivity.CPU,
@@ -246,6 +270,39 @@ def main():
             "minimizer_s": summary.minimizer_time_in_seconds,
             "postprocessor_s": summary.postprocessor_time_in_seconds}),
             flush=True)
+
+
+def compare_gram(path, solve, traj, position_error):
+    """The --compare-gram solves of one path (see the module
+    docstring)."""
+    from ceres_tpu_torch.ops import bsr, kernels
+    routes = {"K9": kernels.bucket_gram_blocks,
+              "einsum": kernels.bucket_gram_blocks_plain}
+    try:
+        for route in ("K9", "einsum"):                  # warm-ups
+            bsr.bucket_gram_blocks = routes[route]
+            solve()
+        for route in ("K9", "einsum", "einsum", "K9"):
+            bsr.bucket_gram_blocks = routes[route]
+            kernels.bucket_gram_blocks.launches = 0
+            summary, wall = solve()
+            err = position_error(*traj) if traj is not None else None
+            print(f"{path} gram={route}: wall {wall:.4f} s, "
+                  f"{summary.num_iterations} LM iterations, "
+                  f"{summary.num_linear_solver_iterations} linear solver "
+                  f"iterations, {summary.termination_type}, final cost "
+                  f"{summary.final_cost!r}, K9 launches "
+                  f"{kernels.bucket_gram_blocks.launches}, position error "
+                  f"{err!r}", flush=True)
+            print(json.dumps({
+                "path": path, "gram": route, "wall_s": wall,
+                "lm_iterations": summary.num_iterations,
+                "linear_iterations": summary.num_linear_solver_iterations,
+                "final_cost": summary.final_cost,
+                "k9_launches": kernels.bucket_gram_blocks.launches,
+                "position_error": err}), flush=True)
+    finally:
+        bsr.bucket_gram_blocks = routes["K9"]
 
 
 if __name__ == "__main__":

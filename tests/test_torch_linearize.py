@@ -28,6 +28,7 @@ from ceres_tpu.io import g2o as jax_g2o
 from ceres_tpu.ops.pallas_linearize import make_pallas_bucket_linearize
 from ceres_tpu.program import CompiledProgram as JaxProgram
 from ceres_tpu_torch.examples import slam
+from ceres_tpu_torch.examples.snavely import SnavelyReprojectionError
 from ceres_tpu_torch.io import g2o
 from ceres_tpu_torch.ops.linearize import (SPECS, bucket_linearize,
                                            bucket_linearize_plain,
@@ -98,8 +99,9 @@ def test_gate_takes_the_main_bucket_only(graphs, dim):
     assert len(g["bi"]) == 1 and len(tp.buckets) == 2
     main = tp.buckets[g["bi"][0]]
     gauge = tp.buckets[1 - g["bi"][0]]
-    name = "PoseGraph3dErrorTerm" if dim == "3d" else "PoseGraph2dErrorTerm"
-    assert main.spec is SPECS[name] and linearize_spec(main) is main.spec
+    term = (slam.PoseGraph3dErrorTerm if dim == "3d"
+            else slam.PoseGraph2dErrorTerm)
+    assert main.spec is SPECS[term] and linearize_spec(tp, main) is main.spec
     assert gauge.spec is None and not all(sl.variable for sl in gauge.slots)
     assert main.dat32.shape == (main.n, main.spec.p_dat)
 
@@ -177,7 +179,7 @@ def test_snavely_bucket_takes_k11(snavely):
     tp = snavely["tp"]
     assert len(tp.buckets) == 1
     bk = tp.buckets[0]
-    assert bk.spec is SPECS["SnavelyReprojectionError"]
+    assert bk.spec is SPECS[SnavelyReprojectionError]
     assert bk.dat32.shape == (bk.n, 2)
 
 
@@ -237,7 +239,7 @@ def _random_rows(spec, n, rng):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("n", [1, 7, 513])
-@pytest.mark.parametrize("name", list(SPECS))
+@pytest.mark.parametrize("name", [c.__name__ for c in SPECS])
 def test_k11_kernel_matches_plain_on_the_card(name, n):
     """The CUDA kernel against its plain version on the card, at row
     counts that leave the last block partly empty (Snavely relative to
@@ -245,7 +247,7 @@ def test_k11_kernel_matches_plain_on_the_card(name, n):
     python -m pytest tests -m cuda."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
-    spec = SPECS[name]
+    spec = {c.__name__: s for c, s in SPECS.items()}[name]
     xin, dat = _random_rows(spec, n, np.random.default_rng(n))
     xin, dat = xin.cuda(), dat.cuda()
     bucket_linearize.launches = 0

@@ -13,8 +13,11 @@ import torch
 
 import ceres_tpu as ct
 import ceres_tpu_torch as ctt
+from ceres_tpu.examples.snavely import \
+    SnavelyReprojectionError as JaxSnavely
 from ceres_tpu.io.bal import build_bal_ceres_problem as jax_build
 from ceres_tpu.io.bal import synthetic_bal_problem
+from ceres_tpu_torch.examples.snavely import SnavelyReprojectionError
 from ceres_tpu_torch.io.bal import build_bal_ceres_problem as torch_build
 
 torch.set_num_threads(1)      # the suite runs several workers
@@ -77,6 +80,34 @@ def main_path_options(mod, **extra):
         kw["device"] = "cpu"
     kw.update(extra)
     return mod.SolverOptions(**kw)
+
+
+class JaxDoubled(JaxSnavely):
+    """A subclass of the Snavely functor with twice its residual."""
+
+    def __call__(self, camera, point):
+        return 2.0 * super().__call__(camera, point)
+
+
+class TorchDoubled(SnavelyReprojectionError):
+    """A subclass of the Snavely functor with twice its residual."""
+
+    def __call__(self, camera, point):
+        return 2.0 * super().__call__(camera, point)
+
+
+def functor_problem(mod, functor_cls, bal):
+    """bal's observations as blocks of functor_cls(ox, oy) on [9, 3]
+    (angle-axis cameras) in package `mod`."""
+    prob = mod.Problem()
+    cams = [bal.cameras[i].copy() for i in range(bal.num_cameras)]
+    pts = [bal.points[i].copy() for i in range(bal.num_points)]
+    for i in range(bal.num_observations):
+        ox, oy = bal.observations[i]
+        prob.add_residual_block(mod.AutoDiffCostFunction(
+            functor_cls(ox, oy), 2, [9, 3]), None,
+            cams[bal.camera_index[i]], pts[bal.point_index[i]])
+    return prob
 
 
 def jax_problem(bal, loss=None):

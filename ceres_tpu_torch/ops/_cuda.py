@@ -17,6 +17,13 @@ source and the flags, loaded with ``ctypes``; it raises as `build` does.
 
 Each C entry point launches on the stream it is given, synchronises
 nothing, allocates nothing, and returns ``cudaGetLastError()``.
+
+The launch path is lean, since the CG loops launch the small kernels
+tens of thousands of times a solve and the host sets their time: each
+entry point is resolved once per process into a cached ctypes function
+(`_ENTRY`, read without a lock), the stream pointer comes from one call
+into PyTorch's C layer, and `check` tests a tensor with one boolean
+chain, building its message only when it fails.
 """
 
 from __future__ import annotations
@@ -28,6 +35,8 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
+
+import torch
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
@@ -50,7 +59,7 @@ _SIGNATURES = {
     "ceres_cost": [_P, ctypes.c_long, ctypes.c_long, _P, _P, _P, _P, _I,
                    _P, _P],
     "ceres_linearize": [_I, _P, _P, _I, _P, _P, _P],
-    "ceres_jtjv": [_P, _P, _I, _I, _I, _P, _P],
+    "ceres_jtjv": [_P, _P, _P, _I, _I, _I, _P, _P],
     "ceres_gram": [_P, _I, _I, _I, ctypes.c_long, ctypes.c_long, _P, _P],
     "ceres_implicit_apply": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                              _P, _P],
@@ -59,6 +68,7 @@ _SIGNATURES = {
 _lock = threading.Lock()
 _lib = None
 _generated = {}                 # library path -> loaded ctypes.CDLL
+_ENTRY = {}                     # entry point name -> ctypes function
 
 
 def _sources():
@@ -115,7 +125,7 @@ def build() -> Path:
 
 
 def library() -> ctypes.CDLL:
-    """The loaded kernel library (built on first call)."""
+    """The loaded kernel library (built on first call); fills `_ENTRY`."""
     global _lib
     with _lock:
         if _lib is None:
@@ -124,6 +134,7 @@ def library() -> ctypes.CDLL:
                 fn = getattr(lib, name)
                 fn.argtypes = argtypes
                 fn.restype = ctypes.c_int
+                _ENTRY[name] = fn
             _lib = lib
     return _lib
 
@@ -166,28 +177,34 @@ def build_generated(tag: str, source: str) -> ctypes.CDLL:
 
 
 def call(fn, name: str, *args) -> None:
-    """Call the C entry point `fn` on the current CUDA stream; raise if the
-    launch failed. Tensor arguments must already be checked by the caller."""
-    import torch
-    stream = torch.cuda.current_stream().cuda_stream
-    conv = [a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args]
-    err = fn(*conv, stream)
+    """Call the C entry point `fn` on the current CUDA stream of the
+    current device; raise if the launch failed. Tensor arguments must
+    already be checked by the caller."""
+    err = fn(*[a.data_ptr() if isinstance(a, torch.Tensor) else a
+               for a in args],
+             torch._C._cuda_getCurrentRawStream(torch._C._cuda_getDevice()))
     if err != 0:
         raise RuntimeError(f"{name}: CUDA launch failed with error {err}")
 
 
 def launch(name: str, *args) -> None:
     """Call one entry point of the kernel library (see `call`)."""
-    call(getattr(library(), name), name, *args)
+    fn = _ENTRY.get(name)
+    if fn is None:
+        library()
+        fn = _ENTRY[name]
+    call(fn, name, *args)
 
 
 def check(t, shape, dtype, name: str) -> None:
     """Raise unless tensor t is a contiguous CUDA tensor of this shape and
     dtype."""
+    if t.is_cuda and t.dtype == dtype and t.shape == shape \
+            and t.is_contiguous():
+        return
     if not t.is_cuda:
         raise ValueError(f"{name}: expected a CUDA tensor")
     if tuple(t.shape) != tuple(shape) or t.dtype != dtype:
         raise ValueError(f"{name}: expected {tuple(shape)} {dtype}, got "
                          f"{tuple(t.shape)} {t.dtype}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name}: expected a contiguous tensor")
+    raise ValueError(f"{name}: expected a contiguous tensor")

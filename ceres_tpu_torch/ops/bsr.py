@@ -47,7 +47,11 @@ class ColumnSum:
 
     def __call__(self, parts: Sequence[torch.Tensor]) -> torch.Tensor:
         """Sum the units of the concatenated parts into [num_out, *unit]."""
-        flat = torch.cat([p.reshape((-1,) + self.unit) for p in parts])
+        return self.sum_flat(torch.cat([p.reshape((-1,) + self.unit)
+                                        for p in parts]))
+
+    def sum_flat(self, flat: torch.Tensor) -> torch.Tensor:
+        """Sum the units of parts already concatenated into `flat`."""
         return torch.segment_reduce(flat[self.perm], "sum",
                                     lengths=self.lengths, axis=0,
                                     unsafe=True)
@@ -77,13 +81,18 @@ def column_sum_for(bucket_cols: Sequence[Sequence[np.ndarray]],
 
 class BucketJacobian:
     """Jacobian of one bucket: J [n, r, t_total] (tangent space,
-    loss-corrected) and the slots' column maps cols [n, t_s] (int64)."""
+    loss-corrected), the slots' column maps cols [n, t_s] (int64), and
+    all_cols [n, t_total], the slots' maps side by side, also as int32
+    (cols32, K8's index type), converted once here."""
 
-    def __init__(self, J, cols: Sequence[torch.Tensor], all_cols=None):
+    def __init__(self, J, cols: Sequence[torch.Tensor], all_cols=None,
+                 cols32=None):
         self.J = J
         self.cols = tuple(cols)
         self.all_cols = (torch.cat(self.cols, dim=1) if all_cols is None
                          else all_cols)
+        self.cols32 = (self.all_cols.to(torch.int32) if cols32 is None
+                       else cols32)
 
     def slot_J(self, s: int):
         """[n, r, t_s] slice of J for variable slot s."""
@@ -95,7 +104,7 @@ class BucketJacobian:
         return v[self.all_cols]
 
     def with_J(self, J) -> "BucketJacobian":
-        return BucketJacobian(J, self.cols, self.all_cols)
+        return BucketJacobian(J, self.cols, self.all_cols, self.cols32)
 
 
 class RVec:

@@ -20,6 +20,7 @@ import torch
 from . import _cuda
 
 MAX_M = 1024
+_F32, _I32 = torch.float32, torch.int32
 
 
 def chol_solve_plain(S, b):
@@ -66,37 +67,59 @@ def chol_solve(S, b):
 chol_solve.launches = 0
 
 
-def bucket_jtjv_plain(J, vb):
-    """Plain PyTorch K8: u [n, t] = J_n^T (J_n vb_n) for J [n, r, t] and
-    the gathered vb [n, t] (ceres_tpu's two-einsum path)."""
+def bucket_jtjv_plain(J, v, cols):
+    """Plain PyTorch K8: u [n, t] = J_n^T (J_n v[cols_n]) for J [n, r, t],
+    the tangent vector v [m] and the rows' columns cols [n, t] (int32):
+    the gather, then ceres_tpu's two einsums."""
+    vb = v[cols]
     w = torch.einsum("nrt,nt->nr", J, vb)
     return torch.einsum("nrt,nr->nt", J, w)
 
 
-def bucket_jtjv(J, vb):
-    """K8: see bucket_jtjv_plain; f32, r <= 32 on the card."""
+def bucket_jtjv(J, v, cols, out=None):
+    """K8: see bucket_jtjv_plain; f32, r <= 32 on the card, the gather of
+    v done in the kernel. Writes u into `out` ([n, t], contiguous) when
+    given, else into a new tensor, and returns it. The CG loop calls it
+    tens of thousands of times a solve, so the checks are one boolean
+    chain, and the messages are built only when it fails."""
     if not J.is_cuda:
-        return bucket_jtjv_plain(J, vb)
+        u = bucket_jtjv_plain(J, v, cols)
+        return u if out is None else out.copy_(u)
     n, r, t = J.shape
-    if not 1 <= r <= 32:
-        raise ValueError(f"bucket_jtjv: r = {r} outside 1..32")
-    _cuda.check(J, (n, r, t), torch.float32, "bucket_jtjv: J")
-    _cuda.check(vb, (n, t), torch.float32, "bucket_jtjv: vb")
-    u = torch.empty_like(vb)
-    _cuda.launch("ceres_jtjv", J, vb, n, r, t, u)
+    if not (J.dtype is _F32 and v.dtype is _F32 and cols.dtype is _I32
+            and v.is_cuda and cols.is_cuda and v.dim() == 1
+            and cols.shape == (n, t) and 1 <= r <= 32
+            and J.is_contiguous() and v.is_contiguous()
+            and cols.is_contiguous()):
+        if not 1 <= r <= 32:
+            raise ValueError(f"bucket_jtjv: r = {r} outside 1..32")
+        _cuda.check(J, (n, r, t), _F32, "bucket_jtjv: J")
+        _cuda.check(v, (v.numel(),), _F32, "bucket_jtjv: v")
+        _cuda.check(cols, (n, t), _I32, "bucket_jtjv: cols")
+    if out is None:
+        out = J.new_empty((n, t))
+    else:
+        _cuda.check(out, (n, t), _F32, "bucket_jtjv: out")
+    _cuda.launch("ceres_jtjv", J, v, cols, n, r, t, out)
     bucket_jtjv.launches += 1
-    return u
+    return out
 
 
 bucket_jtjv.launches = 0
 
 
 def jac_normal_matvec(jac, v):
-    """(J^T J) v over a BlockJacobian, one K8 launch per bucket: the
-    gather of v per row and the fixed-order column sum stay outside the
-    kernel (ceres_tpu's jac_normal_matvec)."""
-    return jac.col_sum([bucket_jtjv(b.J, b.gather_cols(v))
-                        for b in jac.buckets])
+    """(J^T J) v over a BlockJacobian, one K8 launch per bucket, which
+    gathers v itself and writes its rows' products into its part of one
+    buffer, in the buckets' order; the fixed-order column sum of that
+    buffer stays outside the kernel (ceres_tpu's jac_normal_matvec)."""
+    shapes = [(b.J.shape[0], b.J.shape[2]) for b in jac.buckets]
+    flat = v.new_empty(sum(n * t for n, t in shapes))
+    off = 0
+    for b, (n, t) in zip(jac.buckets, shapes):
+        bucket_jtjv(b.J, v, b.cols32, out=flat[off:off + n * t].view(n, t))
+        off += n * t
+    return jac.col_sum.sum_flat(flat)
 
 
 def bucket_gram_blocks_plain(J):

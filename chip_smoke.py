@@ -26,10 +26,13 @@ quaternions (QUAT_IMPLICIT_SCHUR):
    large case's Snavely bucket (1M rows) at its start; K5 (slice 5) on
    the quaternion problem's first linearization, with no loss and with
    HuberLoss(1.0); K11's auto spec (slice 6) on the quaternion large
-   case's bucket (1M rows) at its start; times each, its plain version
+   case's bucket (1M rows) at its start, and K10 on that case's scaled
+   chunk tensors (tf 10) as on the large case's; times each, its plain version
    and, where one PyTorch call computes the same function, that call,
-   with CUDA events (median of 20 runs); and computes each kernel's
-   bound from this run's inputs;
+   with CUDA events (median of 20 single calls; the kernel also as the
+   mean of 100 back-to-back calls, "loop_ms"); times K3 and K9 against
+   their library calls in turns (kernel, library, library, kernel; five
+   rounds); and computes each kernel's bound from this run's inputs;
 2. drives the paths, counting the launches of every kernel from zero
    before each solve: through ctt.solve on device="cuda", DENSE_SCHUR
    (slice 1), one warm-up and three timed solves; ITERATIVE_SCHUR with
@@ -45,8 +48,9 @@ quaternions (QUAT_IMPLICIT_SCHUR):
    SCHUR_JACOBI on the quaternion large case (slice 6, implicit: nf =
    10,240), one warm-up and one timed;
 3. fails unless every kernel agrees within its limit (K7 with the same CG
-   iteration count), every BAL-16-22106 solve ends in CONVERGENCE with a
-   final cost within 1e-5 relative of 5.028773e+04, every kernel of a
+   iteration count, K10 bit for bit), every BAL-16-22106 solve ends in
+   CONVERGENCE with a final cost within 1e-5 relative of 5.028773e+04,
+   every kernel of a
    path (MAIN_PATH) launched at least once per LM iteration, K2 and K3
    never on the ITERATIVE_SCHUR path, CG iterated more often than LM did;
    every pose-graph solve ends in CONVERGENCE within 1e-4 relative of the
@@ -91,6 +95,9 @@ REF_FINAL_COST = 50287.73       # the f64 DENSE_SCHUR final cost
 REF_REL_TOL = 1e-5
 F32_LIMIT = 1e-5                # K1-K3, K6: f32 kernels, other sum order
 F64_LIMIT = 1e-12               # K4: f64 kernel
+# K10 rounds every product and sum apart in its plain version's order, so
+# the two give the same bits
+K10_LIMIT = 0.0
 # K7: y relative to the plain CG. Both run the f32 recurrence, but the
 # kernel's warp and block reductions sum in another order than PyTorch's
 # dots and matvec, and each CG iteration carries the difference on,
@@ -294,6 +301,43 @@ def median_ms(fn, reps=20):
     return statistics.median(times)
 
 
+def loop_ms(fn, calls=100):
+    """Milliseconds a call of fn() in a run of `calls` back-to-back calls
+    between two CUDA events: what a loop of calls (the CG loops) pays a
+    call, host path included, where median_ms also counts the launch
+    latency of one call on an idle card."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(calls):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / calls
+
+
+def interleaved(name, kernel, library, rounds=5):
+    """The kernel against its one-call library version in turns (kernel,
+    library, library, kernel) for `rounds` rounds, each time the median of
+    median_ms; prints both medians over all rounds and which is faster."""
+    ks, ls = [], []
+    for _ in range(rounds):
+        ks.append(median_ms(kernel))
+        ls.append(median_ms(library))
+        ls.append(median_ms(library))
+        ks.append(median_ms(kernel))
+    k_med, l_med = statistics.median(ks), statistics.median(ls)
+    print(f"{name} interleaved, {rounds} rounds (kernel, library, library, "
+          f"kernel): kernel {k_med:.4f} ms (runs {[round(x, 4) for x in ks]})"
+          f", library {l_med:.4f} ms (runs {[round(x, 4) for x in ls]}); "
+          f"{'kernel' if k_med < l_med else 'library'} faster", flush=True)
+    return {"kernel_ms": k_med, "library_ms": l_med,
+            "kernel_runs": ks, "library_runs": ls}
+
+
 def nbytes(*objs):
     """Bytes of every tensor in objs (dicts, tuples and lists walked)."""
     import torch
@@ -334,6 +378,7 @@ def check_kernel(name, kernel, plain, compare, limit, source, replaces,
     rel = max(e[0] for e in errs)
     abs_err = max(e[1] for e in errs)
     ms, plain_ms = median_ms(kernel), median_ms(plain)
+    loop = loop_ms(kernel)
     lib_ms = median_ms(library[1]) if library else None
     ref_ms = median_ms(reference[1]) if reference else None
     n_flops = flops(got) if callable(flops) else flops
@@ -343,7 +388,8 @@ def check_kernel(name, kernel, plain, compare, limit, source, replaces,
     rel_txt = ", ".join(f"{e[0]:.3e}" for e in errs)
     lim_txt = ", ".join(f"{lim:.0e}" for lim in limits)
     print(f"{name}: max rel err {rel_txt} (limit {lim_txt}), max abs err "
-          f"{abs_err:.3e}; kernel {ms:.4f} ms, plain PyTorch "
+          f"{abs_err:.3e}; kernel {ms:.4f} ms ({loop:.4f} ms a call in a "
+          f"loop), plain PyTorch "
           f"{plain_ms:.4f} ms{lib_txt}; bound {bound_ms:.5f} ms "
           f"({bound_by}: {nbytes(inputs, got)} B, {n_flops:.4g} flop)",
           flush=True)
@@ -351,7 +397,7 @@ def check_kernel(name, kernel, plain, compare, limit, source, replaces,
         raise SystemExit(f"{name}: kernel and plain version disagree")
     return {"name": name, "route": "cuda", "source": source,
             "replaces": replaces, "max_abs_err": abs_err,
-            "max_rel_err": rel, "limit": limit, "ms": ms,
+            "max_rel_err": rel, "limit": limit, "ms": ms, "loop_ms": loop,
             "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": lib_ms,
             "library_call": library[0] if library else None,
@@ -531,6 +577,9 @@ def main():
         nf ** 3 / 3 + 2 * nf * nf, F32_FLOP_PER_S,
         library=("torch.linalg.solve(S, rhs)",
                  lambda: torch.linalg.solve(S, rhs))))
+    kernels[-1]["interleaved"] = interleaved(
+        "K3 chol_solve vs torch.linalg.solve", lambda: chol_solve(S, rhs),
+        lambda: torch.linalg.solve(S, rhs))
 
     cost_args = (x0, step.e_slab, step.f_slab, step.pt_idx, step.cam_idx,
                  step.obsx64, step.obsy64)
@@ -654,18 +703,25 @@ def main():
         jac_s = jac.scale_columns(
             1.0 / (1.0 + torch.sqrt(jac.squared_column_norms())))
         J = jac_s.buckets[g["bi"]].J
+        cols = jac_s.buckets[g["bi"]].cols32
         v = torch.as_tensor(np.random.default_rng(1).standard_normal(
             jac.num_cols), dtype=torch.float32, device=J.device)
         vb = jac_s.buckets[g["bi"]].gather_cols(v).contiguous()
         n, r, t = J.shape
+        # no one PyTorch call gathers and multiplies, so K8 has no library
+        # call; the einsum on the gathered vb is another function (it
+        # leaves the gather out), timed as a yardstick
         rec = check_kernel(
-            f"K8 bucket_jtjv ({key.upper()})", lambda: bucket_jtjv(J, vb),
-            lambda: bucket_jtjv_plain(J, vb), lambda g_, w: [rel_err(g_, w)],
+            f"K8 bucket_jtjv ({key.upper()})",
+            lambda: bucket_jtjv(J, v, cols),
+            lambda: bucket_jtjv_plain(J, v, cols),
+            lambda g_, w: [rel_err(g_, w)],
             F32_LIMIT, "ceres_tpu_torch/csrc/jtjv.cu",
-            "ceres_tpu/ops/pallas_kernels.py:111", (J, vb), 4 * n * r * t,
-            F32_FLOP_PER_S,
-            library=("torch.einsum('nrt,nru,nu->nt', J, J, vb)",
-                     lambda: torch.einsum("nrt,nru,nu->nt", J, J, vb)))
+            "ceres_tpu/ops/pallas_kernels.py:111", (J, v, cols),
+            4 * n * r * t, F32_FLOP_PER_S,
+            reference=("torch.einsum('nrt,nru,nu->nt', J, J, vb) on a "
+                       "pre-gathered vb",
+                       lambda: torch.einsum("nrt,nru,nu->nt", J, J, vb)))
         if key == "3d":
             rec["name"] = "K8 bucket_jtjv"
             kernels.append(rec)
@@ -686,6 +742,10 @@ def main():
                              lambda: torch.einsum("nrt,nru->ntu", Js, Js)))
                 if si == 0:
                     rec["name"] = "K9 bucket_gram_blocks"
+                    rec["interleaved"] = interleaved(
+                        "K9 bucket_gram_blocks vs torch.einsum",
+                        lambda: bucket_gram_blocks(Js),
+                        lambda: torch.einsum("nrt,nru->ntu", Js, Js))
                     kernels.append(rec)
 
     # ---- slice 4: K10 on the large case's first linearization ----
@@ -731,7 +791,7 @@ def main():
     kernels.append(check_kernel(
         "K10 implicit_apply", lambda: implicit_apply(*k10_args),
         lambda: implicit_apply_plain(*k10_args),
-        lambda g_, w: [rel_err(g_, w)], F32_LIMIT,
+        lambda g_, w: [rel_err(g_, w)], K10_LIMIT,
         "ceres_tpu_torch/csrc/implicit.cu",
         "ceres_tpu/ops/pallas_implicit.py:49", k10_args,
         # per lane w twice, u, w2, C; per point zz
@@ -854,6 +914,25 @@ def main():
         row_ops * qbig_bk.n, F32_FLOP_PER_S)
     kernels.append(rec)
     del k11_auto
+    # K10 at the quaternion large case's shapes (tf 10), on its first
+    # linearization at RADIUS and a seeded v, as at tf 9 above
+    qbig_art = qbig_step.linearize(qx0, *qbig_step.initial_scales(),
+                                   first=True)
+    qbig_inv = qbig_step.damped_inverse(qbig_art, rad)
+    _, qJe_s, qJf_s, qplan0 = qbig_step.scaled_chunks(qbig_art)[0]
+    k10_q = (qJe_s, qJf_s, qbig_inv, qplan0.fids32, torch.as_tensor(
+        np.random.default_rng(2).standard_normal(qbig_step.nf),
+        dtype=torch.float32, device="cuda"))
+    kq, rq = qplan0.fids32.shape[1], qJe_s.shape[2]
+    check_kernel(
+        "K10 implicit_apply (quaternion cameras, tf 10)",
+        lambda: implicit_apply(*k10_q), lambda: implicit_apply_plain(*k10_q),
+        lambda g_, w: [rel_err(g_, w)], K10_LIMIT,
+        "ceres_tpu_torch/csrc/implicit.cu",
+        "ceres_tpu/ops/pallas_implicit.py:49", k10_q,
+        qbig_step.ne * kq * rq * (6 * qbig_step.tf + 4 * qbig_step.te)
+        + 2 * qbig_step.ne * qbig_step.te ** 2, F32_FLOP_PER_S)
+    del qbig_art, qbig_inv, qJe_s, qJf_s, qplan0, k10_q
 
     # ---- the paths: solves on the card ----
     counters = {"K1 lin": lin, "K2 elim": elim,
@@ -1086,10 +1165,12 @@ def main():
     print(json.dumps({"kernels": [
         {k: rec[k] for k in ("name", "route", "source", "replaces",
                              "launches", "launches_by_path", "max_abs_err",
-                             "max_rel_err", "limit", "ms", "plain_ms",
+                             "max_rel_err", "limit", "ms", "loop_ms",
+                             "plain_ms",
                              "bound_ms", "bound_by", "library_ms",
                              "library_call", "reference_ms",
                              "reference_call")}
+        | {"interleaved": rec.get("interleaved")}
         for rec in kernels]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -59,7 +59,7 @@ KERNEL_OF = {
     "reduce_splits_kernel": "K2/K6", "chol_solve_kernel": "K3",
     "cost_kernel": "K4", "pcg_kernel": "K7", "jtjv_kernel": "K8",
     "gram_kernel": "K9", "linearize_auto::": "K11 (auto)",
-    "implicit_apply_kernel": "K10",
+    "implicit_apply_": "K10",
     "linearize_pose3d_kernel": "K11", "linearize_pose2d_kernel": "K11",
     "linearize_snavely_kernel": "K11",
 }

@@ -201,15 +201,15 @@ def test_dup_and_cross_bucket_detection_match_jax():
 
 # ---- K10 ----
 
-def _k10_inputs(ne, k, te, tf, kf, seed):
+def _k10_inputs(ne, k, te, tf, kf, seed, r=2):
     """Seeded K10 inputs with a ragged chunk layout: lanes past each
     point's count are masked (zero J, camera 0)."""
     rng = np.random.default_rng(seed)
     count = rng.integers(1, k + 1, size=ne)
     lane = (np.arange(k)[None, :] < count[:, None]).astype(np.float32)
-    Je = rng.standard_normal((ne, k, 2, te)).astype(np.float32) \
+    Je = rng.standard_normal((ne, k, r, te)).astype(np.float32) \
         * lane[:, :, None, None]
-    Jf = rng.standard_normal((ne, k, 2, tf)).astype(np.float32) \
+    Jf = rng.standard_normal((ne, k, r, tf)).astype(np.float32) \
         * lane[:, :, None, None]
     B = rng.standard_normal((ne, te, te))
     inv = np.linalg.inv(B @ np.swapaxes(B, -1, -2) + te * np.eye(te)) \
@@ -417,22 +417,28 @@ def test_implicit_regime_refusals(case, item):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("ne", [1, 7, 513])
-@pytest.mark.parametrize("k", [1, 5])
-@pytest.mark.parametrize("te,tf,kf", [(3, 9, 11), (2, 6, 3000)])
-def test_k10_kernel_matches_plain_on_the_card(ne, k, te, tf, kf):
-    """The CUDA kernel against its plain version on the card, with v in
-    shared memory (kf tf <= 12,288) and read from device memory
-    (kf = 3000, tf = 6: 72 KB): equal, since both round every product
-    and sum apart in the same order. Run on a machine with a card:
-    python -m pytest tests -m cuda."""
+@pytest.mark.parametrize("k", [1, 5, 33])
+@pytest.mark.parametrize("r,te,tf", [(2, 3, 9), (2, 3, 10), (1, 1, 1),
+                                     (4, 4, 16), (3, 2, 9), (2, 4, 10),
+                                     (1, 3, 16)])
+@pytest.mark.parametrize("kf", [11, 13000])
+def test_k10_kernel_matches_plain_on_the_card(ne, k, r, te, tf, kf):
+    """The CUDA kernel against its plain version on the card: point counts
+    that fill no warp or block, chunks of one lane, of five and past a
+    warp (k = 33: a block per point), r, te and tf from 1 to the kernel's
+    maxima, and v in shared memory (kf = 11) and past its 48 KB there
+    (kf = 13,000: at least 52 KB). Equal, max abs err 0, since both round
+    every product and sum apart in the same order. Run on a machine with a
+    card: python -m pytest tests -m cuda."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     args = [torch.as_tensor(a).cuda()
-            for a in _k10_inputs(ne, k, te, tf, kf, ne + k)]
+            for a in _k10_inputs(ne, k, te, tf, kf, ne + k, r=r)]
     implicit_apply.launches = 0
     got = implicit_apply(*args)
     want = implicit_apply_plain(*args)
     torch.cuda.synchronize()
     assert implicit_apply.launches == 1
-    assert rel(got.cpu().numpy(), want.cpu().numpy()) < 1e-5
+    assert got.shape == (ne, k, tf)
+    assert float(torch.max(torch.abs(got - want))) == 0.0
     assert torch.equal(got, want)

@@ -50,10 +50,13 @@ _I = ctypes.c_int
 _SIGNATURES = {
     "ceres_lin": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                   _P, _P, _P, _P, _P, _P, _P, _P, _P],
-    "ceres_elim": [_P, _P, _P, _P, ctypes.c_float, _I, _I, _I,
-                   _P, _P, _P, _P, _P, _P, _P],
-    "ceres_elim_v1": [_P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P],
+    "ceres_elim": [_P, _P, _P, _P, ctypes.c_float, _I, _I, _I, _I, _I,
+                   _I, _I, _P, _P, _P, _P, _P, _P, _P],
+    "ceres_elim_v1": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P,
+                      _P, _P],
     "ceres_chol_solve": [_P, _P, _I, _P, _P, _P],
+    "ceres_chol_solve_shared": [_P, _P, _I, _P, _P],
+    "ceres_fast_math_check": [_P, _P, _I, _I, _P, _P, _P, _P],
     "ceres_pcg": [_P, _P, _P, _I, _I, _I, _I, ctypes.c_float, _I,
                   _P, _P, _P, _P],
     "ceres_cost": [_P, ctypes.c_long, ctypes.c_long, _P, _P, _P, _P, _I,
@@ -194,6 +197,20 @@ def launch(name: str, *args) -> None:
         library()
         fn = _ENTRY[name]
     call(fn, name, *args)
+
+
+_SMS = {}                       # device index -> SM count
+
+
+def sm_count(device) -> int:
+    """The number of SMs of a CUDA device (cached)."""
+    idx = device.index if device.index is not None else \
+        torch.cuda.current_device()
+    n = _SMS.get(idx)
+    if n is None:
+        n = _SMS[idx] = torch.cuda.get_device_properties(
+            idx).multi_processor_count
+    return n
 
 
 def check(t, shape, dtype, name: str) -> None:

@@ -4,10 +4,14 @@ one bucket's slot.
 
 Counterpart of ceres_tpu/ops/pallas_kernels.py (chol_solve_small,
 bucket_jtjv, jac_normal_matvec, bucket_gram_blocks). `chol_solve`
-launches csrc/chol.cu for CUDA tensors and runs `chol_solve_plain` for
-CPU tensors; both factor S = U^T U by the same unblocked right-looking
-Cholesky and give NaN for an indefinite S (the LM loop's invalid-step
-retry relies on it). `bucket_jtjv` launches csrc/jtjv.cu and
+launches one of csrc/chol.cu's two variants for CUDA tensors (picked by
+`chol_variant` from m: U in shared memory up to the edge
+`chol_smem_bytes` sets, else in a global scratch) and runs
+`chol_solve_plain` for CPU tensors; all three factor S = U^T U right-
+looking (the shared variant in panels of 16 rows), with the same
+roundings in the same order, and give NaN for an indefinite S (the LM
+loop's invalid-step retry relies on it).
+`bucket_jtjv` launches csrc/jtjv.cu and
 `bucket_gram_blocks` csrc/gram.cu for CUDA tensors, and run
 `bucket_jtjv_plain` and `bucket_gram_blocks_plain` for CPU tensors. Each
 wrapper counts its launches in its `launches` attribute.
@@ -15,11 +19,15 @@ wrapper counts its launches in its `launches` attribute.
 
 from __future__ import annotations
 
+from types import SimpleNamespace
+
 import torch
 
 from . import _cuda
 
 MAX_M = 1024
+# shared memory one block may opt in to on the H100 (227 KB)
+SMEM_OPTIN = 232448
 _F32, _I32 = torch.float32, torch.int32
 
 
@@ -48,23 +56,55 @@ def chol_solve_plain(S, b):
     return y
 
 
-def chol_solve(S, b):
-    """K3: see chol_solve_plain; m <= 1024 on the card."""
-    if not S.is_cuda:
-        return chol_solve_plain(S, b)
-    m = S.shape[0]
+def chol_smem_bytes(m):
+    """Shared memory of the shared-memory variant at m (csrc/chol.cu
+    shared_bytes): S with b as its column m, padded to 32 T rows of
+    32 T + 4 floats for T = ceil((m + 1) / 32) tiles of 32 columns."""
+    t = (m + 32) // 32
+    return 4 * 32 * t * (32 * t + 4)
+
+
+def chol_variant(m):
+    """The K3 variant for an [m, m] system: "shared" while S and b fit in
+    SMEM_OPTIN bytes of shared memory (m <= 223), else "global" (m <=
+    MAX_M). Raises past MAX_M."""
     if not 1 <= m <= MAX_M:
         raise ValueError(f"chol_solve: m = {m} outside 1..{MAX_M}")
-    _cuda.check(S, (m, m), torch.float32, "chol_solve: S")
-    _cuda.check(b, (m,), torch.float32, "chol_solve: b")
-    U = torch.empty_like(S)
+    return "shared" if chol_smem_bytes(m) <= SMEM_OPTIN else "global"
+
+
+def _chol_launch(S, b, variant):
+    """Launch K3's `variant` ("shared" or "global", csrc/chol.cu) on the
+    card and count it in chol_solve.launches and CHOL_VARIANTS[variant].
+    The tests and chip_smoke.py call it to hold each variant against the
+    plain version; an m the variant cannot take is refused by its entry
+    point, and the refusal raises."""
+    m = S.shape[0]
+    _cuda.check(S, (m, m), _F32, "chol_solve: S")
+    _cuda.check(b, (m,), _F32, "chol_solve: b")
     y = torch.empty_like(b)
-    _cuda.launch("ceres_chol_solve", S, b, m, U, y)
+    if variant == "shared":
+        _cuda.launch("ceres_chol_solve_shared", S, b, m, y)
+    elif variant == "global":
+        _cuda.launch("ceres_chol_solve", S, b, m, torch.empty_like(S), y)
+    else:
+        raise ValueError(f"chol_solve: no variant {variant!r}")
     chol_solve.launches += 1
+    CHOL_VARIANTS[variant].launches += 1
     return y
 
 
+def chol_solve(S, b):
+    """K3: see chol_solve_plain; m <= MAX_M on the card, the variant from
+    chol_variant(m)."""
+    if not S.is_cuda:
+        return chol_solve_plain(S, b)
+    return _chol_launch(S, b, chol_variant(S.shape[0]))
+
+
 chol_solve.launches = 0
+# launches of each K3 variant (each also counts in chol_solve.launches)
+CHOL_VARIANTS = {v: SimpleNamespace(launches=0) for v in ("shared", "global")}
 
 
 def bucket_jtjv_plain(J, v, cols):

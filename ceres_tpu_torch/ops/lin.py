@@ -10,10 +10,15 @@ lanes).
 `lin`, `elim` and `elim_v1` launch the CUDA kernels of csrc/lin.cu and
 csrc/elim.cu for CUDA tensors and run their plain PyTorch versions
 (`lin_plain`, `elim_plain`, `elim_v1_plain`) for CPU tensors. Each
-wrapper counts its launches in its `launches` attribute.
+wrapper counts its launches in its `launches` attribute. `elim_plan`
+sizes K2's and K6's split-K product (tiles, point ranges, shared memory,
+partial sums) in Python, so that the CPU tests reach it.
 """
 
 from __future__ import annotations
+
+import functools
+import math
 
 import torch
 
@@ -23,7 +28,12 @@ from ..rotation import angle_axis_rotate_point
 
 TF, TE = 9, 3                     # camera and point tangent sizes
 _LIN_ROWS_PER_CHUNK = 1024        # lanes per camera-Gram partial (lin.cu)
-_ELIM_PTS_PER_SPLIT = 256         # points per S_corr partial (elim.cu)
+# elim.cu: threads a block, points a stage (one warp each), staged words
+# a point, K2's z words a point, the widest single tile (16 x 10) and the
+# tile past it (16 x 8)
+_ELIM_THREADS, _ELIM_GROUP, _ELIM_PW, _ELIM_QW = 256, 8, 16, 4
+_ELIM_MAX_R, _ELIM_TILE_R = 10, 8
+_ELIM_BLOCKS_PER_SM = 2
 
 
 def _snavely_lane(cam, pt, ox, oy, valid):
@@ -162,6 +172,53 @@ def elim_plain(A, etes, gse, diag, rad):
     return S_corr, rhs, inv, z
 
 
+@functools.lru_cache(maxsize=64)
+def elim_plan(ne, nf, sms):
+    """K2's and K6's launch plan on a card with `sms` SMs (csrc/elim.cu):
+    R (a block's output tile is 16 R x 16 R, each of its 256 threads an
+    R x R strided part: one tile at nf <= 160, its upper triangle only;
+    else tiles of 128 over the nt (nt + 1) / 2 upper tile pairs), the
+    point ranges (split s of `splits` takes points [s pts, min(ne,
+    (s + 1) pts)): contiguous, in order, covering [0, ne)), the dynamic
+    shared memory in
+    bytes (elim.cu smem_floats) and the shapes of the call's `buffers`:
+    S_corr, rhs, the partial sums of S_corr and of rhs, inv, z.
+    Cached: the LM loop calls K2 or K6 once an iteration at one shape."""
+    if ne < 1 or nf < 1:
+        raise ValueError(f"elim: ne = {ne}, nf = {nf}; both must be >= 1")
+    if nf <= 16 * _ELIM_MAX_R:
+        R, nt, tri, ld = -(-nf // 16), 1, True, nf
+    else:
+        R, tri = _ELIM_TILE_R, False
+        nt, ld = -(-nf // (16 * R)), 16 * R
+    pairs = nt * (nt + 1) // 2
+    nacc = R * (R + 1) // 2 if tri else R * R
+    target = max(1, _ELIM_BLOCKS_PER_SM * sms // pairs)
+    pts = -(-ne // min(target, ne))
+    splits = -(-ne // pts)
+    buf = _ELIM_GROUP * TE * ld
+    tile = _ELIM_GROUP * TE * 16 * ((R + 1) & ~1)
+    floats = (2 * buf * (2 if nt > 1 else 1) + 2 * tile
+              + 2 * _ELIM_GROUP * _ELIM_PW + _ELIM_GROUP * _ELIM_QW)
+    return dict(R=R, nt=nt, tri=tri, pairs=pairs, splits=splits, pts=pts,
+                smem=4 * floats,
+                buffers=((nf, nf), (nf,), (splits, pairs, nacc, _ELIM_THREADS),
+                         (splits, nf), (ne, TE, TE), (ne, TE)))
+
+
+def _elim_buffers(A, with_point):
+    """The plan of one K2/K6 call on A, and its outputs and scratch as
+    views of one allocation (one call into the caching allocator, not
+    six): S_corr, rhs, the partial sums and, with_point, inv and z."""
+    ne, _, nf = A.shape
+    plan = elim_plan(ne, nf, _cuda.sm_count(A.device))
+    shapes = plan["buffers"] if with_point else plan["buffers"][:4]
+    flat = torch.empty(sum(math.prod(sh) for sh in shapes),
+                       dtype=torch.float32, device=A.device)
+    parts = flat.split([math.prod(sh) for sh in shapes])
+    return plan, [t.view(sh) for t, sh in zip(parts, shapes)]
+
+
 def elim(A, etes, gse, diag, rad):
     """K2: see elim_plain for the contract."""
     if not A.is_cuda:
@@ -172,16 +229,10 @@ def elim(A, etes, gse, diag, rad):
     _cuda.check(etes, (ne, TE * TE), f32, "elim: etes")
     _cuda.check(gse, (ne, TE), f32, "elim: gse")
     _cuda.check(diag, (ne, TE), f32, "elim: diag")
-    dev = A.device
-    nsplit = -(-ne // _ELIM_PTS_PER_SPLIT)
-    S_corr = torch.empty(nf, nf, dtype=f32, device=dev)
-    rhs = torch.empty(nf, dtype=f32, device=dev)
-    inv = torch.empty(ne, TE, TE, dtype=f32, device=dev)
-    z = torch.empty(ne, TE, dtype=f32, device=dev)
-    s_part = torch.empty(nsplit, nf, nf, dtype=f32, device=dev)
-    r_part = torch.empty(nsplit, nf, dtype=f32, device=dev)
+    plan, (S_corr, rhs, part, rpart, inv, z) = _elim_buffers(A, True)
     _cuda.launch("ceres_elim", A, etes, gse, diag, float(rad), ne, nf,
-                 _ELIM_PTS_PER_SPLIT, S_corr, rhs, inv, z, s_part, r_part)
+                 plan["R"], plan["nt"], plan["splits"], plan["pts"],
+                 plan["smem"], S_corr, rhs, inv, z, part, rpart)
     elim.launches += 1
     return S_corr, rhs, inv, z
 
@@ -208,14 +259,10 @@ def elim_v1(A, inv, z):
     _cuda.check(A, (ne, TE, nf), f32, "elim_v1: A")
     _cuda.check(inv, (ne, TE, TE), f32, "elim_v1: inv")
     _cuda.check(z, (ne, TE), f32, "elim_v1: z")
-    dev = A.device
-    nsplit = -(-ne // _ELIM_PTS_PER_SPLIT)
-    S_corr = torch.empty(nf, nf, dtype=f32, device=dev)
-    rhs = torch.empty(nf, dtype=f32, device=dev)
-    s_part = torch.empty(nsplit, nf, nf, dtype=f32, device=dev)
-    r_part = torch.empty(nsplit, nf, dtype=f32, device=dev)
-    _cuda.launch("ceres_elim_v1", A, inv, z, ne, nf, _ELIM_PTS_PER_SPLIT,
-                 S_corr, rhs, s_part, r_part)
+    plan, (S_corr, rhs, part, rpart) = _elim_buffers(A, False)
+    _cuda.launch("ceres_elim_v1", A, inv, z, ne, nf, plan["R"], plan["nt"],
+                 plan["splits"], plan["pts"], plan["smem"], S_corr, rhs,
+                 part, rpart)
     elim_v1.launches += 1
     return S_corr, rhs
 

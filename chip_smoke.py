@@ -15,7 +15,9 @@ the BAL-16-22106 problem with its cameras written as quaternions
 quaternions (QUAT_IMPLICIT_SCHUR):
 
 1. checks each kernel against its plain PyTorch version on the card, at
-   the shapes its path gives it: K1-K4 (slice 1, DENSE_SCHUR), K6 on the
+   the shapes its path gives it: K1-K4 (slice 1, DENSE_SCHUR; K3 bit for
+   bit, and its global-scratch variant on a seeded SPD system of
+   K3_GLOBAL_M, past the shared-memory edge), K6 on the
    inverse of the first linearization at RADIUS, K7 on that reduced
    system with SCHUR_JACOBI and with IDENTITY blocks; K11 (slice 3) on
    each graph's main bucket (SE3 at the start and at a perturbed state,
@@ -25,14 +27,17 @@ quaternions (QUAT_IMPLICIT_SCHUR):
    large case's first linearization at RADIUS and a seeded v, K11 on the
    large case's Snavely bucket (1M rows) at its start; K5 (slice 5) on
    the quaternion problem's first linearization, with no loss and with
-   HuberLoss(1.0); K11's auto spec (slice 6) on the quaternion large
-   case's bucket (1M rows) at its start, and K10 on that case's scaled
+   HuberLoss(1.0), and K2, K6 and K3 (bit for bit) on its first
+   linearization at RADIUS (nf 160); K11's auto spec (slice 6) on the
+   quaternion large case's bucket (1M rows) at its start, and K10 on that
+   case's scaled
    chunk tensors (tf 10) as on the large case's; times each, its plain version
    and, where one PyTorch call computes the same function, that call,
    with CUDA events (median of 20 single calls; the kernel also as the
    mean of 100 back-to-back calls, "loop_ms"); times K3 and K9 against
-   their library calls in turns (kernel, library, library, kernel; five
-   rounds); and computes each kernel's bound from this run's inputs;
+   their library calls and K2 and K6 against their plain versions in
+   turns (kernel, other, other, kernel; five rounds); and computes each
+   kernel's bound from this run's inputs;
 2. drives the paths, counting the launches of every kernel from zero
    before each solve: through ctt.solve on device="cuda", DENSE_SCHUR
    (slice 1), one warm-up and three timed solves; ITERATIVE_SCHUR with
@@ -51,7 +56,8 @@ quaternions (QUAT_IMPLICIT_SCHUR):
    iteration count, K10 bit for bit), every BAL-16-22106 solve ends in
    CONVERGENCE with a final cost within 1e-5 relative of 5.028773e+04,
    every kernel of a
-   path (MAIN_PATH) launched at least once per LM iteration, K2 and K3
+   path (MAIN_PATH) launched at least once per LM iteration (K3 through
+   its shared-memory variant on the DENSE paths, m 144 and 160), K2 and K3
    never on the ITERATIVE_SCHUR path, CG iterated more often than LM did;
    every pose-graph solve ends in CONVERGENCE within 1e-4 relative of the
    JAX package's final cost, cuts the mean position error below its share
@@ -76,7 +82,8 @@ quaternions (QUAT_IMPLICIT_SCHUR):
 
 Prints the card's name and power limit, one line per check and solve, a
 JSON line of the kernels (each kernel's launches from its MAIN_PATH solve
-and from every path), and as its last line {"ok": true, "device":
+and from every path; K3's by variant too), and as its last line {"ok":
+true, "device":
 {...}}. Exits non-zero, with no ok line, when there is no CUDA device or
 any phase fails.
 """
@@ -93,11 +100,14 @@ SHAPE = dict(num_cameras=16, num_points=22106, num_observations=83718)
 PERTURB = dict(rotation_sigma=0.1, translation_sigma=1.0, point_sigma=0.5)
 REF_FINAL_COST = 50287.73       # the f64 DENSE_SCHUR final cost
 REF_REL_TOL = 1e-5
-F32_LIMIT = 1e-5                # K1-K3, K6: f32 kernels, other sum order
+F32_LIMIT = 1e-5                # K1, K2, K6: f32 kernels, other sum order
 F64_LIMIT = 1e-12               # K4: f64 kernel
-# K10 rounds every product and sum apart in its plain version's order, so
-# the two give the same bits
-K10_LIMIT = 0.0
+# K3 and K10 round every product and sum apart in their plain versions'
+# order, so the two give the same bits
+K3_LIMIT = K10_LIMIT = 0.0
+# K3's global-scratch variant (m past the shared-memory edge, 223) is
+# checked on a seeded SPD system of this size
+K3_GLOBAL_M = 512
 # K7: y relative to the plain CG. Both run the f32 recurrence, but the
 # kernel's warp and block reductions sum in another order than PyTorch's
 # dots and matvec, and each CG iteration carries the difference on,
@@ -319,23 +329,26 @@ def loop_ms(fn, calls=100):
     return start.elapsed_time(end) / calls
 
 
-def interleaved(name, kernel, library, rounds=5):
-    """The kernel against its one-call library version in turns (kernel,
-    library, library, kernel) for `rounds` rounds, each time the median of
-    median_ms; prints both medians over all rounds and which is faster."""
+def interleaved(name, kernel, other, rounds=5, label="library"):
+    """The kernel against `other` (its one-call library version, or with
+    label "plain" its plain version) in turns (kernel, other, other,
+    kernel) for `rounds` rounds, each time the median of median_ms;
+    prints both medians over all rounds and which is faster."""
     ks, ls = [], []
     for _ in range(rounds):
         ks.append(median_ms(kernel))
-        ls.append(median_ms(library))
-        ls.append(median_ms(library))
+        ls.append(median_ms(other))
+        ls.append(median_ms(other))
         ks.append(median_ms(kernel))
     k_med, l_med = statistics.median(ks), statistics.median(ls)
-    print(f"{name} interleaved, {rounds} rounds (kernel, library, library, "
+    print(f"{name} interleaved, {rounds} rounds (kernel, {label}, {label}, "
           f"kernel): kernel {k_med:.4f} ms (runs {[round(x, 4) for x in ks]})"
-          f", library {l_med:.4f} ms (runs {[round(x, 4) for x in ls]}); "
-          f"{'kernel' if k_med < l_med else 'library'} faster", flush=True)
-    return {"kernel_ms": k_med, "library_ms": l_med,
-            "kernel_runs": ks, "library_runs": ls}
+          f", {label} {l_med:.4f} ms (runs {[round(x, 4) for x in ls]}); "
+          f"{'kernel' if k_med < l_med else label} faster; kernel faster in "
+          f"{sum(k < o for k, o in zip(ks, ls))} of {len(ks)} turns",
+          flush=True)
+    return {"kernel_ms": k_med, f"{label}_ms": l_med,
+            "kernel_runs": ks, f"{label}_runs": ls}
 
 
 def nbytes(*objs):
@@ -468,8 +481,9 @@ def main():
     from ceres_tpu_torch.examples import slam
     from ceres_tpu_torch.io import g2o
     from ceres_tpu_torch.ops.kernels import (
-        bucket_gram_blocks, bucket_gram_blocks_plain, bucket_jtjv,
-        bucket_jtjv_plain, chol_solve, chol_solve_plain)
+        CHOL_VARIANTS, _chol_launch, bucket_gram_blocks,
+        bucket_gram_blocks_plain, bucket_jtjv, bucket_jtjv_plain, chol_solve,
+        chol_solve_plain)
     from ceres_tpu_torch.ops.implicit import (implicit_apply,
                                               implicit_apply_plain)
     from ceres_tpu_torch.ops.linearize import (
@@ -537,9 +551,13 @@ def main():
     # observation (E^T E 36, g_e 12, A 108, F^T F 324, g_f 36); the
     # residual and Jacobian arithmetic is left out, so this is a floor
     lin_flops = 516 * nobs
-    # K2/K6: S_corr = sum A^T (inv A) with Y = inv A first (2 * 3 * nf^2
-    # per point), Y itself (18 nf), rhs (6 nf)
-    scorr_flops = ne * (6 * nf * nf + 24 * nf)
+    # K2/K6: S_corr = sum A^T (inv A) with Y = inv A first; the kernel
+    # forms the upper triangle only at nf <= 160 and mirrors it, so the
+    # bound counts that triangle (2 * 3 * nf (nf + 1) / 2 per point), Y
+    # itself (18 nf) and rhs (6 nf); K2 adds 45 a point for the inverse
+
+    def scorr_flops(ne_, nf_):
+        return ne_ * (3 * nf_ * (nf_ + 1) + 24 * nf_)
 
     def cmp_lin(got, want):
         return [rel_err(got[k], want[k]) for k in want]
@@ -566,13 +584,16 @@ def main():
         "K2 elim", lambda: elim(*elim_args), lambda: elim_plain(*elim_args),
         cmp_all, F32_LIMIT,
         "ceres_tpu_torch/csrc/elim.cu", "ceres_tpu/ops/pallas_lin.py:424",
-        elim_args[:4], scorr_flops + 45 * ne, F32_FLOP_PER_S))
+        elim_args[:4], scorr_flops(ne, nf) + 45 * ne, F32_FLOP_PER_S))
+    kernels[-1]["interleaved"] = interleaved(
+        "K2 elim vs its plain version", lambda: elim(*elim_args),
+        lambda: elim_plain(*elim_args), label="plain")
 
     S, rhs, _, _ = step.reduced_system(art, RADIUS)
     kernels.append(check_kernel(
         "K3 chol_solve", lambda: chol_solve(S, rhs),
         lambda: chol_solve_plain(S, rhs), lambda g, w: [rel_err(g, w)],
-        F32_LIMIT, "ceres_tpu_torch/csrc/chol.cu",
+        K3_LIMIT, "ceres_tpu_torch/csrc/chol.cu",
         "ceres_tpu/ops/pallas_kernels.py:190", (S, rhs),
         nf ** 3 / 3 + 2 * nf * nf, F32_FLOP_PER_S,
         library=("torch.linalg.solve(S, rhs)",
@@ -580,6 +601,22 @@ def main():
     kernels[-1]["interleaved"] = interleaved(
         "K3 chol_solve vs torch.linalg.solve", lambda: chol_solve(S, rhs),
         lambda: torch.linalg.solve(S, rhs))
+    # the global-scratch variant, past the shared-memory edge
+    gen = torch.Generator(device="cuda").manual_seed(K3_GLOBAL_M)
+    Bg = torch.randn(K3_GLOBAL_M, K3_GLOBAL_M + 4, device="cuda",
+                     generator=gen)
+    k3g = (Bg @ Bg.T + K3_GLOBAL_M * torch.eye(K3_GLOBAL_M, device="cuda"),
+           torch.randn(K3_GLOBAL_M, device="cuda", generator=gen))
+    check_kernel(
+        f"K3 chol_solve (global variant, seeded SPD m {K3_GLOBAL_M})",
+        lambda: _chol_launch(*k3g, "global"),
+        lambda: chol_solve_plain(*k3g),
+        lambda g_, w: [rel_err(g_, w)], K3_LIMIT,
+        "ceres_tpu_torch/csrc/chol.cu",
+        "ceres_tpu/ops/pallas_kernels.py:190", k3g,
+        K3_GLOBAL_M ** 3 / 3 + 2 * K3_GLOBAL_M ** 2, F32_FLOP_PER_S,
+        library=("torch.linalg.solve(S, rhs)",
+                 lambda: torch.linalg.solve(*k3g)))
 
     cost_args = (x0, step.e_slab, step.f_slab, step.pt_idx, step.cam_idx,
                  step.obsx64, step.obsy64)
@@ -603,7 +640,10 @@ def main():
         "K6 elim_v1", lambda: elim_v1(art.A, inv, z),
         lambda: elim_v1_plain(art.A, inv, z), cmp_all, F32_LIMIT,
         "ceres_tpu_torch/csrc/elim.cu", "ceres_tpu/ops/pallas_lin.py:387",
-        (art.A, inv, z), scorr_flops, F32_FLOP_PER_S))
+        (art.A, inv, z), scorr_flops(ne, nf), F32_FLOP_PER_S))
+    kernels[-1]["interleaved"] = interleaved(
+        "K6 elim_v1 vs its plain version", lambda: elim_v1(art.A, inv, z),
+        lambda: elim_v1_plain(art.A, inv, z), label="plain")
 
     S_it, rhs_it, _, _ = it_step.reduced_system(art, RADIUS)
     minv = it_step.precond_inverse(art, S_it, rad)
@@ -837,7 +877,7 @@ def main():
           f"nf={q_step.nf} te={q_step.te} tf={q_step.tf}; {q_step.mode}",
           flush=True)
     qx0 = q_program.initial_state()
-    q_se0, _ = q_step.initial_scales()
+    q_se0, q_sf0 = q_step.initial_scales()
     q_te, q_tf, q_r = q_step.te, q_step.tf, q_step.k5.r
     for loss_name in ("none", "huber"):
         loss = quat[loss_name]["loss"]
@@ -867,6 +907,35 @@ def main():
             (chain_ops + epi_ops) * nobs, F32_FLOP_PER_S)
         if loss is None:
             kernels.append(rec)
+    # K2, K6 and K3 at the quaternion paths' shapes (nf 160), on K5's first
+    # linearization at RADIUS
+    q_art = q_step.linearize(qx0, q_se0, q_sf0, True)
+    q_elim = (q_art.A, q_art.etes, q_art.gse, q_art.diag_e, RADIUS)
+    q_ne, q_nf = q_step.ne, q_step.nf
+    check_kernel(
+        f"K2 elim (quaternion cameras, nf {q_nf})",
+        lambda: elim(*q_elim), lambda: elim_plain(*q_elim), cmp_all,
+        F32_LIMIT, "ceres_tpu_torch/csrc/elim.cu",
+        "ceres_tpu/ops/pallas_lin.py:424", q_elim[:4],
+        scorr_flops(q_ne, q_nf) + 45 * q_ne, F32_FLOP_PER_S)
+    q_inv, q_z = q_step.point_inverse(q_art, rad)
+    check_kernel(
+        f"K6 elim_v1 (quaternion cameras, nf {q_nf})",
+        lambda: elim_v1(q_art.A, q_inv, q_z),
+        lambda: elim_v1_plain(q_art.A, q_inv, q_z), cmp_all, F32_LIMIT,
+        "ceres_tpu_torch/csrc/elim.cu", "ceres_tpu/ops/pallas_lin.py:387",
+        (q_art.A, q_inv, q_z), scorr_flops(q_ne, q_nf), F32_FLOP_PER_S)
+    q_S, q_rhs, _, _ = q_step.reduced_system(q_art, RADIUS)
+    check_kernel(
+        f"K3 chol_solve (quaternion cameras, m {q_nf})",
+        lambda: chol_solve(q_S, q_rhs), lambda: chol_solve_plain(q_S, q_rhs),
+        lambda g_, w: [rel_err(g_, w)], K3_LIMIT,
+        "ceres_tpu_torch/csrc/chol.cu",
+        "ceres_tpu/ops/pallas_kernels.py:190", (q_S, q_rhs),
+        q_nf ** 3 / 3 + 2 * q_nf ** 2, F32_FLOP_PER_S,
+        library=("torch.linalg.solve(S, rhs)",
+                 lambda: torch.linalg.solve(q_S, q_rhs)))
+    del q_art, q_elim, q_inv, q_z, q_S, q_rhs
 
     # ---- slice 6: K11's auto spec on the quaternion large case ----
     t0 = time.time()
@@ -936,7 +1005,10 @@ def main():
 
     # ---- the paths: solves on the card ----
     counters = {"K1 lin": lin, "K2 elim": elim,
-                "K3 chol_solve": chol_solve, "K4 cost": snavely_sq,
+                "K3 chol_solve": chol_solve,
+                "K3 chol_solve (shared)": CHOL_VARIANTS["shared"],
+                "K3 chol_solve (global)": CHOL_VARIANTS["global"],
+                "K4 cost": snavely_sq,
                 "K6 elim_v1": elim_v1, "K7 dense_pcg": dense_pcg,
                 "K8 bucket_jtjv": bucket_jtjv,
                 "K9 bucket_gram_blocks": bucket_gram_blocks,
@@ -1103,8 +1175,9 @@ def main():
         "DENSE_SCHUR": drive(
             "DENSE_SCHUR", options, problem, reset_state, counters, 4,
             gate_path("DENSE_SCHUR", ("K1 lin", "K2 elim", "K3 chol_solve",
-                                      "K4 cost"),
-                      ("K6 elim_v1", "K7 dense_pcg"))),
+                                      "K3 chol_solve (shared)", "K4 cost"),
+                      ("K6 elim_v1", "K7 dense_pcg",
+                       "K3 chol_solve (global)"))),
         "ITERATIVE_SCHUR": drive(
             "ITERATIVE_SCHUR", it_options, problem, reset_state, counters,
             3, gate_iterative),
@@ -1126,8 +1199,10 @@ def main():
         ref_tol=IMPLICIT_REF_REL_TOL)
     other = ("K8 bucket_jtjv", "K9 bucket_gram_blocks", "K10 implicit_apply",
              "K11 bucket_linearize", "K11 bucket_linearize (auto)")
-    quat_runs = {"DENSE_SCHUR": (("K2 elim", "K3 chol_solve"),
-                                 ("K6 elim_v1", "K7 dense_pcg") + other),
+    quat_runs = {"DENSE_SCHUR": (("K2 elim", "K3 chol_solve",
+                                  "K3 chol_solve (shared)"),
+                                 ("K6 elim_v1", "K7 dense_pcg",
+                                  "K3 chol_solve (global)") + other),
                  "ITERATIVE_SCHUR": (("K6 elim_v1", "K7 dense_pcg"),
                                      ("K2 elim", "K3 chol_solve") + other)}
     for path, cfg in QUAT_PATHS.items():
@@ -1161,6 +1236,10 @@ def main():
         rec["launches"] = by_path[MAIN_PATH[rec["name"]]][counter]
         rec["launches_by_path"] = {p: c[counter]
                                    for p, c in by_path.items()}
+        if rec["name"] == "K3 chol_solve":
+            rec["variant_launches"] = {
+                v: by_path[MAIN_PATH[rec["name"]]][f"K3 chol_solve ({v})"]
+                for v in ("shared", "global")}
     print(f"chip_smoke: {time.time() - t_start:.1f} s in all", flush=True)
     print(json.dumps({"kernels": [
         {k: rec[k] for k in ("name", "route", "source", "replaces",
@@ -1170,7 +1249,8 @@ def main():
                              "bound_ms", "bound_by", "library_ms",
                              "library_call", "reference_ms",
                              "reference_call")}
-        | {"interleaved": rec.get("interleaved")}
+        | {"interleaved": rec.get("interleaved"),
+           "variant_launches": rec.get("variant_launches")}
         for rec in kernels]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -4,7 +4,7 @@
     python3 scripts/profile_torch_solve.py
         [--paths dense,iterative,pose3d,pose2d,implicit,quat-dense,
                  quat-iterative,quat-huber,quat-implicit] [--trace-dir DIR]
-        [--compare-gram]
+        [--compare-gram] [--tree DIR] [--repeat N]
 
 Builds chip_smoke.py's problems (BAL-16-22106 shape, generator seed 7,
 PERTURB seed 8; the pose graphs of POSE_GRAPHS; the large-BA case of
@@ -15,8 +15,12 @@ SE2 pose graph; ITERATIVE_SCHUR in the implicit mode on the large case;
 the three quaternion paths through K5; the implicit mode on the
 quaternion large case, through K11's auto spec and K10; each with
 chip_smoke.py's options), solves
-once as a warm-up, once timed without the profiler, and once under
-torch.profiler (CPU and CUDA activities). Prints the card's name and
+once as a warm-up, N times (--repeat, default 1) timed without the
+profiler, and once under torch.profiler (CPU and CUDA activities).
+--tree DIR imports ceres_tpu_torch and chip_smoke.py's problems from
+the checkout at DIR (default: this one), so that two checkouts are
+profiled alike: run it on each in turns (parent, change, change,
+parent) in one call on one card. Prints the card's name and
 power limit, then per path: the wall of the plain and the profiled
 solve, LM and CG iterations; device time per kernel, grouped by the
 ported kernel it belongs to (K1-K11; copies and every other kernel
@@ -50,13 +54,16 @@ from collections import defaultdict
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
-# device kernel name -> the ported kernel it belongs to; the S_corr and
-# rhs kernels of elim.cu serve K2 (DENSE_SCHUR) and K6 (ITERATIVE_SCHUR)
+# device kernel name -> the ported kernel it belongs to; the kernels of
+# elim.cu (scorr_kernel, scorr_reduce_kernel; in earlier checkouts
+# elim_point_kernel, scorr_partial_kernel, rhs_partial_kernel and
+# reduce_splits_kernel) serve K2 (DENSE_SCHUR) and K6 (ITERATIVE_SCHUR);
+# K3 is chol_solve_shared_kernel or, past m = 223, chol_solve_kernel
 KERNEL_OF = {
     "lin_auto::": "K5", "lin_point_kernel": "K1", "ftf_partial_kernel": "K1",
-    "ftf_final_kernel": "K1", "elim_point_kernel": "K2",
-    "scorr_partial_kernel": "K2/K6", "rhs_partial_kernel": "K2/K6",
-    "reduce_splits_kernel": "K2/K6", "chol_solve_kernel": "K3",
+    "ftf_final_kernel": "K1", "scorr_": "K2/K6", "elim_point_kernel": "K2/K6",
+    "rhs_partial_kernel": "K2/K6", "reduce_splits_kernel": "K2/K6",
+    "chol_solve_shared_kernel": "K3", "chol_solve_kernel": "K3",
     "cost_kernel": "K4", "pcg_kernel": "K7", "jtjv_kernel": "K8",
     "gram_kernel": "K9", "linearize_auto::": "K11 (auto)",
     "implicit_apply_": "K10",
@@ -106,11 +113,13 @@ def main():
     ap.add_argument("--paths", default="dense,iterative,pose2d,pose3d")
     ap.add_argument("--trace-dir", default=None)
     ap.add_argument("--compare-gram", action="store_true")
+    ap.add_argument("--tree", default=ROOT)
+    ap.add_argument("--repeat", type=int, default=1)
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
         raise SystemExit("profile_torch_solve: no CUDA device")
-    sys.path.insert(0, ROOT)
+    sys.path.insert(0, os.path.abspath(args.tree))
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -130,6 +139,7 @@ def main():
                           "--format=csv,noheader"], check=True,
                          capture_output=True, text=True).stdout.strip(),
           flush=True)
+    print(f"tree {os.path.abspath(args.tree)}", flush=True)
 
     def problem_of(path):
         """(problem, arrays to reset, options, (positions, ground truth)
@@ -200,7 +210,11 @@ def main():
             compare_gram(path, solve, traj, position_error)
             continue
         solve()                                         # warm-up
-        summary, wall = solve()
+        walls = []
+        for _ in range(args.repeat):
+            summary, wall = solve()
+            walls.append(wall)
+        wall = min(walls)
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             _, wall_prof = solve()
@@ -224,7 +238,8 @@ def main():
         busy = union_us(spans)
         span = max(t for _, t in spans) - min(s for s, _ in spans)
         cg = max(summary.num_linear_solver_iterations, 1)
-        print(f"{path}: wall {wall:.4f} s (profiled {wall_prof:.4f} s), "
+        print(f"{path}: wall {wall:.4f} s, the least of "
+              f"{[round(w, 4) for w in walls]} (profiled {wall_prof:.4f} s), "
               f"{summary.num_iterations} LM iterations, "
               f"{summary.num_linear_solver_iterations} linear solver "
               f"iterations, {summary.termination_type}, final cost "
@@ -259,7 +274,8 @@ def main():
             prof.export_chrome_trace(os.path.join(args.trace_dir,
                                                   f"profile_{path}.json"))
         print(json.dumps({
-            "path": path, "wall_s": wall, "wall_profiled_s": wall_prof,
+            "path": path, "wall_s": wall, "walls_s": walls,
+            "wall_profiled_s": wall_prof,
             "lm_iterations": summary.num_iterations,
             "linear_iterations": summary.num_linear_solver_iterations,
             "final_cost": summary.final_cost,

@@ -21,6 +21,10 @@ there. Returns ete [ne, te*te], ge [ne, te], se [ne, te], A [ne, te, nf]
 in `lin_auto.launches`; for CPU tensors it runs `lin_auto_plain`: vmap of
 jacfwd of the per-row program on each lane, the loss correction
 (loss.py correct_residuals_and_jacobian), then K1's plain epilogue.
+The kernel sums the camera-side terms over a camera-sorted order of the
+rows of each 1,024-row chunk, `camera_plan`, made once on the host from
+the constant cam and mask (the step keeps it; `lin_auto` makes it when
+it is not given), and takes `lane_block(k, te, tf)` points a block.
 """
 
 from __future__ import annotations
@@ -34,7 +38,7 @@ import torch
 from . import _cuda
 from . import jetlib as jl
 from .jet_compile import (AutoSpec, LossSpec, chain_body, eval_loss,
-                          loss_param_values, make_loss_spec)
+                          loss_structure, make_loss_spec)
 from ..loss import correct_residuals_and_jacobian
 
 # the JAX package's caps of its gate (pallas_lin.py:563): the unrolled
@@ -42,6 +46,9 @@ from ..loss import correct_residuals_and_jacobian
 MAX_TE, MAX_TF, MAX_R = 6, 12, 8
 MAX_LOSS_PARAMS = 16              # csrc/lin_auto.cuh LossParams
 _ROWS_PER_CHUNK = 1024            # lanes per camera-Gram partial
+_THREADS = 128                    # csrc/lin_auto.cuh lin_auto::THREADS
+_ABUF = 2048                      # and lin_auto::ABUF, its A tile
+_MAX_SMEM = 232448                # a block's shared memory on the H100
 
 
 class LinAutoSpec(NamedTuple):
@@ -73,6 +80,57 @@ def safe_rows(rows: np.ndarray, cmask: np.ndarray) -> np.ndarray:
     first = np.argmax(cmask > 0, axis=1)
     fill = rows[np.arange(rows.shape[0]), first]
     return np.where(cmask > 0, rows, fill[:, None]).astype(rows.dtype)
+
+
+class CameraPlan(NamedTuple):
+    """The camera-sorted order of K5's rows (lanes, n * k + j): the valid
+    rows of each chunk of 1,024 rows sorted by camera, stably, chunk
+    after chunk."""
+    pos: torch.Tensor             # int32 [ne*k]: a row's place, -1 masked
+    off: torch.Tensor             # int32 [nchunks*kf + 1]: segment starts
+    nchunks: int
+    nvalid: int
+
+
+def camera_plan(cam: torch.Tensor, mask: torch.Tensor, kf: int
+                ) -> CameraPlan:
+    """K5's camera plan of the chunk layout's cam [ne, k] and mask [ne, k],
+    on their device: segment s = chunk * kf + c holds the sorted places
+    off[s] .. off[s + 1] - 1, the chunk's valid rows on camera c in row
+    order."""
+    cam_np = cam.cpu().numpy().reshape(-1).astype(np.int64)
+    valid = mask.cpu().numpy().reshape(-1) > 0.5
+    rows = cam_np.size
+    if valid.any() and not (0 <= cam_np[valid].min()
+                            and cam_np[valid].max() < kf):
+        raise ValueError(f"camera_plan: a valid lane's camera is outside "
+                         f"[0, {kf})")
+    nchunks = -(-rows // _ROWS_PER_CHUNK)
+    key = np.arange(rows) // _ROWS_PER_CHUNK * kf + cam_np
+    idx = np.flatnonzero(valid)
+    order = idx[np.argsort(key[idx], kind="stable")]
+    pos = np.full(rows, -1, np.int32)
+    pos[order] = np.arange(order.size, dtype=np.int32)
+    off = np.searchsorted(key[order], np.arange(nchunks * kf + 1))
+    return CameraPlan(torch.as_tensor(pos, device=cam.device),
+                      torch.as_tensor(off.astype(np.int32),
+                                      device=cam.device),
+                      nchunks, int(order.size))
+
+
+def lane_block(k: int, te: int, tf: int):
+    """(points a block, shared-memory bytes a block) of K5's lane kernel
+    at k lanes a point (csrc/lin_auto.cuh smem_bytes): 128 // k points,
+    one when k > 128; the F-side stage (64 lanes) and the cross terms
+    share their place when the block's lanes take one pass."""
+    pb = max(1, _THREADS // k)
+    cap = pb * k
+    stage, cross = (_THREADS // 2) * ((tf * (tf + 1) // 2 + tf) | 1), \
+        cap * ((te * tf) | 1)
+    stage = max(stage, cross) if cap <= _THREADS else stage + cross
+    ne_t = te * (te + 1) // 2 + te
+    return pb, 4 * (_ABUF + stage + cap * ((ne_t | 1) + 2) + _THREADS
+                    + pb * te)
 
 
 # ----------------------------------------------------------------------
@@ -122,20 +180,22 @@ def generated_unit(spec: LinAutoSpec, loss_spec: Optional[LossSpec]) -> str:
 extern "C" int ceres_lin_auto(
     const float* xf, const float* xe, const int* cam, const float* mask,
     const float* dat, const float* lp_host, int nlp, const float* se_in,
-    int first, int use_scaling, int ne, int k, int kf, int rows_per_chunk,
-    float* ete, float* ge, float* se_out, float* A, float* q,
-    float* partial, float* ftf, float* gf, cudaStream_t stream) {{
+    int first, int use_scaling, int ne, int k, int kf, int pb,
+    const int* pos, const int* off, int nchunks, float* ete, float* ge,
+    float* se_out, float* A, float* q, float* partial, float* ftf,
+    float* gf, cudaStream_t stream) {{
   return lin_auto_launch<Chain>(xf, xe, cam, mask, dat, lp_host, nlp, se_in,
-                                first, use_scaling, ne, k, kf,
-                                rows_per_chunk, ete, ge, se_out, A, q,
-                                partial, ftf, gf, stream);
+                                first, use_scaling, ne, k, kf, pb, pos, off,
+                                nchunks, ete, ge, se_out, A, q, partial, ftf,
+                                gf, stream);
 }}
 """
 
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _ARGTYPES = [_P, _P, _P, _P, _P, ctypes.POINTER(ctypes.c_float), _I, _P, _I,
-             _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P]
+             _I, _I, _I, _I, _I, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P,
+             _P, _P]
 
 
 def _loss_spec_of(loss):
@@ -166,6 +226,24 @@ def build(spec: LinAutoSpec, loss=None):
         fn.restype = ctypes.c_int
         _ENTRIES[key] = fn
     return _ENTRIES[key]
+
+
+_CALLS: dict = {}                 # (id(spec), loss structure) -> entry
+_NO_LOSS = (ctypes.c_float * 1)()     # the scalars of no loss
+
+
+def _entry(spec: LinAutoSpec, loss):
+    """(entry point, the loss's scalars) of a call: the loss walked once,
+    the entry found by the spec's identity (the spec held in the cache,
+    so its id stays its own)."""
+    try:
+        lkey, lp = (None, []) if loss is None else loss_structure(loss)
+    except TypeError:           # a loss that does not trace: build says so
+        return build(spec, loss), []
+    hit = _CALLS.get((id(spec), lkey))
+    if hit is None or hit[0] is not spec:
+        hit = _CALLS[(id(spec), lkey)] = (spec, build(spec, loss))
+    return hit[1], lp
 
 
 # ----------------------------------------------------------------------
@@ -224,8 +302,10 @@ def lin_auto_plain(spec: LinAutoSpec, xf, xe, cam, mask, dat, se_in,
 
 
 def lin_auto(spec: LinAutoSpec, xf, xe, cam, mask, dat, se_in, first: bool,
-             use_scaling: bool = True, loss=None):
-    """K5: see the module docstring for the contract."""
+             use_scaling: bool = True, loss=None,
+             plan: Optional[CameraPlan] = None):
+    """K5: see the module docstring for the contract. `plan` is
+    camera_plan(cam, mask, kf), made here when not given."""
     if not xf.is_cuda:
         return lin_auto_plain(spec, xf, xe, cam, mask, dat, se_in, first,
                               use_scaling, loss)
@@ -239,26 +319,37 @@ def lin_auto(spec: LinAutoSpec, xf, xe, cam, mask, dat, se_in, first: bool,
     _cuda.check(mask, (ne, k), f32, "lin_auto: mask")
     _cuda.check(dat, (ne, k, spec.auto.p_dat), f32, "lin_auto: dat")
     _cuda.check(se_in, (ne, te), f32, "lin_auto: se_in")
-    fn = build(spec, loss)
-    lp = [] if loss is None else loss_param_values(loss)
-    lp_host = (ctypes.c_float * max(1, len(lp)))(*lp)
+    pb, smem = lane_block(k, te, tf)
+    if smem > _MAX_SMEM:
+        raise ValueError(f"lin_auto: {k} lanes a point need {smem} B of "
+                         f"shared memory a block, past the card's "
+                         f"{_MAX_SMEM}")
+    if plan is None:
+        plan = camera_plan(cam, mask, kf)
+    _cuda.check(plan.pos, (ne * k,), torch.int32, "lin_auto: plan.pos")
+    _cuda.check(plan.off, (plan.nchunks * kf + 1,), torch.int32,
+                "lin_auto: plan.off")
+    fn, lp = _entry(spec, loss)
+    lp_host = (ctypes.c_float * len(lp))(*lp) if lp else _NO_LOSS
     dev = xf.device
     out = {
         "ete": torch.empty(ne, te * te, dtype=f32, device=dev),
         "ge": torch.empty(ne, te, dtype=f32, device=dev),
         "se": torch.empty(ne, te, dtype=f32, device=dev),
-        "A": torch.zeros(ne, te, kf * tf, dtype=f32, device=dev),
+        "A": torch.empty(ne, te, kf * tf, dtype=f32, device=dev),
         "ftf": torch.empty(kf, tf, tf, dtype=f32, device=dev),
         "gf": torch.empty(kf, tf, dtype=f32, device=dev),
     }
+    # scratch: the sorted F-side rows [nvalid, nq], then the chunk
+    # partials [nchunks, kf * nq]
     nq = tf * (tf + 1) // 2 + tf
-    nchunks = -(-(ne * k) // _ROWS_PER_CHUNK)
-    q = torch.empty(ne * k, nq, dtype=f32, device=dev)
-    partial = torch.empty(nchunks, kf * nq, dtype=f32, device=dev)
+    q = torch.empty(plan.nvalid * nq + plan.nchunks * kf * nq, dtype=f32,
+                    device=dev).data_ptr()
     _cuda.call(fn, "ceres_lin_auto", xf, xe, cam, mask, dat, lp_host,
                len(lp), se_in, int(bool(first)), int(bool(use_scaling)), ne,
-               k, kf, _ROWS_PER_CHUNK, out["ete"], out["ge"], out["se"],
-               out["A"], q, partial, out["ftf"], out["gf"])
+               k, kf, pb, plan.pos, plan.off, plan.nchunks, out["ete"],
+               out["ge"], out["se"], out["A"], q, q + 4 * plan.nvalid * nq,
+               out["ftf"], out["gf"])
     lin_auto.launches += 1
     return out
 

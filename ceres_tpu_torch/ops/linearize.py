@@ -34,9 +34,9 @@ every slot is variable and whose shape, manifolds and data fields
 match; else an AutoSpec when every slot is
 variable, the bucket has at least MIN_AUTO_ROWS rows and MIN_AUTO_TANGENT
 tangent columns (the JAX package's floors on its hardware, kept on both
-devices so that the CPU takes the card's route), the functor traces and
-its chain is within MAX_AUTO_OUTPUTS; else None, and the program takes
-its jacfwd path.
+devices so that the CPU takes the card's route), the functor traces,
+its chain is within MAX_AUTO_OUTPUTS and `auto_tile` finds the kernel
+a row tile; else None, and the program takes its jacfwd path.
 
 `bucket_linearize(spec, xin, dat)` (hand specs) and
 `bucket_linearize_auto(spec, xin, dat)` (auto specs) launch their
@@ -232,6 +232,20 @@ MIN_AUTO_ROWS, MIN_AUTO_TANGENT = 64, 6
 # thread at most, beside the chain's temporaries); past this the build
 # refuses and the gate never picks the auto spec
 MAX_AUTO_OUTPUTS = 128
+# its row tiles live in static shared memory
+_AUTO_TILES, _STATIC_SMEM = (128, 64, 32), 48 * 1024
+
+
+def auto_tile(r: int, nt: int, p_in: int, p_dat: int) -> Optional[int]:
+    """Rows a block of csrc/linearize_auto.cuh: the largest of 128, 64
+    and 32 whose tile fits static shared memory, the inputs (P_IN and
+    P_DAT floats a row) and then the outputs (R and R * NT) in one buffer
+    at odd row strides; None when 32 rows do not fit."""
+    inp = (p_in | 1) + ((p_dat | 1) if p_dat > 0 else 0)
+    out = (r | 1) + ((r * nt) | 1)
+    row_bytes = 4 * max(inp, out)
+    return next((t for t in _AUTO_TILES if t * row_bytes <= _STATIC_SMEM),
+                None)
 
 
 def linearize_spec(program, bk):
@@ -244,7 +258,8 @@ def linearize_spec(program, bk):
             or sum(sl.tangent_size for sl in bk.slots) < MIN_AUTO_TANGENT:
         return None
     auto = make_auto_spec(program, bk)
-    if auto is None or auto.r * auto.nt > MAX_AUTO_OUTPUTS:
+    if auto is None or auto.r * auto.nt > MAX_AUTO_OUTPUTS or auto_tile(
+            auto.r, auto.nt, sum(auto.slot_sizes), auto.p_dat) is None:
         return None
     return auto
 
@@ -287,6 +302,7 @@ bucket_linearize.launches = 0
 
 def generated_unit(spec: AutoSpec) -> str:
     """The whole CUDA unit of K11 for this traced program."""
+    tile = auto_tile(spec.r, spec.nt, sum(spec.slot_sizes), spec.p_dat)
     return f"""// K11 for {spec.name} (graph {spec.digest}), generated by
 // ceres_tpu_torch/ops/linearize.py; the kernel is
 // csrc/linearize_auto.cuh.
@@ -296,7 +312,8 @@ def generated_unit(spec: AutoSpec) -> str:
 extern "C" int ceres_linearize_auto(const float* xin, const float* dat,
                                     int n, float* r, float* J,
                                     cudaStream_t stream) {{
-  return linearize_auto_launch<RowChain>(xin, dat, n, r, J, stream);
+  return linearize_auto_launch<RowChain, {tile}>(xin, dat, n, r, J,
+                                                stream);
 }}
 """
 
@@ -313,6 +330,11 @@ def build_auto(spec: AutoSpec):
             f"bucket_linearize_auto: {spec.name} has R * NT = "
             f"{spec.r} * {spec.nt} outputs a row, past the register cap "
             f"{MAX_AUTO_OUTPUTS} of csrc/linearize_auto.cuh")
+    if auto_tile(spec.r, spec.nt, sum(spec.slot_sizes), spec.p_dat) is None:
+        raise ValueError(
+            f"bucket_linearize_auto: a 32-row tile of {spec.name} passes "
+            f"the {_STATIC_SMEM} B of static shared memory of "
+            "csrc/linearize_auto.cuh")
     key = (spec.digest, spec.slot_sizes, spec.data_widths)
     if key not in _AUTO_ENTRIES:
         lib = _cuda.build_generated("linearize_auto", generated_unit(spec))
@@ -321,6 +343,21 @@ def build_auto(spec: AutoSpec):
         fn.restype = ctypes.c_int
         _AUTO_ENTRIES[key] = fn
     return _AUTO_ENTRIES[key]
+
+
+_AUTO_CALLS: dict = {}          # id(spec) -> (spec, entry, P_in, P_dat)
+
+
+def _auto_call(spec: AutoSpec):
+    """build_auto's entry and the row widths of spec, found by the spec's
+    identity (held in the cache, so its id stays its own): the widths are
+    properties that cost microseconds, and the host path sets a single
+    call's time."""
+    hit = _AUTO_CALLS.get(id(spec))
+    if hit is None or hit[0] is not spec:
+        hit = _AUTO_CALLS[id(spec)] = (spec, build_auto(spec),
+                                       sum(spec.slot_sizes), spec.p_dat)
+    return hit[1:]
 
 
 def _split_slots(spec: AutoSpec, x):
@@ -344,10 +381,9 @@ def bucket_linearize_auto(spec: AutoSpec, xin, dat):
         return bucket_linearize_auto_plain(spec, xin, dat)
     n = xin.shape[0]
     f32 = torch.float32
-    _cuda.check(xin, (n, sum(spec.slot_sizes)), f32,
-                "bucket_linearize_auto: xin")
-    _cuda.check(dat, (n, spec.p_dat), f32, "bucket_linearize_auto: dat")
-    fn = build_auto(spec)
+    fn, p_in, p_dat = _auto_call(spec)
+    _cuda.check(xin, (n, p_in), f32, "bucket_linearize_auto: xin")
+    _cuda.check(dat, (n, p_dat), f32, "bucket_linearize_auto: dat")
     r = torch.empty(n, spec.r, dtype=f32, device=xin.device)
     J = torch.empty(n, spec.r, spec.nt, dtype=f32, device=xin.device)
     _cuda.call(fn, "ceres_linearize_auto", xin, dat, n, r, J)

@@ -587,6 +587,8 @@ class FusedSchurStep(SchurStep):
             self.cam = torch.as_tensor(local.astype(np.int32),
                                        device=dev)[safe].contiguous()
             self.dat = auto.data_matrix(bk)[safe].contiguous()
+            # the camera-sorted rows of K5's camera-side sums
+            self.k5_plan = k5.camera_plan(self.cam, self.mask, self.kf)
         self.mode = ("explicit reduced camera matrix, linearize "
                      + ("K1" if self.k5 is None else "K5"))
         # a direct solve is one linear iteration (kept on the device)
@@ -606,7 +608,7 @@ class FusedSchurStep(SchurStep):
         else:
             out = k5.lin_auto(self.k5, xf, xe, self.cam, self.mask,
                               self.dat, s_e.contiguous(), first,
-                              self.use_scaling, self.loss)
+                              self.use_scaling, self.loss, self.k5_plan)
         ete, ge, se = out["ete"], out["ge"], out["se"]
         FtF, g_f = out["ftf"], out["gf"]
         cn_f = torch.diagonal(FtF, dim1=-2, dim2=-1)

@@ -900,7 +900,7 @@ def main():
                              + q_tf * (q_tf + 1) // 2 + q_tf)
         rec = check_kernel(
             "K5 lin_auto" + ("" if loss is None else " (HuberLoss(1.0))"),
-            lambda: k5.lin_auto(*k5_args),
+            lambda: k5.lin_auto(*k5_args, plan=q_step.k5_plan),
             lambda: k5.lin_auto_plain(*k5_args), cmp_lin, F32_LIMIT,
             "ceres_tpu_torch/csrc/lin_auto.cuh",
             "ceres_tpu/ops/pallas_lin.py:272", k5_args[1:7],

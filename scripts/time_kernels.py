@@ -1,8 +1,11 @@
 #!/usr/bin/env python3
-"""K2, K3, K6, K8 and K10 of one checkout of ceres_tpu_torch on the card,
-at the main paths' shapes, with seeded inputs.
+"""K2, K3, K5, K6, K8, K10 and K11's auto spec of one checkout of
+ceres_tpu_torch on the card, at the main paths' shapes, with seeded
+inputs.
 
-    python3 scripts/time_kernels.py [--tree DIR] [--only K3 K2 K8 K10]
+    python3 scripts/time_kernels.py [--tree DIR]
+        [--only K3 K2 K8 K10 K5 K11auto] [--dump DIR]
+    python3 scripts/time_kernels.py --compare DIR DIR
 
 Imports ceres_tpu_torch from DIR (default: this checkout), so that one
 script times two checkouts alike: run it on each in turns (parent,
@@ -30,13 +33,29 @@ card from fixed seeds, so both checkouts see the same bits:
   200,000 points, k 5 lanes, r 2, te 3, 1,024 cameras; tf 9 with
   angle-axis cameras, tf 10 with quaternions), lanes past a random count
   per point masked.
+- K5 (ops/lin_auto.py lin_auto) on the quaternion BAL-16-22106
+  problem's first linearization (chip_smoke.py quaternion_bal: ne 22,106
+  points, k 4, 16 cameras of tf 10, te 3, r 2), with no loss and with
+  HuberLoss(1.0), built by the checkout as chip_smoke.py builds it (the
+  step's camera plan passed where the checkout's wrapper takes one).
+- K11's auto spec (ops/linearize.py bucket_linearize_auto) on the
+  quaternion large case's bucket at its start (chip_smoke.py
+  IMPLICIT_SHAPE with quaternion cameras: 1M rows, R 2, NT 13, P_IN 13,
+  P_DAT 2): xin and dat made with numpy from the seeded BALProblem in
+  the bucket's row order, the spec traced from the quaternion
+  BAL-16-22106 problem's bucket (the same functor, so the same graph).
 
 For each it prints the card's name and power limit, then one JSON line:
 the largest difference from the plain version (K3 and K10 must give the
 same bits), the median of 20 single calls and the mean of 100
 back-to-back calls by CUDA events (ms), and the device time per call by
-torch.profiler (us: K2, K3 and K6 every kernel a call launches, K8 and
-K10 their own kernel). Needs a CUDA device.
+torch.profiler (us: K2, K3, K5 and K6 every kernel a call launches, K8,
+K10 and K11 their own kernel); for K5 and K11 also the host time of a
+call in a loop without synchronising (us), and the registers, spills
+and shared memory of each kernel of the generated unit (cuobjdump
+-res-usage of its library). --dump DIR saves the K5 and K11 outputs
+(torch.save) under DIR; --compare DIR DIR prints, per output, whether
+two dumps hold the same bits. Needs a CUDA device (not --compare).
 """
 
 import argparse
@@ -67,6 +86,21 @@ def events_ms(fn, calls=1, reps=20):
         end.synchronize()
         times.append(start.elapsed_time(end) / calls)
     return statistics.median(times)
+
+
+def host_us(fn, calls=100):
+    """Host time a call (us): `calls` back-to-back calls timed on the
+    host clock without a synchronisation (the card runs behind)."""
+    import time
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return (t1 - t0) / calls * 1e6
 
 
 def kernel_us(fn, calls=100):
@@ -134,12 +168,182 @@ def solve_system(tree):
     return S.contiguous(), rhs.contiguous()
 
 
+def res_usage(lib):
+    """{kernel: "REG:n STACK:n SHARED:n LOCAL:n ..."} of the shared library
+    at `lib` (cuobjdump -res-usage; LOCAL is spill and stack memory)."""
+    cuobjdump = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
+                             "bin", "cuobjdump")
+    out = subprocess.run([cuobjdump, "-res-usage", lib], capture_output=True,
+                         text=True).stdout
+    usage, name = {}, None
+    for line in out.splitlines():
+        line = line.strip()
+        if line.startswith("Function "):
+            name = line[len("Function "):].rstrip(":")
+        elif line.startswith("REG:") and name:
+            usage[name] = line
+    return usage
+
+
+def quaternion_k5():
+    """(LinAutoSpec, the K5 arguments of the first linearization, the
+    step's camera plan or None, the quaternion program) on chip_smoke.py's
+    quaternion BAL-16-22106 problem, built by the imported checkout."""
+    import ceres_tpu_torch as ctt
+    from ceres_tpu_torch.io import bal as bal_io
+    from ceres_tpu_torch.io.bal import build_bal_ceres_problem
+    from ceres_tpu_torch.program import CompiledProgram
+    from ceres_tpu_torch.solvers.schur import detect_schur_structure
+    from ceres_tpu_torch.solvers.schur_fused import FusedSchurStep
+    from chip_smoke import quaternion_bal, quaternion_options
+    problem, _, _ = build_bal_ceres_problem(
+        quaternion_bal(bal_io), use_quaternions=True, use_manifolds=False)
+    options = quaternion_options(ctt, "QUAT_DENSE_SCHUR", device="cuda")
+    program = CompiledProgram.get_cached(problem, options)
+    step = FusedSchurStep(program, options,
+                          detect_schur_structure(program, options))
+    x0 = program.initial_state()
+    se0, _ = step.initial_scales()
+    ne, te, nf = step.ne, step.te, step.nf
+    args = (step.k5, x0[step.f_slab:step.f_slab + nf].float(),
+            x0[step.e_slab:step.e_slab + te * ne].view(ne, te).float(),
+            step.cam, step.mask, step.dat, se0)
+    return step.k5, args, getattr(step, "k5_plan", None), program
+
+
+def quaternion_k11(program):
+    """(AutoSpec, xin, dat) of K11's auto spec on the quaternion large
+    case at its start: the spec of `program`'s quaternion bucket, xin
+    and dat from chip_smoke.py's seeded quaternion large case in the
+    order of its observations (the bucket's rows, camera then point)."""
+    import numpy as np
+    import torch
+    from ceres_tpu_torch.io.bal import synthetic_bal_problem
+    from ceres_tpu_torch.ops.jet_compile import make_auto_spec
+    from chip_smoke import IMPLICIT_PERTURB, IMPLICIT_SHAPE
+    spec = make_auto_spec(program, program.buckets[0])
+    bal = synthetic_bal_problem(**IMPLICIT_SHAPE, seed=7,
+                                pixel_noise=1.0).to_quaternions()
+    bal.perturb(**IMPLICIT_PERTURB, seed=8)
+    xin = np.concatenate([bal.cameras[bal.camera_index],
+                          bal.points[bal.point_index]], axis=1)
+    return (spec, torch.as_tensor(xin.astype(np.float32), device="cuda"),
+            torch.as_tensor(bal.observations.astype(np.float32),
+                            device="cuda"))
+
+
+def time_k5_k11(dump, with_k5=True, with_k11=True):
+    """The K5 and K11 auto-spec lines (see the module docstring): every
+    kernel's clocks first, then each under the profiler (a profiler
+    session leaves the launch path slower)."""
+    import torch
+    import ceres_tpu_torch as ctt
+    from ceres_tpu_torch.ops import lin_auto as k5
+    from ceres_tpu_torch.ops import linearize as k11
+    spec, args, plan, program = quaternion_k5()
+    takes_plan = "plan" in inspect.signature(k5.lin_auto).parameters
+    extra = {"plan": plan} if takes_plan else {}
+    runs = []                     # (line, kernel, plain, counter, match)
+    for loss_name, loss in ((("none", None), ("huber", ctt.HuberLoss(1.0)))
+                            if with_k5 else ()):
+        runs.append(({"kernel": "K5 lin_auto", "loss": loss_name,
+                      "shape": [spec.te, spec.tf, spec.r, *args[3].shape,
+                                args[1].numel() // spec.tf],
+                      "camera_plan": plan is not None and takes_plan},
+                     lambda loss=loss: k5.lin_auto(*args, True, True, loss,
+                                                   **extra),
+                     lambda loss=loss: k5.lin_auto_plain(*args, True, True,
+                                                         loss),
+                     k5.lin_auto, None))
+    if with_k11:
+        spec11, xin, dat = quaternion_k11(program)
+        runs.append(({"kernel": "K11 bucket_linearize (auto)",
+                      "shape": [xin.shape[0], spec11.r, spec11.nt,
+                                xin.shape[1], dat.shape[1]]},
+                     lambda: k11.bucket_linearize_auto(spec11, xin, dat),
+                     lambda: k11.bucket_linearize_auto_plain(spec11, xin,
+                                                             dat),
+                     k11.bucket_linearize_auto, "linearize_auto"))
+    dumped = {}
+    for line, fn, plain, counter, _ in runs:
+        got, want = fn(), plain()
+        if isinstance(got, tuple):
+            got, want = dict(zip("rJ", got)), dict(zip("rJ", want))
+        counter.launches = 0
+        fn()
+        name = line["kernel"].split()[0] + " " + line.get("loss", "auto")
+        dumped.update({f"{name} {k}": v.cpu() for k, v in got.items()})
+        line.update({
+            "launches_a_call": counter.launches,
+            "max_rel_err": max(float(torch.max(torch.abs(got[k] - want[k]))
+                                     / torch.max(torch.abs(want[k])))
+                               for k in want),
+            "ms": events_ms(fn), "loop_ms": events_ms(fn, 100, 5),
+            "host_us": host_us(fn), "plain_ms": events_ms(plain)})
+        del got, want
+    for line, fn, _, _, match in runs:
+        by_kernel = kernel_us(fn)
+        line["device_us"] = sum(t for k, t in by_kernel.items()
+                                if match is None or match in k)
+        if match is None:
+            line["device_us_by_kernel"] = {short_name(k): t
+                                           for k, t in by_kernel.items()}
+        print(json.dumps(line), flush=True)
+    print(json.dumps({"generated_units": generated_usage()}), flush=True)
+    if dump:
+        os.makedirs(dump, exist_ok=True)
+        torch.save(dumped, os.path.join(dump, "kernel_outputs.pt"))
+
+
+def generated_usage():
+    """{library: {"unit": its first line, kernel: resources}} of every
+    generated unit this process built (ops/_cuda.py build_generated)."""
+    from ceres_tpu_torch.ops import _cuda
+    out = {}
+    for lib in sorted(_cuda._generated):
+        src = os.path.join(os.path.dirname(lib),
+                           os.path.basename(lib)[len("lib"):-len(".so")]
+                           + ".cu")
+        with open(src) as f:
+            head = f.readline().strip()
+        out[os.path.basename(lib)] = {"unit": head, **res_usage(lib)}
+    return out
+
+
+def compare(a, b):
+    """Print, for each output of two --dump directories, whether its bits
+    agree, and the count of entries that differ."""
+    import torch
+    da = torch.load(os.path.join(a, "kernel_outputs.pt"))
+    db = torch.load(os.path.join(b, "kernel_outputs.pt"))
+    for key in sorted(da):
+        x, y = da[key], db.get(key)
+        if y is None or x.shape != y.shape:
+            print(json.dumps({"output": key, "same_bits": False,
+                              "why": "missing or another shape"}))
+            continue
+        xb, yb = x.view(torch.int32), y.view(torch.int32)
+        differ = int((xb != yb).sum())
+        print(json.dumps({"output": key, "same_bits": differ == 0,
+                          "entries_that_differ": differ,
+                          "max_abs_diff": float(torch.max(torch.abs(
+                              x - y))) if differ else 0.0}), flush=True)
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--tree", default=ROOT)
-    ap.add_argument("--only", nargs="*", choices=("K3", "K2", "K8", "K10"),
+    ap.add_argument("--only", nargs="*",
+                    choices=("K3", "K2", "K8", "K10", "K5", "K11auto"),
                     help="time only these (K2 stands for K2 and K6)")
+    ap.add_argument("--dump", default=None,
+                    help="save the K5 and K11 auto-spec outputs here")
+    ap.add_argument("--compare", nargs=2, default=None,
+                    help="compare the bits of two --dump directories")
     args = ap.parse_args()
+    if args.compare:
+        compare(*args.compare)
+        return
 
     def want(name):
         return not args.only or name in args.only
@@ -155,6 +359,8 @@ def main():
     print(f"tree {os.path.abspath(args.tree)}; torch {torch.__version__}",
           flush=True)
     gen = torch.Generator(device="cuda")
+    if want("K5") or want("K11auto"):
+        time_k5_k11(args.dump, want("K5"), want("K11auto"))
 
     # K3 at the reduced camera systems, beside torch.linalg.solve
     systems = []
@@ -230,14 +436,14 @@ def main():
     if "cols" in inspect.signature(kernels.bucket_jtjv).parameters:
         def k8():
             return kernels.bucket_jtjv(J, v, cols32)
-        want = kernels.bucket_jtjv_plain(J, v, cols32)
+        expected = kernels.bucket_jtjv_plain(J, v, cols32)
         route = "gather in the kernel"
     else:
         def k8():
             return kernels.bucket_jtjv(J, v[cols])
-        want = kernels.bucket_jtjv_plain(J, v[cols])
+        expected = kernels.bucket_jtjv_plain(J, v[cols])
         route = "gather, then the kernel"
-    err = float(torch.max(torch.abs(k8() - want)))
+    err = float(torch.max(torch.abs(k8() - expected)))
     print(json.dumps({"kernel": "K8 bucket_jtjv", "shape": [n, r, t, m],
                       "route": route, "max_abs_err": err,
                       "ms": events_ms(k8), "loop_ms": events_ms(k8, 100, 5),

@@ -1,0 +1,149 @@
+"""Run a kernel header of ceres_tpu_torch/csrc on the host CPU.
+
+The CPU has no nvcc and no card, but the generated kernels' indexing,
+shared-memory layout and barriers can still be exercised: this module
+compiles a header with the host g++ under a shim that stands in for the
+CUDA qualifiers and runtime calls, and emulates each launch one block at
+a time, one std::thread per CUDA thread, with a std::barrier as
+__syncthreads. The arithmetic is the host's (no FMA contraction), so
+results are held to the plain versions within a tolerance, not to the
+card's bits.
+
+    exe = build(tmp_path, header_text, body, extra_source)
+    outputs = run(exe, tmp_path, inputs, outputs)
+
+`inputs` maps file names to numpy arrays (written raw); `body` is the C++
+of main() between reading them (`float* NAME` / `int* NAME` pointers,
+16-byte aligned) and writing the `outputs` (name -> (dtype, count)).
+"""
+
+import re
+import shutil
+import subprocess
+
+import numpy as np
+
+SHIM = r"""#include <algorithm>
+#include <barrier>
+#include <cmath>
+#include <cstdint>
+#include <cstdio>
+#include <cstdlib>
+#include <cstring>
+#include <thread>
+#include <vector>
+#include <math.h>
+#define __global__
+#define __device__
+#define __host__
+#define __forceinline__ inline
+#define __restrict__ __restrict
+#define __launch_bounds__(...)
+#define __shared__ static
+using std::max;
+using std::min;
+struct emu_dim3 { unsigned x, y, z; };
+thread_local emu_dim3 threadIdx, blockIdx;
+emu_dim3 blockDim, gridDim;
+std::barrier<>* emu_bar;
+inline void __syncthreads() { emu_bar->arrive_and_wait(); }
+struct float4 { float x, y, z, w; };
+inline float4 make_float4(float x, float y, float z, float w) {
+  return float4{x, y, z, w};
+}
+static inline float rsqrtf(float x) { return 1.0f / sqrtf(x); }
+template <class T>
+inline void __stcs(T* p, T v) { *p = v; }
+typedef void* cudaStream_t;
+enum cudaError_t { cudaSuccess = 0, cudaErrorInvalidValue = 1 };
+enum cudaFuncAttribute { cudaFuncAttributeMaxDynamicSharedMemorySize = 8 };
+inline cudaError_t cudaGetLastError() { return cudaSuccess; }
+template <class F>
+inline cudaError_t cudaFuncSetAttribute(F, cudaFuncAttribute, int) {
+  return cudaSuccess;
+}
+alignas(16) float emu_smem[1 << 16];
+size_t emu_smem_used = 0;
+template <class K, class... A>
+void emu_launch(K kernel, unsigned grid, unsigned block, size_t smem,
+                cudaStream_t, A... args) {
+  if (smem > sizeof(emu_smem)) abort();
+  emu_smem_used = std::max(emu_smem_used, smem);
+  blockDim = {block, 1, 1};
+  gridDim = {grid, 1, 1};
+  for (unsigned b = 0; b < grid; ++b) {
+    std::barrier<> bar(block);
+    emu_bar = &bar;
+    std::vector<std::thread> ts;
+    for (unsigned t = 0; t < block; ++t)
+      ts.emplace_back([=] {
+        blockIdx = {b, 0, 0};
+        threadIdx = {t, 0, 0};
+        kernel(args...);
+      });
+    for (auto& th : ts) th.join();
+  }
+}
+template <class T>
+T* emu_read(const char* name, size_t count) {
+  T* p = (T*)aligned_alloc(16, ((count * sizeof(T) + 15) / 16 + 1) * 16);
+  FILE* f = fopen(name, "rb");
+  if (!f || fread(p, sizeof(T), count, f) != count) abort();
+  fclose(f);
+  return p;
+}
+template <class T>
+T* emu_alloc(size_t count) {
+  T* p = (T*)aligned_alloc(16, ((count * sizeof(T) + 15) / 16 + 1) * 16);
+  memset(p, 0xff, ((count * sizeof(T) + 15) / 16 + 1) * 16);  // NaN
+  return p;
+}
+template <class T>
+void emu_write(const char* name, const T* p, size_t count) {
+  FILE* f = fopen(name, "wb");
+  if (!f || fwrite(p, sizeof(T), count, f) != count) abort();
+  fclose(f);
+}
+"""
+
+_LAUNCH = re.compile(r"([\w:]+<[^<>;]*>)\s*<<<(.*?)>>>\s*\(", re.S)
+
+
+def host_header(text: str) -> str:
+    """A kernel header rewritten for the shim: each launch
+    `k<<<g, b, s, st>>>(args)` becomes `emu_launch(k, g, b, s, st, args)`
+    and dynamic shared memory is the shim's buffer."""
+    text = text.replace("extern __shared__ float4 smem4[];",
+                        "float4* smem4 = (float4*)emu_smem;")
+    text = text.replace("#include <cuda_runtime.h>", "")
+    return _LAUNCH.sub(lambda m: f"emu_launch({m.group(1)}, "
+                       f"{' '.join(m.group(2).split())}, ", text)
+
+
+def gxx():
+    return shutil.which("g++")
+
+
+def build(tmp_path, header: str, body: str, extra: str = ""):
+    """Compile the shim, the rewritten header, `extra` (the generated
+    chain struct) and main() around `body`."""
+    src = tmp_path / "emu.cpp"
+    src.write_text(SHIM + host_header(header) + "\n" + extra + "\n"
+                   + "int main() {\n" + body + "\n  return 0;\n}\n")
+    exe = tmp_path / "emu"
+    subprocess.run([gxx(), "-O1", "-std=c++20", "-pthread", "-o", str(exe),
+                    str(src)], check=True, capture_output=True, text=True)
+    return exe
+
+
+def run(exe, tmp_path, inputs: dict, outputs: dict) -> dict:
+    """Write `inputs`, run the program in tmp_path, read `outputs`."""
+    for name, arr in inputs.items():
+        np.ascontiguousarray(arr).tofile(tmp_path / name)
+    proc = subprocess.run([str(exe)], cwd=tmp_path, capture_output=True,
+                          text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"emulated kernel failed ({proc.returncode}): "
+                           f"{proc.stdout}{proc.stderr}")
+    return {name: np.fromfile(tmp_path / name, dtype=dtype, count=count)
+            for name, (dtype, count) in outputs.items()}

@@ -29,6 +29,8 @@ import numpy as np
 import pytest
 import torch
 
+import cuda_host_emu as emu
+
 from torch_parity_kit import (ct, ctt, jax_problem, jax_quaternion_problem,
                               main_path_options, pallas_interpret,
                               quaternion_bal, quaternion_solve_bal, rel,
@@ -287,3 +289,347 @@ def test_cuda_k5_matches_plain(quat, loss_name):
         want = k5.lin_auto_plain(*args)
         for key in want:
             assert rel(got[key].cpu(), want[key].cpu()) <= TOL, key
+
+
+# ---- the kernel's edges: seeded inputs, on the host and on the card ----
+
+class _Wide:
+    """A functor at the gate's caps: a 12-parameter camera, a 6-parameter
+    point, 8 residuals (te 6, tf 12, r 8)."""
+
+    def __init__(self, o):
+        self.o = float(o)
+
+    def __call__(self, cam, pt):
+        u = cam[0:6] * pt
+        v = cam[6:12] * torch.sin(pt)
+        return torch.cat([u + v, (u * v)[0:2]]) - self.o
+
+
+@pytest.fixture(scope="module")
+def wide_spec():
+    """K5's spec of the _Wide functor (traced once)."""
+    rng = np.random.default_rng(5)
+    cams = [rng.standard_normal(12) for _ in range(2)]
+    pts = [rng.standard_normal(6) for _ in range(3)]
+    prob = ctt.Problem()
+    for p in pts:
+        for c in cams:
+            prob.add_residual_block(ctt.AutoDiffCostFunction(
+                _Wide(rng.standard_normal()), 8, [12, 6]), None, c, p)
+    tp = TorchProgram(prob, device="cpu")
+    spec = k5.lin_auto_spec(make_auto_spec(tp, tp.buckets[0]), 1)
+    assert (spec.te, spec.tf, spec.r) == (k5.MAX_TE, k5.MAX_TF, k5.MAX_R)
+    return spec
+
+
+# name: (ne, k, kf, points observed twice by one camera, loss)
+EDGES = {
+    "k1": (50, 1, 6, False, None),
+    "k4-ragged-twice": (45, 4, 6, True, None),
+    "k4-huber": (45, 4, 6, True, "huber"),
+    "k33": (7, 33, 12, True, None),
+    "k200": (2, 200, 6, False, None),
+    "nf-not-4": (40, 4, 9, True, None),
+    "chunks": (300, 4, 6, True, None),
+    "kf408": (6, 4, 408, True, None),
+    "kf409": (6, 4, 409, True, None),
+}
+
+
+def _edge_inputs(quat, ne, k, kf, twice, seed):
+    """Seeded K5 inputs at the quaternion functor's shape (te 3, tf 10):
+    each point a random point of the quaternion problem with its valid
+    lanes' observations repeated to a random count of 1..k lanes, each
+    lane's camera on a random copy (slightly moved) of its own camera
+    among kf, masked lanes filled from the first lane (safe_rows), and
+    with `twice` some points' lane 1 a second observation by lane 0's
+    camera."""
+    tp, step = quat["steps"]["none"]
+    x = tp.initial_state()
+    ne0, kf0, tf = step.ne, step.kf, step.tf
+    xe0 = x[step.e_slab:step.e_slab + 3 * ne0].view(ne0, 3).float().numpy()
+    xf0 = x[step.f_slab:step.f_slab + step.nf].view(kf0, tf).float().numpy()
+    cam0, mask0 = step.cam.numpy(), step.mask.numpy()
+    dat0 = step.dat.numpy()
+    rng = np.random.default_rng(seed)
+    reps = -(-kf // kf0)
+    xf = np.concatenate([xf0 * (1 + 1e-4 * rng.standard_normal(xf0.shape))
+                         for _ in range(reps)])[:kf].astype(np.float32)
+    pts = rng.integers(0, ne0, ne)
+    xe = (xe0[pts] * (1 + 1e-3 * rng.standard_normal((ne, 3)))).astype(
+        np.float32)
+    cam = np.zeros((ne, k), np.int32)
+    dat = np.zeros((ne, k, dat0.shape[2]), np.float32)
+    mask = np.zeros((ne, k), np.float32)
+    for n, p in enumerate(pts):
+        lanes = np.flatnonzero(mask0[p] > 0)
+        count = int(rng.integers(1, k + 1))
+        for j in range(k):
+            src = lanes[j % lanes.size] if j < count else lanes[0]
+            c = cam0[p, src] + kf0 * int(rng.integers(0, reps))
+            cam[n, j] = c if c < kf else cam0[p, src]
+            dat[n, j] = dat0[p, src] + 0.01 * rng.standard_normal(2)
+            mask[n, j] = float(j < count)
+        if twice and k > 1 and n % 3 == 0:
+            cam[n, 1], mask[n, 1] = cam[n, 0], 1.0
+        cam[n, mask[n] == 0] = cam[n, 0]
+        dat[n, mask[n] == 0] = dat[n, 0]
+    se_in = (0.5 + rng.random((ne, 3))).astype(np.float32)
+    return tuple(torch.as_tensor(a) for a in (xf.reshape(-1), xe, cam, mask,
+                                              dat, se_in))
+
+
+def _wide_inputs(spec, ne, k, kf, seed):
+    """Seeded K5 inputs for the _Wide functor, with repeated cameras."""
+    rng = np.random.default_rng(seed)
+    cam = rng.integers(0, kf, (ne, k)).astype(np.int32)
+    cam[::2, 1] = cam[::2, 0]
+    mask = (rng.random((ne, k)) < 0.8).astype(np.float32)
+    mask[:, 0] = 1.0
+    cam[mask == 0] = np.broadcast_to(cam[:, :1], cam.shape)[mask == 0]
+    dat = rng.standard_normal((ne, k, spec.auto.p_dat)).astype(np.float32)
+    dat[mask == 0] = np.broadcast_to(dat[:, :1], dat.shape)[mask == 0]
+    return tuple(torch.as_tensor(a) for a in (
+        rng.standard_normal(kf * spec.tf).astype(np.float32),
+        rng.standard_normal((ne, spec.te)).astype(np.float32), cam, mask,
+        dat, (0.5 + rng.random((ne, spec.te))).astype(np.float32)))
+
+
+_K5_MAIN = r"""
+  const int* h = emu_read<int>("hdr", 9);
+  const int ne = h[0], k = h[1], kf = h[2], pb = h[3], nchunks = h[4];
+  const int nvalid = h[5], nlp = h[6], first = h[7], use_scaling = h[8];
+  constexpr int TE = Chain::TE, TF = Chain::TF, ND = Chain::ND;
+  constexpr int NQ = TF * (TF + 1) / 2 + TF;
+  const size_t rows = (size_t)ne * k, na = (size_t)ne * TE * kf * TF;
+  const float* xf = emu_read<float>("xf", (size_t)kf * TF);
+  const float* xe = emu_read<float>("xe", (size_t)ne * TE);
+  const int* cam = emu_read<int>("cam", rows);
+  const float* mask = emu_read<float>("mask", rows);
+  const float* dat = emu_read<float>("dat", rows * ND);
+  const float* lp = emu_read<float>("lp", nlp);
+  const float* se_in = emu_read<float>("se_in", (size_t)ne * TE);
+  const int* pos = emu_read<int>("pos", rows);
+  const int* off = emu_read<int>("off", (size_t)nchunks * kf + 1);
+  float* ete = emu_alloc<float>((size_t)ne * TE * TE);
+  float* ge = emu_alloc<float>((size_t)ne * TE);
+  float* se = emu_alloc<float>((size_t)ne * TE);
+  float* A = emu_alloc<float>(na);
+  float* q = emu_alloc<float>((size_t)nvalid * NQ);
+  float* partial = emu_alloc<float>((size_t)nchunks * kf * NQ);
+  float* ftf = emu_alloc<float>((size_t)kf * TF * TF);
+  float* gf = emu_alloc<float>((size_t)kf * TF);
+  if (lin_auto_launch<Chain>(xf, xe, cam, mask, dat, lp, nlp, se_in, first,
+                             use_scaling, ne, k, kf, pb, pos, off, nchunks,
+                             ete, ge, se, A, q, partial, ftf, gf, nullptr))
+    return 3;
+  emu_write("ete", ete, (size_t)ne * TE * TE);
+  emu_write("ge", ge, (size_t)ne * TE);
+  emu_write("se", se, (size_t)ne * TE);
+  emu_write("A", A, na);
+  emu_write("ftf", ftf, (size_t)kf * TF * TF);
+  emu_write("gf", gf, (size_t)kf * TF);
+"""
+_EMU_EXE = {}
+
+
+def _emulated_k5(tmp_path_factory, spec, xf, xe, cam, mask, dat, se_in,
+                 first, use_scaling=True, loss=None):
+    """csrc/lin_auto.cuh run on the host (tests/cuda_host_emu.py) through
+    lin_auto_launch, with the wrapper's plan and block choice."""
+    from ceres_tpu_torch.ops import _cuda
+    from ceres_tpu_torch.ops.jet_compile import (loss_param_values,
+                                                 make_loss_spec)
+    lspec = None if loss is None else make_loss_spec(loss)
+    key = (spec.auto.digest, spec[1:], lspec and lspec.digest)
+    if key not in _EMU_EXE:
+        _EMU_EXE[key] = emu.build(
+            tmp_path_factory.mktemp("k5emu"),
+            (_cuda.CSRC / "lin_auto.cuh").read_text(), _K5_MAIN,
+            k5.chain_source(spec, lspec))
+    ne, k = cam.shape
+    te, tf = spec.te, spec.tf
+    kf = xf.numel() // tf
+    pb, _ = k5.lane_block(k, te, tf)
+    plan = k5.camera_plan(cam, mask, kf)
+    lp = [] if loss is None else loss_param_values(loss)
+    hdr = [ne, k, kf, pb, plan.nchunks, plan.nvalid, len(lp), int(first),
+           int(use_scaling)]
+    out = emu.run(_EMU_EXE[key], tmp_path_factory.mktemp("k5run"), {
+        "hdr": np.array(hdr, np.int32), "xf": xf.numpy(), "xe": xe.numpy(),
+        "cam": cam.numpy(), "mask": mask.numpy(), "dat": dat.numpy(),
+        "lp": np.array(lp, np.float32), "se_in": se_in.numpy(),
+        "pos": plan.pos.numpy(), "off": plan.off.numpy()}, {
+        "ete": (np.float32, ne * te * te), "ge": (np.float32, ne * te),
+        "se": (np.float32, ne * te), "A": (np.float32, ne * te * kf * tf),
+        "ftf": (np.float32, kf * tf * tf), "gf": (np.float32, kf * tf)})
+    return {"ete": out["ete"].reshape(ne, te * te),
+            "ge": out["ge"].reshape(ne, te), "se": out["se"].reshape(ne, te),
+            "A": out["A"].reshape(ne, te, kf * tf),
+            "ftf": out["ftf"].reshape(kf, tf, tf),
+            "gf": out["gf"].reshape(kf, tf)}
+
+
+def _hold(got, want, tol=TOL):
+    for key in want:
+        g = np.asarray(got[key].cpu() if torch.is_tensor(got[key])
+                       else got[key])
+        assert np.isfinite(g).all(), key          # A: every entry written
+        assert rel(g, want[key].cpu()) <= tol, key
+
+
+@pytest.mark.parametrize("name", list(EDGES))
+def test_k5_kernel_source_on_the_host(quat, tmp_path_factory, name):
+    """csrc/lin_auto.cuh, emulated on the host (one std::thread per CUDA
+    thread), against lin_auto_plain at the edges: one lane a point, a
+    ragged last block, a point observed twice by one camera, a point past
+    a block's 128 lanes (passes), nf not a multiple of 4 (4-byte stores),
+    rows over several 1,024-row chunks, rows longer than the A tile (kf
+    408 and 409: column segments); the scale derived and carried."""
+    if emu.gxx() is None:
+        pytest.skip("no host g++")
+    ne, k, kf, twice, loss_name = EDGES[name]
+    loss = LOSSES[loss_name or "none"][1]
+    spec = quat["steps"][loss_name or "none"][1].k5
+    args = _edge_inputs(quat, ne, k, kf, twice, seed=k * 1000 + ne)
+    for first in (True, False):
+        want = k5.lin_auto_plain(spec, *args, first, True, loss)
+        got = _emulated_k5(tmp_path_factory, spec, *args, first, True, loss)
+        _hold(got, want)
+
+
+def test_k5_kernel_source_on_the_host_at_the_caps(wide_spec,
+                                                  tmp_path_factory):
+    """The same at the gate's caps te 6, tf 12, r 8, with repeated
+    cameras and masked lanes, scaling off."""
+    if emu.gxx() is None:
+        pytest.skip("no host g++")
+    args = _wide_inputs(wide_spec, 30, 6, 5, seed=3)
+    want = k5.lin_auto_plain(wide_spec, *args, True, False)
+    _hold(_emulated_k5(tmp_path_factory, wide_spec, *args, True, False),
+          want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", list(EDGES))
+def test_cuda_k5_edges_match_plain(quat, name):
+    """On the card: K5 at the edges of the host test above against
+    lin_auto_plain within 1e-5, every A entry written, one launch a call.
+    Run on a machine with a card: python -m pytest tests -m cuda."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    ne, k, kf, twice, loss_name = EDGES[name]
+    loss = LOSSES[loss_name or "none"][1]
+    spec = quat["steps"][loss_name or "none"][1].k5
+    args = [a.cuda() for a in _edge_inputs(quat, ne, k, kf, twice,
+                                           seed=k * 1000 + ne)]
+    for first in (True, False):
+        k5.lin_auto.launches = 0
+        got = k5.lin_auto(spec, *args, first, True, loss)
+        torch.cuda.synchronize()
+        assert k5.lin_auto.launches == 1
+        _hold(got, k5.lin_auto_plain(spec, *args, first, True, loss))
+
+
+@pytest.mark.cuda
+def test_cuda_k5_at_the_caps_matches_plain(wide_spec):
+    """On the card: K5 at te 6, tf 12, r 8 against lin_auto_plain."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    args = [a.cuda() for a in _wide_inputs(wide_spec, 300, 6, 40, seed=3)]
+    _hold(k5.lin_auto(wide_spec, *args, True, True),
+          k5.lin_auto_plain(wide_spec, *args, True, True))
+
+
+# ---- host-side pieces of the kernel, and the contract with duplicates ----
+
+def test_camera_plan_against_a_direct_construction():
+    """K5's camera plan (three 1,024-row chunks, masked lanes, points
+    observed twice by one camera) against a walk of chunks, cameras and
+    rows in order."""
+    rng = np.random.default_rng(4)
+    ne, k, kf = 700, 3, 7
+    cam = rng.integers(0, kf, (ne, k)).astype(np.int32)
+    cam[::5, 1] = cam[::5, 0]
+    mask = rng.random((ne, k)) < 0.7
+    mask[:, 0] = True
+    plan = k5.camera_plan(torch.as_tensor(cam),
+                          torch.as_tensor(mask.astype(np.float32)), kf)
+    rows = ne * k
+    pos, off, p = np.full(rows, -1), [0], 0
+    for ch in range(3):
+        for c in range(kf):
+            for r in range(ch * 1024, min((ch + 1) * 1024, rows)):
+                if mask.flat[r] and cam.flat[r] == c:
+                    pos[r] = p
+                    p += 1
+            off.append(p)
+    assert plan.nchunks == 3 and plan.nvalid == int(mask.sum())
+    assert plan.pos.dtype == plan.off.dtype == torch.int32
+    assert np.array_equal(plan.pos.numpy(), pos)
+    assert np.array_equal(plan.off.numpy(), off)
+    with pytest.raises(ValueError, match="outside"):
+        k5.camera_plan(torch.as_tensor(cam), torch.ones(ne, k), kf - 1)
+
+
+def test_lane_block_choice():
+    """Points a block (128 lanes, whole points; one point past 128) and
+    the block's shared memory, as csrc/lin_auto.cuh lays it out: 31 KB at
+    the quaternion shape (the A tile, 2,048 floats; the 64-lane F-side
+    stage, 64 x 65, and the cross terms, 128 x 31, in one place), under
+    the card's 227 KB at the caps."""
+    assert [k5.lane_block(k, 3, 10)[0] for k in (1, 4, 5, 33, 128, 200)] \
+        == [128, 32, 25, 3, 1, 1]
+    # + 128 lanes x (9 + 2) + 128 places + 32 points x 3, 4 B each
+    assert k5.lane_block(4, 3, 10)[1] == 4 * (
+        2048 + 64 * 65 + 128 * 11 + 128 + 96)
+    # past a pass, the stage and the cross terms side by side
+    assert k5.lane_block(200, 3, 10)[1] == 4 * (
+        2048 + 64 * 65 + 200 * 31 + 200 * 11 + 128 + 3)
+    assert k5.lane_block(128, k5.MAX_TE, k5.MAX_TF)[1] <= 232448
+    assert k5.lane_block(1400, 3, 10)[1] > 232448
+
+
+def _twice_bal():
+    """The quaternion problem with every 37th observation repeated (0.3
+    pixel off) by the same camera: points observed twice by one camera."""
+    bal = quaternion_bal()
+    idx = np.arange(0, bal.num_observations, 37)
+    bal.camera_index = np.concatenate([bal.camera_index,
+                                       bal.camera_index[idx]])
+    bal.point_index = np.concatenate([bal.point_index, bal.point_index[idx]])
+    bal.observations = np.concatenate([bal.observations,
+                                       bal.observations[idx] + 0.3])
+    return bal
+
+
+def test_k5_plain_matches_jax_with_a_point_observed_twice(tmp_path_factory):
+    """The contract K5 meets where a point has two lanes on one camera:
+    lin_auto_plain and the kernel source (emulated on the host) against
+    the JAX _lin_kernel_auto in interpret mode, within 1e-5."""
+    bal = _twice_bal()
+    opts = ct.SolverOptions(linear_solver_type=ct.LinearSolverType.DENSE_SCHUR,
+                            use_mixed_precision_solves=True)
+    with pallas_interpret():
+        jp = JaxProgram.get_cached(jax_quaternion_problem(bal), opts)
+        plin = make_pallas_lin(jp, opts, jax_detect(jp, opts))
+        assert plin is not None
+        j = {key: np.asarray(v) for key, v in plin.lin(
+            jp.initial_state(), jnp.ones((plin.ne_pad, 3), jnp.float32),
+            jnp.asarray(True)).items() if key != "ne_pad"}
+    tp, step = _torch_step(torch_quaternion_problem(bal))
+    cam, mask = step.cam.numpy(), step.mask.numpy() > 0
+    assert any(cam[n, a] == cam[n, b] and mask[n, a] and mask[n, b]
+               for n in range(step.ne) for a in range(cam.shape[1])
+               for b in range(a))
+    ne = step.ne
+    args = _k5_inputs(step, tp, np.ones((ne, 3), np.float32), True)
+    want = {"ete": j["EtE"][:ne].reshape(ne, 9), "ge": j["g_e"][:ne],
+            "se": j["s_e"][:ne],
+            "A": j["A_eT"][:, :, :ne].transpose(2, 0, 1),
+            "ftf": j["FtF"], "gf": j["g_f"]}
+    want = {key: torch.tensor(v) for key, v in want.items()}
+    _hold(k5.lin_auto_plain(*args), want)
+    if emu.gxx() is not None:
+        _hold(_emulated_k5(tmp_path_factory, *args[:8]), want)

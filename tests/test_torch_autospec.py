@@ -32,6 +32,8 @@ import numpy as np
 import pytest
 import torch
 
+import cuda_host_emu as emu
+
 from torch_parity_kit import (JaxDoubled, TorchDoubled, ct, ctt,
                               functor_problem, jax_quaternion_problem,
                               main_path_options, pallas_interpret,
@@ -197,6 +199,17 @@ class _Wide:
         return torch.cat([u * v, u - v])
 
 
+class _Full:
+    """Two 8-blocks, eight residuals, data `w`: R * NT = 128, at the
+    cap."""
+
+    def __init__(self, w):
+        self.w = float(w)
+
+    def __call__(self, u, v):
+        return self.w * u * v + torch.sin(u - v)
+
+
 class _Cumsum:
     """An op outside the jet rules (cumsum): jacfwd takes it, the jet
     compiler does not."""
@@ -215,14 +228,16 @@ def _custom(kind, n, seed=0, constant_first=False):
                 _Prior(rng.standard_normal(3)), 3, [3]), None, p)
         return prob
     sizes = {"pair": [3, 3], "triple": [4, 2, 3], "wide": [6, 6],
-             "cumsum": [3, 3], "diff": [3, 3]}[kind]
+             "cumsum": [3, 3], "diff": [3, 3], "full": [8, 8]}[kind]
     nres = {"pair": 3, "triple": 4, "wide": 12, "cumsum": 3,
-            "diff": 3}[kind]
+            "diff": 3, "full": 8}[kind]
     blocks = [[rng.standard_normal(s) for _ in range(5)] for s in sizes]
     for i in range(n):
         if kind in ("pair", "triple"):
             functor = (_Pair if kind == "pair" else _Triple)(
                 rng.uniform(0.5, 2.0), rng.standard_normal(2))
+        elif kind == "full":
+            functor = _Full(rng.uniform(0.5, 2.0))
         else:
             functor = {"wide": _Wide, "cumsum": _Cumsum,
                        "diff": _Diff}[kind]()
@@ -492,3 +507,140 @@ def test_data_free_bucket_linearizes_on_the_card(n):
     assert r.shape == (n, 3) and J.shape == (n, 3, 6)
     assert rel(r.cpu().numpy(), r_ref.cpu().numpy()) < TOL
     assert rel(J.cpu().numpy(), J_ref.cpu().numpy()) < TOL
+
+
+# ---- the kernel source on the host, and its edges on the card ----
+
+def test_auto_tile_from_the_chain():
+    """Rows a block of csrc/linearize_auto.cuh: 128 while a row's inputs
+    or outputs (odd strides) fit 384 B, 64 to 768 B, 32 to 1,536 B; then
+    none, and the gate leaves the bucket to jacfwd."""
+    assert k11.auto_tile(2, 13, 13, 2) == 128            # quaternion BA
+    assert k11.auto_tile(8, 16, 16, 1) == 64             # R * NT = 128
+    assert k11.auto_tile(1, 3, 3, 0) == 128              # no data
+    assert k11.auto_tile(2, 6, 6, 89) == 128             # 7 + 89 floats
+    assert k11.auto_tile(2, 6, 6, 90) == 64              # 7 + 91
+    assert k11.auto_tile(2, 6, 200, 100) == 32
+    assert k11.auto_tile(2, 6, 300, 100) is None
+    for r, nt, p_in, p_dat in [(2, 13, 13, 2), (8, 16, 16, 1), (3, 6, 6, 0),
+                               (4, 9, 9, 3)]:
+        t = k11.auto_tile(r, nt, p_in, p_dat)
+        inp = (p_in | 1) + ((p_dat | 1) if p_dat else 0)
+        assert t * 4 * max(inp, (r | 1) + ((r * nt) | 1)) <= 48 * 1024
+
+
+_K11_MAIN = r"""
+  const int* h = emu_read<int>("hdr", 2);
+  const int n = h[0], shift = h[1];
+  constexpr int R = RowChain::R, NT = RowChain::NT;
+  constexpr int P_IN = RowChain::P_IN, P_DAT = RowChain::P_DAT;
+  float* xin = emu_alloc<float>((size_t)n * P_IN + 4) + shift;
+  memcpy(xin, emu_read<float>("xin", (size_t)n * P_IN),
+         sizeof(float) * n * P_IN);
+  const float* dat = emu_read<float>("dat", (size_t)n * P_DAT);
+  float* r = emu_alloc<float>((size_t)n * R);
+  float* J = emu_alloc<float>((size_t)n * R * NT);
+  if (linearize_auto_launch<RowChain, TILE>(xin, dat, n, r, J, nullptr))
+    return 3;
+  emu_write("r", r, (size_t)n * R);
+  emu_write("J", J, (size_t)n * R * NT);
+"""
+_EMU_EXE = {}
+
+
+def _emulated_k11(tmp_path_factory, spec, xin, dat, shift=0):
+    """csrc/linearize_auto.cuh run on the host (tests/cuda_host_emu.py)
+    through linearize_auto_launch at the tile the generated unit picks;
+    `shift` floats move xin off 16-byte alignment."""
+    from ceres_tpu_torch.ops import _cuda
+    key = (spec.digest, spec.slot_sizes, spec.data_widths)
+    if key not in _EMU_EXE:
+        tile = k11.auto_tile(spec.r, spec.nt, sum(spec.slot_sizes),
+                             spec.p_dat)
+        _EMU_EXE[key] = emu.build(
+            tmp_path_factory.mktemp("k11emu"),
+            (_cuda.CSRC / "linearize_auto.cuh").read_text(), _K11_MAIN,
+            row_chain_source(spec) + f"constexpr int TILE = {tile};\n")
+    n = xin.shape[0]
+    out = emu.run(_EMU_EXE[key], tmp_path_factory.mktemp("k11run"), {
+        "hdr": np.array([n, shift], np.int32), "xin": xin.numpy(),
+        "dat": dat.numpy()}, {"r": (np.float32, n * spec.r),
+                              "J": (np.float32, n * spec.r * spec.nt)})
+    return out["r"].reshape(n, spec.r), out["J"].reshape(n, spec.r,
+                                                         spec.nt)
+
+
+def _quat_rows(quat, n):
+    """n rows of the quaternion bucket, repeated at random and perturbed
+    (seeded by n)."""
+    tp = quat["tp"]
+    bk = tp.buckets[0]
+    rng = np.random.default_rng(n)
+    idx = torch.as_tensor(rng.integers(0, bk.n, size=n))
+    xin = _xin(tp, bk, quat["states"]["start"])[idx]
+    xin = xin * (1 + 1e-3 * torch.as_tensor(rng.standard_normal(xin.shape),
+                                            dtype=torch.float32))
+    return bk.spec, xin.contiguous(), bk.dat32[idx].contiguous()
+
+
+def _custom_rows(kind, n):
+    tp, bks = _buckets(_custom(kind, n))
+    bk = bks[0]
+    assert isinstance(bk.spec, AutoSpec)
+    return bk.spec, _xin(tp, bk, tp.initial_state().numpy()), bk.dat32
+
+
+# name: (rows, xin shifted off 16-byte alignment by this many floats)
+K11_EDGES = {"quat-1": (1, 0), "quat-7": (7, 0), "quat-200": (200, 0),
+             "quat-513": (513, 0), "quat-513-unaligned": (513, 1),
+             "full": (100, 0), "diff": (65, 0), "triple": (300, 1)}
+
+
+def _k11_edge(quat, name):
+    n, shift = K11_EDGES[name]
+    if name.startswith("quat"):
+        return _quat_rows(quat, n) + (shift,)
+    spec, xin, dat = _custom_rows(name, n)
+    return spec, xin, dat, shift
+
+
+@pytest.mark.parametrize("name", list(K11_EDGES))
+def test_auto_kernel_source_on_the_host(quat, tmp_path_factory, name):
+    """csrc/linearize_auto.cuh, emulated on the host (one std::thread per
+    CUDA thread), against the plain version: row counts of 1, 7, not a
+    multiple of the tile and past it, xin off 16-byte alignment (4-byte
+    loads), R * NT = 128 (a 64-row tile), no data fields, three slots."""
+    if emu.gxx() is None:
+        pytest.skip("no host g++")
+    spec, xin, dat, shift = _k11_edge(quat, name)
+    if name == "full":
+        assert spec.r * spec.nt == k11.MAX_AUTO_OUTPUTS
+    if name == "diff":
+        assert spec.p_dat == 0
+    r, J = _emulated_k11(tmp_path_factory, spec, xin, dat, shift)
+    r_ref, J_ref = k11.bucket_linearize_auto_plain(spec, xin, dat)
+    assert np.isfinite(r).all() and np.isfinite(J).all()
+    assert rel(r, r_ref.numpy()) < TOL and rel(J, J_ref.numpy()) < TOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", list(K11_EDGES))
+def test_auto_kernel_edges_on_the_card(quat, name):
+    """On the card: the edges of the host test above against the plain
+    version, one launch a call (an unaligned xin is a view one float into
+    a buffer). Run on a machine with a card: python -m pytest tests -m
+    cuda."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    spec, xin, dat, shift = _k11_edge(quat, name)
+    buf = torch.empty(xin.numel() + shift, device="cuda")
+    xin_c = buf[shift:].view(xin.shape)
+    xin_c.copy_(xin)
+    dat_c = dat.cuda()
+    k11.bucket_linearize_auto.launches = 0
+    r, J = k11.bucket_linearize_auto(spec, xin_c, dat_c)
+    torch.cuda.synchronize()
+    assert k11.bucket_linearize_auto.launches == 1
+    r_ref, J_ref = k11.bucket_linearize_auto_plain(spec, xin, dat)
+    assert rel(r.cpu().numpy(), r_ref.numpy()) < TOL
+    assert rel(J.cpu().numpy(), J_ref.numpy()) < TOL

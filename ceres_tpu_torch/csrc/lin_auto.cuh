@@ -16,7 +16,9 @@
 // (the residuals and their tangent Jacobian of one observation lane, the
 // Triggs corrector of a robust loss applied, with sq = 0 on an invalid
 // lane), into a generated unit that includes this file and instantiates
-// lin_auto_launch<Chain> behind the C entry point ceres_lin_auto.
+// lin_auto_launch<Chain> behind the C entry point ceres_lin_auto. K1
+// (csrc/lin.cu) is the same kernel with a chain written by hand,
+// SnavelyK1Chain, behind ceres_lin.
 // Same outputs as K1 (csrc/lin.cu), at general TE, TF and R:
 //   ete [ne, TE*TE], ge [ne, TE], se [ne, TE]  (se: 1/(1+sqrt(diag E^T E))
 //     when `first`, else the carried se_in; ones when scaling is off),

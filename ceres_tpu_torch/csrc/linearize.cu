@@ -1,6 +1,6 @@
 // K11: bucket linearize of a registered functor: per row, the residual
 // and its Jacobian in tangent space, the manifold's Plus seeded into the
-// jet channels.
+// jets.
 //
 // Replaces ceres_tpu/ops/pallas_linearize.py::_lin_kernel with its two
 // hand specs, _pose3d_emit (SE3: PoseGraph3dErrorTerm, quaternion slots
@@ -22,14 +22,27 @@
 //
 // Bound on the H100: bytes. Per SE3 row the kernel reads 57 floats and
 // writes 78 (540 B), against ~5k flops of 13-wide jet arithmetic; per
-// Snavely row 14 and 26 (160 B) against ~2k flops; both below the card's
-// ratio of ~20 flops per byte. Design: one thread per
-// row (rows are independent, nothing is reduced across threads), the
-// jets in registers. A warp's loads and stores cover contiguous spans of
-// 32 rows, so the L1 and L2 merge the strided accesses into full lines.
+// Snavely row 14 and 26 (160 B, 0.048 ms at 1M rows and 3.35 TB/s)
+// against ~2k flops, ~30 us of issue at 1M rows: the chain's time is not
+// small beside the bytes', so it has to overlap them.
+// Design: each spec is a RowChain (the interface csrc/linearize_auto.cuh
+// documents: R, NT, P_IN, P_DAT and run(x, d, rv, J), one row's jets in
+// registers, their values and channels copied out) run by K11's row
+// kernel, linearize_auto::row_kernel<Chain, 128>, the kernel of the auto
+// specs: a persistent grid whose blocks copy each tile of 128 rows'
+// xin and dat slices into shared memory by cp.async while the previous
+// tile's chains run, one thread a row, and stream r and J out through a
+// shared tile with 16-byte stores. This replaces a thread a row that
+// loaded and stored its own row at the row's stride, 48 B to 312 B
+// apart, so that none of a warp's accesses coalesced. The chains are the
+// code of the kernels they replace, so r and J keep their bits. Tile 128
+// is auto_tile's choice for all three (ops/linearize.py). Registers,
+// the phases' times (scripts/k11_variants.py) and the times beside the
+// bound: PERF.md section 6.
 
 #include <cuda_runtime.h>
 
+#include "linearize_auto.cuh"
 #include "snavely.cuh"
 
 namespace {
@@ -85,7 +98,8 @@ __device__ __forceinline__ void seed_quaternion(const float* q, int ch0,
   }
 }
 
-__device__ void pose3d_row(const float* x, const float* dat, J3 res[6]) {
+__device__ __forceinline__ void pose3d_row(const float* x, const float* dat,
+                                           J3 res[6]) {
   J3 pa[3], pb[3], qa[4], qb[4];
 #pragma unroll
   for (int i = 0; i < 3; ++i) {
@@ -133,7 +147,8 @@ __device__ void pose3d_row(const float* x, const float* dat, J3 res[6]) {
 constexpr int N2 = 6;             // tangent channels: p_a, yaw_a, p_b, yaw_b
 typedef Jet<N2> J2;
 
-__device__ void pose2d_row(const float* x, const float* dat, J2 res[3]) {
+__device__ __forceinline__ void pose2d_row(const float* x, const float* dat,
+                                           J2 res[3]) {
   // the angle manifold's Plus has derivative 1: its slots seed like
   // Euclidean ones
   J2 pa[2] = {jvar<N2>(x[0], 0), jvar<N2>(x[1], 1)};
@@ -169,7 +184,8 @@ __device__ void pose2d_row(const float* x, const float* dat, J2 res[3]) {
 constexpr int NS = 12;            // tangent channels: camera 9, point 3
 typedef Jet<NS> JS;
 
-__device__ void snavely_row(const float* x, const float* dat, JS res[2]) {
+__device__ __forceinline__ void snavely_row(const float* x, const float* dat,
+                                            JS res[2]) {
   JS cp[9], pt[3];
 #pragma unroll
   for (int a = 0; a < 9; ++a) cp[a] = jvar<NS>(x[a], a);
@@ -178,52 +194,52 @@ __device__ void snavely_row(const float* x, const float* dat, JS res[2]) {
   snavely_residual<NS>(cp, pt, true, dat[0], dat[1], res);
 }
 
+// a row's jets into the RowChain outputs: values and tangent channels
 template <int R, int N>
-__device__ __forceinline__ void store_row(const Jet<N> res[R], int row,
-                                          float* __restrict__ r,
-                                          float* __restrict__ J) {
-  float* rr = r + (size_t)row * R;
-  float* JJ = J + (size_t)row * R * N;
+__device__ __forceinline__ void unpack(const Jet<N> res[R], float (&rv)[R],
+                                       float (&J)[R][N]) {
 #pragma unroll
   for (int i = 0; i < R; ++i) {
-    rr[i] = res[i].v;
+    rv[i] = res[i].v;
 #pragma unroll
-    for (int c = 0; c < N; ++c) JJ[i * N + c] = res[i].d[c];
+    for (int c = 0; c < N; ++c) J[i][c] = res[i].d[c];
   }
 }
 
-__global__ void linearize_pose3d_kernel(const float* __restrict__ xin,
-                                        const float* __restrict__ dat, int n,
-                                        float* __restrict__ r,
-                                        float* __restrict__ J) {
-  const int row = blockIdx.x * blockDim.x + threadIdx.x;
-  if (row >= n) return;
-  J3 res[6];
-  pose3d_row(xin + (size_t)row * 14, dat + (size_t)row * 43, res);
-  store_row<6, N3>(res, row, r, J);
-}
+struct Pose3dRow {
+  static constexpr int R = 6, NT = N3, P_IN = 14, P_DAT = 43;
+  static __device__ __forceinline__ void run(const float* x, const float* d,
+                                             float (&rv)[R],
+                                             float (&J)[R][NT]) {
+    J3 res[R];
+    pose3d_row(x, d, res);
+    unpack<R, NT>(res, rv, J);
+  }
+};
 
-__global__ void linearize_pose2d_kernel(const float* __restrict__ xin,
-                                        const float* __restrict__ dat, int n,
-                                        float* __restrict__ r,
-                                        float* __restrict__ J) {
-  const int row = blockIdx.x * blockDim.x + threadIdx.x;
-  if (row >= n) return;
-  J2 res[3];
-  pose2d_row(xin + (size_t)row * 6, dat + (size_t)row * 12, res);
-  store_row<3, N2>(res, row, r, J);
-}
+struct Pose2dRow {
+  static constexpr int R = 3, NT = N2, P_IN = 6, P_DAT = 12;
+  static __device__ __forceinline__ void run(const float* x, const float* d,
+                                             float (&rv)[R],
+                                             float (&J)[R][NT]) {
+    J2 res[R];
+    pose2d_row(x, d, res);
+    unpack<R, NT>(res, rv, J);
+  }
+};
 
-__global__ void linearize_snavely_kernel(const float* __restrict__ xin,
-                                         const float* __restrict__ dat, int n,
-                                         float* __restrict__ r,
-                                         float* __restrict__ J) {
-  const int row = blockIdx.x * blockDim.x + threadIdx.x;
-  if (row >= n) return;
-  JS res[2];
-  snavely_row(xin + (size_t)row * 12, dat + (size_t)row * 2, res);
-  store_row<2, NS>(res, row, r, J);
-}
+struct SnavelyRow {
+  static constexpr int R = 2, NT = NS, P_IN = 12, P_DAT = 2;
+  static __device__ __forceinline__ void run(const float* x, const float* d,
+                                             float (&rv)[R],
+                                             float (&J)[R][NT]) {
+    JS res[R];
+    snavely_row(x, d, res);
+    unpack<R, NT>(res, rv, J);
+  }
+};
+
+constexpr int TILE = 128;         // rows a block, every spec
 
 }  // namespace
 
@@ -232,18 +248,12 @@ __global__ void linearize_snavely_kernel(const float* __restrict__ xin,
 extern "C" int ceres_linearize(int spec, const float* xin, const float* dat,
                                int n, float* r, float* J,
                                cudaStream_t stream) {
-  if (n <= 0) return 0;
-  const int threads = 128;
-  const int blocks = (n + threads - 1) / threads;
-  if (spec == 0) {
-    linearize_pose3d_kernel<<<blocks, threads, 0, stream>>>(xin, dat, n, r, J);
-  } else if (spec == 1) {
-    linearize_pose2d_kernel<<<blocks, threads, 0, stream>>>(xin, dat, n, r, J);
-  } else if (spec == 2) {
-    linearize_snavely_kernel<<<blocks, threads, 0, stream>>>(xin, dat, n, r,
-                                                             J);
-  } else {
-    return (int)cudaErrorInvalidValue;
-  }
-  return (int)cudaGetLastError();
+  if (spec == 0)
+    return linearize_auto_launch<Pose3dRow, TILE>(xin, dat, n, r, J, stream);
+  if (spec == 1)
+    return linearize_auto_launch<Pose2dRow, TILE>(xin, dat, n, r, J, stream);
+  if (spec == 2)
+    return linearize_auto_launch<SnavelyRow, TILE>(xin, dat, n, r, J,
+                                                   stream);
+  return (int)cudaErrorInvalidValue;
 }

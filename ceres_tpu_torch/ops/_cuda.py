@@ -48,8 +48,11 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 # name -> argtypes; every function returns a CUDA error code (int)
 _SIGNATURES = {
-    "ceres_lin": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                  _P, _P, _P, _P, _P, _P, _P, _P, _P],
+    # K1 takes K5's arguments (generated units' ceres_lin_auto, argtypes
+    # set by ops/lin_auto.py from this list)
+    "ceres_lin": [_P, _P, _P, _P, _P, ctypes.POINTER(ctypes.c_float), _I, _P,
+                  _I, _I, _I, _I, _I, _I, _P, _P, _I, _P, _P, _P, _P, _P, _P,
+                  _P, _P, _P],
     "ceres_elim": [_P, _P, _P, _P, ctypes.c_float, _I, _I, _I, _I, _I,
                    _I, _I, _P, _P, _P, _P, _P, _P, _P],
     "ceres_elim_v1": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P,

@@ -10,24 +10,32 @@ lanes).
 `lin`, `elim` and `elim_v1` launch the CUDA kernels of csrc/lin.cu and
 csrc/elim.cu for CUDA tensors and run their plain PyTorch versions
 (`lin_plain`, `elim_plain`, `elim_v1_plain`) for CPU tensors. Each
-wrapper counts its launches in its `launches` attribute. `elim_plan`
-sizes K2's and K6's split-K product (tiles, point ranges, shared memory,
-partial sums) in Python, so that the CPU tests reach it.
+wrapper counts its launches in its `launches` attribute. `lin` takes the
+lanes' observations as one dat [ne, k, 2] tensor and the camera plan of
+the chunk layout (ops/lin_auto.py `camera_plan(cam, mask, kf)`: the
+explicit Schur step makes both once; a call on the card without a plan
+makes one on the host); K1 is K5's kernel (csrc/lin_auto.cuh) with a
+hand-written Snavely chain, launched as K5 is (ops/lin_auto.py
+`lane_launch`: K5's block choice, outputs and scratch in one
+allocation; the kernel writes every entry of A itself).
+`elim_plan` sizes K2's and K6's split-K product (tiles, point ranges,
+shared memory, partial sums) in Python, so that the CPU tests reach it.
 """
 
 from __future__ import annotations
 
 import functools
 import math
+from typing import Optional
 
 import torch
 
 from . import _cuda
+from .lin_auto import CameraPlan, lane_launch
 from ..loss import correct_residuals_and_jacobian
 from ..rotation import angle_axis_rotate_point
 
 TF, TE = 9, 3                     # camera and point tangent sizes
-_LIN_ROWS_PER_CHUNK = 1024        # lanes per camera-Gram partial (lin.cu)
 # elim.cu: threads a block, points a stage (one warp each), staged words
 # a point, K2's z words a point, the widest single tile (16 x 10) and the
 # tile past it (16 x 8)
@@ -94,42 +102,22 @@ def lin_plain(xf, xe, cam, mask, obsx, obsy, se_in, first: bool,
     }
 
 
-def lin(xf, xe, cam, mask, obsx, obsy, se_in, first: bool,
-        use_scaling: bool = True, loss=None):
-    """K1: see lin_plain for the contract."""
+def lin(xf, xe, cam, mask, dat, se_in, first: bool,
+        use_scaling: bool = True, loss=None,
+        plan: Optional[CameraPlan] = None):
+    """K1: lin_plain's contract, with the observations as dat [ne, k, 2]
+    f32 (observed_x, observed_y) and `plan` camera_plan(cam, mask, kf),
+    made here when not given (the CPU takes neither)."""
     if not xf.is_cuda:
-        return lin_plain(xf, xe, cam, mask, obsx, obsy, se_in, first,
-                         use_scaling, loss)
+        return lin_plain(xf, xe, cam, mask, dat[..., 0], dat[..., 1], se_in,
+                         first, use_scaling, loss)
     if loss is not None:
         raise NotImplementedError(
             "a robust loss in the CUDA linearize kernel is not ported yet "
             "(ROADMAP.md: robust-loss K1 path)")
-    ne, k = cam.shape
-    kf = xf.numel() // TF
-    f32 = torch.float32
-    _cuda.check(xf, (kf * TF,), f32, "lin: xf")
-    _cuda.check(xe, (ne, TE), f32, "lin: xe")
-    _cuda.check(cam, (ne, k), torch.int32, "lin: cam")
-    for name, t in (("mask", mask), ("obsx", obsx), ("obsy", obsy)):
-        _cuda.check(t, (ne, k), f32, f"lin: {name}")
-    _cuda.check(se_in, (ne, TE), f32, "lin: se_in")
-    dev = xf.device
-    out = {
-        "ete": torch.empty(ne, TE * TE, dtype=f32, device=dev),
-        "ge": torch.empty(ne, TE, dtype=f32, device=dev),
-        "se": torch.empty(ne, TE, dtype=f32, device=dev),
-        "A": torch.zeros(ne, TE, kf * TF, dtype=f32, device=dev),
-        "ftf": torch.empty(kf, TF, TF, dtype=f32, device=dev),
-        "gf": torch.empty(kf, TF, dtype=f32, device=dev),
-    }
-    nq = TF * (TF + 1) // 2 + TF
-    nchunks = -(-(ne * k) // _LIN_ROWS_PER_CHUNK)
-    q = torch.empty(ne * k, nq, dtype=f32, device=dev)
-    partial = torch.empty(nchunks, kf * nq, dtype=f32, device=dev)
-    _cuda.launch("ceres_lin", xf, xe, cam, mask, obsx, obsy, se_in,
-                 int(bool(first)), int(bool(use_scaling)), ne, k, kf,
-                 _LIN_ROWS_PER_CHUNK, out["ete"], out["ge"], out["se"],
-                 out["A"], q, partial, out["ftf"], out["gf"])
+    out = lane_launch(functools.partial(_cuda.launch, "ceres_lin"), "lin",
+                      TE, TF, 2, xf, xe, cam, mask, dat, [], se_in, first,
+                      use_scaling, plan)
     lin.launches += 1
     return out
 

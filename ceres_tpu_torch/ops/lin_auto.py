@@ -17,9 +17,11 @@ lane's camera and data (`safe_rows`), so a generic chain stays finite
 there. Returns ete [ne, te*te], ge [ne, te], se [ne, te], A [ne, te, nf]
 (e-scaled), ftf [kf, tf, tf], gf [kf, tf], all unscaled but A's e factor.
 
-`lin_auto` launches the kernel for CUDA tensors and counts its launches
-in `lin_auto.launches`; for CPU tensors it runs `lin_auto_plain`: vmap of
-jacfwd of the per-row program on each lane, the loss correction
+`lin_auto` launches the kernel for CUDA tensors through `lane_launch`
+(shared with K1, ops/lin.py `lin`, whose hand chain runs the same
+kernel) and counts its launches in `lin_auto.launches`; for CPU tensors
+it runs `lin_auto_plain`: vmap of jacfwd of the per-row program on each
+lane, the loss correction
 (loss.py correct_residuals_and_jacobian), then K1's plain epilogue.
 The kernel sums the camera-side terms over a camera-sorted order of the
 rows of each 1,024-row chunk, `camera_plan`, made once on the host from
@@ -192,10 +194,7 @@ extern "C" int ceres_lin_auto(
 """
 
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
-_ARGTYPES = [_P, _P, _P, _P, _P, ctypes.POINTER(ctypes.c_float), _I, _P, _I,
-             _I, _I, _I, _I, _I, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P,
-             _P, _P]
+_ARGTYPES = _cuda._SIGNATURES["ceres_lin"]     # K1's entry takes K5's
 
 
 def _loss_spec_of(loss):
@@ -301,35 +300,33 @@ def lin_auto_plain(spec: LinAutoSpec, xf, xe, cam, mask, dat, se_in,
     return _epilogue(r, J, cam, mask, se_in, first, use_scaling, kf, spec)
 
 
-def lin_auto(spec: LinAutoSpec, xf, xe, cam, mask, dat, se_in, first: bool,
-             use_scaling: bool = True, loss=None,
-             plan: Optional[CameraPlan] = None):
-    """K5: see the module docstring for the contract. `plan` is
-    camera_plan(cam, mask, kf), made here when not given."""
-    if not xf.is_cuda:
-        return lin_auto_plain(spec, xf, xe, cam, mask, dat, se_in, first,
-                              use_scaling, loss)
+def lane_launch(launch, name: str, te: int, tf: int, p_dat: int, xf, xe,
+                cam, mask, dat, lp, se_in, first: bool, use_scaling: bool,
+                plan: Optional[CameraPlan]):
+    """One call of csrc/lin_auto.cuh's kernels, K5's or K1's (whose
+    C entry points take the same arguments): checks the CUDA inputs,
+    makes the camera plan when not given, allocates the outputs and the
+    scratch (one allocation) and calls launch(*arguments of the entry);
+    returns the outputs. `lp` holds the loss's scalars."""
     ne, k = cam.shape
-    te, tf = spec.te, spec.tf
     kf = xf.numel() // tf
     f32 = torch.float32
-    _cuda.check(xf, (kf * tf,), f32, "lin_auto: xf")
-    _cuda.check(xe, (ne, te), f32, "lin_auto: xe")
-    _cuda.check(cam, (ne, k), torch.int32, "lin_auto: cam")
-    _cuda.check(mask, (ne, k), f32, "lin_auto: mask")
-    _cuda.check(dat, (ne, k, spec.auto.p_dat), f32, "lin_auto: dat")
-    _cuda.check(se_in, (ne, te), f32, "lin_auto: se_in")
+    _cuda.check(xf, (kf * tf,), f32, f"{name}: xf")
+    _cuda.check(xe, (ne, te), f32, f"{name}: xe")
+    _cuda.check(cam, (ne, k), torch.int32, f"{name}: cam")
+    _cuda.check(mask, (ne, k), f32, f"{name}: mask")
+    _cuda.check(dat, (ne, k, p_dat), f32, f"{name}: dat")
+    _cuda.check(se_in, (ne, te), f32, f"{name}: se_in")
     pb, smem = lane_block(k, te, tf)
     if smem > _MAX_SMEM:
-        raise ValueError(f"lin_auto: {k} lanes a point need {smem} B of "
+        raise ValueError(f"{name}: {k} lanes a point need {smem} B of "
                          f"shared memory a block, past the card's "
                          f"{_MAX_SMEM}")
     if plan is None:
         plan = camera_plan(cam, mask, kf)
-    _cuda.check(plan.pos, (ne * k,), torch.int32, "lin_auto: plan.pos")
+    _cuda.check(plan.pos, (ne * k,), torch.int32, f"{name}: plan.pos")
     _cuda.check(plan.off, (plan.nchunks * kf + 1,), torch.int32,
-                "lin_auto: plan.off")
-    fn, lp = _entry(spec, loss)
+                f"{name}: plan.off")
     lp_host = (ctypes.c_float * len(lp))(*lp) if lp else _NO_LOSS
     dev = xf.device
     out = {
@@ -343,13 +340,28 @@ def lin_auto(spec: LinAutoSpec, xf, xe, cam, mask, dat, se_in, first: bool,
     # scratch: the sorted F-side rows [nvalid, nq], then the chunk
     # partials [nchunks, kf * nq]
     nq = tf * (tf + 1) // 2 + tf
-    q = torch.empty(plan.nvalid * nq + plan.nchunks * kf * nq, dtype=f32,
-                    device=dev).data_ptr()
-    _cuda.call(fn, "ceres_lin_auto", xf, xe, cam, mask, dat, lp_host,
-               len(lp), se_in, int(bool(first)), int(bool(use_scaling)), ne,
-               k, kf, pb, plan.pos, plan.off, plan.nchunks, out["ete"],
-               out["ge"], out["se"], out["A"], q, q + 4 * plan.nvalid * nq,
-               out["ftf"], out["gf"])
+    scratch = torch.empty((plan.nvalid + plan.nchunks * kf) * nq, dtype=f32,
+                          device=dev)
+    q = scratch.data_ptr()
+    launch(xf, xe, cam, mask, dat, lp_host, len(lp), se_in,
+           int(bool(first)), int(bool(use_scaling)), ne, k, kf, pb, plan.pos,
+           plan.off, plan.nchunks, out["ete"], out["ge"], out["se"],
+           out["A"], q, q + 4 * plan.nvalid * nq, out["ftf"], out["gf"])
+    return out
+
+
+def lin_auto(spec: LinAutoSpec, xf, xe, cam, mask, dat, se_in, first: bool,
+             use_scaling: bool = True, loss=None,
+             plan: Optional[CameraPlan] = None):
+    """K5: see the module docstring for the contract. `plan` is
+    camera_plan(cam, mask, kf), made here when not given."""
+    if not xf.is_cuda:
+        return lin_auto_plain(spec, xf, xe, cam, mask, dat, se_in, first,
+                              use_scaling, loss)
+    fn, lp = _entry(spec, loss)
+    out = lane_launch(lambda *a: _cuda.call(fn, "ceres_lin_auto", *a),
+                      "lin_auto", spec.te, spec.tf, spec.auto.p_dat, xf, xe,
+                      cam, mask, dat, lp, se_in, first, use_scaling, plan)
     lin_auto.launches += 1
     return out
 

@@ -21,12 +21,19 @@ Registered, the pose graphs as in the JAX package:
     JAX package runs this bucket through its auto spec; here the spec is
     written by hand (K1's jet chain, csrc/snavely.cuh).
 
-The hand specs run one kernel (csrc/linearize.cu). Any other bucket gets
-an auto spec (pallas_linearize.py _spec_for :271-302): the per-row
-program that ops/jet_compile.py traces (`make_auto_spec`), emitted as a
-row chain (`row_chain_source`) into a generated unit around
-csrc/linearize_auto.cuh, built at first use by `_cuda.build_generated`
-(tag "linearize_auto", one build per traced program).
+Both kinds run one row kernel, csrc/linearize_auto.cuh's `row_kernel`:
+a persistent grid that copies tiles of rows into shared memory by
+cp.async while the previous tile's rows run their jet chains, a thread a
+row, and streams the outputs out with 16-byte stores. The hand specs'
+chains are written in csrc/linearize.cu (Pose3dRow, Pose2dRow,
+SnavelyRow, 128 rows a tile, behind the entry point ceres_linearize and
+its spec ids, `Spec.kernel_id`) and built with the kernel library. Any
+other bucket gets an auto spec (pallas_linearize.py _spec_for
+:271-302): the per-row program that ops/jet_compile.py traces
+(`make_auto_spec`), emitted as a row chain (`row_chain_source`) into a
+generated unit around csrc/linearize_auto.cuh, built at first use by
+`_cuda.build_generated` (tag "linearize_auto", one build per traced
+program, its tile from `auto_tile`).
 
 `linearize_spec(program, bk)` is the gate, decided once at build: the
 hand spec of a bucket whose functor is of a registered class, whose
@@ -232,19 +239,20 @@ MIN_AUTO_ROWS, MIN_AUTO_TANGENT = 64, 6
 # thread at most, beside the chain's temporaries); past this the build
 # refuses and the gate never picks the auto spec
 MAX_AUTO_OUTPUTS = 128
-# its row tiles live in static shared memory
-_AUTO_TILES, _STATIC_SMEM = (128, 64, 32), 48 * 1024
+# the larger of a row tile's inputs and outputs is held to 48 KB (the
+# kernel's two input tiles and one output tile then to 144 KB)
+_AUTO_TILES, _TILE_BYTES = (128, 64, 32), 48 * 1024
 
 
 def auto_tile(r: int, nt: int, p_in: int, p_dat: int) -> Optional[int]:
     """Rows a block of csrc/linearize_auto.cuh: the largest of 128, 64
-    and 32 whose tile fits static shared memory, the inputs (P_IN and
-    P_DAT floats a row) and then the outputs (R and R * NT) in one buffer
-    at odd row strides; None when 32 rows do not fit."""
+    and 32 at which the larger of a tile's inputs (P_IN and P_DAT floats
+    a row) and its outputs (R and R * NT), at odd row strides, fits 48 KB;
+    None when 32 rows do not fit."""
     inp = (p_in | 1) + ((p_dat | 1) if p_dat > 0 else 0)
     out = (r | 1) + ((r * nt) | 1)
     row_bytes = 4 * max(inp, out)
-    return next((t for t in _AUTO_TILES if t * row_bytes <= _STATIC_SMEM),
+    return next((t for t in _AUTO_TILES if t * row_bytes <= _TILE_BYTES),
                 None)
 
 
@@ -333,8 +341,7 @@ def build_auto(spec: AutoSpec):
     if auto_tile(spec.r, spec.nt, sum(spec.slot_sizes), spec.p_dat) is None:
         raise ValueError(
             f"bucket_linearize_auto: a 32-row tile of {spec.name} passes "
-            f"the {_STATIC_SMEM} B of static shared memory of "
-            "csrc/linearize_auto.cuh")
+            f"the {_TILE_BYTES} B that auto_tile holds a row tile to")
     key = (spec.digest, spec.slot_sizes, spec.data_widths)
     if key not in _AUTO_ENTRIES:
         lib = _cuda.build_generated("linearize_auto", generated_unit(spec))

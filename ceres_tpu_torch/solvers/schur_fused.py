@@ -563,19 +563,15 @@ class FusedSchurStep(SchurStep):
         self.mask = torch.as_tensor(np.ascontiguousarray(cmask, np.float32),
                                     device=dev)
         if is_snavely_bucket(bk):
-            self.k5 = None
-            obs_x = bk.data["observed_x"].cpu().numpy()
-            obs_y = bk.data["observed_y"].cpu().numpy()
-
-            def chunk(a, dtype):
-                return torch.as_tensor(
-                    np.ascontiguousarray(a[rows] * cmask).astype(dtype),
-                    device=dev)
-
             # K1 inputs, chunk layout (masked lanes: camera 0, obs 0)
-            self.cam = chunk(local, np.int32)
-            self.obsx = chunk(obs_x.astype(np.float32), np.float32)
-            self.obsy = chunk(obs_y.astype(np.float32), np.float32)
+            self.k5 = None
+            obs = np.stack([bk.data[f].cpu().numpy().astype(np.float32)
+                            for f in ("observed_x", "observed_y")], axis=1)
+            self.cam = torch.as_tensor(
+                np.ascontiguousarray(local[rows] * cmask).astype(np.int32),
+                device=dev)
+            self.dat = torch.as_tensor(np.ascontiguousarray(
+                obs[rows] * cmask[..., None]).astype(np.float32), device=dev)
         else:
             # K5 inputs, chunk layout; a masked lane carries its point's
             # first valid lane's camera and data (ops/lin_auto.py)
@@ -587,8 +583,8 @@ class FusedSchurStep(SchurStep):
             self.cam = torch.as_tensor(local.astype(np.int32),
                                        device=dev)[safe].contiguous()
             self.dat = auto.data_matrix(bk)[safe].contiguous()
-            # the camera-sorted rows of K5's camera-side sums
-            self.k5_plan = k5.camera_plan(self.cam, self.mask, self.kf)
+        # the camera-sorted rows of K1's or K5's camera-side sums
+        self.plan = k5.camera_plan(self.cam, self.mask, self.kf)
         self.mode = ("explicit reduced camera matrix, linearize "
                      + ("K1" if self.k5 is None else "K5"))
         # a direct solve is one linear iteration (kept on the device)
@@ -603,12 +599,12 @@ class FusedSchurStep(SchurStep):
         xe = x[self.e_slab:self.e_slab + ne * te].view(ne, te).float()
         xf = x[self.f_slab:self.f_slab + nf].float()
         if self.k5 is None:
-            out = lin(xf, xe, self.cam, self.mask, self.obsx, self.obsy,
-                      s_e.contiguous(), first, self.use_scaling, self.loss)
+            out = lin(xf, xe, self.cam, self.mask, self.dat, s_e.contiguous(),
+                      first, self.use_scaling, self.loss, self.plan)
         else:
             out = k5.lin_auto(self.k5, xf, xe, self.cam, self.mask,
                               self.dat, s_e.contiguous(), first,
-                              self.use_scaling, self.loss, self.k5_plan)
+                              self.use_scaling, self.loss, self.plan)
         ete, ge, se = out["ete"], out["ge"], out["se"]
         FtF, g_f = out["ftf"], out["gf"]
         cn_f = torch.diagonal(FtF, dim1=-2, dim2=-1)

@@ -543,10 +543,17 @@ def main():
     xe = x0[step.e_slab:step.e_slab + 3 * ne].view(ne, 3).float()
     xf = x0[step.f_slab:step.f_slab + nf].float()
     se0, sf0 = step.initial_scales()
-    lin_first = (xf, xe, step.cam, step.mask, step.obsx, step.obsy, se0,
-                 True)
-    se1 = lin(*lin_first)["se"]
-    lin_carry = lin_first[:6] + (se1, False)
+
+    def k1(args):        # K1 with the step's camera plan, as the step calls it
+        return lambda: lin(*args, plan=step.plan)
+
+    def k1_plain(args):  # lin_plain takes the observations apart
+        return lambda: lin_plain(*args[:4], args[4][..., 0], args[4][..., 1],
+                                 *args[5:])
+
+    lin_first = (xf, xe, step.cam, step.mask, step.dat, se0, True)
+    se1 = k1(lin_first)()["se"]
+    lin_carry = lin_first[:5] + (se1, False)
     # K1 operations counted: the Gram, cross and gradient products per
     # observation (E^T E 36, g_e 12, A 108, F^T F 324, g_f 36); the
     # residual and Jacobian arithmetic is left out, so this is a floor
@@ -567,13 +574,12 @@ def main():
 
     kernels = []
     kernels.append(check_kernel(
-        "K1 lin", lambda: lin(*lin_first), lambda: lin_plain(
-            *lin_first), cmp_lin, F32_LIMIT,
+        "K1 lin", k1(lin_first), k1_plain(lin_first), cmp_lin, F32_LIMIT,
         "ceres_tpu_torch/csrc/lin.cu", "ceres_tpu/ops/pallas_lin.py:66",
         lin_first, lin_flops, F32_FLOP_PER_S))
     check_kernel(      # the carried-scale branch of the same kernel
-        "K1 lin (carried scale)", lambda: lin(*lin_carry),
-        lambda: lin_plain(*lin_carry), cmp_lin, F32_LIMIT,
+        "K1 lin (carried scale)", k1(lin_carry), k1_plain(lin_carry),
+        cmp_lin, F32_LIMIT,
         "ceres_tpu_torch/csrc/lin.cu", "ceres_tpu/ops/pallas_lin.py:66",
         lin_carry, lin_flops, F32_FLOP_PER_S)
 
@@ -900,7 +906,7 @@ def main():
                              + q_tf * (q_tf + 1) // 2 + q_tf)
         rec = check_kernel(
             "K5 lin_auto" + ("" if loss is None else " (HuberLoss(1.0))"),
-            lambda: k5.lin_auto(*k5_args, plan=q_step.k5_plan),
+            lambda: k5.lin_auto(*k5_args, plan=q_step.plan),
             lambda: k5.lin_auto_plain(*k5_args), cmp_lin, F32_LIMIT,
             "ceres_tpu_torch/csrc/lin_auto.cuh",
             "ceres_tpu/ops/pallas_lin.py:272", k5_args[1:7],

@@ -4,7 +4,7 @@
     python3 scripts/profile_torch_solve.py
         [--paths dense,iterative,pose3d,pose2d,implicit,quat-dense,
                  quat-iterative,quat-huber,quat-implicit] [--trace-dir DIR]
-        [--compare-gram] [--tree DIR] [--repeat N]
+        [--compare-gram] [--tree DIR] [--repeat N] [--walls-only]
 
 Builds chip_smoke.py's problems (BAL-16-22106 shape, generator seed 7,
 PERTURB seed 8; the pose graphs of POSE_GRAPHS; the large-BA case of
@@ -34,6 +34,10 @@ to DIR/profile_<path>.json when --trace-dir is given. Needs a CUDA
 device. The SE3 path records ~1.5M device kernels; its trace takes a
 minute or two to collect.
 
+--walls-only profiles nothing: per path it prints the walls of the N
+timed solves, their LM and CG iterations and final cost, one JSON line a
+path (the SE3 trace takes minutes to collect; its walls do not).
+
 --compare-gram profiles nothing: for each path it solves once as a
 warm-up on each route of block Jacobi's per-row Gram blocks, then times
 the solve in the order K9, einsum, einsum, K9 (K9 is
@@ -54,13 +58,21 @@ from collections import defaultdict
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
-# device kernel name -> the ported kernel it belongs to; the kernels of
-# elim.cu (scorr_kernel, scorr_reduce_kernel; in earlier checkouts
-# elim_point_kernel, scorr_partial_kernel, rhs_partial_kernel and
-# reduce_splits_kernel) serve K2 (DENSE_SCHUR) and K6 (ITERATIVE_SCHUR);
-# K3 is chol_solve_shared_kernel or, past m = 223, chol_solve_kernel
+# device kernel name -> the ported kernel it belongs to (first match);
+# the kernels of elim.cu (scorr_kernel, scorr_reduce_kernel; in earlier
+# checkouts elim_point_kernel, scorr_partial_kernel, rhs_partial_kernel
+# and reduce_splits_kernel) serve K2 (DENSE_SCHUR) and K6
+# (ITERATIVE_SCHUR); K3 is chol_solve_shared_kernel or, past m = 223,
+# chol_solve_kernel; lin_auto.cuh's kernels serve K1 on the angle-axis
+# paths and K5 on the quaternion ones (csrc/lin.cu instantiates them with
+# its Snavely chain; in earlier checkouts K1 was lin_point_kernel and two
+# ftf kernels of its own); linearize_auto.cuh's row kernel serves K11's
+# hand specs (Pose3dRow, Pose2dRow, SnavelyRow: csrc/linearize.cu; in
+# earlier checkouts linearize_*_kernel) and its auto specs
 KERNEL_OF = {
-    "lin_auto::": "K5", "lin_point_kernel": "K1", "ftf_partial_kernel": "K1",
+    "Pose3dRow": "K11", "Pose2dRow": "K11", "SnavelyRow": "K11",
+    "lin_auto::": "K1/K5", "lin_point_kernel": "K1",
+    "ftf_partial_kernel": "K1",
     "ftf_final_kernel": "K1", "scorr_": "K2/K6", "elim_point_kernel": "K2/K6",
     "rhs_partial_kernel": "K2/K6", "reduce_splits_kernel": "K2/K6",
     "chol_solve_shared_kernel": "K3", "chol_solve_kernel": "K3",
@@ -86,6 +98,8 @@ def owner(name, path):
         if key in name:
             if k == "K2/K6":
                 return "K6" if "iterative" in path else "K2"
+            if k == "K1/K5":
+                return "K5" if path.startswith("quat") else "K1"
             return k
     for key, kind in GLUE_OF:
         if key in name:
@@ -115,6 +129,7 @@ def main():
     ap.add_argument("--compare-gram", action="store_true")
     ap.add_argument("--tree", default=ROOT)
     ap.add_argument("--repeat", type=int, default=1)
+    ap.add_argument("--walls-only", action="store_true")
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -215,6 +230,13 @@ def main():
             summary, wall = solve()
             walls.append(wall)
         wall = min(walls)
+        if args.walls_only:
+            print(json.dumps({
+                "path": path, "wall_s": wall, "walls_s": walls,
+                "lm_iterations": summary.num_iterations,
+                "linear_iterations": summary.num_linear_solver_iterations,
+                "final_cost": summary.final_cost}), flush=True)
+            continue
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             _, wall_prof = solve()

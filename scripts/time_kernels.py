@@ -1,10 +1,10 @@
 #!/usr/bin/env python3
-"""K2, K3, K5, K6, K8, K10 and K11's auto spec of one checkout of
-ceres_tpu_torch on the card, at the main paths' shapes, with seeded
-inputs.
+"""K1, K2, K3, K5, K6, K8, K10 and K11 (hand and auto specs) of one
+checkout of ceres_tpu_torch on the card, at the main paths' shapes, with
+seeded inputs.
 
     python3 scripts/time_kernels.py [--tree DIR]
-        [--only K3 K2 K8 K10 K5 K11auto] [--dump DIR]
+        [--only K1 K11hand K3 K2 K8 K10 K5 K11auto] [--dump DIR]
     python3 scripts/time_kernels.py --compare DIR DIR
 
 Imports ceres_tpu_torch from DIR (default: this checkout), so that one
@@ -12,6 +12,18 @@ script times two checkouts alike: run it on each in turns (parent,
 change, change, parent) in one call on one card. Inputs are made on the
 card from fixed seeds, so both checkouts see the same bits:
 
+- K1 (ops/lin.py lin) on the DENSE_SCHUR path's first linearization
+  of BAL-16-22106 (chip_smoke.py's SHAPE and PERTURB, seeds 7 and 8:
+  ne 22,106 points, 16 cameras, nf 144), built by the checkout as the
+  step builds it, with the scale derived (first) and carried (the first
+  call's), through the step's camera plan and lane data where the
+  checkout's wrapper takes them.
+- K11's hand specs (ops/linearize.py bucket_linearize): Snavely on the
+  large case's bucket at its start (chip_smoke.py IMPLICIT_SHAPE: 1M
+  rows, R 2, NT 12, P_IN 12, P_DAT 2; xin and dat made with numpy from
+  the seeded BALProblem in the bucket's row order), SE3 and SE2 on the
+  main buckets of chip_smoke.py's POSE_GRAPHS at their start (2,396 and
+  1,063 rows), built by the checkout.
 - K3 (ops/kernels.py chol_solve) at the reduced camera systems of
   BAL-16-22106: m 144 (angle-axis cameras) and 160 (quaternion cameras),
   S = B B^T + m I; and on the DENSE_SCHUR path's own first reduced
@@ -49,13 +61,15 @@ For each it prints the card's name and power limit, then one JSON line:
 the largest difference from the plain version (K3 and K10 must give the
 same bits), the median of 20 single calls and the mean of 100
 back-to-back calls by CUDA events (ms), and the device time per call by
-torch.profiler (us: K2, K3, K5 and K6 every kernel a call launches, K8,
-K10 and K11 their own kernel); for K5 and K11 also the host time of a
-call in a loop without synchronising (us), and the registers, spills
-and shared memory of each kernel of the generated unit (cuobjdump
--res-usage of its library). --dump DIR saves the K5 and K11 outputs
-(torch.save) under DIR; --compare DIR DIR prints, per output, whether
-two dumps hold the same bits. Needs a CUDA device (not --compare).
+torch.profiler (us: K1, K2, K3, K5, K6 and K11's hand specs every kernel
+a call launches, K8, K10 and K11 auto their own kernel); for K1, K5 and
+K11 also the host time of a call in a loop without synchronising (us),
+and the registers, spills and shared memory (cuobjdump -res-usage) of
+each kernel of the generated units and of K1's and K11's kernels in the
+checkout's library. --dump DIR saves the outputs of K1 (its six, first
+and carried), K5 and K11 (r and J of each spec) (torch.save) under DIR;
+--compare DIR DIR prints, per output, whether two dumps hold the same
+bits. Needs a CUDA device (not --compare).
 """
 
 import argparse
@@ -136,30 +150,35 @@ def device_us(fn, match=None, calls=100):
     return sum(t for k, t in by_kernel.items() if match is None or match in k)
 
 
-def solve_system(tree):
-    """(S, rhs) of the DENSE_SCHUR path's first reduced camera system on
-    BAL-16-22106 (chip_smoke.py's SHAPE and PERTURB, seeds 7 and 8, at
-    the initial radius 1e4; m 144), built by the checkout at `tree`."""
-    import torch
+def dense_step():
+    """(program, FusedSchurStep) of the DENSE_SCHUR path on BAL-16-22106
+    (chip_smoke.py's SHAPE and PERTURB, seeds 7 and 8), built by the
+    imported checkout."""
     import ceres_tpu_torch as ctt
     from ceres_tpu_torch.io.bal import (build_bal_ceres_problem,
                                         synthetic_bal_problem)
     from ceres_tpu_torch.program import CompiledProgram
     from ceres_tpu_torch.solvers.schur import detect_schur_structure
     from ceres_tpu_torch.solvers.schur_fused import FusedSchurStep
-    bal = synthetic_bal_problem(num_cameras=16, num_points=22106,
-                                num_observations=83718, seed=7,
-                                pixel_noise=1.0)
-    bal.perturb(rotation_sigma=0.1, translation_sigma=1.0, point_sigma=0.5,
-                seed=8)
+    from chip_smoke import PERTURB, SHAPE
+    bal = synthetic_bal_problem(**SHAPE, seed=7, pixel_noise=1.0)
+    bal.perturb(**PERTURB, seed=8)
     problem, _, _ = build_bal_ceres_problem(bal)
     options = ctt.SolverOptions(
         linear_solver_type=ctt.LinearSolverType.DENSE_SCHUR,
         use_mixed_precision_solves=True, fused_iterations=True,
         device="cuda")
     program = CompiledProgram.get_cached(problem, options)
-    step = FusedSchurStep(program, options,
-                          detect_schur_structure(program, options))
+    return program, FusedSchurStep(program, options,
+                                   detect_schur_structure(program, options))
+
+
+def solve_system():
+    """(S, rhs) of the DENSE_SCHUR path's first reduced camera system on
+    BAL-16-22106 at the initial radius 1e4 (m 144), built by the imported
+    checkout."""
+    import torch
+    program, step = dense_step()
     x0 = program.initial_state()
     se0, sf0 = step.initial_scales()
     art = step.linearize(x0, se0, sf0, True)
@@ -232,18 +251,16 @@ def quaternion_k11(program):
                             device="cuda"))
 
 
-def time_k5_k11(dump, with_k5=True, with_k11=True):
-    """The K5 and K11 auto-spec lines (see the module docstring): every
-    kernel's clocks first, then each under the profiler (a profiler
-    session leaves the launch path slower)."""
-    import torch
+def k5_k11auto_runs(with_k5=True, with_k11=True):
+    """The runs (see `measure`) of K5 (no loss, Huber) and K11's auto
+    spec."""
     import ceres_tpu_torch as ctt
     from ceres_tpu_torch.ops import lin_auto as k5
     from ceres_tpu_torch.ops import linearize as k11
     spec, args, plan, program = quaternion_k5()
     takes_plan = "plan" in inspect.signature(k5.lin_auto).parameters
     extra = {"plan": plan} if takes_plan else {}
-    runs = []                     # (line, kernel, plain, counter, match)
+    runs = []
     for loss_name, loss in ((("none", None), ("huber", ctt.HuberLoss(1.0)))
                             if with_k5 else ()):
         runs.append(({"kernel": "K5 lin_auto", "loss": loss_name,
@@ -254,7 +271,7 @@ def time_k5_k11(dump, with_k5=True, with_k11=True):
                                                    **extra),
                      lambda loss=loss: k5.lin_auto_plain(*args, True, True,
                                                          loss),
-                     k5.lin_auto, None))
+                     k5.lin_auto, None, f"K5 {loss_name}"))
     if with_k11:
         spec11, xin, dat = quaternion_k11(program)
         runs.append(({"kernel": "K11 bucket_linearize (auto)",
@@ -263,16 +280,115 @@ def time_k5_k11(dump, with_k5=True, with_k11=True):
                      lambda: k11.bucket_linearize_auto(spec11, xin, dat),
                      lambda: k11.bucket_linearize_auto_plain(spec11, xin,
                                                              dat),
-                     k11.bucket_linearize_auto, "linearize_auto"))
+                     k11.bucket_linearize_auto, "linearize_auto",
+                     "K11 auto"))
+    return runs
+
+
+def k1_runs():
+    """The runs of K1 on the DENSE path's first linearization, the scale
+    derived and then carried (the derived one)."""
+    from ceres_tpu_torch.ops import lin
+    program, step = dense_step()
+    x0 = program.initial_state()
+    ne, nf = step.ne, step.nf
+    xf = x0[step.f_slab:step.f_slab + nf].float()
+    xe = x0[step.e_slab:step.e_slab + 3 * ne].view(ne, 3).float()
+    se0, _ = step.initial_scales()
+    new = "plan" in inspect.signature(lin.lin).parameters
+    if new:                     # lane data [ne, k, 2] and the step's plan
+        obsx, obsy = step.dat[..., 0], step.dat[..., 1]
+
+        def call(se, first):
+            return lin.lin(xf, xe, step.cam, step.mask, step.dat, se, first,
+                           True, plan=step.plan)
+    else:
+        obsx, obsy = step.obsx, step.obsy
+
+        def call(se, first):
+            return lin.lin(xf, xe, step.cam, step.mask, obsx, obsy, se, first)
+    se1 = call(se0, True)["se"].clone()
+    runs = []
+    for name, se, first in (("first", se0, True), ("carried", se1, False)):
+        runs.append(({"kernel": "K1 lin", "scale": name,
+                      "shape": [ne, step.cam.shape[1], step.kf, nf],
+                      "lane_data_and_plan": new},
+                     lambda se=se, first=first: call(se, first),
+                     lambda se=se, first=first: lin.lin_plain(
+                         xf, xe, step.cam, step.mask, obsx, obsy, se, first),
+                     lin.lin, None, f"K1 {name}"))
+    return runs
+
+
+def k11_hand_cases():
+    """(name, Spec, xin, dat) of K11's hand specs: Snavely on the large
+    case's bucket, SE3 and SE2 on the pose graphs' main buckets, at their
+    start."""
+    import numpy as np
+    import torch
+    import ceres_tpu_torch as ctt
+    from ceres_tpu_torch.examples import slam
+    from ceres_tpu_torch.examples.snavely import SnavelyReprojectionError
+    from ceres_tpu_torch.io import g2o
+    from ceres_tpu_torch.io.bal import synthetic_bal_problem
+    from ceres_tpu_torch.ops import linearize as k11
+    from ceres_tpu_torch.program import CompiledProgram
+    from chip_smoke import IMPLICIT_PERTURB, IMPLICIT_SHAPE, POSE_GRAPHS
+    cases = []
+    bal = synthetic_bal_problem(**IMPLICIT_SHAPE, seed=7, pixel_noise=1.0)
+    bal.perturb(**IMPLICIT_PERTURB, seed=8)
+    xin = np.concatenate([bal.cameras[bal.camera_index],
+                          bal.points[bal.point_index]], axis=1)
+    cases.append(("Snavely", k11.SPECS[SnavelyReprojectionError],
+                  torch.as_tensor(xin.astype(np.float32), device="cuda"),
+                  torch.as_tensor(bal.observations.astype(np.float32),
+                                  device="cuda")))
+    for key in ("3d", "2d"):
+        cfg = POSE_GRAPHS[key]
+        poses, constraints = getattr(g2o, cfg["generator"])(
+            **cfg["args"])[:2]
+        problem = getattr(slam, cfg["build"])(poses, constraints)[0]
+        program = CompiledProgram.get_cached(problem, ctt.SolverOptions(
+            linear_solver_type=ctt.LinearSolverType.CGNR,
+            use_mixed_precision_solves=True, fused_iterations=True,
+            device="cuda"))
+        bk = next(b for b in program.buckets if b.spec is not None)
+        xin = torch.cat([p.float() for p in program._bucket_params(
+            bk, program.initial_state())], dim=1).contiguous()
+        cases.append(("SE" + key[0], bk.spec, xin, bk.dat32))
+    return cases
+
+
+def k11_hand_runs():
+    """The runs of K11's hand specs (k11_hand_cases)."""
+    from ceres_tpu_torch.ops import linearize as k11
+    return [({"kernel": "K11 bucket_linearize (hand)", "spec": name,
+              "shape": [xin.shape[0], spec.r, spec.nt, xin.shape[1],
+                        dat.shape[1]]},
+             lambda spec=spec, xin=xin, dat=dat: k11.bucket_linearize(
+                 spec, xin, dat),
+             lambda spec=spec, xin=xin, dat=dat: k11.bucket_linearize_plain(
+                 spec, xin, dat),
+             k11.bucket_linearize, None, f"K11 {name}")
+            for name, spec, xin, dat in k11_hand_cases()]
+
+
+def measure(runs, dump):
+    """Each run is (JSON line, call, plain version, wrapper whose
+    `launches` counts, kernel-name filter of the device time or None for
+    every kernel of a call, dump prefix): the error against the plain
+    version, every call's clocks first, then each under the profiler (a
+    profiler session leaves the launch path slower); prints one line a
+    run and saves the outputs under `dump` when given."""
+    import torch
     dumped = {}
-    for line, fn, plain, counter, _ in runs:
+    for line, fn, plain, counter, _, prefix in runs:
         got, want = fn(), plain()
         if isinstance(got, tuple):
             got, want = dict(zip("rJ", got)), dict(zip("rJ", want))
         counter.launches = 0
         fn()
-        name = line["kernel"].split()[0] + " " + line.get("loss", "auto")
-        dumped.update({f"{name} {k}": v.cpu() for k, v in got.items()})
+        dumped.update({f"{prefix} {k}": v.cpu() for k, v in got.items()})
         line.update({
             "launches_a_call": counter.launches,
             "max_rel_err": max(float(torch.max(torch.abs(got[k] - want[k]))
@@ -281,7 +397,7 @@ def time_k5_k11(dump, with_k5=True, with_k11=True):
             "ms": events_ms(fn), "loop_ms": events_ms(fn, 100, 5),
             "host_us": host_us(fn), "plain_ms": events_ms(plain)})
         del got, want
-    for line, fn, _, _, match in runs:
+    for line, fn, _, _, match, _ in runs:
         by_kernel = kernel_us(fn)
         line["device_us"] = sum(t for k, t in by_kernel.items()
                                 if match is None or match in k)
@@ -289,10 +405,25 @@ def time_k5_k11(dump, with_k5=True, with_k11=True):
             line["device_us_by_kernel"] = {short_name(k): t
                                            for k, t in by_kernel.items()}
         print(json.dumps(line), flush=True)
-    print(json.dumps({"generated_units": generated_usage()}), flush=True)
     if dump:
         os.makedirs(dump, exist_ok=True)
         torch.save(dumped, os.path.join(dump, "kernel_outputs.pt"))
+
+
+# K1's and K11's hand kernels in the library (this tree's names and the
+# parent's: lin_point_kernel, linearize_*_kernel)
+_LIBRARY_KERNELS = ("SnavelyK1Chain", "Pose3dRow", "Pose2dRow", "SnavelyRow",
+                    "lin_point_kernel", "ftf_partial_kernel",
+                    "ftf_final_kernel", "linearize_pose3d_kernel",
+                    "linearize_pose2d_kernel", "linearize_snavely_kernel")
+
+
+def library_usage():
+    """{kernel: resources} of K1's and K11's hand kernels in the imported
+    checkout's kernel library (ops/_cuda.py build)."""
+    from ceres_tpu_torch.ops import _cuda
+    return {k: v for k, v in res_usage(str(_cuda.build())).items()
+            if any(name in k for name in _LIBRARY_KERNELS)}
 
 
 def generated_usage():
@@ -334,10 +465,11 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--tree", default=ROOT)
     ap.add_argument("--only", nargs="*",
-                    choices=("K3", "K2", "K8", "K10", "K5", "K11auto"),
+                    choices=("K1", "K11hand", "K3", "K2", "K8", "K10", "K5",
+                             "K11auto"),
                     help="time only these (K2 stands for K2 and K6)")
     ap.add_argument("--dump", default=None,
-                    help="save the K5 and K11 auto-spec outputs here")
+                    help="save the K1, K5 and K11 outputs here")
     ap.add_argument("--compare", nargs=2, default=None,
                     help="compare the bits of two --dump directories")
     args = ap.parse_args()
@@ -359,8 +491,19 @@ def main():
     print(f"tree {os.path.abspath(args.tree)}; torch {torch.__version__}",
           flush=True)
     gen = torch.Generator(device="cuda")
+    runs = []
+    if want("K1"):
+        runs += k1_runs()
+    if want("K11hand"):
+        runs += k11_hand_runs()
     if want("K5") or want("K11auto"):
-        time_k5_k11(args.dump, want("K5"), want("K11auto"))
+        runs += k5_k11auto_runs(want("K5"), want("K11auto"))
+    if runs:
+        measure(runs, args.dump)
+    if want("K1") or want("K11hand"):
+        print(json.dumps({"library": library_usage()}), flush=True)
+    if want("K5") or want("K11auto"):
+        print(json.dumps({"generated_units": generated_usage()}), flush=True)
 
     # K3 at the reduced camera systems, beside torch.linalg.solve
     systems = []
@@ -370,7 +513,7 @@ def main():
             B = torch.randn(m, m + 4, device="cuda", generator=gen)
             systems.append(("seeded", B @ B.T + m * torch.eye(m, device="cuda"),
                             torch.randn(m, device="cuda", generator=gen)))
-        systems.append(("solve",) + solve_system(args.tree))
+        systems.append(("solve",) + solve_system())
     for source, S, b in systems:
         def k3():
             return kernels.chol_solve(S, b)

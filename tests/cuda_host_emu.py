@@ -15,11 +15,14 @@ card's bits.
 `inputs` maps file names to numpy arrays (written raw); `body` is the C++
 of main() between reading them (`float* NAME` / `int* NAME` pointers,
 16-byte aligned) and writing the `outputs` (name -> (dtype, count)).
+A source that includes other headers of csrc (csrc/lin.cu,
+csrc/linearize.cu) goes in as `source(path)`, its includes inlined.
 """
 
 import re
 import shutil
 import subprocess
+from pathlib import Path
 
 import numpy as np
 
@@ -55,11 +58,29 @@ static inline float rsqrtf(float x) { return 1.0f / sqrtf(x); }
 template <class T>
 inline void __stcs(T* p, T v) { *p = v; }
 typedef void* cudaStream_t;
-enum cudaError_t { cudaSuccess = 0, cudaErrorInvalidValue = 1 };
+enum cudaError_t {
+  cudaSuccess = 0,
+  cudaErrorInvalidValue = 1,
+  cudaErrorInvalidConfiguration = 9
+};
 enum cudaFuncAttribute { cudaFuncAttributeMaxDynamicSharedMemorySize = 8 };
+enum cudaDeviceAttr { cudaDevAttrMultiProcessorCount = 16 };
 inline cudaError_t cudaGetLastError() { return cudaSuccess; }
 template <class F>
 inline cudaError_t cudaFuncSetAttribute(F, cudaFuncAttribute, int) {
+  return cudaSuccess;
+}
+inline cudaError_t cudaGetDevice(int* d) { *d = 0; return cudaSuccess; }
+// an emulated card of 2 SMs, each holding one block: a persistent grid
+// of 2 blocks, so that blocks take several tiles
+inline cudaError_t cudaDeviceGetAttribute(int* v, cudaDeviceAttr, int) {
+  *v = 2;
+  return cudaSuccess;
+}
+template <class F>
+inline cudaError_t cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+    int* n, F, int, size_t) {
+  *n = 1;
   return cudaSuccess;
 }
 alignas(16) float emu_smem[1 << 16];
@@ -118,6 +139,24 @@ def host_header(text: str) -> str:
     text = text.replace("#include <cuda_runtime.h>", "")
     return _LAUNCH.sub(lambda m: f"emu_launch({m.group(1)}, "
                        f"{' '.join(m.group(2).split())}, ", text)
+
+
+_INCLUDE = re.compile(r'^#include "([\w.]+)"\s*$', re.M)
+
+
+def source(path, seen=None) -> str:
+    """The text of a csrc file with its `#include "..."` of files beside
+    it inlined, each once (as #pragma once would)."""
+    path = Path(path)
+    seen = set() if seen is None else seen
+
+    def inline(m):
+        dep = path.parent / m.group(1)
+        if dep in seen:
+            return ""
+        seen.add(dep)
+        return source(dep, seen)
+    return _INCLUDE.sub(inline, path.read_text())
 
 
 def gxx():

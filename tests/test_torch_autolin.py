@@ -152,8 +152,8 @@ def test_k5_plain_matches_k1_plain_on_snavely(loss):
     se = torch.ones(ne, 3)
     a = k5.lin_auto_plain(spec, xf, xe, cam, step.mask, dat, se, True,
                           True, loss)
-    b = lin_plain(xf, xe, step.cam, step.mask, step.obsx, step.obsy, se,
-                  True, loss=loss)
+    b = lin_plain(xf, xe, step.cam, step.mask, step.dat[..., 0],
+                  step.dat[..., 1], se, True, loss=loss)
     assert set(a) == set(b)
     for key in b:
         assert rel(a[key], b[key]) <= TOL, key

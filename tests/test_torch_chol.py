@@ -142,8 +142,10 @@ def test_cuda_kernels_match_plain_versions():
     xe = x[step.e_slab:step.e_slab + 3 * ne].view(ne, 3).float()
     xf = x[step.f_slab:step.f_slab + nf].float()
     se0, sf0 = step.initial_scales()
-    args = (xf, xe, step.cam, step.mask, step.obsx, step.obsy, se0, True)
-    got, want = lin(*args), lin_plain(*args)
+    got = lin(xf, xe, step.cam, step.mask, step.dat, se0, True,
+              plan=step.plan)
+    want = lin_plain(xf, xe, step.cam, step.mask, step.dat[..., 0],
+                     step.dat[..., 1], se0, True)
     for k in want:
         assert rel(got[k].cpu(), want[k].cpu()) <= 1e-5, k
     art = step.linearize(x, se0, sf0, True)

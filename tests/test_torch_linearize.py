@@ -6,19 +6,27 @@ Snavely bucket of a small BA problem (the JAX kernel with its jet
 compiler's auto spec), at the start and at a perturbed state; the gauge
 bucket (constant slots, no hand spec) through the port's jacfwd path
 against the JAX jacfwd path; the Snavely spec's plain version against
-the port's jacfwd path; and, on a card, the CUDA kernel against the
-plain version at odd row counts.
+the port's jacfwd path; and the CUDA source (csrc/linearize.cu: three
+hand RowChains through csrc/linearize_auto.cuh's row kernel) against the
+plain version at row counts around the 128-row tile and with xin off
+16-byte alignment, on the host under tests/cuda_host_emu.py's g++ shim
+and, marked `cuda`, on the card (there also at the main paths' row
+counts).
 
 Tolerances are test_pallas_linearize.py's: 2e-5 (r) and 2e-4 (J),
 relative and absolute, f32 on both sides with another operation order.
 Snavely's residuals are projections minus observations, which cancel,
-so there r and J are held to 1e-5 relative to their largest entry.
+so there r and J are held to 1e-5 relative to their largest entry. The
+host emulation (no FMA contraction) and the card are held to the plain
+version within the same limits.
 """
 
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+
+import cuda_host_emu as emu
 
 from torch_parity_kit import (jax_problem, pallas_interpret, rel,
                               small_bal, torch_problem)
@@ -237,6 +245,17 @@ def _random_rows(spec, n, rng):
             torch.as_tensor(dat, dtype=torch.float32))
 
 
+def _hold(name, r, J, r_ref, J_ref):
+    r, J = np.asarray(r), np.asarray(J)
+    r_ref, J_ref = np.asarray(r_ref), np.asarray(J_ref)
+    assert np.isfinite(r).all() and np.isfinite(J).all()
+    if name == "SnavelyReprojectionError":
+        assert rel(r, r_ref) < 1e-5 and rel(J, J_ref) < 1e-5
+        return
+    np.testing.assert_allclose(r, r_ref, rtol=2e-5, atol=2e-5)
+    np.testing.assert_allclose(J, J_ref, rtol=2e-4, atol=2e-4)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("n", [1, 7, 513])
 @pytest.mark.parametrize("name", [c.__name__ for c in SPECS])
@@ -256,10 +275,90 @@ def test_k11_kernel_matches_plain_on_the_card(name, n):
     torch.cuda.synchronize()
     assert bucket_linearize.launches == 1
     assert r.dtype == J.dtype == torch.float32
-    r, J = r.cpu().numpy(), J.cpu().numpy()
-    r_ref, J_ref = r_ref.cpu().numpy(), J_ref.cpu().numpy()
-    if name == "SnavelyReprojectionError":
-        assert rel(r, r_ref) < 1e-5 and rel(J, J_ref) < 1e-5
-        return
-    np.testing.assert_allclose(r, r_ref, rtol=2e-5, atol=2e-5)
-    np.testing.assert_allclose(J, J_ref, rtol=2e-4, atol=2e-4)
+    _hold(name, r.cpu(), J.cpu(), r_ref.cpu(), J_ref.cpu())
+
+
+_K11_MAIN = r"""
+  const int* h = emu_read<int>("hdr", 5);
+  const int spec = h[0], n = h[1], shift = h[2], p_in = h[3], p_dat = h[4];
+  const int nout = spec == 0 ? 6 * 13 : spec == 1 ? 3 * 7 : 2 * 13;
+  float* xin = emu_alloc<float>((size_t)n * p_in + 4) + shift;
+  memcpy(xin, emu_read<float>("xin", (size_t)n * p_in),
+         sizeof(float) * n * p_in);
+  const float* dat = emu_read<float>("dat", (size_t)n * p_dat);
+  float* out = emu_alloc<float>((size_t)n * nout);
+  const int r = spec == 0 ? 6 : spec == 1 ? 3 : 2;
+  if (ceres_linearize(spec, xin, dat, n, out, out + (size_t)n * r, nullptr))
+    return 3;
+  emu_write("out", out, (size_t)n * nout);
+"""
+_EMU_EXE = []
+
+
+def _emulated_k11(tmp_path_factory, spec, xin, dat, shift=0):
+    """csrc/linearize.cu run on the host (tests/cuda_host_emu.py) through
+    ceres_linearize; `shift` floats move xin off 16-byte alignment."""
+    from ceres_tpu_torch.ops import _cuda
+    if not _EMU_EXE:
+        _EMU_EXE.append(emu.build(
+            tmp_path_factory.mktemp("k11hand"),
+            emu.source(_cuda.CSRC / "linearize.cu"), _K11_MAIN))
+    n = xin.shape[0]
+    out = emu.run(_EMU_EXE[0], tmp_path_factory.mktemp("k11run"), {
+        "hdr": np.array([spec.kernel_id, n, shift, spec.p_in, spec.p_dat],
+                        np.int32),
+        "xin": xin.numpy(), "dat": dat.numpy()},
+        {"out": (np.float32, n * spec.r * (spec.nt + 1))})["out"]
+    return (out[:n * spec.r].reshape(n, spec.r),
+            out[n * spec.r:].reshape(n, spec.r, spec.nt))
+
+
+# name: (rows, xin shifted off 16-byte alignment by this many floats)
+K11_HAND_EDGES = {"n1": (1, 0), "n127": (127, 0), "n129": (129, 0),
+                  "n300": (300, 0), "n129-unaligned": (129, 1)}
+
+
+@pytest.mark.parametrize("edge", list(K11_HAND_EDGES))
+@pytest.mark.parametrize("name", [c.__name__ for c in SPECS])
+def test_k11_hand_kernel_source_on_the_host(tmp_path_factory, name, edge):
+    """csrc/linearize.cu (the SE3, SE2 and Snavely RowChains through
+    linearize_auto::row_kernel in 128-row tiles), emulated on the host
+    (one std::thread per CUDA thread), against bucket_linearize_plain:
+    one row, a tile less one, a tile and one, several tiles with a ragged
+    last one, and xin one float off 16-byte alignment (4-byte loads)."""
+    if emu.gxx() is None:
+        pytest.skip("no host g++")
+    spec = {c.__name__: s for c, s in SPECS.items()}[name]
+    n, shift = K11_HAND_EDGES[edge]
+    xin, dat = _random_rows(spec, n, np.random.default_rng(n + shift))
+    r, J = _emulated_k11(tmp_path_factory, spec, xin, dat, shift)
+    r_ref, J_ref = bucket_linearize_plain(spec, xin, dat)
+    _hold(name, r, J, r_ref.numpy(), J_ref.numpy())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", [c.__name__ for c in SPECS])
+def test_k11_hand_kernel_at_the_main_paths_on_the_card(name):
+    """On the card: each hand spec at its main path's row count (SE3 the
+    2,000-pose graph's main bucket, 2,396 rows; SE2 the 1,000-pose
+    graph's, 1,063; Snavely the 1M-observation bucket) and, at 129 rows,
+    with xin one float into a buffer (4-byte loads), against the plain
+    version; one launch a call, and a call repeats its bits."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    spec = {c.__name__: s for c, s in SPECS.items()}[name]
+    n_main = {0: 2396, 1: 1063, 2: 1_000_000}[spec.kernel_id]
+    for n, shift in ((n_main, 0), (129, 1)):
+        xin, dat = _random_rows(spec, n, np.random.default_rng(n))
+        buf = torch.empty(xin.numel() + shift, device="cuda")
+        xin_c = buf[shift:].view(xin.shape)
+        xin_c.copy_(xin)
+        dat_c = dat.cuda()
+        bucket_linearize.launches = 0
+        r, J = bucket_linearize(spec, xin_c, dat_c)
+        r2, J2 = bucket_linearize(spec, xin_c, dat_c)
+        torch.cuda.synchronize()
+        assert bucket_linearize.launches == 2
+        assert torch.equal(r, r2) and torch.equal(J, J2)
+        r_ref, J_ref = bucket_linearize_plain(spec, xin_c, dat_c)
+        _hold(name, r.cpu(), J.cpu(), r_ref.cpu(), J_ref.cpu())

@@ -66,7 +66,7 @@ _SIGNATURES = {
                    _P, _P],
     "ceres_linearize": [_I, _P, _P, _I, _P, _P, _P],
     "ceres_jtjv": [_P, _P, _P, _I, _I, _I, _P, _P],
-    "ceres_gram": [_P, _I, _I, _I, ctypes.c_long, ctypes.c_long, _P, _P],
+    "ceres_gram_group": [_P, _I, _P, _P, _I, _I, _P, _P],
     "ceres_implicit_apply": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                              _P, _P],
 }

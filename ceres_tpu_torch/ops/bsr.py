@@ -16,8 +16,11 @@ that each column keeps the JAX package's scatter order (bucket, slot,
 row); a sum gathers the contributions in that order and reduces each
 column's run with torch.segment_reduce: in order on the CPU (the same
 bits as the JAX package's scatter), by CUB's segmented reduce on the
-card. Neither uses float atomics, so a run gives the same bits every
-time.
+card. The block diagonal of J^T J (`block_diag_jtj`) keeps the same
+order (`GroupMeta.gram_order`); on the card K9's group kernel forms and
+sums it in one launch a group (per 8 slot views): one thread per block
+entry adds the rows' Grams one after another in that order, from +0.
+None uses float atomics, so a run gives the same bits every time.
 """
 
 from __future__ import annotations
@@ -27,7 +30,7 @@ from typing import List, Sequence
 import numpy as np
 import torch
 
-from .kernels import bucket_gram_blocks
+from .kernels import group_gram_blocks
 
 
 class ColumnSum:
@@ -155,34 +158,48 @@ class BlockJacobian:
 class GroupMeta:
     """Variable parameter blocks of one tangent size: `tan_start` of
     their contiguous tangent slab, and `bucket_slots`, the (bucket,
-    variable slot, [n] local block ids) that touch them, with the
-    fixed-order `block_sum` over those slots' rows."""
+    variable slot, [n] local block ids) that touch them, with the fixed
+    order of K9's sums over those slots' rows (`gram_order`)."""
 
     def __init__(self, tangent_size, num_blocks, tan_start):
         self.tangent_size = tangent_size
         self.num_blocks = num_blocks
         self.tan_start = tan_start
         self.bucket_slots: List = []
-        self.block_sum = None
+        self._gram_order = None
 
-    def build_block_sum(self, device):
-        positions, blocks, base = [], [], 0
-        for (_, _, local_ids) in self.bucket_slots:
-            positions.append(base + np.arange(local_ids.size))
-            blocks.append(np.asarray(local_ids, dtype=np.int64))
-            base += local_ids.size
-        t = self.tangent_size
-        self.block_sum = ColumnSum(np.concatenate(positions),
-                                   np.concatenate(blocks), self.num_blocks,
-                                   device, unit=(t, t))
+    def gram_order(self, device):
+        """(gram_map, gram_off), built at the first call: the group's
+        contributions (slot view index into bucket_slots, row), int32
+        [p, 2], sorted stably by block, so that each block keeps the JAX
+        package's (bucket, slot, row) scatter order; block k's are
+        gram_map[gram_off[k] : gram_off[k + 1]] (int32 [num_blocks + 1])."""
+        if self._gram_order is None:
+            blocks = np.concatenate([np.asarray(ids, dtype=np.int64)
+                                     for (_, _, ids) in self.bucket_slots])
+            views = np.concatenate([np.full(ids.size, v) for v, (_, _, ids)
+                                    in enumerate(self.bucket_slots)])
+            rows = np.concatenate([np.arange(ids.size)
+                                   for (_, _, ids) in self.bucket_slots])
+            order = np.argsort(blocks, kind="stable")
+            off = np.cumsum(np.bincount(blocks, minlength=self.num_blocks))
+            self._gram_order = (
+                torch.as_tensor(np.stack([views[order], rows[order]], axis=1)
+                                .astype(np.int32), device=device),
+                torch.as_tensor(np.concatenate([[0], off]).astype(np.int32),
+                                device=device))
+        return self._gram_order
 
 
 def block_diag_jtj(jac: BlockJacobian, groups) -> List[torch.Tensor]:
     """Block diagonal of J^T J per parameter block, one [k, t, t] tensor
-    per tangent-size group (block_jacobi_preconditioner.h:55): the
-    per-row Grams of each slot by K9 (one launch per variable slot of
-    each bucket, reading the slot's columns in place) summed per block in
-    the fixed order of the group's block_sum."""
-    return [g.block_sum([bucket_gram_blocks(jac.buckets[bi].slot_J(si))
-                         for (bi, si, _) in g.bucket_slots])
-            for g in groups]
+    per tangent-size group (block_jacobi_preconditioner.h:55): K9 on the
+    group's slot views, read in place, summed in the group's fixed order
+    (gram_order); on the card one launch a group (per 8 slot views) forms
+    and sums the blocks, on the CPU the per-row Grams of each slot are
+    gathered and reduced in that order."""
+    out = []
+    for g in groups:
+        views = [jac.buckets[bi].slot_J(si) for (bi, si, _) in g.bucket_slots]
+        out.append(group_gram_blocks(views, *g.gram_order(views[0].device)))
+    return out

@@ -1,6 +1,7 @@
 """K3, dense SPD solve of the small reduced camera system; K8, the CGNR
-operator J^T (J v) of one bucket; K9, the per-row Gram blocks J^T J of
-one bucket's slot.
+operator J^T (J v) of one bucket; K9, the block-Jacobi Grams J^T J: a
+tangent-size group's block diagonal in one launch, and the per-row Gram
+blocks of one bucket's slot (the same kernel on one view).
 
 Counterpart of ceres_tpu/ops/pallas_kernels.py (chol_solve_small,
 bucket_jtjv, jac_normal_matvec, bucket_gram_blocks). `chol_solve`
@@ -11,14 +12,16 @@ launches one of csrc/chol.cu's two variants for CUDA tensors (picked by
 looking (the shared variant in panels of 16 rows), with the same
 roundings in the same order, and give NaN for an indefinite S (the LM
 loop's invalid-step retry relies on it).
-`bucket_jtjv` launches csrc/jtjv.cu and
-`bucket_gram_blocks` csrc/gram.cu for CUDA tensors, and run
-`bucket_jtjv_plain` and `bucket_gram_blocks_plain` for CPU tensors. Each
-wrapper counts its launches in its `launches` attribute.
+`bucket_jtjv` launches csrc/jtjv.cu, and `group_gram_blocks` and
+`bucket_gram_blocks` csrc/gram.cu, for CUDA tensors, and run
+`bucket_jtjv_plain`, `group_gram_blocks_plain` and
+`bucket_gram_blocks_plain` for CPU tensors. Each wrapper counts its
+launches in its `launches` attribute.
 """
 
 from __future__ import annotations
 
+import ctypes
 from types import SimpleNamespace
 
 import torch
@@ -163,25 +166,90 @@ def jac_normal_matvec(jac, v):
 
 
 def bucket_gram_blocks_plain(J):
-    """Plain PyTorch K9: G [n, t, t] = J_n^T J_n for J [n, r, t]."""
+    """Plain PyTorch K9 per row: G [n, t, t] = J_n^T J_n for J [n, r, t]."""
     return torch.einsum("nrt,nru->ntu", J, J)
 
 
 def bucket_gram_blocks(J):
-    """K9: see bucket_gram_blocks_plain; f32 on the card, J a view whose
-    last dimension is contiguous (a slot's columns of a bucket's
-    Jacobian, read in place)."""
+    """K9 per row: see bucket_gram_blocks_plain (the TPU kernel's
+    contract); f32 on the card, J a view whose last dimension is
+    contiguous (a slot's columns of a bucket's Jacobian, read in place).
+    The card runs the group kernel on the one view with the identity map
+    (block n = row n). The solver forms its blocks with
+    group_gram_blocks."""
     if not J.is_cuda:
         return bucket_gram_blocks_plain(J)
-    n, r, t = J.shape
-    if J.dtype != torch.float32 or (t > 1 and J.stride(2) != 1):
-        raise ValueError(f"bucket_gram_blocks: expected f32 with unit "
-                         f"column stride, got {J.dtype}, strides "
-                         f"{J.stride()}")
-    G = torch.empty(n, t, t, dtype=torch.float32, device=J.device)
-    _cuda.launch("ceres_gram", J, n, r, t, J.stride(0), J.stride(1), G)
+    n = J.shape[0]
+    rows = torch.arange(n + 1, dtype=_I32, device=J.device)
+    gram_map = torch.stack([torch.zeros_like(rows[:n]), rows[:n]], dim=1)
+    G = _gram_launch([J], gram_map, rows, "bucket_gram_blocks")
     bucket_gram_blocks.launches += 1
     return G
 
 
 bucket_gram_blocks.launches = 0
+
+# slot views one launch of csrc/gram.cu's kernel takes; a group of more
+# takes one launch per GRAM_VIEWS
+GRAM_VIEWS = 8
+
+
+def gram_sum(grams, gram_map, gram_off):
+    """A group's per-row Grams summed per block in its fixed order:
+    grams[v] [n_v, t, t] the rows of slot view v; block k is the sum, in
+    order, of the rows gram_map[gram_off[k] : gram_off[k + 1]] ((view,
+    row) pairs, int32). A gather and torch.segment_reduce: in order on
+    the CPU (the JAX package's scatter bits), by CUB's segmented reduce
+    on the card."""
+    sizes = torch.tensor([0] + [G.shape[0] for G in grams[:-1]],
+                         device=gram_map.device)
+    idx = torch.cumsum(sizes, 0)[gram_map[:, 0].long()] + gram_map[:, 1]
+    return torch.segment_reduce(torch.cat(grams)[idx], "sum",
+                                lengths=torch.diff(gram_off).long(),
+                                axis=0, unsafe=True)
+
+
+def group_gram_blocks_plain(views, gram_map, gram_off):
+    """Plain PyTorch K9 for one tangent-size group: out [k, t, t], block
+    k the sum of J_n^T J_n over the rows n of the slot views [n_v, r_v, t]
+    that touch it, in the group's fixed order (gram_sum)."""
+    return gram_sum([bucket_gram_blocks_plain(J) for J in views], gram_map,
+                    gram_off)
+
+
+def group_gram_blocks(views, gram_map, gram_off):
+    """K9: see group_gram_blocks_plain; on the card one launch per
+    GRAM_VIEWS views forms the group's blocks, walking block k's
+    contributions gram_map[gram_off[k] : gram_off[k + 1]] and adding each
+    row's Gram to a sum that starts at +0 (the same order as
+    group_gram_blocks_plain's). The views are f32 with a contiguous last
+    dimension and are read in place."""
+    if not views[0].is_cuda:
+        return group_gram_blocks_plain(views, gram_map, gram_off)
+    out = _gram_launch(views, gram_map, gram_off, "group_gram_blocks")
+    group_gram_blocks.launches += -(-len(views) // GRAM_VIEWS)
+    return out
+
+
+group_gram_blocks.launches = 0
+
+
+def _gram_launch(views, gram_map, gram_off, name):
+    """Check the slot views and the order, then launch csrc/gram.cu's
+    kernel (one launch per GRAM_VIEWS views); returns out [k, t, t]."""
+    t = views[0].shape[2]
+    num_blocks = gram_off.shape[0] - 1
+    fields = []
+    for J in views:
+        if not (J.is_cuda and J.dtype is _F32 and J.dim() == 3
+                and J.shape[2] == t and (t == 1 or J.stride(2) == 1)):
+            raise ValueError(f"{name}: expected f32 CUDA views [n, r, {t}] "
+                             f"with unit column stride, got {J.dtype} "
+                             f"{tuple(J.shape)}, strides {J.stride()}")
+        fields += [J.data_ptr(), J.stride(0), J.stride(1), J.shape[1]]
+    _cuda.check(gram_map, (gram_map.shape[0], 2), _I32, f"{name}: gram_map")
+    _cuda.check(gram_off, (num_blocks + 1,), _I32, f"{name}: gram_off")
+    out = torch.empty(num_blocks, t, t, dtype=_F32, device=views[0].device)
+    _cuda.launch("ceres_gram_group", (ctypes.c_long * len(fields))(*fields),
+                 len(views), gram_map, gram_off, num_blocks, t, out)
+    return out

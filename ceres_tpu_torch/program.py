@@ -413,8 +413,6 @@ class CompiledProgram:
             self._col_sum = column_sum_for(
                 [[sl.cols for sl in bk.slots if sl.variable]
                  for bk in self.buckets], self.num_effective, self.device)
-            for g in self.groups:
-                g.build_block_sum(self.device)
         return self._col_sum
 
     def linearize_fn_mixed(self, x):

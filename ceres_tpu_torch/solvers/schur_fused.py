@@ -63,7 +63,7 @@ import torch
 
 from ..loss import correct_residuals_and_jacobian
 from ..ops import lin_auto as k5
-from ..ops.cost import snavely_sq
+from ..ops.cost import SnavelyCost, snavely_sq
 from ..ops.implicit import MAX_R, MAX_TE, MAX_TF, implicit_apply
 from ..ops.jet_compile import (loss_param_values, make_auto_spec,
                                make_loss_spec)
@@ -508,20 +508,20 @@ class SchurStep:
         self.e_slab = _slab_of(meta.e_cols)
         self.f_slab = _slab_of(meta.f_global_cols[grp["cols"]])
         self.loss = bk.loss
-        # K4 prices the candidates of a single Snavely bucket
-        self.k4 = (len(program.buckets) == 1 and is_snavely_bucket(bk)
-                   and bs.e_slot is not None and bs.f_cols is not None
-                   and (self.te, self.tf, bk.r) == (TE, TF, 2))
-        if self.k4:
-            # K4 inputs, bucket row order
+        # K4 prices the candidates of a single Snavely bucket; its inputs
+        # in bucket row order, checked once here
+        self.k4 = None
+        if (len(program.buckets) == 1 and is_snavely_bucket(bk)
+                and bs.e_slot is not None and bs.f_cols is not None
+                and (self.te, self.tf, bk.r) == (TE, TF, 2)):
             dev = program.device
             local = next(s[2] for s in grp["slots"] if s[0] == 0)
-            self.pt_idx = torch.as_tensor(bs.e_ids.astype(np.int32),
-                                          device=dev)
-            self.cam_idx = torch.as_tensor(np.asarray(local, np.int32),
-                                           device=dev)
-            self.obsx64 = bk.data["observed_x"].contiguous()
-            self.obsy64 = bk.data["observed_y"].contiguous()
+            self.k4 = SnavelyCost(
+                self.e_slab, self.f_slab, self.ne, self.kf,
+                torch.as_tensor(bs.e_ids.astype(np.int32), device=dev),
+                torch.as_tensor(np.asarray(local, np.int32), device=dev),
+                bk.data["observed_x"].contiguous(),
+                bk.data["observed_y"].contiguous())
 
     def initial_scales(self):
         """Zero scales for the first linearization (which derives them)."""
@@ -534,10 +534,9 @@ class SchurStep:
     def cost(self, x):
         """f64 total cost at x: K4 for a single Snavely bucket, else the
         program's f64 residual pass."""
-        if not self.k4:
+        if self.k4 is None:
             return self.program.cost_fn(x)
-        sq = snavely_sq(x, self.e_slab, self.f_slab, self.pt_idx,
-                        self.cam_idx, self.obsx64, self.obsy64)
+        sq = snavely_sq(x, self.k4)
         rho = sq if self.loss is None else self.loss.evaluate(sq)[0]
         return self.program.fixed_cost + 0.5 * torch.sum(rho)
 

@@ -22,10 +22,14 @@ quaternions (QUAT_IMPLICIT_SCHUR):
    system with SCHUR_JACOBI and with IDENTITY blocks; K11 (slice 3) on
    each graph's main bucket (SE3 at the start and at a perturbed state,
    SE2 at the start), K8 on the scaled Jacobian of each graph's first
-   linearization, K9 (slice 6) on each slot view of the SE3 graph's
-   scaled Jacobian; K10 (slice 4) on the scaled chunk tensors of the
-   large case's first linearization at RADIUS and a seeded v, K11 on the
-   large case's Snavely bucket (1M rows) at its start; K5 (slice 5) on
+   linearization, K9 (slice 6) per row on each slot view of the SE3
+   graph's scaled Jacobian and as its group kernel on each tangent-size
+   group of both graphs (against its plain form within 1e-5, and its
+   bits beside the unfused CUDA route's, reported); K10 (slice 4) on
+   the scaled chunk tensors of the large case's first linearization at
+   RADIUS and a seeded v, K11 on the large case's Snavely bucket (1M
+   rows) at its start, K4 on the large case's start (1M rows, 1,024
+   cameras); K5 (slice 5) on
    the quaternion problem's first linearization, with no loss and with
    HuberLoss(1.0), and K2, K6 and K3 (bit for bit) on its first
    linearization at RADIUS (nf 160); K11's auto spec (slice 6) on the
@@ -34,9 +38,10 @@ quaternions (QUAT_IMPLICIT_SCHUR):
    chunk tensors (tf 10) as on the large case's; times each, its plain version
    and, where one PyTorch call computes the same function, that call,
    with CUDA events (median of 20 single calls; the kernel also as the
-   mean of 100 back-to-back calls, "loop_ms"); times K3 and K9 against
-   their library calls and K2 and K6 against their plain versions in
-   turns (kernel, other, other, kernel; five rounds); and computes each
+   mean of 100 back-to-back calls, "loop_ms"); times K3 against its
+   library call, K2 and K6 against their plain versions and K9's group
+   kernel against the per-slot route it replaced in turns (kernel,
+   other, other, kernel; five rounds); and computes each
    kernel's bound from this run's inputs;
 2. drives the paths, counting the launches of every kernel from zero
    before each solve: through ctt.solve on device="cuda", DENSE_SCHUR
@@ -61,9 +66,10 @@ quaternions (QUAT_IMPLICIT_SCHUR):
    never on the ITERATIVE_SCHUR path, CG iterated more often than LM did;
    every pose-graph solve ends in CONVERGENCE within 1e-4 relative of the
    JAX package's final cost, cuts the mean position error below its share
-   of the start, launches K11 once per linearization, K9 at least once
-   per linearization and K8 at least once per CG iteration, and no K1-K7
-   or K10; every implicit solve
+   of the start, launches K11 once per linearization, K9's group kernel
+   at least once per linearization per tangent-size group (printed) and
+   K8 at least once per CG iteration, and no K1-K7, K10 or per-row K9;
+   every implicit solve
    ends in CONVERGENCE (the large case within IMPLICIT_REF_REL_TOL of the
    JAX package's final cost), launches K10 at least once per CG iteration
    and K4 at least once per LM iteration, K11 once per linearization,
@@ -239,7 +245,7 @@ MAIN_PATH = {"K1 lin": "DENSE_SCHUR", "K2 elim": "DENSE_SCHUR",
              "K6 elim_v1": "ITERATIVE_SCHUR",
              "K7 dense_pcg": "ITERATIVE_SCHUR",
              "K8 bucket_jtjv": "POSE_GRAPH_3D",
-             "K9 bucket_gram_blocks": "POSE_GRAPH_3D",
+             "K9 group_gram_blocks": "POSE_GRAPH_3D",
              "K10 implicit_apply": "IMPLICIT_SCHUR",
              "K11 bucket_linearize": "POSE_GRAPH_3D",
              "K11 bucket_linearize (Snavely)": "IMPLICIT_SCHUR",
@@ -483,7 +489,8 @@ def main():
     from ceres_tpu_torch.ops.kernels import (
         CHOL_VARIANTS, _chol_launch, bucket_gram_blocks,
         bucket_gram_blocks_plain, bucket_jtjv, bucket_jtjv_plain, chol_solve,
-        chol_solve_plain)
+        chol_solve_plain, gram_sum, group_gram_blocks,
+        group_gram_blocks_plain)
     from ceres_tpu_torch.ops.implicit import (implicit_apply,
                                               implicit_apply_plain)
     from ceres_tpu_torch.ops.linearize import (
@@ -572,6 +579,76 @@ def main():
     def cmp_all(got, want):
         return [rel_err(a, b) for a, b in zip(got, want)]
 
+    def check_k4(name, step_, x):
+        """K4 on a step's bound inputs at state x: inputs the state's
+        points and cameras, each row's indices and observations."""
+        k4 = step_.k4
+        return check_kernel(
+            name, lambda: snavely_sq(x, k4), lambda: snavely_sq_plain(x, k4),
+            lambda g, w: [rel_err(g, w)], F64_LIMIT,
+            "ceres_tpu_torch/csrc/cost.cu",
+            "ceres_tpu/ops/pallas_cost.py:147",
+            (x[k4.e_slab:k4.e_slab + 3 * k4.ne],
+             x[k4.f_slab:k4.f_slab + 9 * k4.kf], k4.pt_idx, k4.cam_idx,
+             k4.obsx, k4.obsy),
+            60 * k4.n, F64_FLOP_PER_S)     # rotation, projection, ||r||^2
+
+    def check_k9_group(name, jac_s, grp):
+        """K9's group kernel on one group of a scaled Jacobian against
+        its plain form (the slots' einsums summed in the group's order)
+        within F32_LIMIT; against the unfused CUDA route it replaced (the
+        per-row form a slot, then a gather and CUB's segmented reduce in
+        the same order) and the per-row outputs summed in the group's
+        order on the host's terms (+0, then each contribution), reporting
+        which entries differ; timed beside that route."""
+        views = [jac_s.buckets[bi].slot_J(si)
+                 for (bi, si, _) in grp.bucket_slots]
+        gmap, goff = grp.gram_order(views[0].device)
+
+        def unfused():
+            return gram_sum([bucket_gram_blocks(J) for J in views], gmap,
+                            goff)
+        rows = [bucket_gram_blocks(J) for J in views]
+        base = np.cumsum([0] + [R.shape[0] for R in rows])
+        pos = torch.as_tensor(base, device=gmap.device)[gmap[:, 0].long()] \
+            + gmap[:, 1]
+        rows = torch.cat(rows)
+        lengths = torch.diff(goff).long()
+        in_order = torch.zeros(grp.num_blocks, grp.tangent_size,
+                               grp.tangent_size, device=rows.device)
+        starts = goff[:-1].long()
+        for j in range(int(lengths.max())):
+            take = (lengths > j)[:, None, None]
+            at = pos[torch.clamp(starts + j, max=len(pos) - 1)]
+            in_order = in_order + torch.where(take, rows[at], 0.0)
+        got = group_gram_blocks(views, gmap, goff)
+        torch.cuda.synchronize()
+        for label, other in (("the unfused CUDA route", unfused()),
+                             ("the per-row outputs summed in order",
+                              in_order)):
+            differ = int((got.view(torch.int32)
+                          != other.view(torch.int32)).sum())
+            print(f"{name} vs {label}: {differ} of {got.numel()} entries "
+                  f"differ in their bits (max abs diff "
+                  f"{float((got - other).abs().max()):.3e})", flush=True)
+        n_rows = sum(J.shape[0] for J in views)
+        rec = check_kernel(
+            name, lambda: group_gram_blocks(views, gmap, goff),
+            lambda: group_gram_blocks_plain(views, gmap, goff),
+            lambda g_, w: [rel_err(g_, w)], F32_LIMIT,
+            "ceres_tpu_torch/csrc/gram.cu",
+            "ceres_tpu/ops/pallas_kernels.py:289", views,
+            2 * sum(J.shape[0] * J.shape[1] for J in views)
+            * grp.tangent_size ** 2 + n_rows * grp.tangent_size ** 2,
+            F32_FLOP_PER_S,
+            reference=("the per-slot route it replaced (per-row K9 a slot, "
+                       "then a gather and a segmented reduce)", unfused))
+        rec["interleaved"] = interleaved(
+            f"{name} vs the per-slot route",
+            lambda: group_gram_blocks(views, gmap, goff),
+            unfused, label="per-slot")
+        return rec
+
     kernels = []
     kernels.append(check_kernel(
         "K1 lin", k1(lin_first), k1_plain(lin_first), cmp_lin, F32_LIMIT,
@@ -624,14 +701,7 @@ def main():
         library=("torch.linalg.solve(S, rhs)",
                  lambda: torch.linalg.solve(*k3g)))
 
-    cost_args = (x0, step.e_slab, step.f_slab, step.pt_idx, step.cam_idx,
-                 step.obsx64, step.obsy64)
-    kernels.append(check_kernel(
-        "K4 cost", lambda: snavely_sq(*cost_args),
-        lambda: snavely_sq_plain(*cost_args), lambda g, w: [rel_err(g, w)],
-        F64_LIMIT, "ceres_tpu_torch/csrc/cost.cu",
-        "ceres_tpu/ops/pallas_cost.py:147", cost_args,
-        60 * nobs, F64_FLOP_PER_S))      # rotation, projection, ||r||^2
+    kernels.append(check_k4("K4 cost", step, x0))
     c_ref = program.cost_fn(x0)
     c_rel = abs(float(cost0) - float(c_ref)) / abs(float(c_ref))
     print(f"K4 total cost {float(cost0):.10e} vs program.cost_fn "
@@ -771,13 +841,13 @@ def main():
         if key == "3d":
             rec["name"] = "K8 bucket_jtjv"
             kernels.append(rec)
-            # K9 on each slot view of the same scaled Jacobian, read in
-            # place (the blocks that block Jacobi sums)
+            # per-row K9 on each slot view of the same scaled Jacobian,
+            # read in place (the TPU kernel's contract)
             for si in range(len(jac_s.buckets[g["bi"]].cols)):
                 Js = jac_s.buckets[g["bi"]].slot_J(si)
                 ns, rs, ts = Js.shape
-                rec = check_kernel(
-                    f"K9 bucket_gram_blocks (SE3 slot {si})",
+                check_kernel(
+                    f"K9 bucket_gram_blocks (per row, SE3 slot {si})",
                     lambda: bucket_gram_blocks(Js),
                     lambda: bucket_gram_blocks_plain(Js),
                     lambda g_, w: [rel_err(g_, w)], F32_LIMIT,
@@ -786,13 +856,16 @@ def main():
                     2 * ns * rs * ts * ts, F32_FLOP_PER_S,
                     library=("torch.einsum('nrt,nru->ntu', J, J)",
                              lambda: torch.einsum("nrt,nru->ntu", Js, Js)))
-                if si == 0:
-                    rec["name"] = "K9 bucket_gram_blocks"
-                    rec["interleaved"] = interleaved(
-                        "K9 bucket_gram_blocks vs torch.einsum",
-                        lambda: bucket_gram_blocks(Js),
-                        lambda: torch.einsum("nrt,nru->ntu", Js, Js))
-                    kernels.append(rec)
+        # K9's group kernel on each tangent-size group: block Jacobi's
+        # blocks of the same scaled Jacobian, against the plain form and,
+        # bit for bit, the unfused CUDA route
+        for gi, grp in enumerate(g["program"].groups):
+            rec = check_k9_group(f"K9 group_gram_blocks ({key.upper()} "
+                                 f"group {gi}, t {grp.tangent_size})",
+                                 jac_s, grp)
+            if key == "3d" and gi == 0:
+                rec["name"] = "K9 group_gram_blocks"
+                kernels.append(rec)
 
     # ---- slice 4: K10 on the large case's first linearization ----
     t0 = time.time()
@@ -844,6 +917,10 @@ def main():
         big_step.ne * k_big * r_big * (6 * big_step.tf + 4 * big_step.te)
         + 2 * big_step.ne * big_step.te ** 2, F32_FLOP_PER_S))
     del big_art, big_inv, Je_s, Jf_s, plan0, k10_args
+    if big_step.k4 is None:
+        raise SystemExit("large case: the step prices no candidate by K4")
+    check_k4(f"K4 cost (large case, {big_step.k4.n} rows, kf "
+             f"{big_step.kf})", big_step, bx0)
     big_bk = big_program.buckets[0]
     if big_bk.spec is None or big_bk.spec.kernel_id != 2:
         raise SystemExit("large case: the Snavely bucket has no K11 spec")
@@ -1017,7 +1094,8 @@ def main():
                 "K4 cost": snavely_sq,
                 "K6 elim_v1": elim_v1, "K7 dense_pcg": dense_pcg,
                 "K8 bucket_jtjv": bucket_jtjv,
-                "K9 bucket_gram_blocks": bucket_gram_blocks,
+                "K9 group_gram_blocks": group_gram_blocks,
+                "K9 bucket_gram_blocks (per row)": bucket_gram_blocks,
                 "K10 implicit_apply": implicit_apply,
                 "K11 bucket_linearize": bucket_linearize,
                 "K11 bucket_linearize (auto)": bucket_linearize_auto,
@@ -1119,13 +1197,20 @@ def main():
                     summary.num_linear_solver_iterations:
                 raise SystemExit(f"pose graph {key}: K8 launched fewer "
                                  "times than CG iterated")
-            if launches["K9 bucket_gram_blocks"] < \
-                    summary.num_linearizations_fused:
+            n_groups = len(g["program"].groups)
+            k9 = launches["K9 group_gram_blocks"]
+            n_lin = summary.num_linearizations_fused
+            print(f"  K9 launches {k9}: {k9 / max(1, n_lin):g} a "
+                  f"linearization, {n_groups} tangent-size groups; "
+                  f"per-row K9 launches "
+                  f"{launches['K9 bucket_gram_blocks (per row)']}",
+                  flush=True)
+            if k9 < n_groups * n_lin:
                 raise SystemExit(f"pose graph {key}: K9 launched fewer "
-                                 "times than the solve linearized")
+                                 "times than once a group a linearization")
             stray = [n for n, c in launches.items()
                      if c and n not in ("K8 bucket_jtjv",
-                                        "K9 bucket_gram_blocks",
+                                        "K9 group_gram_blocks",
                                         "K11 bucket_linearize")]
             if stray:
                 raise SystemExit(f"pose graph {key}: kernels of another "
@@ -1203,7 +1288,8 @@ def main():
         big_problem, reset_big, counters, 3,
         gate_implicit("IMPLICIT_SCHUR"), ref_cost=IMPLICIT_REF_COST,
         ref_tol=IMPLICIT_REF_REL_TOL)
-    other = ("K8 bucket_jtjv", "K9 bucket_gram_blocks", "K10 implicit_apply",
+    other = ("K8 bucket_jtjv", "K9 group_gram_blocks",
+             "K9 bucket_gram_blocks (per row)", "K10 implicit_apply",
              "K11 bucket_linearize", "K11 bucket_linearize (auto)")
     quat_runs = {"DENSE_SCHUR": (("K2 elim", "K3 chol_solve",
                                   "K3 chol_solve (shared)"),

@@ -39,13 +39,13 @@ timed solves, their LM and CG iterations and final cost, one JSON line a
 path (the SE3 trace takes minutes to collect; its walls do not).
 
 --compare-gram profiles nothing: for each path it solves once as a
-warm-up on each route of block Jacobi's per-row Gram blocks, then times
-the solve in the order K9, einsum, einsum, K9 (K9 is
-ops/kernels.py bucket_gram_blocks; einsum is its plain version, the
-torch.einsum that ops/bsr.py block_diag_jtj called before K9), and
-prints per solve the wall, LM and CG iterations, the final cost, the K9
-launches and, for a pose graph, the position error, with one JSON line
-per solve.
+warm-up on each route of block Jacobi's Gram blocks, then times the
+solve in the order group, slot, slot, group ("group" is ops/kernels.py
+group_gram_blocks, one K9 launch a tangent-size group; "slot" is the
+route it replaced, ops/kernels.py bucket_gram_blocks a slot, then
+gram_sum's gather and segmented reduce), and prints per solve the wall, LM and CG iterations,
+the final cost, the K9 launches and, for a pose graph, the position
+error, with one JSON line per solve.
 """
 
 import argparse
@@ -77,7 +77,8 @@ KERNEL_OF = {
     "rhs_partial_kernel": "K2/K6", "reduce_splits_kernel": "K2/K6",
     "chol_solve_shared_kernel": "K3", "chol_solve_kernel": "K3",
     "cost_kernel": "K4", "pcg_kernel": "K7", "jtjv_kernel": "K8",
-    "gram_kernel": "K9", "linearize_auto::": "K11 (auto)",
+    "gram_kernel": "K9", "gram_group_kernel": "K9",
+    "linearize_auto::": "K11 (auto)",
     "implicit_apply_": "K10",
     "linearize_pose3d_kernel": "K11", "linearize_pose2d_kernel": "K11",
     "linearize_snavely_kernel": "K11",
@@ -314,33 +315,38 @@ def compare_gram(path, solve, traj, position_error):
     """The --compare-gram solves of one path (see the module
     docstring)."""
     from ceres_tpu_torch.ops import bsr, kernels
-    routes = {"K9": kernels.bucket_gram_blocks,
-              "einsum": kernels.bucket_gram_blocks_plain}
+
+    def per_slot(views, gram_map, gram_off):
+        return kernels.gram_sum([kernels.bucket_gram_blocks(J)
+                                 for J in views], gram_map, gram_off)
+    routes = {"group": kernels.group_gram_blocks, "slot": per_slot}
+    counters = (kernels.group_gram_blocks, kernels.bucket_gram_blocks)
     try:
-        for route in ("K9", "einsum"):                  # warm-ups
-            bsr.bucket_gram_blocks = routes[route]
+        for route in ("group", "slot"):                 # warm-ups
+            bsr.group_gram_blocks = routes[route]
             solve()
-        for route in ("K9", "einsum", "einsum", "K9"):
-            bsr.bucket_gram_blocks = routes[route]
-            kernels.bucket_gram_blocks.launches = 0
+        for route in ("group", "slot", "slot", "group"):
+            bsr.group_gram_blocks = routes[route]
+            for c in counters:
+                c.launches = 0
             summary, wall = solve()
+            launches = sum(c.launches for c in counters)
             err = position_error(*traj) if traj is not None else None
             print(f"{path} gram={route}: wall {wall:.4f} s, "
                   f"{summary.num_iterations} LM iterations, "
                   f"{summary.num_linear_solver_iterations} linear solver "
                   f"iterations, {summary.termination_type}, final cost "
-                  f"{summary.final_cost!r}, K9 launches "
-                  f"{kernels.bucket_gram_blocks.launches}, position error "
-                  f"{err!r}", flush=True)
+                  f"{summary.final_cost!r}, K9 launches {launches}, "
+                  f"position error {err!r}", flush=True)
             print(json.dumps({
                 "path": path, "gram": route, "wall_s": wall,
                 "lm_iterations": summary.num_iterations,
                 "linear_iterations": summary.num_linear_solver_iterations,
                 "final_cost": summary.final_cost,
-                "k9_launches": kernels.bucket_gram_blocks.launches,
+                "k9_launches": launches,
                 "position_error": err}), flush=True)
     finally:
-        bsr.bucket_gram_blocks = routes["K9"]
+        bsr.group_gram_blocks = routes["group"]
 
 
 if __name__ == "__main__":

@@ -1,10 +1,9 @@
 #!/usr/bin/env python3
-"""K1, K2, K3, K5, K6, K8, K10 and K11 (hand and auto specs) of one
-checkout of ceres_tpu_torch on the card, at the main paths' shapes, with
-seeded inputs.
+"""K1-K11 (K11's hand and auto specs) of one checkout of ceres_tpu_torch
+on the card, at the main paths' shapes, with seeded inputs.
 
     python3 scripts/time_kernels.py [--tree DIR]
-        [--only K1 K11hand K3 K2 K8 K10 K5 K11auto] [--dump DIR]
+        [--only K1 K11hand K3 K2 K8 K10 K5 K11auto K4 K9 K7] [--dump DIR]
     python3 scripts/time_kernels.py --compare DIR DIR
 
 Imports ceres_tpu_torch from DIR (default: this checkout), so that one
@@ -56,20 +55,41 @@ card from fixed seeds, so both checkouts see the same bits:
   P_DAT 2): xin and dat made with numpy from the seeded BALProblem in
   the bucket's row order, the spec traced from the quaternion
   BAL-16-22106 problem's bucket (the same functor, so the same graph).
+- K4 (ops/cost.py snavely_sq) on the DENSE_SCHUR step at BAL-16-22106's
+  start (83,718 rows, 16 cameras), and on the large case's rows at its
+  start (IMPLICIT_SHAPE: 1M rows, 200,000 points, 1,024 cameras; the
+  state and rows made with numpy from the seeded BALProblem), through
+  the inputs bound once (SnavelyCost) where the checkout binds them.
+- K9 on both pose graphs' first scaled Jacobians (SE3: one group of
+  tangent size 3, six slot views; SE2: groups of tangent size 1 and 2,
+  three views each): each group's block Jacobi blocks through
+  ops/bsr.py block_diag_jtj (every kernel of the call: the group kernel,
+  or in an earlier checkout the per-row kernel a slot and the group's
+  ColumnSum), and the per-row form (ops/kernels.py bucket_gram_blocks:
+  the group kernel on one view with the identity map, or in an earlier
+  checkout its own kernel) on each slot view.
+- K7 (ops/pcg.py dense_pcg) on the ITERATIVE_SCHUR steps' first reduced
+  systems at the radius 1e4 with SCHUR_JACOBI: BAL-16-22106 (m 144) and
+  its quaternion problem (m 160).
 
 For each it prints the card's name and power limit, then one JSON line:
 the largest difference from the plain version (K3 and K10 must give the
 same bits), the median of 20 single calls and the mean of 100
 back-to-back calls by CUDA events (ms), and the device time per call by
-torch.profiler (us: K1, K2, K3, K5, K6 and K11's hand specs every kernel
-a call launches, K8, K10 and K11 auto their own kernel); for K1, K5 and
-K11 also the host time of a call in a loop without synchronising (us),
-and the registers, spills and shared memory (cuobjdump -res-usage) of
-each kernel of the generated units and of K1's and K11's kernels in the
-checkout's library. --dump DIR saves the outputs of K1 (its six, first
-and carried), K5 and K11 (r and J of each spec) (torch.save) under DIR;
---compare DIR DIR prints, per output, whether two dumps hold the same
-bits. Needs a CUDA device (not --compare).
+torch.profiler (us: K1, K2, K3, K4, K5, K6, K7, K9's groups and K11's
+hand specs every kernel a call launches, K8, K9's slots, K10 and K11
+auto their own kernel; where it is every kernel, also the median span a
+call, first kernel start to last kernel end, the time of a call whose
+kernels overlap); for the runs of K1, K4, K5, K7, K9 and K11 also
+the launches a call, the host time of a call in a loop without
+synchronising (us) and the plain version's time, and the registers,
+spills and shared memory (cuobjdump -res-usage) of each kernel of the
+generated units and of K1's and K11's kernels in the checkout's
+library. --dump DIR saves the outputs of K1 (its six, first and
+carried), K4, K5, K7, K9 (each group and slot) and K11 (r and J of each
+spec) (torch.save) under DIR; --compare DIR DIR prints, per output,
+whether two dumps hold the same bits. Needs a CUDA device (not
+--compare).
 """
 
 import argparse
@@ -133,6 +153,30 @@ def kernel_us(fn, calls=100):
             t = getattr(e, "device_time_total", None)
             out[e.key] = (e.cuda_time_total if t is None else t) / calls
     return out
+
+
+def device_span_us(fn, calls=100):
+    """Median device span of a call (us): from the start of its first
+    kernel to the end of its last, by torch.profiler over `calls` calls
+    (each call launching the same number of kernels). Where a call's
+    kernels overlap (a programmatic dependent launch) the span, not the
+    sum of their times, is what the call costs the card."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    ranges = sorted((e.time_range.start, e.time_range.end)
+                    for e in prof.events()
+                    if e.device_type == DeviceType.CUDA)
+    per = len(ranges) // calls
+    if per == 0 or per * calls != len(ranges):
+        return None
+    return statistics.median(
+        max(end for _, end in ranges[i:i + per]) - ranges[i][0]
+        for i in range(0, len(ranges), per))
 
 
 def short_name(kernel):
@@ -373,6 +417,179 @@ def k11_hand_runs():
             for name, spec, xin, dat in k11_hand_cases()]
 
 
+def k4_cases(bound=True):
+    """(name, x, the arguments after x) of K4 (ops/cost.py snavely_sq):
+    the DENSE path's step at BAL-16-22106's start (its bound inputs, or
+    with `bound` False the step's seven arguments, as checkouts before
+    SnavelyCost took them), and the large case's rows at its start
+    (chip_smoke.py IMPLICIT_SHAPE and IMPLICIT_PERTURB, seeds 7 and 8: the
+    state [points | cameras], the observations in their order, made with
+    numpy)."""
+    import numpy as np
+    import torch
+    from ceres_tpu_torch.io.bal import synthetic_bal_problem
+    from ceres_tpu_torch.ops import cost
+    from chip_smoke import IMPLICIT_PERTURB, IMPLICIT_SHAPE
+    program, step = dense_step()
+    x0 = program.initial_state()
+    if bound:
+        cases = [("BAL-16-22106", x0, (step.k4,))]
+    else:
+        cases = [("BAL-16-22106", x0, (step.e_slab, step.f_slab,
+                                       step.pt_idx, step.cam_idx,
+                                       step.obsx64, step.obsy64))]
+    bal = synthetic_bal_problem(**IMPLICIT_SHAPE, seed=7, pixel_noise=1.0)
+    bal.perturb(**IMPLICIT_PERTURB, seed=8)
+    ne, kf = bal.points.shape[0], bal.cameras.shape[0]
+    dev = torch.device("cuda")
+    x = torch.as_tensor(np.concatenate([bal.points.ravel(),
+                                        bal.cameras.ravel()]), device=dev)
+    fixed = (torch.as_tensor(bal.point_index.astype(np.int32), device=dev),
+             torch.as_tensor(bal.camera_index.astype(np.int32), device=dev),
+             torch.as_tensor(bal.observations[:, 0].copy(), device=dev),
+             torch.as_tensor(bal.observations[:, 1].copy(), device=dev))
+    cases.append(("large case", x, (cost.SnavelyCost(0, 3 * ne, ne, kf,
+                                                      *fixed),)
+                  if bound else (0, 3 * ne) + fixed))
+    return cases
+
+
+def k4_runs():
+    """The runs of K4 on k4_cases, through the inputs bound once where
+    the checkout binds them."""
+    from ceres_tpu_torch.ops import cost
+    bound = hasattr(cost, "SnavelyCost")
+    return [({"kernel": "K4 cost", "case": name,
+              "shape": [int(x.numel()), int(args[0].n if bound
+                                            else args[2].numel())],
+              "inputs_bound_once": bound},
+             lambda x=x, args=args: {"sq": cost.snavely_sq(x, *args)},
+             lambda x=x, args=args: {"sq": cost.snavely_sq_plain(x, *args)},
+             cost.snavely_sq, None, f"K4 {name}")
+            for name, x, args in k4_cases(bound)]
+
+
+def pose_graph_jacobians():
+    """(name, program, scaled BlockJacobian) of chip_smoke.py's two pose
+    graphs at their start, as the CGNR + JACOBI step's first
+    linearization scales them, built by the imported checkout."""
+    import torch
+    import ceres_tpu_torch as ctt
+    from ceres_tpu_torch.examples import slam
+    from ceres_tpu_torch.io import g2o
+    from ceres_tpu_torch.program import CompiledProgram
+    from chip_smoke import POSE_GRAPHS, pose_graph_options
+    out = []
+    for key in ("3d", "2d"):
+        cfg = POSE_GRAPHS[key]
+        poses, constraints = getattr(g2o, cfg["generator"])(
+            **cfg["args"])[:2]
+        problem = getattr(slam, cfg["build"])(poses, constraints)[0]
+        program = CompiledProgram.get_cached(
+            problem, pose_graph_options(ctt, device="cuda"))
+        _, _, jac, _ = program.linearize_fn_mixed(program.initial_state())
+        jac_s = jac.scale_columns(
+            1.0 / (1.0 + torch.sqrt(jac.squared_column_norms())))
+        out.append(("SE" + key[0], program, jac_s))
+    return out
+
+
+def k9_runs():
+    """The runs of K9 on both pose graphs (pose_graph_jacobians): each
+    tangent-size group's block Jacobi blocks through the checkout's
+    ops/bsr.py block_diag_jtj (one group kernel where the checkout has
+    it, else the per-row kernel a slot and the group's ColumnSum: every
+    kernel a call counts), and the per-row form on each slot view."""
+    from ceres_tpu_torch.ops import bsr, kernels
+    group_counter = getattr(kernels, "group_gram_blocks",
+                            kernels.bucket_gram_blocks)
+
+    def group_plain(g, views):
+        if hasattr(g, "block_sum"):         # the group's ColumnSum
+            return g.block_sum([kernels.bucket_gram_blocks_plain(J)
+                                for J in views])
+        return kernels.group_gram_blocks_plain(
+            views, *g.gram_order(views[0].device))
+    runs = []
+    for name, program, jac in pose_graph_jacobians():
+        for gi, g in enumerate(program.groups):
+            views = [jac.buckets[bi].slot_J(si)
+                     for (bi, si, _) in g.bucket_slots]
+            runs.append((
+                {"kernel": "K9 block_diag_jtj (a group)", "graph": name,
+                 "group": gi, "t": g.tangent_size, "blocks": g.num_blocks,
+                 "slots": len(views),
+                 "rows": sum(J.shape[0] for J in views)},
+                lambda jac=jac, g=g: {"G": bsr.block_diag_jtj(jac, [g])[0]},
+                lambda g=g, views=views: {"G": group_plain(g, views)},
+                group_counter, None, f"K9 {name} group {gi}"))
+            for vi, J in enumerate(views):
+                runs.append((
+                    {"kernel": "K9 bucket_gram_blocks (a slot)",
+                     "graph": name, "group": gi, "slot": vi,
+                     "shape": list(J.shape)},
+                    lambda J=J: {"G": kernels.bucket_gram_blocks(J)},
+                    lambda J=J: {"G": kernels.bucket_gram_blocks_plain(J)},
+                    kernels.bucket_gram_blocks, "gram_",
+                    f"K9 {name} group {gi} slot {vi}"))
+    return runs
+
+
+def k7_runs():
+    """The runs of K7 (ops/pcg.py dense_pcg) on the ITERATIVE_SCHUR
+    steps' first reduced systems at the initial radius 1e4, with their
+    SCHUR_JACOBI blocks: BAL-16-22106 with angle-axis cameras (m 144)
+    and with quaternion cameras (m 160), built by the imported checkout
+    from chip_smoke.py's seeded problems."""
+    import torch
+    import ceres_tpu_torch as ctt
+    from ceres_tpu_torch.io import bal as bal_io
+    from ceres_tpu_torch.io.bal import (build_bal_ceres_problem,
+                                        synthetic_bal_problem)
+    from ceres_tpu_torch.ops import pcg
+    from ceres_tpu_torch.program import CompiledProgram
+    from ceres_tpu_torch.solvers.schur import detect_schur_structure
+    from ceres_tpu_torch.solvers.schur_fused import FusedSchurStep
+    from chip_smoke import (PERTURB, SHAPE, quaternion_bal,
+                            quaternion_options)
+    bal = synthetic_bal_problem(**SHAPE, seed=7, pixel_noise=1.0)
+    bal.perturb(**PERTURB, seed=8)
+    angle_axis = build_bal_ceres_problem(bal)[0]
+    quaternion = build_bal_ceres_problem(
+        quaternion_bal(bal_io), use_quaternions=True,
+        use_manifolds=False)[0]
+    runs = []
+    for name, problem, options in (
+            ("angle-axis", angle_axis, ctt.SolverOptions(
+                linear_solver_type=ctt.LinearSolverType.ITERATIVE_SCHUR,
+                preconditioner_type=ctt.PreconditionerType.SCHUR_JACOBI,
+                max_num_iterations=50, function_tolerance=1e-6,
+                max_linear_solver_iterations=100,
+                use_mixed_precision_solves=True, fused_iterations=True,
+                device="cuda")),
+            ("quaternion", quaternion, quaternion_options(
+                ctt, "QUAT_ITERATIVE_SCHUR", device="cuda"))):
+        program = CompiledProgram.get_cached(problem, options)
+        step = FusedSchurStep(program, options,
+                              detect_schur_structure(program, options))
+        x0 = program.initial_state()
+        art = step.linearize(x0, *step.initial_scales(), True)
+        S, rhs, _, _ = step.reduced_system(art, 1e4)
+        rad = torch.tensor(1e4, dtype=torch.float32, device="cuda")
+        minv = step.precond_inverse(art, S, rad)
+        kw = step.pcg_args
+        runs.append((
+            {"kernel": "K7 dense_pcg", "cameras": name,
+             "shape": [S.shape[0]],
+             "cg_iterations": int(pcg.dense_pcg(S, rhs, minv, **kw)[1])},
+            lambda S=S, rhs=rhs, minv=minv, kw=kw: {
+                "y": pcg.dense_pcg(S, rhs, minv, **kw)[0]},
+            lambda S=S, rhs=rhs, minv=minv, kw=kw: {
+                "y": pcg.dense_pcg_plain(S, rhs, minv, **kw)[0]},
+            pcg.dense_pcg, None, f"K7 {name}"))
+    return runs
+
+
 def measure(runs, dump):
     """Each run is (JSON line, call, plain version, wrapper whose
     `launches` counts, kernel-name filter of the device time or None for
@@ -401,6 +618,8 @@ def measure(runs, dump):
         by_kernel = kernel_us(fn)
         line["device_us"] = sum(t for k, t in by_kernel.items()
                                 if match is None or match in k)
+        if match is None:
+            line["device_span_us"] = device_span_us(fn)
         if match is None:
             line["device_us_by_kernel"] = {short_name(k): t
                                            for k, t in by_kernel.items()}
@@ -466,10 +685,10 @@ def main():
     ap.add_argument("--tree", default=ROOT)
     ap.add_argument("--only", nargs="*",
                     choices=("K1", "K11hand", "K3", "K2", "K8", "K10", "K5",
-                             "K11auto"),
+                             "K11auto", "K4", "K9", "K7"),
                     help="time only these (K2 stands for K2 and K6)")
     ap.add_argument("--dump", default=None,
-                    help="save the K1, K5 and K11 outputs here")
+                    help="save the K1, K4, K5, K7, K9 and K11 outputs here")
     ap.add_argument("--compare", nargs=2, default=None,
                     help="compare the bits of two --dump directories")
     args = ap.parse_args()
@@ -483,7 +702,7 @@ def main():
     if not torch.cuda.is_available():
         raise SystemExit("time_kernels: no CUDA device")
     sys.path.insert(0, os.path.abspath(args.tree))
-    from ceres_tpu_torch.ops import implicit, kernels, lin
+    from ceres_tpu_torch.ops import kernels, lin
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], check=True,
                          capture_output=True, text=True).stdout.strip(),
@@ -498,6 +717,12 @@ def main():
         runs += k11_hand_runs()
     if want("K5") or want("K11auto"):
         runs += k5_k11auto_runs(want("K5"), want("K11auto"))
+    if want("K4"):
+        runs += k4_runs()
+    if want("K9"):
+        runs += k9_runs()
+    if want("K7"):
+        runs += k7_runs()
     if runs:
         measure(runs, args.dump)
     if want("K1") or want("K11hand"):
@@ -567,9 +792,16 @@ def main():
                                   for k, t in by_kernel.items()},
                               "plain_ms": events_ms(plain)}), flush=True)
 
-    if not want("K8"):
-        return
-    # K8 at the SE3 main bucket
+    if want("K8"):
+        k8_line(gen)
+    if want("K10"):
+        k10_lines(gen)
+
+
+def k8_line(gen):
+    """K8 at the SE3 main bucket's shape, seeded."""
+    import torch
+    from ceres_tpu_torch.ops import kernels
     gen.manual_seed(1)
     n, r, t, m = 2396, 6, 12, 12000
     J = torch.randn(n, r, t, device="cuda", generator=gen)
@@ -593,9 +825,11 @@ def main():
                       "device_us": device_us(k8, "jtjv_kernel")}),
           flush=True)
 
-    if not want("K10"):
-        return
-    # K10 at the 1M shapes
+
+def k10_lines(gen):
+    """K10 at the 1M shapes, seeded."""
+    import torch
+    from ceres_tpu_torch.ops import implicit
     ne, k, r, te, kf = 200000, 5, 2, 3, 1024
     for tf in (9, 10):
         gen.manual_seed(tf)

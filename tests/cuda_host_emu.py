@@ -51,6 +51,7 @@ emu_dim3 blockDim, gridDim;
 std::barrier<>* emu_bar;
 inline void __syncthreads() { emu_bar->arrive_and_wait(); }
 struct float4 { float x, y, z, w; };
+struct int2 { int x, y; };
 inline float4 make_float4(float x, float y, float z, float w) {
   return float4{x, y, z, w};
 }
@@ -127,7 +128,7 @@ void emu_write(const char* name, const T* p, size_t count) {
 }
 """
 
-_LAUNCH = re.compile(r"([\w:]+<[^<>;]*>)\s*<<<(.*?)>>>\s*\(", re.S)
+_LAUNCH = re.compile(r"([\w:]+(?:<[^<>;]*>)?)\s*<<<(.*?)>>>\s*\(", re.S)
 
 
 def host_header(text: str) -> str:

@@ -154,10 +154,8 @@ def test_cuda_kernels_match_plain_versions():
         assert rel(a.cpu(), b.cpu()) <= 1e-5
     S, rhs, _, _ = step.reduced_system(art, 1e4)
     assert torch.equal(chol_solve(S, rhs), chol_solve_plain(S, rhs))
-    cargs = (x, step.e_slab, step.f_slab, step.pt_idx, step.cam_idx,
-             step.obsx64, step.obsy64)
-    assert rel(snavely_sq(*cargs).cpu(),
-               snavely_sq_plain(*cargs).cpu()) <= 1e-12
+    assert rel(snavely_sq(x, step.k4).cpu(),
+               snavely_sq_plain(x, step.k4).cpu()) <= 1e-12
 
 
 def _fast_math(x, d, sqrt):

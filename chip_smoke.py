@@ -19,7 +19,9 @@ quaternions (QUAT_IMPLICIT_SCHUR):
    bit, and its global-scratch variant on a seeded SPD system of
    K3_GLOBAL_M, past the shared-memory edge), K6 on the
    inverse of the first linearization at RADIUS, K7 on that reduced
-   system with SCHUR_JACOBI and with IDENTITY blocks; K11 (slice 3) on
+   system with SCHUR_JACOBI and with IDENTITY blocks and on the first
+   system of an ITERATIVE_SCHUR solve that runs past the refresh (every
+   residual_reset_period iterations); K11 (slice 3) on
    each graph's main bucket (SE3 at the start and at a perturbed state,
    SE2 at the start), K8 on the scaled Jacobian of each graph's first
    linearization, K9 (slice 6) per row on each slot view of the SE3
@@ -32,7 +34,8 @@ quaternions (QUAT_IMPLICIT_SCHUR):
    cameras); K5 (slice 5) on
    the quaternion problem's first linearization, with no loss and with
    HuberLoss(1.0), and K2, K6 and K3 (bit for bit) on its first
-   linearization at RADIUS (nf 160); K11's auto spec (slice 6) on the
+   linearization at RADIUS (nf 160), K7 on its ITERATIVE_SCHUR step's
+   system there (m 160); K11's auto spec (slice 6) on the
    quaternion large case's bucket (1M rows) at its start, and K10 on that
    case's scaled
    chunk tensors (tf 10) as on the large case's; times each, its plain version
@@ -504,6 +507,7 @@ def main():
     from ceres_tpu_torch.ops.pcg import dense_pcg, dense_pcg_plain
     from ceres_tpu_torch.minimizers.fused import run_fused
     from ceres_tpu_torch.program import CompiledProgram
+    from ceres_tpu_torch.solvers import schur_fused
     from ceres_tpu_torch.solvers.schur import detect_schur_structure
     from ceres_tpu_torch.solvers.schur_fused import (FusedSchurStep,
                                                      ImplicitSchurStep,
@@ -527,6 +531,12 @@ def main():
     problem, cams, pts = build_bal_ceres_problem(bal)
     cam0 = [c.copy() for c in cams]
     pt0 = [p.copy() for p in pts]
+
+    def reset_state():
+        for c, c0 in zip(cams, cam0):
+            c[:] = c0
+        for p, p0 in zip(pts, pt0):
+            p[:] = p0
     common = dict(
         preconditioner_type=ctt.PreconditionerType.SCHUR_JACOBI,
         max_num_iterations=50, function_tolerance=1e-6,
@@ -754,6 +764,34 @@ def main():
         "ceres_tpu_torch/csrc/pcg.cu", "ceres_tpu/ops/pallas_pcg.py:46",
         (S_it, rhs_it), lambda got: pcg_flops(nf, 0, int(got[1]), reset),
         F32_FLOP_PER_S)
+    # a later system of the ITERATIVE_SCHUR solve, the first that runs past
+    # the refresh at `reset` iterations: every K7 system of one solve,
+    # captured at the step's call (then the arrays are set back)
+    systems = []
+
+    def capture(S, b, minv_blocks, **kw):
+        out = dense_pcg(S, b, minv_blocks, **kw)
+        systems.append((S.clone(), b.clone(), minv_blocks.clone(),
+                        int(out[1])))
+        return out
+    schur_fused.dense_pcg = capture
+    try:
+        ctt.solve(it_options, problem)
+    finally:
+        schur_fused.dense_pcg = dense_pcg
+    reset_state()
+    k_late = next(k for k, s in enumerate(systems) if s[3] > reset)
+    S_late, rhs_late, minv_late, _ = systems[k_late]
+    check_kernel(
+        f"K7 dense_pcg (ITERATIVE_SCHUR system {k_late} of {len(systems)}, "
+        f"past the refresh)",
+        lambda: dense_pcg(S_late, rhs_late, minv_late, **pcg_kw),
+        lambda: dense_pcg_plain(S_late, rhs_late, minv_late, **pcg_kw),
+        cmp_pcg(f"K7 dense_pcg (system {k_late})"), PCG_LIMIT,
+        "ceres_tpu_torch/csrc/pcg.cu", "ceres_tpu/ops/pallas_pcg.py:46",
+        (S_late, rhs_late, minv_late),
+        lambda got: pcg_flops(nf, 9, int(got[1]), reset), F32_FLOP_PER_S)
+    del systems, S_late, rhs_late, minv_late
 
     # ---- slice 3: K11 and K8 on the pose graphs' main buckets ----
     graphs = {}
@@ -1018,7 +1056,25 @@ def main():
         q_nf ** 3 / 3 + 2 * q_nf ** 2, F32_FLOP_PER_S,
         library=("torch.linalg.solve(S, rhs)",
                  lambda: torch.linalg.solve(q_S, q_rhs)))
-    del q_art, q_elim, q_inv, q_z, q_S, q_rhs
+    # K7 on the quaternion ITERATIVE_SCHUR step's first system (m 160)
+    q_it_options = quaternion_options(ctt, "QUAT_ITERATIVE_SCHUR",
+                                      device="cuda")
+    q_it_step = FusedSchurStep(q_program, q_it_options,
+                               detect_schur_structure(q_program,
+                                                      q_it_options))
+    q_Si, q_rhsi, _, _ = q_it_step.reduced_system(q_art, RADIUS)
+    q_minv = q_it_step.precond_inverse(q_art, q_Si, rad)
+    q_pcg_kw = q_it_step.pcg_args
+    check_kernel(
+        f"K7 dense_pcg (quaternion cameras, m {q_nf})",
+        lambda: dense_pcg(q_Si, q_rhsi, q_minv, **q_pcg_kw),
+        lambda: dense_pcg_plain(q_Si, q_rhsi, q_minv, **q_pcg_kw),
+        cmp_pcg(f"K7 dense_pcg (m {q_nf})"), PCG_LIMIT,
+        "ceres_tpu_torch/csrc/pcg.cu", "ceres_tpu/ops/pallas_pcg.py:46",
+        (q_Si, q_rhsi, q_minv),
+        lambda got: pcg_flops(q_nf, q_tf, int(got[1]), reset),
+        F32_FLOP_PER_S)
+    del q_art, q_elim, q_inv, q_z, q_S, q_rhs, q_Si, q_rhsi, q_minv
 
     # ---- slice 6: K11's auto spec on the quaternion large case ----
     t0 = time.time()
@@ -1100,12 +1156,6 @@ def main():
                 "K11 bucket_linearize": bucket_linearize,
                 "K11 bucket_linearize (auto)": bucket_linearize_auto,
                 "K5 lin_auto": k5.lin_auto}
-
-    def reset_state():
-        for c, c0 in zip(cams, cam0):
-            c[:] = c0
-        for p, p0 in zip(pts, pt0):
-            p[:] = p0
 
     def gate_path(label, runs, never):
         def gate(summary, launches):

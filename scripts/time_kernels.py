@@ -68,9 +68,15 @@ card from fixed seeds, so both checkouts see the same bits:
   ColumnSum), and the per-row form (ops/kernels.py bucket_gram_blocks:
   the group kernel on one view with the identity map, or in an earlier
   checkout its own kernel) on each slot view.
-- K7 (ops/pcg.py dense_pcg) on the ITERATIVE_SCHUR steps' first reduced
-  systems at the radius 1e4 with SCHUR_JACOBI: BAL-16-22106 (m 144) and
-  its quaternion problem (m 160).
+- K7 (ops/pcg.py dense_pcg) on every reduced camera system that a full
+  ITERATIVE_SCHUR solve with SCHUR_JACOBI hands it (captured at the
+  step's call): BAL-16-22106 (m 144, chip_smoke.py's ITERATIVE_SCHUR
+  options) and its quaternion problem (m 160, QUAT_ITERATIVE_SCHUR);
+  a line a system with its CG iterations and bound, then per problem
+  the device time a call fitted against the CG iterations (the time a
+  CG iteration, and at none); and seeded SPD systems at m 200, 201, 240,
+  296 and 1024, past the register path (S in shared memory up to m 238,
+  then in global memory).
 
 For each it prints the card's name and power limit, then one JSON line:
 the largest difference from the plain version (K3 and K10 must give the
@@ -535,21 +541,19 @@ def k9_runs():
     return runs
 
 
-def k7_runs():
-    """The runs of K7 (ops/pcg.py dense_pcg) on the ITERATIVE_SCHUR
-    steps' first reduced systems at the initial radius 1e4, with their
-    SCHUR_JACOBI blocks: BAL-16-22106 with angle-axis cameras (m 144)
-    and with quaternion cameras (m 160), built by the imported checkout
-    from chip_smoke.py's seeded problems."""
-    import torch
+def k7_systems():
+    """Every K7 system of one full ITERATIVE_SCHUR solve of each problem,
+    captured at dense_pcg's call in the explicit step: [(name, k, S, rhs,
+    minv, pcg keyword arguments)] for BAL-16-22106 with angle-axis
+    cameras (m 144; chip_smoke.py's ITERATIVE_SCHUR options) and with
+    quaternion cameras (m 160; QUAT_ITERATIVE_SCHUR), built by the
+    imported checkout from chip_smoke.py's seeded problems. Prints each
+    solve's LM and CG counts and final cost."""
     import ceres_tpu_torch as ctt
     from ceres_tpu_torch.io import bal as bal_io
     from ceres_tpu_torch.io.bal import (build_bal_ceres_problem,
                                         synthetic_bal_problem)
-    from ceres_tpu_torch.ops import pcg
-    from ceres_tpu_torch.program import CompiledProgram
-    from ceres_tpu_torch.solvers.schur import detect_schur_structure
-    from ceres_tpu_torch.solvers.schur_fused import FusedSchurStep
+    from ceres_tpu_torch.solvers import schur_fused
     from chip_smoke import (PERTURB, SHAPE, quaternion_bal,
                             quaternion_options)
     bal = synthetic_bal_problem(**SHAPE, seed=7, pixel_noise=1.0)
@@ -558,7 +562,8 @@ def k7_runs():
     quaternion = build_bal_ceres_problem(
         quaternion_bal(bal_io), use_quaternions=True,
         use_manifolds=False)[0]
-    runs = []
+    systems = []
+    kernel = schur_fused.dense_pcg
     for name, problem, options in (
             ("angle-axis", angle_axis, ctt.SolverOptions(
                 linear_solver_type=ctt.LinearSolverType.ITERATIVE_SCHUR,
@@ -569,25 +574,110 @@ def k7_runs():
                 device="cuda")),
             ("quaternion", quaternion, quaternion_options(
                 ctt, "QUAT_ITERATIVE_SCHUR", device="cuda"))):
-        program = CompiledProgram.get_cached(problem, options)
-        step = FusedSchurStep(program, options,
-                              detect_schur_structure(program, options))
-        x0 = program.initial_state()
-        art = step.linearize(x0, *step.initial_scales(), True)
-        S, rhs, _, _ = step.reduced_system(art, 1e4)
-        rad = torch.tensor(1e4, dtype=torch.float32, device="cuda")
-        minv = step.precond_inverse(art, S, rad)
-        kw = step.pcg_args
+        seen = []
+
+        def capture(S, rhs, minv, **kw):
+            seen.append((name, len(seen), S.clone(), rhs.clone(),
+                         None if minv is None else minv.clone(), dict(kw)))
+            return kernel(S, rhs, minv, **kw)
+        schur_fused.dense_pcg = capture
+        try:
+            summary = ctt.solve(options, problem)
+        finally:
+            schur_fused.dense_pcg = kernel
+        print(json.dumps({"k7_solve": name, "lm": summary.num_iterations,
+                          "cg": summary.num_linear_solver_iterations,
+                          "final_cost": summary.final_cost,
+                          "systems": len(seen)}), flush=True)
+        systems += seen
+    return systems
+
+
+def k7_seeded():
+    """K7 past the register path: seeded SPD systems S = A A^T + m I at
+    m 200 and 201 (S in shared memory, by one bulk copy and by the
+    threads' loop), 240, 296 and 1024 (S in global memory), b normal, the
+    inverted 8 x 8 diagonal blocks (3 x 3 at m 201), made with numpy
+    (tests/test_torch_pcg.py's cases)."""
+    import numpy as np
+    import torch
+    out = []
+    for m in (200, 201, 240, 296, 1024):
+        rng = np.random.default_rng(3)
+        A = rng.standard_normal((m, m))
+        S = (A @ A.T + m * np.eye(m)).astype(np.float32)
+        b = rng.standard_normal(m).astype(np.float32)
+        tf = 8 if m % 8 == 0 else 3
+        inv = np.linalg.inv(np.stack([S[i:i + tf, i:i + tf]
+                                      for i in range(0, m, tf)]))
+        out.append((f"seeded m {m}", 0, torch.as_tensor(S, device="cuda"),
+                    torch.as_tensor(b, device="cuda"),
+                    torch.as_tensor(inv.astype(np.float32), device="cuda"),
+                    dict(max_iterations=100, min_iterations=0,
+                         q_tolerance=0.01, residual_reset_period=10)))
+    return out
+
+
+def k7_runs():
+    """The runs of K7 (ops/pcg.py dense_pcg) on every system of
+    `k7_systems`: y, the iteration count and ||r||, against the plain
+    version; the line gives the system's CG iterations and its bound
+    (chip_smoke.py pcg_flops for these iterations against the bytes)."""
+    from ceres_tpu_torch.ops import pcg
+    from chip_smoke import F32_FLOP_PER_S, bound, nbytes, pcg_flops
+    runs = []
+    for name, k, S, rhs, minv, kw in k7_systems() + k7_seeded():
+        def call(S=S, rhs=rhs, minv=minv, kw=kw, fn=pcg.dense_pcg):
+            y, it, norm = fn(S, rhs, minv, **kw)
+            return {"y": y, "iterations": it.reshape(1),
+                    "norm": norm.reshape(1)}
+        got = call()
+        iters = int(got["iterations"])
+        m, tf = S.shape[0], 0 if minv is None else minv.shape[-1]
+        bound_ms, bound_by = bound(
+            nbytes(S, rhs, minv, got),
+            pcg_flops(m, tf, iters, kw.get("residual_reset_period", 10)),
+            F32_FLOP_PER_S)
         runs.append((
-            {"kernel": "K7 dense_pcg", "cameras": name,
-             "shape": [S.shape[0]],
-             "cg_iterations": int(pcg.dense_pcg(S, rhs, minv, **kw)[1])},
-            lambda S=S, rhs=rhs, minv=minv, kw=kw: {
-                "y": pcg.dense_pcg(S, rhs, minv, **kw)[0]},
-            lambda S=S, rhs=rhs, minv=minv, kw=kw: {
-                "y": pcg.dense_pcg_plain(S, rhs, minv, **kw)[0]},
-            pcg.dense_pcg, None, f"K7 {name}"))
+            {"kernel": "K7 dense_pcg", "cameras": name, "system": k,
+             "shape": [m], "cg_iterations": iters, "bound_ms": bound_ms,
+             "bound_by": bound_by},
+            call, lambda call=call: call(fn=pcg.dense_pcg_plain),
+            pcg.dense_pcg, None, f"K7 {name} {k}"))
     return runs
+
+
+def line_fit(pts):
+    """(value at 0, slope) of the least-squares line through (x, y)
+    points; slope None when every x is the same."""
+    n = len(pts)
+    mx = sum(p[0] for p in pts) / n
+    my = sum(p[1] for p in pts) / n
+    sxx = sum((p[0] - mx) ** 2 for p in pts)
+    if sxx == 0:
+        return my, None
+    slope = sum((p[0] - mx) * (p[1] - my) for p in pts) / sxx
+    return my - slope * mx, slope
+
+
+def k7_fit(runs):
+    """Print, per problem, the least-squares line of K7's device time a
+    call against its CG iterations over the problem's systems: the time
+    at 0 iterations and the time a CG iteration (us)."""
+    for name in ("angle-axis", "quaternion"):
+        pts = [(r[0]["cg_iterations"], r[0]["device_us"]) for r in runs
+               if r[0]["kernel"] == "K7 dense_pcg"
+               and r[0]["cameras"] == name]
+        if len(pts) < 2:
+            continue
+        at0, per_it = line_fit(pts)
+        print(json.dumps({"kernel": "K7 fit", "cameras": name,
+                          "systems": len(pts),
+                          "cg_iterations": sum(p[0] for p in pts),
+                          "device_us_at_0": at0,
+                          "device_us_per_iteration": per_it,
+                          "device_us_all_systems": sum(
+                              p[1] for p in pts)}), flush=True)
 
 
 def measure(runs, dump):
@@ -725,6 +815,7 @@ def main():
         runs += k7_runs()
     if runs:
         measure(runs, args.dump)
+        k7_fit(runs)
     if want("K1") or want("K11hand"):
         print(json.dumps({"library": library_usage()}), flush=True)
     if want("K5") or want("K11auto"):

@@ -5,9 +5,13 @@ shared-memory layout and barriers can still be exercised: this module
 compiles a header with the host g++ under a shim that stands in for the
 CUDA qualifiers and runtime calls, and emulates each launch one block at
 a time, one std::thread per CUDA thread, with a std::barrier as
-__syncthreads. The arithmetic is the host's (no FMA contraction), so
-results are held to the plain versions within a tolerance, not to the
-card's bits.
+__syncthreads. A warp's __shfl_down_sync and __shfl_xor_sync go through
+exchange slots between two barriers of its 32 threads, and a bulk copy on an mbarrier
+(`bulk_load` / `bulk_wait`, which a source defines for the card unless
+CUDA_HOST_EMU is set) is a copy by the issuing thread that then
+releases the waiters. The arithmetic is the host's (no FMA
+contraction), so results are held to the plain versions within a
+tolerance, not to the card's bits.
 
     exe = build(tmp_path, header_text, body, extra_source)
     outputs = run(exe, tmp_path, inputs, outputs)
@@ -26,7 +30,9 @@ from pathlib import Path
 
 import numpy as np
 
-SHIM = r"""#include <algorithm>
+SHIM = r"""#define CUDA_HOST_EMU 1
+#include <algorithm>
+#include <atomic>
 #include <barrier>
 #include <cmath>
 #include <cstdint>
@@ -36,6 +42,7 @@ SHIM = r"""#include <algorithm>
 #include <thread>
 #include <vector>
 #include <math.h>
+#include <memory>
 #define __global__
 #define __device__
 #define __host__
@@ -50,6 +57,46 @@ thread_local emu_dim3 threadIdx, blockIdx;
 emu_dim3 blockDim, gridDim;
 std::barrier<>* emu_bar;
 inline void __syncthreads() { emu_bar->arrive_and_wait(); }
+// a warp's shuffle: each thread posts its value, the warp meets, reads
+// its source lane's slot, and meets again before the slots are reused
+std::vector<std::unique_ptr<std::barrier<>>> emu_warp_bar;
+std::vector<float> emu_shfl;
+inline float __shfl_down_sync(unsigned, float v, int off) {
+  const unsigned t = threadIdx.x, lane = t & 31;
+  std::barrier<>& bar = *emu_warp_bar[t >> 5];
+  emu_shfl[t] = v;
+  bar.arrive_and_wait();
+  const float out = lane + off < 32 ? emu_shfl[t + off] : v;
+  bar.arrive_and_wait();
+  return out;
+}
+inline float __shfl_xor_sync(unsigned, float v, int mask) {
+  const unsigned t = threadIdx.x;
+  std::barrier<>& bar = *emu_warp_bar[t >> 5];
+  emu_shfl[t] = v;
+  bar.arrive_and_wait();
+  const float out = emu_shfl[t ^ mask];
+  bar.arrive_and_wait();
+  return out;
+}
+inline unsigned __brev(unsigned x) {
+  unsigned r = 0;
+  for (int i = 0; i < 32; ++i) r |= ((x >> i) & 1u) << (31 - i);
+  return r;
+}
+// cp.async.bulk on an mbarrier: the issuing thread arms the barrier,
+// copies and releases it; a waiter spins until then
+inline void bulk_load(float* dst, const float* src, unsigned bytes,
+                      uint64_t* bar) {
+  std::atomic_ref<uint64_t>(*bar).store(0, std::memory_order_relaxed);
+  memcpy(dst, src, bytes);
+  std::atomic_ref<uint64_t>(*bar).store(1, std::memory_order_release);
+}
+inline void bulk_wait(uint64_t* bar) {
+  while (std::atomic_ref<uint64_t>(*bar).load(std::memory_order_acquire)
+         == 0)
+    std::this_thread::yield();
+}
 struct float4 { float x, y, z, w; };
 struct int2 { int x, y; };
 inline float4 make_float4(float x, float y, float z, float w) {
@@ -62,10 +109,16 @@ typedef void* cudaStream_t;
 enum cudaError_t {
   cudaSuccess = 0,
   cudaErrorInvalidValue = 1,
-  cudaErrorInvalidConfiguration = 9
+  cudaErrorInvalidConfiguration = 9,
+  cudaErrorInvalidDevice = 101
 };
 enum cudaFuncAttribute { cudaFuncAttributeMaxDynamicSharedMemorySize = 8 };
-enum cudaDeviceAttr { cudaDevAttrMultiProcessorCount = 16 };
+enum cudaDeviceAttr {
+  cudaDevAttrMultiProcessorCount = 16,
+  cudaDevAttrMaxSharedMemoryPerBlockOptin = 97
+};
+alignas(16) float emu_smem[1 << 16];
+size_t emu_smem_used = 0;
 inline cudaError_t cudaGetLastError() { return cudaSuccess; }
 template <class F>
 inline cudaError_t cudaFuncSetAttribute(F, cudaFuncAttribute, int) {
@@ -73,9 +126,11 @@ inline cudaError_t cudaFuncSetAttribute(F, cudaFuncAttribute, int) {
 }
 inline cudaError_t cudaGetDevice(int* d) { *d = 0; return cudaSuccess; }
 // an emulated card of 2 SMs, each holding one block: a persistent grid
-// of 2 blocks, so that blocks take several tiles
-inline cudaError_t cudaDeviceGetAttribute(int* v, cudaDeviceAttr, int) {
-  *v = 2;
+// of 2 blocks, so that blocks take several tiles; a block may use all
+// of the shim's shared memory
+inline cudaError_t cudaDeviceGetAttribute(int* v, cudaDeviceAttr a, int) {
+  *v = a == cudaDevAttrMaxSharedMemoryPerBlockOptin ? (int)sizeof(emu_smem)
+                                                    : 2;
   return cudaSuccess;
 }
 template <class F>
@@ -84,8 +139,6 @@ inline cudaError_t cudaOccupancyMaxActiveBlocksPerMultiprocessor(
   *n = 1;
   return cudaSuccess;
 }
-alignas(16) float emu_smem[1 << 16];
-size_t emu_smem_used = 0;
 template <class K, class... A>
 void emu_launch(K kernel, unsigned grid, unsigned block, size_t smem,
                 cudaStream_t, A... args) {
@@ -93,6 +146,11 @@ void emu_launch(K kernel, unsigned grid, unsigned block, size_t smem,
   emu_smem_used = std::max(emu_smem_used, smem);
   blockDim = {block, 1, 1};
   gridDim = {grid, 1, 1};
+  emu_shfl.assign(block, 0.f);
+  emu_warp_bar.clear();
+  for (unsigned w = 0; w < block; w += 32)
+    emu_warp_bar.emplace_back(
+        std::make_unique<std::barrier<>>(std::min(32u, block - w)));
   for (unsigned b = 0; b < grid; ++b) {
     std::barrier<> bar(block);
     emu_bar = &bar;

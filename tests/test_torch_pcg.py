@@ -3,8 +3,10 @@ ceres_tpu_torch: the port's conjugate_gradients and dense_pcg_plain
 against the JAX package's conjugate_gradients and its Pallas kernel
 (ceres_tpu/ops/pallas_pcg.py dense_pcg, interpret mode on the CPU), on the
 cases of test_pallas_pcg.py; elim_v1_plain against ceres_tpu/ops/
-pallas_lin.py _elim_kernel in interpret mode; and, on a card only, the
-CUDA kernels K6 and K7 against their plain versions.
+pallas_lin.py _elim_kernel in interpret mode; csrc/pcg.cu run on the
+host under tests/cuda_host_emu.py's g++ shim against dense_pcg_plain;
+and, on a card only, the CUDA kernels K6 and K7 against their plain
+versions.
 
 Tolerances: CG iteration counts equal; y within rtol 2e-5 / atol 2e-6, as
 test_pallas_pcg.py holds the Pallas kernel to the XLA loop (f32 sums in
@@ -16,6 +18,7 @@ import numpy as np
 import pytest
 import torch
 
+import cuda_host_emu as emu
 from torch_parity_kit import (ct, ctt, jax_problem, main_path_options,
                               pallas_interpret, rel, small_bal,
                               torch_problem)
@@ -25,6 +28,7 @@ from ceres_tpu.ops.pallas_pcg import dense_pcg as jax_dense_pcg
 from ceres_tpu.program import CompiledProgram as JaxProgram
 from ceres_tpu.solvers.cg import conjugate_gradients as jax_cg
 from ceres_tpu.solvers.schur import detect_schur_structure as jax_detect
+from ceres_tpu_torch.ops import _cuda
 from ceres_tpu_torch.ops.lin import elim_v1, elim_v1_plain
 from ceres_tpu_torch.ops.pcg import dense_pcg, dense_pcg_plain
 from ceres_tpu_torch.program import CompiledProgram as TorchProgram
@@ -139,6 +143,101 @@ def test_cg_guards_match_jax_cg(kind):
         assert int(it) == 1 and not torch.any(y != 0)
 
 
+# csrc/pcg.cu on the host: main() reads the system, runs ceres_pcg and
+# writes y, the iteration count, ||r|| and the shared memory the launch
+# asked for
+_K7_MAIN = r"""
+  int* hdr = emu_read<int>("hdr", 5);
+  float* q_tol = emu_read<float>("q_tol", 1);
+  const int m = hdr[0], tf = hdr[1];
+  float* S = emu_read<float>("S", (size_t)m * m);
+  float* b = emu_read<float>("b", m);
+  float* minv = tf ? emu_read<float>("minv", (size_t)m * tf) : nullptr;
+  float* y = emu_alloc<float>(m);
+  int* it = emu_alloc<int>(1);
+  float* norm = emu_alloc<float>(1);
+  if (ceres_pcg(S, b, minv, m, tf ? tf : 1, hdr[2], hdr[3], q_tol[0],
+                hdr[4], y, it, norm, nullptr) != 0)
+    abort();
+  const long used = (long)emu_smem_used;
+  emu_write("y", y, m);
+  emu_write("it", it, 1);
+  emu_write("norm", norm, 1);
+  emu_write("smem", &used, 1);
+"""
+_REG_CAP = "constexpr int REG_CAP = 160;"
+_SMEM_M = "constexpr int SMEM_M = 240;"
+_K7_EXE = {}
+# case -> (m, tf (0: IDENTITY), max_iterations, q_tolerance, what is
+# changed): the Q test's stop on SCHUR_JACOBI-like blocks and on
+# IDENTITY, a run past the refresh at 10 iterations (14 iterations), a
+# NaN in S (stops at iteration 1 with y = 0), max_iterations = 0 (y = 0),
+# an odd m (S's bytes not a multiple of 16: no bulk copy), and m 160 (the
+# register path's 10-row instantiation; from memory three chunks of rows)
+K7_HOST_CASES = {
+    "blocks": (64, 8, 60, 0.01, None), "identity": (48, 0, 60, 0.01, None),
+    "refresh": (56, 8, 14, 0.0, None), "nan": (48, 8, 40, 0.01, "nan"),
+    "max_it_0": (48, 8, 0, 0.01, None), "odd": (63, 0, 60, 0.01, None),
+    "m160": (160, 8, 60, 0.01, None)}
+
+
+@pytest.mark.parametrize("path", ["registers", "shared", "global"])
+@pytest.mark.parametrize("case", list(K7_HOST_CASES))
+def test_k7_kernel_source_on_the_host(tmp_path_factory, path, case):
+    """csrc/pcg.cu emulated on the host (one std::thread per CUDA thread,
+    the warp shuffles and the bulk copy through the shim) through
+    ceres_pcg, against dense_pcg_plain: equal iteration counts and y
+    within 1e-4 relative (the host does not contract to FMA).
+    "registers" builds the source as it is, so these m take the register
+    path that the main path runs (9 rows of 5 columns a thread, 10 at
+    m 160); "shared" builds it with REG_CAP 32, so they take the
+    shared-memory path (S brought in by one bulk copy, or copied by the
+    threads at an odd m); "global" with REG_CAP and SMEM_M 32, so S is
+    read from global memory."""
+    if emu.gxx() is None:
+        pytest.skip("no host g++")
+    if path not in _K7_EXE:
+        src = emu.source(_cuda.CSRC / "pcg.cu")
+        assert _REG_CAP in src
+        if path != "registers":
+            src = src.replace(_REG_CAP, "constexpr int REG_CAP = 32;")
+        if path == "global":
+            assert _SMEM_M in src
+            src = src.replace(_SMEM_M, "constexpr int SMEM_M = 32;")
+        _K7_EXE[path] = emu.build(tmp_path_factory.mktemp(f"k7emu{path}"),
+                                  src, _K7_MAIN)
+    m, tf, max_it, q_tol, change = K7_HOST_CASES[case]
+    S, b, inv = _case(m, q_tol, tf)
+    if change == "nan":
+        S[3, 5] = np.nan
+    reset = 10
+    inputs = {"hdr": np.array([m, tf, max_it, 0, reset], np.int32),
+              "q_tol": np.array([q_tol], np.float32), "S": S, "b": b}
+    if tf:
+        inputs["minv"] = inv.astype(np.float32)
+    out = emu.run(_K7_EXE[path], tmp_path_factory.mktemp("k7run"), inputs,
+                  {"y": (np.float32, m), "it": (np.int32, 1),
+                   "norm": (np.float32, 1), "smem": (np.int64, 1)})
+    y, it, norm = dense_pcg_plain(
+        torch.as_tensor(S), torch.as_tensor(b),
+        None if inv is None else torch.as_tensor(inv.astype(np.float32)),
+        max_iterations=max_it, q_tolerance=q_tol,
+        residual_reset_period=reset)
+    assert (int(out["smem"][0]) >= 4 * m * m) == (path == "shared")
+    assert int(out["it"][0]) == int(it)
+    if change == "nan":
+        assert int(it) == 1 and not np.any(out["y"] != 0)
+    elif max_it == 0:
+        assert int(it) == 0 and not np.any(out["y"] != 0)
+        np.testing.assert_allclose(out["norm"], float(norm), rtol=1e-6)
+    else:
+        assert int(it) == (14 if case == "refresh" else int(it)) > 1
+        assert rel(out["y"], y.numpy()) <= 1e-4
+        # ||r|| to 1e-4, or to 1e-6 of b where it reaches f32's floor
+        np.testing.assert_allclose(out["norm"], float(norm), rtol=1e-4,
+                                   atol=1e-6 * float(np.abs(b).max()))
+
+
 def _iterative_step(device):
     opts = main_path_options(ctt, device=device, **ITERATIVE)
     program = TorchProgram(torch_problem(small_bal()), device=device)
@@ -203,13 +302,14 @@ def test_cuda_k6_k7_match_plain_versions():
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("m,tf,kind", [
-    (296, 8, "spd"), (1024, 8, "spd"), (1024, 0, "spd"), (64, 8, "nan"),
-    (64, 0, "max_it_0")])
+    (200, 8, "spd"), (201, 3, "spd"), (296, 8, "spd"), (1024, 8, "spd"),
+    (1024, 0, "spd"), (64, 8, "nan"), (64, 0, "max_it_0")])
 def test_cuda_k7_other_shapes_and_guards(m, tf, kind):
-    """K7 beyond the main path's m = 144: S in global memory (m = 296 and
-    1024, past the shared-memory budget), IDENTITY, a NaN in S (stops at
-    iteration 1 with y = 0) and max_iterations = 0 (y = 0, 0 iterations),
-    against the plain version on the card."""
+    """K7 beyond the main path's m = 144 and 160: S in global memory past
+    the register path (m = 200, 201 with 3 x 3 blocks, 296 and 1024),
+    IDENTITY, a NaN in S (stops at iteration 1 with y = 0) and
+    max_iterations = 0 (y = 0, 0 iterations), against the plain version
+    on the card."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     S, b, inv = _case(m, 0.01, tf)

@@ -2,21 +2,45 @@
 
 Counterpart of ceres_tpu/cost.py for the slice: CostFunction
 (the reference's cost_function.h:64), SizedCostFunction
-(sized_cost_function.h:50) and AutoDiffCostFunction
-(autodiff_cost_function.h:156). A functor is a plain function
+(sized_cost_function.h:50), AutoDiffCostFunction
+(autodiff_cost_function.h:156), NumericDiffOptions and
+NumericDiffCostFunction (numeric_diff_cost_function.h:181, FORWARD,
+CENTRAL and RIDDERS). A functor is a plain function
 `f(*params) -> residuals` or an instance whose `__call__(self, *params)`
 uses torch operations; instance attributes (observations and the like)
 are per-residual-block data, stacked across a bucket and mapped over with
 `torch.func.vmap`. Forward-mode derivatives come from `torch.func.jacfwd`,
-the role the reference's Jet plays.
+the role the reference's Jet plays; a SizedCostFunction that overrides
+`jacobians` gives its own, and a NumericDiffCostFunction takes them by
+finite differences (`jacobian_of`). The program picks the mode per bucket
+(program.py `jac_mode`, ceres_tpu program.py:448-456).
 """
 
 from __future__ import annotations
 
 import types as _types
-from typing import Callable, Sequence
+from typing import Callable, Optional, Sequence
 
 import torch
+
+from .types import NumericDiffMethodType
+
+
+class NumericDiffOptions:
+    """The reference's numeric_diff_options.h."""
+
+    def __init__(self,
+                 relative_step_size: float = 1e-6,
+                 ridders_relative_initial_step_size: float = 1e-2,
+                 max_num_ridders_extrapolations: int = 10,
+                 ridders_epsilon: float = 1e-12,
+                 ridders_step_shrink_factor: float = 2.0):
+        self.relative_step_size = relative_step_size
+        self.ridders_relative_initial_step_size = (
+            ridders_relative_initial_step_size)
+        self.max_num_ridders_extrapolations = max_num_ridders_extrapolations
+        self.ridders_epsilon = ridders_epsilon
+        self.ridders_step_shrink_factor = ridders_step_shrink_factor
 
 
 def _functor_parts(functor):
@@ -121,8 +145,10 @@ class AutoDiffCostFunction(CostFunction):
 
 class SizedCostFunction(CostFunction):
     """User-subclassed cost (sized_cost_function.h:50): implement
-    `residuals(*params)` with torch operations; derivatives come from
-    jacfwd. Instance attributes are per-block data."""
+    `residuals(*params)` with torch operations, and derivatives come from
+    jacfwd; or also `jacobians(*params) -> [J_i [num_residuals, size_i]
+    per parameter block]` for analytic ones. Instance attributes are
+    per-block data."""
 
     def bucket_key(self):
         return ("sized", type(self), self._num_residuals,
@@ -130,6 +156,9 @@ class SizedCostFunction(CostFunction):
 
     def residuals(self, *params):
         raise NotImplementedError
+
+    def jacobians(self, *params):
+        return None
 
     def block_data(self):
         return {k: v for k, v in vars(self).items()
@@ -145,3 +174,97 @@ class SizedCostFunction(CostFunction):
             return torch.as_tensor(obj.residuals(*params)).reshape(nr)
 
         return fn
+
+
+class NumericDiffCostFunction(CostFunction):
+    """Finite-difference cost (numeric_diff_cost_function.h:181; the
+    reference's internal/numeric_diff.h:61): method FORWARD, CENTRAL or
+    RIDDERS. All probes of one parameter block run as one batched call
+    (vmap over the perturbation directions)."""
+
+    def __init__(self, functor, method=NumericDiffMethodType.CENTRAL,
+                 num_residuals: int = 1,
+                 parameter_block_sizes: Sequence[int] = (),
+                 options: Optional[NumericDiffOptions] = None):
+        super().__init__(num_residuals, parameter_block_sizes)
+        self._functor = functor
+        self._method = method
+        self._options = options or NumericDiffOptions()
+        self._code_key, self._call, self._data = _functor_parts(functor)
+
+    def bucket_key(self):
+        return ("numdiff", self._code_key, self._method, self._num_residuals,
+                tuple(self._parameter_block_sizes))
+
+    def block_data(self):
+        return self._data
+
+    def make_residual_fn(self):
+        call = self._call
+        nr = self._num_residuals
+
+        def fn(data, *params):
+            return torch.as_tensor(call(data, *params)).reshape(nr)
+
+        return fn
+
+    def jacobian_of(self, residual_fn, slot: int):
+        """jfn(data, params) -> [num_residuals, size] finite-difference
+        Jacobian with respect to parameter slot `slot` (ceres_tpu
+        cost.py:230-293): a relative step of max(|x|, 1) per coordinate;
+        RIDDERS runs a fixed-depth Neville tableau of central differences
+        over a shrinking step and keeps, per entry, the extrapolation
+        with the smallest error estimate."""
+        opts = self._options
+        method = self._method
+
+        def jfn(data, params):
+            x = params[slot]
+            rel = (opts.ridders_relative_initial_step_size
+                   if method == NumericDiffMethodType.RIDDERS
+                   else opts.relative_step_size)
+            step = rel * torch.clamp(torch.abs(x), min=1.0)
+            eye = torch.eye(x.shape[0], dtype=x.dtype, device=x.device)
+
+            def eval_at(xs):
+                ps = list(params)
+                ps[slot] = xs
+                return residual_fn(data, *ps)
+
+            def probes(sign, h):
+                return torch.func.vmap(
+                    lambda e, hh: eval_at(x + sign * hh * e))(eye, h)
+
+            if method == NumericDiffMethodType.FORWARD:
+                f0 = eval_at(x)
+                return ((probes(1.0, step) - f0[None, :])
+                        / step[:, None]).T
+            if method == NumericDiffMethodType.CENTRAL:
+                return ((probes(1.0, step) - probes(-1.0, step))
+                        / (2.0 * step[:, None])).T
+
+            def central(h):                 # [size, nr]
+                return (probes(1.0, h) - probes(-1.0, h)) / (2.0 * h[:, None])
+
+            T = opts.max_num_ridders_extrapolations
+            shrink = opts.ridders_step_shrink_factor
+            col = [central(step / (shrink ** t)) for t in range(T)]
+            best = col[0]
+            best_err = torch.full_like(best, float("inf"))
+            prev_row = [col[0]]
+            for t in range(1, T):
+                row = [col[t]]
+                fac = shrink ** 2
+                for m in range(1, t + 1):
+                    new = (row[m - 1] * fac - prev_row[m - 1]) / (fac - 1.0)
+                    fac *= shrink ** 2
+                    err = torch.maximum(torch.abs(new - row[m - 1]),
+                                        torch.abs(new - prev_row[m - 1]))
+                    better = err < best_err
+                    best = torch.where(better, new, best)
+                    best_err = torch.where(better, err, best_err)
+                    row.append(new)
+                prev_row = row
+            return best.T
+
+        return jfn

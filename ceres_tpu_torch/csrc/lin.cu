@@ -42,8 +42,17 @@
 // chunk in row order (masked rows' +-0 terms, which the plan drops, move
 // no bit of a sum that starts at +0), then the chunks in order. Shared
 // memory, registers and times beside the bound: PERF.md section 6
-// (scripts/time_kernels.py --only K1, cuobjdump -res-usage). No robust
-// loss: ops/lin.py raises for one on the card (ROADMAP.md item 9).
+// (scripts/time_kernels.py --only K1, cuobjdump -res-usage).
+// Robust loss: the chain is a template on the loss class (NoLoss, and the
+// stock scalar losses of loss.py below), one entry point an instance
+// (ceres_lin, ceres_lin_huber, ...; ops/lin.py K1_ENTRIES picks it by
+// the loss's class). After snavely_residual each lane's jets take the
+// Triggs corrector (correct_jets: loss.py correct_residuals_and_jacobian
+// on one lane, in its order of operations; the JAX kernel's
+// _correct_jets, ceres_tpu/ops/pallas_lin.py:113-114), with sq = 0 on a
+// masked lane, so its terms stay finite before the mask zeroes them. The
+// loss's scalars come as LossParams in ops/jet_compile.py loss_structure
+// order, as K5's generated chains take them.
 
 #include <cuda_runtime.h>
 
@@ -52,12 +61,135 @@
 
 namespace {
 
+// The losses' (rho', rho'') at s = ||r||^2, as loss.py evaluates them in
+// f32 (rho itself is not needed by the corrector). p holds the loss's
+// scalar attributes in their order of definition.
+struct NoLoss {
+  static constexpr bool kCorrect = false;
+  static __device__ __forceinline__ void eval(float, const LossParams&,
+                                              float&, float&) {}
+};
+
+struct HuberK1 {                    // p: a, b = a^2
+  static constexpr bool kCorrect = true;
+  static __device__ __forceinline__ void eval(float s, const LossParams& lp,
+                                              float& rho1, float& rho2) {
+    const float a = lp.p[0], b = lp.p[1];
+    const float sb = fmaxf(s, b);
+    const float r1 = a / sqrtf(sb);
+    const bool inlier = s <= b;
+    rho1 = inlier ? 1.f : r1;
+    rho2 = inlier ? 0.f : -0.5f * r1 / sb;
+  }
+};
+
+struct SoftLOneK1 {                 // p: b = a^2, c = 1 / b
+  static constexpr bool kCorrect = true;
+  static __device__ __forceinline__ void eval(float s, const LossParams& lp,
+                                              float& rho1, float& rho2) {
+    const float c = lp.p[1];
+    const float total = 1.f + s * c;
+    const float tmp = sqrtf(total);
+    rho1 = 1.f / tmp;
+    rho2 = -c / (2.f * total * tmp);
+  }
+};
+
+struct CauchyK1 {                   // p: b = a^2, c = 1 / b
+  static constexpr bool kCorrect = true;
+  static __device__ __forceinline__ void eval(float s, const LossParams& lp,
+                                              float& rho1, float& rho2) {
+    const float c = lp.p[1];
+    const float inv = 1.f / (1.f + s * c);
+    rho1 = inv;
+    rho2 = -c * inv * inv;
+  }
+};
+
+struct ArctanK1 {                   // p: a, b = 1 / a^2
+  static constexpr bool kCorrect = true;
+  static __device__ __forceinline__ void eval(float s, const LossParams& lp,
+                                              float& rho1, float& rho2) {
+    const float b = lp.p[1];
+    const float inv = 1.f / (1.f + s * s * b);
+    rho1 = inv;
+    rho2 = -2.f * s * b * inv * inv;
+  }
+};
+
+struct TolerantK1 {                 // p: a, b, c
+  static constexpr bool kCorrect = true;
+  static __device__ __forceinline__ void eval(float s, const LossParams& lp,
+                                              float& rho1, float& rho2) {
+    const float a = lp.p[0], b = lp.p[1];
+    const float x = (s - a) / b;
+    float sig = x > 35.f ? 1.f : 1.f / (1.f + expf(-fminf(fabsf(x), 35.f)));
+    if (x < 0.f) {
+      const float e = expf(fmaxf(x, -35.f));
+      sig = e / (1.f + e);
+    }
+    rho1 = sig;
+    rho2 = sig * (1.f - sig) / b;
+  }
+};
+
+struct TukeyK1 {                    // p: a2 = a^2
+  static constexpr bool kCorrect = true;
+  static __device__ __forceinline__ void eval(float s, const LossParams& lp,
+                                              float& rho1, float& rho2) {
+    const float a2 = lp.p[0];
+    const float value = fmaxf(1.f - s / a2, 0.f);
+    const bool inlier = s <= a2;
+    rho1 = inlier ? 0.5f * value * value : 0.f;
+    rho2 = inlier ? -value / a2 : 0.f;
+  }
+};
+
+// Triggs correction of one lane's R residual jets (loss.py
+// correct_residuals_and_jacobian): r~ = rs r, J~ = sqrt(rho') (J - asn r
+// r^T J), sq = 0 on an invalid lane (the simple branch)
+template <class Loss, int R, int NT>
+__device__ __forceinline__ void correct_jets(const LossParams& lp,
+                                             bool valid, float (&rv)[R],
+                                             float (&J)[R][NT]) {
+  float sq = rv[0] * rv[0];
+#pragma unroll
+  for (int s = 1; s < R; ++s) sq += rv[s] * rv[s];
+  if (!valid) sq = 0.f;
+  float rho1, rho2;
+  Loss::eval(sq, lp, rho1, rho2);
+  const float sqrt_rho1 = sqrtf(fmaxf(rho1, 0.f));
+  const bool simple = sq == 0.f || rho2 <= 0.f;
+  const float safe_sq = sq == 0.f ? 1.f : sq;
+  const float safe_rho1 = rho1 == 0.f ? 1.f : rho1;
+  const float D = 1.f + 2.f * sq * rho2 / safe_rho1;
+  const float alpha = 1.f - sqrtf(fmaxf(D, 0.f));
+  const float rs = simple ? sqrt_rho1 : sqrt_rho1 / (1.f - alpha);
+  const float asn = simple ? 0.f : alpha / safe_sq;
+  float rtj[NT];
+#pragma unroll
+  for (int t = 0; t < NT; ++t) {
+    float acc = rv[0] * J[0][t];
+#pragma unroll
+    for (int s = 1; s < R; ++s) acc += rv[s] * J[s][t];
+    rtj[t] = acc;
+  }
+#pragma unroll
+  for (int s = 0; s < R; ++s) {
+    const float ar = asn * rv[s];
+#pragma unroll
+    for (int t = 0; t < NT; ++t) J[s][t] = sqrt_rho1 * (J[s][t] - ar * rtj[t]);
+    rv[s] *= rs;
+  }
+}
+
+template <class Loss>
 struct SnavelyK1Chain {
   static constexpr int TE = 3, TF = 9, R = 2, NT = TF + TE;
   static constexpr int EO = TF, FO = 0, ND = 2;
   static __device__ __forceinline__ void run(
       const float* __restrict__ xf_c, const float* __restrict__ xe_n,
-      const float* __restrict__ d, const LossParams&, bool valid,
+      const float* __restrict__ d, const LossParams& lp, bool valid,
       float (&rv)[R], float (&J)[R][NT]) {
     // a masked lane sees an all-zero camera
     Jet<NT> cp[TF], pt[TE], r[R];
@@ -72,6 +204,7 @@ struct SnavelyK1Chain {
 #pragma unroll
       for (int t = 0; t < NT; ++t) J[s][t] = r[s].d[t];
     }
+    if (Loss::kCorrect) correct_jets<Loss, R, NT>(lp, valid, rv, J);
   }
 };
 
@@ -79,20 +212,29 @@ struct SnavelyK1Chain {
 
 // The three launches of K1 on `stream`, with ceres_lin_auto's arguments
 // (a generated K5 unit's entry point): lp_host and nlp, the loss's
-// scalars, are passed on and unused (K1 takes no loss); pb points a block
+// scalars (unused by ceres_lin, which takes no loss), pb points a block
 // (ops/lin_auto.py lane_block(k, 3, 9)), pos [ne*k] and off [nchunks*kf
 // + 1] the camera plan, q [nvalid, 54] and partial [nchunks, kf*54]
-// scratch. Returns lin_auto_launch's code.
-extern "C" int ceres_lin(const float* xf, const float* xe, const int* cam,
-                         const float* mask, const float* dat,
-                         const float* lp_host, int nlp, const float* se_in,
-                         int first, int use_scaling, int ne, int k, int kf,
-                         int pb, const int* pos, const int* off, int nchunks,
-                         float* ete, float* ge, float* se_out, float* A,
-                         float* q, float* partial, float* ftf, float* gf,
-                         cudaStream_t stream) {
-  return lin_auto_launch<SnavelyK1Chain>(
-      xf, xe, cam, mask, dat, lp_host, nlp, se_in, first, use_scaling, ne, k,
-      kf, pb, pos, off, nchunks, ete, ge, se_out, A, q, partial, ftf, gf,
-      stream);
-}
+// scratch. Each returns lin_auto_launch's code.
+#define CERES_LIN_ENTRY(NAME, LOSS)                                          \
+  extern "C" int NAME(const float* xf, const float* xe, const int* cam,      \
+                      const float* mask, const float* dat,                   \
+                      const float* lp_host, int nlp, const float* se_in,     \
+                      int first, int use_scaling, int ne, int k, int kf,     \
+                      int pb, const int* pos, const int* off, int nchunks,   \
+                      float* ete, float* ge, float* se_out, float* A,        \
+                      float* q, float* partial, float* ftf, float* gf,       \
+                      cudaStream_t stream) {                                 \
+    return lin_auto_launch<SnavelyK1Chain<LOSS>>(                            \
+        xf, xe, cam, mask, dat, lp_host, nlp, se_in, first, use_scaling, ne, \
+        k, kf, pb, pos, off, nchunks, ete, ge, se_out, A, q, partial, ftf,   \
+        gf, stream);                                                         \
+  }
+
+CERES_LIN_ENTRY(ceres_lin, NoLoss)
+CERES_LIN_ENTRY(ceres_lin_huber, HuberK1)
+CERES_LIN_ENTRY(ceres_lin_soft_l_one, SoftLOneK1)
+CERES_LIN_ENTRY(ceres_lin_cauchy, CauchyK1)
+CERES_LIN_ENTRY(ceres_lin_arctan, ArctanK1)
+CERES_LIN_ENTRY(ceres_lin_tolerant, TolerantK1)
+CERES_LIN_ENTRY(ceres_lin_tukey, TukeyK1)

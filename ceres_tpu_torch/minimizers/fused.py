@@ -5,7 +5,8 @@ run_fused). The JAX package runs the loop as one lax.while_loop; here it
 is a Python loop whose tensors stay on the device, with one host read of
 the step's scalars per iteration (the linear solver's iteration count
 among them; the CGNR step's CG loop reads one more flag per CG
-iteration). The acceptance test, the LM radius update and the
+iteration). The acceptance test, the radius update (LM, or the dogleg
+rules: x3 on a step of quality above 0.75, /2 on a rejection) and the
 termination codes (in the same priority order, :206-227) are the JAX
 package's:
 
@@ -26,7 +27,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from ..types import TerminationType
+from ..types import TerminationType, TrustRegionStrategyType
 
 TERMINATION_BY_CODE = {
     1: (TerminationType.CONVERGENCE, "Gradient tolerance reached."),
@@ -55,7 +56,8 @@ class FusedResult(NamedTuple):
 
 def fused_tr_solve(program, options, step, x0) -> FusedResult:
     """Run the LM loop from x0 with `step`: a FusedSchurStep, an
-    ImplicitSchurStep or a GenericLMStep, anything with `initial_scales()` (a tuple of scales),
+    ImplicitSchurStep, a GenericLMStep or a DoglegStep (solver.py),
+    anything with `initial_scales()` (a tuple of scales),
     `linearize(x, *scales, first, known_cost)` (an artifact with
     `.scales`), `solve(art, radius)` (the step's output dict) and
     `cost(x)`."""
@@ -67,6 +69,8 @@ def fused_tr_solve(program, options, step, x0) -> FusedResult:
     min_radius = options.min_trust_region_radius
     max_radius = options.max_trust_region_radius
     max_invalid = options.max_num_consecutive_invalid_steps
+    lm = (options.trust_region_strategy_type
+          == TrustRegionStrategyType.LEVENBERG_MARQUARDT)
 
     cost0 = step.cost(x0)
     x, cost_t = x0, cost0
@@ -99,7 +103,12 @@ def fused_tr_solve(program, options, step, x0) -> FusedResult:
             rel_dec = (cost - new_cost) / (mcc if mcc != 0 else f64(1.0))
             accept = (step_valid and bool(np.isfinite(new_cost))
                       and bool(rel_dec > min_rel_decrease))
-            if accept:
+            if not lm:
+                if accept and rel_dec > 0.75:
+                    radius = np.minimum(3.0 * radius, f64(max_radius))
+                elif not accept:
+                    radius = 0.5 * radius
+            elif accept:
                 grow = radius / np.maximum(
                     f64(1.0 / 3.0), 1.0 - (2.0 * rel_dec - 1.0) ** 3)
                 radius = np.minimum(grow, f64(max_radius))

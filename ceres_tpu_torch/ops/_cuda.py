@@ -53,6 +53,9 @@ _SIGNATURES = {
     "ceres_lin": [_P, _P, _P, _P, _P, ctypes.POINTER(ctypes.c_float), _I, _P,
                   _I, _I, _I, _I, _I, _I, _P, _P, _I, _P, _P, _P, _P, _P, _P,
                   _P, _P, _P],
+    # K1's instances with a robust loss take the same arguments
+    **{f"ceres_lin_{name}": None for name in (
+        "huber", "soft_l_one", "cauchy", "arctan", "tolerant", "tukey")},
     "ceres_elim": [_P, _P, _P, _P, ctypes.c_float, _I, _I, _I, _I, _I,
                    _I, _I, _P, _P, _P, _P, _P, _P, _P],
     "ceres_elim_v1": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P,
@@ -70,6 +73,9 @@ _SIGNATURES = {
     "ceres_implicit_apply": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                              _P, _P],
 }
+for _name, _types in _SIGNATURES.items():
+    if _types is None:
+        _SIGNATURES[_name] = _SIGNATURES["ceres_lin"]
 
 _lock = threading.Lock()
 _lib = None

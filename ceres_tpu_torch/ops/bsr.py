@@ -8,7 +8,8 @@ its global tangent columns cols[s] [n, t_s]. Residual vectors are carried
 as per-bucket [n, r] tensors (RVec).
 
 The transpose-side sums (J^T w, the squared column norms, the per-block
-J^T J diagonal) add many rows into one column or block. The JAX package
+J^T J diagonal, the dense J^T J of the dense normal Cholesky) add many
+rows into one column or block. The JAX package
 scatter-adds them (with one-hot MXU products for few, heavy blocks, a TPU
 limit the port leaves out). Here they are deterministic gathers: at
 program build, `ColumnSum` sorts the contributions by column, stably, so
@@ -30,7 +31,7 @@ from typing import List, Sequence
 import numpy as np
 import torch
 
-from .kernels import group_gram_blocks
+from .kernels import group_gram_blocks, group_gram_blocks_plain
 
 
 class ColumnSum:
@@ -59,6 +60,35 @@ class ColumnSum:
                                     lengths=self.lengths, axis=0,
                                     unsafe=True)
 
+    def gram_order(self):
+        """(perm, lengths, index) of the dense J^T J (`jtj_dense`), built
+        at the first call from the buckets' column maps: every entry
+        (c_i, c_j) of a row's Gram [t_total, t_total], in the JAX
+        package's scatter order (bucket, row, i, j), sorted stably by its
+        place c_i * num_cols + c_j in H; `index` the distinct places and
+        `lengths` their counts."""
+        if getattr(self, "_gram", None) is None:
+            positions, targets, base = [], [], 0
+            for slots in self.bucket_cols:
+                if not slots:
+                    continue
+                c = np.concatenate([np.asarray(s, dtype=np.int64)
+                                    for s in slots], axis=1)
+                n, t = c.shape
+                targets.append((c[:, :, None] * self.num_cols
+                                + c[:, None, :]).reshape(-1))
+                positions.append(base + np.arange(n * t * t))
+                base += n * t * t
+            tgt = np.concatenate(targets)
+            order = np.argsort(tgt, kind="stable")
+            index, counts = np.unique(tgt[order], return_counts=True)
+            dev = self.perm.device
+            self._gram = (torch.as_tensor(np.concatenate(positions)[order],
+                                          device=dev),
+                          torch.as_tensor(counts, device=dev),
+                          torch.as_tensor(index, device=dev))
+        return self._gram
+
 
 def column_sum_for(bucket_cols: Sequence[Sequence[np.ndarray]],
                    num_cols: int, device) -> ColumnSum:
@@ -67,6 +97,8 @@ def column_sum_for(bucket_cols: Sequence[Sequence[np.ndarray]],
     is the list of the bucket's slot column maps [n, t_s]."""
     positions, columns, base = [], [], 0
     for slots in bucket_cols:
+        if not slots:               # an all-constant bucket adds nothing
+            continue
         n = slots[0].shape[0]
         t_total = sum(c.shape[1] for c in slots)
         off = 0
@@ -78,8 +110,11 @@ def column_sum_for(bucket_cols: Sequence[Sequence[np.ndarray]],
             columns.append(np.asarray(c, dtype=np.int64).reshape(-1))
             off += t_s
         base += n * t_total
-    return ColumnSum(np.concatenate(positions), np.concatenate(columns),
-                     num_cols, device)
+    out = ColumnSum(np.concatenate(positions), np.concatenate(columns),
+                    num_cols, device)
+    out.bucket_cols = [list(slots) for slots in bucket_cols]
+    out.num_cols = num_cols
+    return out
 
 
 class BucketJacobian:
@@ -92,8 +127,11 @@ class BucketJacobian:
                  cols32=None):
         self.J = J
         self.cols = tuple(cols)
-        self.all_cols = (torch.cat(self.cols, dim=1) if all_cols is None
-                         else all_cols)
+        if all_cols is None:        # none: an all-constant bucket
+            all_cols = (torch.cat(self.cols, dim=1) if self.cols else
+                        torch.zeros(J.shape[0], 0, dtype=torch.int64,
+                                    device=J.device))
+        self.all_cols = all_cols
         self.cols32 = (self.all_cols.to(torch.int32) if cols32 is None
                        else cols32)
 
@@ -118,6 +156,13 @@ class RVec:
 
     def squared_norm(self):
         return sum(torch.sum(p * p) for p in self.parts)
+
+    def dot(self, other: "RVec"):
+        return sum(torch.sum(a * b) for a, b in zip(self.parts, other.parts))
+
+    def flatten(self):
+        """The logical residual vector [num_rows], bucket after bucket."""
+        return torch.cat([p.reshape(-1) for p in self.parts])
 
 
 class BlockJacobian:
@@ -153,6 +198,40 @@ class BlockJacobian:
             [b.with_J(b.J * b.gather_cols(scale)[:, None, :])
              for b in self.buckets],
             self.num_cols, self.col_sum)
+
+    def to_dense(self):
+        """[num_rows, num_cols] dense matrix (ToDenseMatrix), rows bucket
+        after bucket. A residual block names each parameter block once
+        (Problem refuses duplicates), so every (row, column) of a bucket
+        is written once."""
+        J0 = self.buckets[0].J
+        num_rows = sum(b.J.shape[0] * b.J.shape[1] for b in self.buckets)
+        A = torch.zeros(num_rows, self.num_cols, dtype=J0.dtype,
+                        device=J0.device)
+        row = 0
+        for b in self.buckets:
+            n, r, t = b.J.shape
+            rows = (row + torch.arange(n * r, device=A.device)).view(
+                n, r, 1).expand(n, r, t)
+            A[rows, b.all_cols[:, None, :].expand(n, r, t)] = b.J
+            row += n * r
+        return A
+
+    def jtj_dense(self):
+        """Dense J^T J [num_cols, num_cols] from the rows' Gram blocks
+        without forming J (ceres_tpu bsr.py jtj_dense; the reference's
+        InnerProductComputer), each entry summed in a fixed order
+        (ColumnSum.gram_order): no float atomics, the same bits every
+        run."""
+        perm, lengths, index = self.col_sum.gram_order()
+        flat = torch.cat([torch.einsum("nrt,nru->ntu", b.J, b.J).reshape(-1)
+                          for b in self.buckets])
+        vals = torch.segment_reduce(flat[perm], "sum", lengths=lengths,
+                                    axis=0, unsafe=True)
+        n = self.num_cols
+        H = torch.zeros(n * n, dtype=flat.dtype, device=flat.device)
+        H[index] = vals
+        return H.view(n, n)
 
 
 class GroupMeta:
@@ -197,9 +276,14 @@ def block_diag_jtj(jac: BlockJacobian, groups) -> List[torch.Tensor]:
     group's slot views, read in place, summed in the group's fixed order
     (gram_order); on the card one launch a group (per 8 slot views) forms
     and sums the blocks, on the CPU the per-row Grams of each slot are
-    gathered and reduced in that order."""
+    gathered and reduced in that order. An f64 Jacobian (the f64 CGNR
+    step) takes the per-row Grams and the same ordered sum on every
+    device: the JAX package forms these blocks with einsums and a
+    scatter, and its Gram kernel (K9) serves the f32 pass only."""
     out = []
     for g in groups:
         views = [jac.buckets[bi].slot_J(si) for (bi, si, _) in g.bucket_slots]
-        out.append(group_gram_blocks(views, *g.gram_order(views[0].device)))
+        gram = (group_gram_blocks if views[0].dtype == torch.float32
+                else group_gram_blocks_plain)
+        out.append(gram(views, *g.gram_order(views[0].device)))
     return out

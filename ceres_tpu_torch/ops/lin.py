@@ -18,6 +18,10 @@ makes one on the host); K1 is K5's kernel (csrc/lin_auto.cuh) with a
 hand-written Snavely chain, launched as K5 is (ops/lin_auto.py
 `lane_launch`: K5's block choice, outputs and scratch in one
 allocation; the kernel writes every entry of A itself).
+A uniform robust loss runs inside K1 (the Triggs corrector after the
+Snavely chain, csrc/lin.cu): one instance of the chain per stock scalar
+loss class, picked by the loss's exact class (`K1_ENTRIES`), its scalars
+passed as K5's are; any other loss raises (ROADMAP.md item 9).
 `elim_plan` sizes K2's and K6's split-K product (tiles, point ranges,
 shared memory, partial sums) in Python, so that the CPU tests reach it.
 """
@@ -31,11 +35,19 @@ from typing import Optional
 import torch
 
 from . import _cuda
+from .jet_compile import loss_structure
 from .lin_auto import CameraPlan, lane_launch
-from ..loss import correct_residuals_and_jacobian
+from ..loss import (ArctanLoss, CauchyLoss, HuberLoss, SoftLOneLoss,
+                    TolerantLoss, TukeyLoss, correct_residuals_and_jacobian)
 from ..rotation import angle_axis_rotate_point
 
 TF, TE = 9, 3                     # camera and point tangent sizes
+# K1's entry point of each loss class (csrc/lin.cu, one chain instance a
+# class; exact classes only: a subclass may evaluate another rho)
+K1_ENTRIES = {None: "ceres_lin", HuberLoss: "ceres_lin_huber",
+              SoftLOneLoss: "ceres_lin_soft_l_one",
+              CauchyLoss: "ceres_lin_cauchy", ArctanLoss: "ceres_lin_arctan",
+              TolerantLoss: "ceres_lin_tolerant", TukeyLoss: "ceres_lin_tukey"}
 # elim.cu: threads a block, points a stage (one warp each), staged words
 # a point, K2's z words a point, the widest single tile (16 x 10) and the
 # tile past it (16 x 8)
@@ -111,18 +123,26 @@ def lin(xf, xe, cam, mask, dat, se_in, first: bool,
     if not xf.is_cuda:
         return lin_plain(xf, xe, cam, mask, dat[..., 0], dat[..., 1], se_in,
                          first, use_scaling, loss)
-    if loss is not None:
-        raise NotImplementedError(
-            "a robust loss in the CUDA linearize kernel is not ported yet "
-            "(ROADMAP.md: robust-loss K1 path)")
-    out = lane_launch(functools.partial(_cuda.launch, "ceres_lin"), "lin",
-                      TE, TF, 2, xf, xe, cam, mask, dat, [], se_in, first,
+    entry, lp = k1_entry(loss)
+    out = lane_launch(functools.partial(_cuda.launch, entry), "lin",
+                      TE, TF, 2, xf, xe, cam, mask, dat, lp, se_in, first,
                       use_scaling, plan)
     lin.launches += 1
     return out
 
 
 lin.launches = 0
+
+
+def k1_entry(loss):
+    """(K1's entry point for `loss`, the loss's scalars in loss_structure
+    order). Raises NotImplementedError for a loss with no K1 instance."""
+    entry = K1_ENTRIES.get(None if loss is None else type(loss))
+    if entry is None:
+        raise NotImplementedError(
+            f"{type(loss).__name__} in K1, which runs the stock scalar "
+            "losses only (ROADMAP.md item 9)")
+    return entry, ([] if loss is None else loss_structure(loss)[1])
 
 
 def spd_inv3(M):

@@ -12,11 +12,17 @@ port exactly (`state_from_numpy`):
 Per-bucket data and index maps are tensors on the program's device.
 
 The generic trust-region path reads the program through `plus` (batched
-per manifold group), `cost_fn` and `linearize_fn_mixed`: the f64 cost
-from a residual-only pass, and the f32 tangent Jacobian of each bucket
-from kernel K11 (ops/linearize.py) where a hand spec or an auto spec
-matches the bucket, chosen once here, else from torch.func.jacfwd through
-the slots' manifold Plus (ceres_tpu program.py _bucket_linearize).
+per manifold group, then projected onto the bound box when a block has
+bounds), `cost_fn`, `residuals_fn`, `linearize_fn` (f64) and
+`linearize_fn_mixed`: the f64 cost from a residual-only pass, and the
+f32 tangent Jacobian of each bucket from kernel K11 (ops/linearize.py)
+where a hand spec or an auto spec matches the bucket, chosen once here,
+else as the f64 pass takes it (ceres_tpu program.py _bucket_linearize):
+by the bucket's `jac_mode`, torch.func.jacfwd through the slots'
+manifold Plus ("ad"), or the cost's own ambient Jacobian ("analytic",
+SizedCostFunction.jacobians; "numdiff", NumericDiffCostFunction) times
+each manifold slot's plus_jacobian. The f64 pass never launches K11, as
+the JAX package runs its Pallas linearize on the f32 pass only.
 """
 
 from __future__ import annotations
@@ -26,6 +32,7 @@ from typing import List
 import numpy as np
 import torch
 
+from .cost import NumericDiffCostFunction, SizedCostFunction
 from .loss import correct_residuals_and_jacobian
 from .manifolds import EuclideanManifold
 from .ops.bsr import (BlockJacobian, BucketJacobian, GroupMeta, RVec,
@@ -57,7 +64,19 @@ class _Slot:
 
 class _Bucket:
     __slots__ = ("cost", "loss", "residual_fn", "data", "slots", "n", "r",
-                 "orig_indices", "_slot_keys", "spec", "dat32")
+                 "orig_indices", "_slot_keys", "spec", "dat32", "jac_mode")
+
+
+def _jac_mode(cost) -> str:
+    """How a bucket's Jacobian is formed (ceres_tpu program.py:448-456):
+    "numdiff", "analytic" (a SizedCostFunction that overrides jacobians)
+    or "ad"."""
+    if isinstance(cost, NumericDiffCostFunction):
+        return "numdiff"
+    if (isinstance(cost, SizedCostFunction)
+            and type(cost).jacobians is not SizedCostFunction.jacobians):
+        return "analytic"
+    return "ad"
 
 
 class CompiledProgram:
@@ -140,6 +159,17 @@ class CompiledProgram:
         self.num_residuals_reduced = sum(rb.cost.num_residuals
                                          for rb in active_res)
         self.has_bounds = any(b.has_bounds for b in self.variable_blocks)
+        self._lo = self._hi = None
+        if self.has_bounds:        # the box of plus (parameter_block.h)
+            lo = np.full(self.num_ambient, -np.inf)
+            hi = np.full(self.num_ambient, np.inf)
+            for b in self.variable_blocks:
+                if b.has_bounds:
+                    o = self.amb_offset[id(b.array)]
+                    lo[o:o + b.size] = b.lower
+                    hi[o:o + b.size] = b.upper
+            self._lo = torch.as_tensor(lo, device=self.device)
+            self._hi = torch.as_tensor(hi, device=self.device)
         self.has_manifolds = any(
             b.manifold is not None
             and not isinstance(b.manifold, EuclideanManifold)
@@ -194,6 +224,7 @@ class CompiledProgram:
             bk.orig_indices = np.asarray([rb.index for rb in rbs],
                                          dtype=np.int64)
             bk.residual_fn = bk.cost.make_residual_fn()
+            bk.jac_mode = _jac_mode(bk.cost)
             datas = [rb.cost.block_data() for rb in rbs]
             bk.data = {name: torch.as_tensor(
                 np.stack([np.asarray(d[name]) for d in datas]),
@@ -232,9 +263,10 @@ class CompiledProgram:
                         (len(self.buckets), var_si, local_ids))
                     var_si += 1
                 bk.slots.append(sl)
-            # K11 where a hand or auto spec matches, chosen once; its
-            # data fields as one f32 tensor, built once
-            bk.spec = linearize_spec(self, bk)
+            # K11 where a hand or auto spec matches an autodiff bucket,
+            # chosen once; its data fields as one f32 tensor, built once
+            bk.spec = (linearize_spec(self, bk) if bk.jac_mode == "ad"
+                       else None)
             bk.dat32 = (bk.spec.data_matrix(bk) if bk.spec is not None
                         else None)
             self.buckets.append(bk)
@@ -335,16 +367,20 @@ class CompiledProgram:
         return torch.as_tensor(idx, device=self.device)
 
     def plus(self, x, delta):
-        """x' = Plus(x, delta), batched per manifold group (ceres_tpu
-        program.py plus); constant blocks keep their values."""
+        """x' = Plus(x, delta), batched per manifold group, then projected
+        onto the bound box (ceres_tpu program.py plus, :702-732); constant
+        blocks keep their values."""
         if self.tangent_is_ambient:
-            return x + delta
-        out = x.clone()
-        for manifold, k, amb, t, a_ix, t_ix in self.plus_groups:
-            xs, ds = x[a_ix].view(k, amb), delta[t_ix].view(k, t)
-            new = xs + ds if manifold is None else manifold.plus_batch(xs,
-                                                                       ds)
-            out[a_ix] = new.reshape(-1)
+            out = x + delta
+        else:
+            out = x.clone()
+            for manifold, k, amb, t, a_ix, t_ix in self.plus_groups:
+                xs, ds = x[a_ix].view(k, amb), delta[t_ix].view(k, t)
+                new = (xs + ds if manifold is None
+                       else manifold.plus_batch(xs, ds))
+                out[a_ix] = new.reshape(-1)
+        if self.has_bounds:
+            out = torch.clamp(out, self._lo, self._hi)
         return out
 
     # ------------------------------------------------------------------
@@ -373,39 +409,83 @@ class CompiledProgram:
             total = total + torch.sum(cost)
         return total
 
-    def _bucket_linearize32(self, bk, x):
-        """(residuals [n, r], J [n, r, t_total]) of one bucket in f32,
-        tangent space, uncorrected: K11 for a bucket with a hand or auto
-        spec, else jacfwd of the functor through the variable slots' Plus
-        (ceres_tpu program.py _bucket_linearize with cast_dtype=f32)."""
-        params = [p.to(torch.float32) for p in self._bucket_params(bk, x)]
-        if bk.spec is not None:
+    def _bucket_linearize(self, bk, x, dtype):
+        """(residuals [n, r], J [n, r, t_total]) of one bucket in `dtype`,
+        tangent space, uncorrected (ceres_tpu program.py _bucket_linearize,
+        :795-903): in f32, K11 for a bucket with a hand or auto spec;
+        otherwise by the bucket's jac_mode. An all-constant bucket gives
+        zero tangent columns."""
+        params = [p.to(dtype) for p in self._bucket_params(bk, x)]
+        if dtype == torch.float32 and bk.spec is not None:
             xin = torch.cat(params, dim=1).contiguous()
             k11 = (bucket_linearize_auto if isinstance(bk.spec, AutoSpec)
                    else bucket_linearize)
             return k11(bk.spec, xin, bk.dat32)
-        data = {k: (v.to(torch.float32) if v.is_floating_point() else v)
+        data = {k: (v.to(dtype) if v.is_floating_point() else v)
                 for k, v in bk.data.items()}
         fn = bk.residual_fn
         var_slots = [(i, sl) for i, sl in enumerate(bk.slots) if sl.variable]
+        if not var_slots:
+            r = torch.func.vmap(fn)(data, *params)
+            return r, r.new_zeros(r.shape + (0,))
+
+        if bk.jac_mode == "ad":
+            def per_block(data, *ps):
+                def g(*deltas):
+                    plussed = list(ps)
+                    for (i, sl), d in zip(var_slots, deltas):
+                        plussed[i] = (ps[i] + d if sl.manifold is None
+                                      else sl.manifold.plus(ps[i], d))
+                    r = fn(data, *plussed)
+                    return r, r
+
+                zeros = tuple(torch.zeros(sl.tangent_size, dtype=dtype,
+                                          device=x.device)
+                              for _, sl in var_slots)
+                Js, r = torch.func.jacfwd(
+                    g, argnums=tuple(range(len(zeros))),
+                    has_aux=True)(*zeros)
+                return r, torch.cat(Js, dim=-1)
+
+            return torch.func.vmap(per_block)(data, *params)
+
+        # analytic or numeric: the ambient Jacobian, then the PlusJacobian
+        # chain rule (the reference's residual_block.cc:134-157)
+        if bk.jac_mode == "analytic":
+            cls = type(bk.cost)
+
+            def jac_fn(data, ps):
+                obj = object.__new__(cls)
+                object.__setattr__(obj, "__dict__", dict(data))
+                return obj.jacobians(*ps)
+        else:
+            slot_jfns = {i: bk.cost.jacobian_of(fn, i) for i, _ in var_slots}
+
+            def jac_fn(data, ps):
+                return [slot_jfns[i](data, ps) if i in slot_jfns else None
+                        for i in range(len(ps))]
 
         def per_block(data, *ps):
-            def g(*deltas):
-                plussed = list(ps)
-                for (i, sl), d in zip(var_slots, deltas):
-                    plussed[i] = (ps[i] + d if sl.manifold is None
-                                  else sl.manifold.plus(ps[i], d))
-                r = fn(data, *plussed)
-                return r, r
-
-            zeros = tuple(torch.zeros(sl.tangent_size, dtype=torch.float32,
-                                      device=x.device)
-                          for _, sl in var_slots)
-            Js, r = torch.func.jacfwd(g, argnums=tuple(range(len(zeros))),
-                                      has_aux=True)(*zeros)
-            return r, torch.cat(Js, dim=-1)
+            r = fn(data, *ps)
+            Jambs = jac_fn(data, list(ps))
+            Jts = []
+            for i, sl in var_slots:
+                Jamb = Jambs[i]
+                Jamb = (Jamb if torch.is_tensor(Jamb)
+                        else torch.as_tensor(Jamb)).to(r.dtype).reshape(
+                            bk.r, sl.amb_size)
+                if sl.manifold is None or isinstance(sl.manifold,
+                                                     EuclideanManifold):
+                    Jts.append(Jamb)
+                else:
+                    Jts.append(Jamb @ sl.manifold.plus_jacobian(ps[i]))
+            return r, torch.cat(Jts, dim=-1)
 
         return torch.func.vmap(per_block)(data, *params)
+
+    def _bucket_linearize32(self, bk, x):
+        """_bucket_linearize in f32 (the mixed pass)."""
+        return self._bucket_linearize(bk, x, torch.float32)
 
     def column_sum(self):
         """The fixed-order ColumnSum of J^T-side products (built once)."""
@@ -414,6 +494,37 @@ class CompiledProgram:
                 [[sl.cols for sl in bk.slots if sl.variable]
                  for bk in self.buckets], self.num_effective, self.device)
         return self._col_sum
+
+    def _bucket_jacobian(self, bk, J):
+        return BucketJacobian(J, [sl.cols_t for sl in bk.slots
+                                  if sl.variable])
+
+    def residuals_fn(self, x, corrected: bool = False) -> RVec:
+        """The buckets' residuals in f64 (loss-corrected when asked)."""
+        parts = []
+        for bk in self.buckets:
+            r = self._bucket_residuals(bk, x)
+            if corrected:
+                _, r, _ = correct_residuals_and_jacobian(bk.loss, r, None)
+            parts.append(r)
+        return RVec(parts)
+
+    def linearize_fn(self, x):
+        """The f64 linearize (ceres_tpu program.py linearize_fn, :925-943):
+        (cost, gradient [num_effective], BlockJacobian, residuals RVec),
+        all f64 and loss-corrected; gradient = J^T r."""
+        total = torch.tensor(self.fixed_cost, dtype=x.dtype, device=x.device)
+        jac_buckets, res_parts = [], []
+        for bk in self.buckets:
+            r, J = self._bucket_linearize(bk, x, torch.float64)
+            cost, rc, Jc = correct_residuals_and_jacobian(bk.loss, r, J)
+            total = total + torch.sum(cost)
+            jac_buckets.append(self._bucket_jacobian(bk, Jc))
+            res_parts.append(rc)
+        jac = BlockJacobian(jac_buckets, self.num_effective,
+                            self.column_sum())
+        res = RVec(res_parts)
+        return total, jac.rmatvec(res), jac, res
 
     def linearize_fn_mixed(self, x):
         """Mixed-precision linearize (ceres_tpu program.py
@@ -430,9 +541,8 @@ class CompiledProgram:
             _, J32 = self._bucket_linearize32(bk, x)
             _, rc, Jc = correct_residuals_and_jacobian(
                 bk.loss, r64.to(torch.float32), J32)
-            jac_buckets.append(BucketJacobian(
-                Jc.to(torch.float32),
-                [sl.cols_t for sl in bk.slots if sl.variable]))
+            jac_buckets.append(self._bucket_jacobian(bk,
+                                                     Jc.to(torch.float32)))
             res_parts.append(rc.to(torch.float32))
         jac = BlockJacobian(jac_buckets, self.num_effective,
                             self.column_sum())

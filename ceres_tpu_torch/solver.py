@@ -3,11 +3,20 @@
 Counterpart of ceres_tpu/solver.py (solve, :444; make_step_impl, :154;
 _make_linear_solver, :34; make_scale_impl, :94; _maybe_downgrade_options,
 :612): validate, build the program on `options.device`, downgrade a Schur
-solver on a problem without Schur structure, then run the fused LM loop
-with the step of the configuration: the fused Schur step (DENSE_SCHUR,
-ITERATIVE_SCHUR on an explicit S, or ITERATIVE_SCHUR in the implicit mode
-past the explicit cap; the summary's message names the mode) or the
-generic LM step (CGNR). Write back.
+solver on a problem without Schur structure, build the step of the
+configuration, run it in the fused LM loop (minimizers/fused.py) or in
+the host-loop trust-region minimizer (minimizers/trust_region.py) as the
+JAX package decides (:547-590), and write back. The steps:
+  - the fused Schur step (DENSE_SCHUR, ITERATIVE_SCHUR on an explicit S,
+    or ITERATIVE_SCHUR in the implicit mode past the explicit cap; the
+    summary's message names the mode);
+  - the generic LM step (`GenericLMStep`) with DENSE_QR,
+    DENSE_NORMAL_CHOLESKY (and SPARSE_NORMAL_CHOLESKY below 200
+    effective parameters, which the JAX package also factorizes densely)
+    or CGNR, in f64, mixed (f32 linearize and solve), or mixed with
+    refinement (f64 linearize, f32 solve);
+  - the dogleg step (`DoglegStep`), TRADITIONAL_DOGLEG or
+    SUBSPACE_DOGLEG, on the same linear solvers.
 Configurations outside the slices raise NotImplementedError naming the
 ROADMAP.md item that ports them; none runs another path quietly.
 """
@@ -19,29 +28,32 @@ import time
 from dataclasses import dataclass
 from typing import Optional
 
+import numpy as np
 import torch
 
 from .minimizers.fused import run_fused
+from .minimizers.trust_region import minimize_trust_region
 from .ops.bsr import BlockJacobian, RVec, block_diag_jtj
 from .program import CompiledProgram
 from .solvers.cg import solve_cgnr
+from .solvers.dense import solve_dense_normal_cholesky, solve_dense_qr
 from .solvers.preconditioners import make_block_jacobi_preconditioner
 from .solvers.schur import detect_schur_structure
 from .solvers.schur_fused import SchurStep, schur_step
-from .types import (DumpFormatType, LinearSolverType, MinimizerType,
-                    PreconditionerType, SolverOptions, SolverSummary,
-                    TerminationType, TrustRegionStrategyType)
+from .types import (DoglegType, DumpFormatType, LinearSolverType,
+                    MinimizerType, PreconditionerType, SolverOptions,
+                    SolverSummary, TerminationType, TrustRegionStrategyType)
 
 _SCHUR_SOLVERS = (LinearSolverType.DENSE_SCHUR,
                   LinearSolverType.SPARSE_SCHUR,
                   LinearSolverType.ITERATIVE_SCHUR)
-# ROADMAP.md items that port each non-Schur linear solver outside the slice
-_GENERIC_SOLVER_ITEMS = {
-    LinearSolverType.DENSE_QR: "item 15, solvers/dense.py",
-    LinearSolverType.DENSE_NORMAL_CHOLESKY: "item 15, solvers/dense.py",
-    LinearSolverType.SPARSE_NORMAL_CHOLESKY:
-        "item 20, solvers/sparse_direct.py on native/",
-}
+_DIRECT_SOLVERS = (LinearSolverType.DENSE_QR,
+                   LinearSolverType.DENSE_NORMAL_CHOLESKY,
+                   LinearSolverType.SPARSE_NORMAL_CHOLESKY)
+# SPARSE_NORMAL_CHOLESKY factorizes densely below this many effective
+# parameters (ceres_tpu solver.py:54); past it the JAX package runs its
+# native sparse LDL^T
+SPARSE_DENSE_CAP = 200
 
 
 def _check_slice(options):
@@ -50,65 +62,107 @@ def _check_slice(options):
         raise NotImplementedError(
             "line search is not ported yet (ROADMAP.md item 25, "
             "minimizers/line_search.py)")
-    if (options.trust_region_strategy_type
-            != TrustRegionStrategyType.LEVENBERG_MARQUARDT):
+    if options.use_inner_iterations:
         raise NotImplementedError(
-            "dogleg is not ported yet (ROADMAP.md item 14, the host-loop "
-            "trust-region minimizer)")
-    host_loop = (not options.fused_iterations or options.callbacks
-                 or options.use_nonmonotonic_steps
-                 or options.minimizer_progress_to_stdout
-                 or options.use_inner_iterations
-                 or options.trust_region_problem_dump_directory
-                 or options.trust_region_problem_dump_format_type
-                 == DumpFormatType.CONSOLE
-                 or options.evaluation_callback is not None
-                 or options.update_state_every_iteration
-                 or options.max_solver_time_in_seconds < 1e9
-                 or options.dynamic_sparsity)
-    if host_loop:
+            "inner iterations are not ported yet (ROADMAP.md item 22, "
+            "minimizers/coordinate_descent.py)")
+    if (options.trust_region_problem_dump_directory
+            or options.trust_region_problem_dump_format_type
+            == DumpFormatType.CONSOLE):
         raise NotImplementedError(
-            "these options need the host-loop minimizer, which is not "
-            "ported yet (ROADMAP.md item 14, minimizers/trust_region.py); "
-            "the slice runs fused_iterations=True only")
+            "the trust-region problem dumps are not ported yet (ROADMAP.md "
+            "item 14, the rest of minimizers/trust_region.py)")
+    if options.check_gradients:
+        raise NotImplementedError(
+            "check_gradients is not ported yet (ROADMAP.md item 28, "
+            "gradient_checker.py)")
+
+
+def needs_host_loop(options, program) -> bool:
+    """The configurations that the fused loop cannot serve (ceres_tpu
+    solver.py:547-562): callbacks, nonmonotonic steps, per-iteration
+    logging, evaluation callbacks, update_state_every_iteration, a finite
+    wall-clock budget, dynamic sparsity and bounds."""
+    return bool(options.callbacks or options.use_nonmonotonic_steps
+                or options.minimizer_progress_to_stdout
+                or options.evaluation_callback is not None
+                or options.update_state_every_iteration
+                or options.max_solver_time_in_seconds < 1e9
+                or options.dynamic_sparsity
+                or program.has_bounds)
 
 
 def generic_unsupported_reason(program, options) -> Optional[str]:
-    """Why the generic LM step cannot run this configuration (naming the
-    ROADMAP.md item that ports it), or None."""
+    """Why the generic steps (LM or dogleg) cannot run this configuration
+    (naming the ROADMAP.md item that ports it), or None."""
     lst = options.linear_solver_type
-    if lst in _GENERIC_SOLVER_ITEMS:
-        return f"{lst} (ROADMAP.md {_GENERIC_SOLVER_ITEMS[lst]})"
-    if lst != LinearSolverType.CGNR:
-        return f"{lst} on the generic LM step"
-    if not options.use_mixed_precision_solves:
-        return ("the f64 (non-mixed) CGNR step (ROADMAP.md item 16, the "
-                "rest of solve_cgnr)")
-    if options.max_num_refinement_iterations > 0:
-        return ("mixed-precision refinement (ROADMAP.md item 15, "
-                "solvers/dense.py)")
-    if options.preconditioner_type == PreconditionerType.SUBSET:
+    if lst not in _DIRECT_SOLVERS and lst != LinearSolverType.CGNR:
+        return f"{lst} on the generic step"
+    if (lst == LinearSolverType.SPARSE_NORMAL_CHOLESKY
+            and program.num_effective >= SPARSE_DENSE_CAP):
+        return (f"SPARSE_NORMAL_CHOLESKY at {program.num_effective} >= "
+                f"{SPARSE_DENSE_CAP} effective parameters (ROADMAP.md item "
+                "20, solvers/sparse_direct.py on native/)")
+    if (lst == LinearSolverType.CGNR
+            and options.preconditioner_type == PreconditionerType.SUBSET):
         return ("the SUBSET preconditioner (ROADMAP.md item 20, native/ "
                 "and solvers/sparse_direct.py)")
-    if program.has_bounds:
-        return ("bounds (ROADMAP.md item 14, the host-loop minimizer's "
-                "projected steps)")
     return None
+
+
+class LinearSolver:
+    """The generic step's linear solver (ceres_tpu _make_linear_solver,
+    :34-92): `solver(jac_s, res, D, blocks) -> (d, iterations)` minimizes
+    ||J_s d + r||^2 + ||diag(D) d||^2. DENSE_QR: QR of [J; diag(D)];
+    DENSE_NORMAL_CHOLESKY (and SPARSE_NORMAL_CHOLESKY below
+    SPARSE_DENSE_CAP): Cholesky of J^T J + D^2, f32 with refinement when
+    mixed; CGNR: CG on the normal equations with block Jacobi (every
+    preconditioner but IDENTITY), whose J^T J blocks `blocks(jac_s)`
+    forms once per linearization."""
+
+    def __init__(self, program, options):
+        self.kind = options.linear_solver_type
+        self.groups = program.groups
+        self.mixed = bool(options.use_mixed_precision_solves)
+        self.refine = options.max_num_refinement_iterations
+        self.jacobi = (self.kind == LinearSolverType.CGNR
+                       and options.preconditioner_type
+                       != PreconditionerType.IDENTITY)
+        self.cg_args = dict(
+            max_iterations=options.max_linear_solver_iterations,
+            min_iterations=options.min_linear_solver_iterations,
+            q_tolerance=options.eta)
+
+    def blocks(self, jac_s):
+        return block_diag_jtj(jac_s, self.groups) if self.jacobi else None
+
+    def __call__(self, jac_s, res, D, blocks):
+        if self.kind == LinearSolverType.DENSE_QR:
+            return solve_dense_qr(jac_s, res, D)
+        if self.kind != LinearSolverType.CGNR:
+            return solve_dense_normal_cholesky(
+                jac_s, res, D, mixed_precision=self.mixed,
+                refinement_iterations=self.refine)
+        precond = (make_block_jacobi_preconditioner(blocks, D, self.groups)
+                   if self.jacobi else None)
+        return solve_cgnr(jac_s, res, D, precond, **self.cg_args)
 
 
 @dataclass
 class GenericLinearization:
     """Radius-independent artifacts of one linearization of the generic
-    LM step (f32 unless noted)."""
+    steps, in the step's precision (f32 when mixed) unless noted."""
     cost: torch.Tensor          # f64 total cost at x
     jac_s: BlockJacobian        # column-scaled Jacobian
     res: RVec                   # residuals
     grad_s: torch.Tensor        # scaled gradient J_s^T r
-    diag: torch.Tensor          # clipped squared column norms of J_s
-    jtj_blocks: Optional[list]  # block-Jacobi J_s^T J_s blocks, per group
+    diag: Optional[torch.Tensor]  # clipped squared column norms of J_s
+    blocks: Optional[list]      # block-Jacobi J_s^T J_s blocks, per group
     scale: torch.Tensor         # Jacobi column scale
     grad_max: torch.Tensor      # f64 max |gradient|
     grad_norm: torch.Tensor     # f64 ||gradient||
+    grad_full: Optional[torch.Tensor]   # f64 gradient, with bounds only
+    dogleg: Optional[dict] = None       # DoglegStep's radius-free parts
 
     @property
     def scales(self):
@@ -116,39 +170,43 @@ class GenericLinearization:
 
 
 class GenericLMStep:
-    """The generic (non-Schur) LM step of ceres_tpu's make_step_impl, the
-    `mixed and refine_iters == 0` branch (:200-276), with the CGNR linear
-    solver (_make_linear_solver, :63-86), split into `linearize` (once per
-    accepted step) and `solve` (once per damped trial):
+    """The generic (non-Schur) LM step of ceres_tpu's make_step_impl
+    (lm_step, :200-276), split into `linearize` (once per accepted step)
+    and `solve` (once per damped trial), with the LinearSolver of the
+    configuration, in the branch of its precision:
 
-      linearize: linearize_fn_mixed (K11 for the buckets with a hand
-        spec, jacfwd for the others; the f64 residual pass gives the
-        cost); at the first linearization the Jacobi scale
-        1 / (1 + ||J_j||) (make_scale_impl, mixed branch); J_s = J S,
-        g_s = S g, the clipped diagonal of J_s^T J_s and, for JACOBI, its
-        per-block J_s^T J_s blocks.
-      solve: D = sqrt(diag / radius); CGNR on (J_s^T J_s + D^2) d = -g_s
-        (K8 once per bucket per CG application); the model cost change
-        -(d.g_s + 1/2 ||J_s d||^2); the step S d in f64.
-      cost: the program's f64 cost.
+      f64 (use_mixed_precision_solves False): the f64 linearize
+        (program.linearize_fn), the Jacobi scale from its column norms.
+      mixed: linearize_fn_mixed (K11 for the buckets with a spec, the
+        f64 residual pass gives the cost), solve in f32.
+      mixed with refinement (max_num_refinement_iterations > 0): the f64
+        linearize, its J and r cast to f32 for the solve, the f64
+        gradient for the convergence norms. Only the dense normal
+        Cholesky refines (in its own precision, as in the JAX package,
+        whose generic linear solvers have no solve_b).
+      In both mixed branches the scale comes from the f32 pass, once.
 
-    Every preconditioner but IDENTITY and SUBSET is block Jacobi here, as
-    in the JAX package's CGNR branch."""
+    linearize: J_s = J S with S = 1 / (1 + ||J_j||) fixed at the first
+      linearization (make_scale_impl, :94-120), g_s = S g, the clipped
+      diagonal of J_s^T J_s and, for CGNR + JACOBI, its blocks.
+    solve: D = sqrt(diag / radius), the linear solve, the model cost
+      change -(d.g_s + 1/2 ||J_s d||^2) (mixed direct solvers: from d.b
+      and ||D d||, :195-199), the step S d in f64."""
 
     def __init__(self, program, options):
         reason = generic_unsupported_reason(program, options)
         if reason is not None:
             raise NotImplementedError(f"not in the ported slice: {reason}")
         self.program = program
+        self.mixed = bool(options.use_mixed_precision_solves)
+        self.refine = (options.max_num_refinement_iterations
+                       if self.mixed else 0)
         self.use_scaling = bool(options.jacobi_scaling)
         self.min_diag = options.min_lm_diagonal
         self.max_diag = options.max_lm_diagonal
-        self.jacobi = (options.preconditioner_type
-                       != PreconditionerType.IDENTITY)
-        self.cg_args = dict(
-            max_iterations=options.max_linear_solver_iterations,
-            min_iterations=options.min_linear_solver_iterations,
-            q_tolerance=options.eta)
+        self.linear = LinearSolver(program, options)
+        self.exact_solver = (self.mixed and options.linear_solver_type
+                             in _DIRECT_SOLVERS)
 
     def initial_scales(self):
         """No scale yet: the first linearization derives it."""
@@ -157,40 +215,56 @@ class GenericLMStep:
     def cost(self, x):
         return self.program.cost_fn(x)
 
+    def _linearize(self, x):
+        """(cost, gradient, J, r in the solve's precision, the f64
+        gradient when the branch has one apart)."""
+        prog = self.program
+        if self.mixed and self.refine == 0:
+            return (*prog.linearize_fn_mixed(x), None)
+        cost, grad, jac, res = prog.linearize_fn(x)
+        if not self.mixed:
+            return cost, grad, jac, res, None
+        f32 = torch.float32
+        jac32 = BlockJacobian([b.with_J(b.J.to(f32)) for b in jac.buckets],
+                              jac.num_cols, jac.col_sum)
+        res32 = RVec([p.to(f32) for p in res.parts])
+        return cost, jac32.rmatvec(res32), jac32, res32, grad
+
+    def _scale(self, x, jac):
+        """The Jacobi column scale of the first linearization, from the
+        f32 pass when mixed (make_scale_impl)."""
+        if not self.use_scaling:
+            return torch.ones(jac.num_cols, dtype=jac.buckets[0].J.dtype,
+                              device=self.program.device)
+        if self.mixed and self.refine > 0:
+            jac = self.program.linearize_fn_mixed(x)[2]
+        return 1.0 / (1.0 + torch.sqrt(jac.squared_column_norms()))
+
+    def _base(self, x, scale, first, known_cost, with_diag=True):
+        cost, grad, jac, res, grad64 = self._linearize(x)
+        if first:
+            scale = self._scale(x, jac)
+        jac_s = jac.scale_columns(scale)
+        g_norms = grad64 if grad64 is not None else grad
+        return GenericLinearization(
+            cost=cost if known_cost is None else known_cost,
+            jac_s=jac_s, res=res, grad_s=grad * scale,
+            diag=(torch.clamp(jac_s.squared_column_norms(), self.min_diag,
+                              self.max_diag) if with_diag else None),
+            blocks=self.linear.blocks(jac_s), scale=scale,
+            grad_max=g_norms.abs().max().double(),
+            grad_norm=torch.linalg.vector_norm(g_norms).double(),
+            grad_full=grad.double() if self.program.has_bounds else None)
+
     def linearize(self, x, scale, first: bool,
                   known_cost=None) -> GenericLinearization:
         """Linearize at x. first=True derives the Jacobi scale from this
         linearization's column norms; otherwise `scale` is used."""
-        cost, grad, jac, res = self.program.linearize_fn_mixed(x)
-        if first:
-            scale = (1.0 / (1.0 + torch.sqrt(jac.squared_column_norms()))
-                     if self.use_scaling else torch.ones_like(grad))
-        jac_s = jac.scale_columns(scale)
-        return GenericLinearization(
-            cost=cost if known_cost is None else known_cost,
-            jac_s=jac_s, res=res, grad_s=grad * scale,
-            diag=torch.clamp(jac_s.squared_column_norms(), self.min_diag,
-                             self.max_diag),
-            jtj_blocks=(block_diag_jtj(jac_s, self.program.groups)
-                        if self.jacobi else None),
-            scale=scale, grad_max=grad.abs().max().double(),
-            grad_norm=torch.linalg.vector_norm(grad).double())
+        return self._base(x, scale, first, known_cost)
 
-    def solve(self, art: GenericLinearization, radius: float) -> dict:
-        """Damped solve at `radius`: the LM step and its model cost
-        change (the JAX step's output dict)."""
-        rad = torch.tensor(radius, dtype=torch.float32,
-                           device=self.program.device)
-        D = torch.sqrt(art.diag / rad)
-        precond = (make_block_jacobi_preconditioner(
-            art.jtj_blocks, D, self.program.groups) if self.jacobi
-            else None)
-        d, lin_iters = solve_cgnr(art.jac_s, art.res, D, precond,
-                                  **self.cg_args)
-        Jd = art.jac_s.matvec(d)
-        mcc = -(torch.dot(d, art.grad_s) + 0.5 * Jd.squared_norm())
+    def _out(self, art, d, mcc, lin_iters) -> dict:
         delta = (art.scale * d).double()
-        return {
+        out = {
             "cost": art.cost,
             "gradient_max_norm": art.grad_max,
             "gradient_norm": art.grad_norm,
@@ -199,6 +273,182 @@ class GenericLMStep:
             "step_norm": torch.linalg.vector_norm(delta),
             "lin_iters": lin_iters,
         }
+        if art.grad_full is not None:
+            out["gradient_full"] = art.grad_full
+        return out
+
+    def solve(self, art: GenericLinearization, radius: float) -> dict:
+        """Damped solve at `radius`: the LM step and its model cost
+        change (the JAX step's output dict)."""
+        rad = torch.tensor(radius, dtype=art.diag.dtype,
+                           device=self.program.device)
+        D = torch.sqrt(art.diag / rad)
+        d, lin_iters = self.linear(art.jac_s, art.res, D, art.blocks)
+        if self.exact_solver:
+            # (J^T J + D^2) d = -g_s exactly: ||J_s d||^2 = -d.g_s - ||D d||^2
+            Dd = D.to(d.dtype) * d
+            dg = torch.dot(d, art.grad_s)
+            mcc = -(dg + 0.5 * (-dg - torch.dot(Dd, Dd)))
+        else:
+            Jd = art.jac_s.matvec(d)
+            mcc = -(torch.dot(d, art.grad_s) + 0.5 * Jd.squared_norm())
+        return self._out(art, d, mcc, lin_iters)
+
+
+class DoglegStep(GenericLMStep):
+    """The dogleg step of ceres_tpu's make_step_impl (dogleg_step,
+    :333-437; the reference's dogleg_strategy.cc:130-265), in the
+    Jacobi-scaled space, mixed (linearize_fn_mixed) or f64. Everything
+    but the radius's part is formed once per linearization:
+
+      the Cauchy point -alpha g, alpha = |g|^2 / |J g|^2;
+      the Gauss-Newton point, solved with damping D = 1e-12 raised x100
+        while the solve is not valid (not finite, or a model decrease
+        below -eps max(cost, 1) at a step longer than eps (1 + |g|)): at
+        most 8 solves, the JAX package's while loop, which reads one flag
+        on the host per solve; the Cauchy point if all fail;
+      SUBSPACE_DOGLEG: the orthonormal basis of span{g, GN}, the 2 x 2
+        model, its unconstrained minimum and its eigendecomposition
+        (_subspace_solve, :278-331).
+
+    solve: GN when inside the radius; else TRADITIONAL_DOGLEG the
+    truncated gradient (Cauchy point outside) or the segment's boundary
+    point, SUBSPACE_DOGLEG the subspace model's boundary minimum (64-step
+    bisection of the secular equation; the segment when the subspace
+    degenerates); then the model cost change and the step."""
+
+    def __init__(self, program, options):
+        super().__init__(program, options)
+        self.refine = 0
+        self.subspace = options.dogleg_type == DoglegType.SUBSPACE_DOGLEG
+
+    def _linearize(self, x):
+        prog = self.program
+        if self.mixed:
+            return (*prog.linearize_fn_mixed(x), None)
+        return (*prog.linearize_fn(x), None)
+
+    def linearize(self, x, scale, first: bool,
+                  known_cost=None) -> GenericLinearization:
+        art = self._base(x, scale, first, known_cost, with_diag=False)
+        jac_s, g, res = art.jac_s, art.grad_s, art.res
+        dt = g.dtype
+        g_sq = torch.dot(g, g)
+        alpha = g_sq / torch.clamp(jac_s.matvec(g).squared_norm(),
+                                   min=1e-300)
+        eps_v = 1e-6 if dt == torch.float32 else 1e-12
+        cost = self.program.cost_fn(x) if known_cost is None else known_cost
+        g_norm = torch.linalg.vector_norm(g)
+
+        def valid(gn_try):
+            Jgn = jac_s.matvec(gn_try)
+            mcc_gn = -(torch.dot(gn_try, g) + 0.5 * Jgn.squared_norm())
+            ok_decrease = mcc_gn > -eps_v * torch.clamp(cost, min=1.0)
+            tiny = torch.linalg.vector_norm(gn_try) <= eps_v * (1.0 + g_norm)
+            return bool(torch.isfinite(gn_try).all() & (ok_decrease | tiny))
+
+        ftype = np.float32 if dt == torch.float32 else np.float64
+        dval = ftype(1e-12)
+        gn, lin_iters = self.linear(jac_s, res, torch.full_like(g, dval),
+                                    art.blocks)
+        while dval < ftype(1e2) and not valid(gn):
+            dval = dval * ftype(1e2)
+            gn, it = self.linear(jac_s, res, torch.full_like(g, dval),
+                                 art.blocks)
+            lin_iters = lin_iters + it
+        cauchy = -alpha * g
+        gn = torch.where(torch.isfinite(gn).all(), gn, cauchy)
+        dl = dict(g_sq=g_sq, cauchy=cauchy, gn=gn, lin_iters=lin_iters,
+                  cauchy_norm=torch.linalg.vector_norm(cauchy),
+                  gn_norm=torch.linalg.vector_norm(gn))
+        if self.subspace:
+            dl.update(self._subspace_model(jac_s, g, gn))
+        art.dogleg = dl
+        return art
+
+    @staticmethod
+    def _subspace_model(jac_s, g, gn):
+        """The radius-free part of _subspace_solve: the basis (b1, b2) of
+        span{g, gn} by Gram-Schmidt, B = basis^T J^T J basis, gr =
+        basis^T g, the unconstrained minimum y_unc and eigh(B)."""
+        dt = g.dtype
+        b1 = g / torch.clamp(torch.linalg.vector_norm(g), min=1e-300)
+        v = gn - torch.dot(b1, gn) * b1
+        v_norm = torch.linalg.vector_norm(v)
+        degenerate = v_norm < 1e-12
+        b2 = torch.where(degenerate, b1,
+                         v / torch.where(v_norm == 0, 1.0, v_norm))
+        Jb1, Jb2 = jac_s.matvec(b1), jac_s.matvec(b2)
+        B01 = Jb1.dot(Jb2)
+        B = torch.stack([torch.stack([Jb1.squared_norm(), B01]),
+                         torch.stack([B01, Jb2.squared_norm()])]).to(dt)
+        gr = torch.stack([torch.dot(b1, g), torch.dot(b2, g)])
+        eye = torch.eye(2, dtype=dt, device=g.device)
+        y_unc = -torch.linalg.solve(B + 1e-30 * eye, gr)
+        evals, Q = torch.linalg.eigh(B)
+        return dict(b1=b1, b2=b2, degenerate=degenerate, y_unc=y_unc,
+                    evals=evals, Q=Q, gh=Q.T @ gr)
+
+    @staticmethod
+    def _subspace_solve(dl, radius):
+        """The subspace model's minimum within `radius`: y_unc inside, else
+        the secular equation sum gh_i^2 / (d_i + lam)^2 = radius^2 by a
+        fixed 64-step bisection; (d_sub, degenerate)."""
+        d, gh = dl["evals"], dl["gh"]
+        inside = torch.linalg.vector_norm(dl["y_unc"]) <= radius
+        lam_lo = torch.clamp(-d[0], min=0.0) + 1e-12
+        lam_hi = (lam_lo + torch.linalg.vector_norm(gh)
+                  / torch.clamp(radius, min=1e-300) + d.abs().max() + 1.0)
+        r_sq = radius * radius
+        lo, hi = lam_lo, lam_hi
+        for _ in range(64):
+            mid = 0.5 * (lo + hi)
+            y = gh / (d + mid)
+            too_big = torch.dot(y, y) > r_sq
+            lo, hi = torch.where(too_big, mid, lo), torch.where(too_big, hi,
+                                                                mid)
+        lam = 0.5 * (lo + hi)
+        y = torch.where(inside, dl["y_unc"], dl["Q"] @ (-gh / (d + lam)))
+        return y[0] * dl["b1"] + y[1] * dl["b2"], dl["degenerate"]
+
+    def solve(self, art: GenericLinearization, radius: float) -> dict:
+        dl, g = art.dogleg, art.grad_s
+        r = torch.tensor(radius, dtype=g.dtype, device=g.device)
+        cauchy, gn = dl["cauchy"], dl["gn"]
+        diff = gn - cauchy
+        a2 = torch.dot(diff, diff)
+        b2 = 2.0 * torch.dot(cauchy, diff)
+        c2 = torch.dot(cauchy, cauchy) - r * r
+        disc = torch.sqrt(torch.clamp(b2 * b2 - 4.0 * a2 * c2, min=0.0))
+        beta = torch.where(a2 > 0, (-b2 + disc)
+                           / (2.0 * torch.where(a2 == 0, 1.0, a2)), 0.0)
+        seg = cauchy + beta * diff
+        inside = dl["gn_norm"] <= r
+        d = torch.where(inside, gn, torch.where(
+            dl["cauchy_norm"] >= r,
+            -(r / torch.sqrt(torch.clamp(dl["g_sq"], min=1e-300))) * g, seg))
+        if self.subspace:
+            d_sub, degenerate = self._subspace_solve(dl, r)
+            d = torch.where(inside, gn, torch.where(degenerate, d, d_sub))
+        Jd = art.jac_s.matvec(d)
+        mcc = -(torch.dot(d, g) + 0.5 * Jd.squared_norm())
+        return self._out(art, d, mcc, dl["lin_iters"])
+
+
+def make_step(program, options):
+    """The step of the configuration (ceres_tpu make_step_impl): a Schur
+    step for the Schur solvers (LM only), else DoglegStep or
+    GenericLMStep."""
+    dogleg = (options.trust_region_strategy_type
+              == TrustRegionStrategyType.DOGLEG)
+    if options.linear_solver_type in _SCHUR_SOLVERS:
+        if dogleg:
+            raise NotImplementedError(
+                "dogleg with a Schur solver (ROADMAP.md item 18, "
+                "solvers/schur.py make_schur_solver)")
+        return schur_step(program, options,
+                          detect_schur_structure(program, options))
+    return (DoglegStep if dogleg else GenericLMStep)(program, options)
 
 
 def _maybe_downgrade_options(options, program, summary):
@@ -252,6 +502,11 @@ def solve(options: SolverOptions, problem,
         summary.message = f"Invalid options: {err}"
         return summary
     _check_slice(options)
+    prob_cb = getattr(getattr(problem, "options", None),
+                      "evaluation_callback", None)
+    if prob_cb is not None and options.evaluation_callback is None:
+        # Problem::Options::evaluation_callback (problem.h:179)
+        options = dataclasses.replace(options, evaluation_callback=prob_cb)
     device = torch.device(options.device)
     if device.type == "cuda":
         if not torch.cuda.is_available():
@@ -302,17 +557,16 @@ def solve(options: SolverOptions, problem,
     steps = program.__dict__.setdefault("_fused_steps", {})
     key = options.cache_key()
     if key not in steps:
-        if options.linear_solver_type in _SCHUR_SOLVERS:
-            steps[key] = schur_step(
-                program, options, detect_schur_structure(program, options))
-        else:
-            steps[key] = GenericLMStep(program, options)
+        steps[key] = make_step(program, options)
     step = steps[key]
     summary.linear_solver_type_used = options.linear_solver_type
     summary.preconditioner_type_used = options.preconditioner_type
     summary.preprocessor_time_in_seconds = time.time() - t0
 
-    x = run_fused(program, options, summary, step)
+    if options.fused_iterations and not needs_host_loop(options, program):
+        x = run_fused(program, options, summary, step)
+    else:
+        x = minimize_trust_region(program, options, step, summary)
     if isinstance(step, SchurStep):
         summary.message += f" Schur step: {step.mode}."
 

@@ -97,14 +97,20 @@ def solve_cgnr(jac, res, D, apply_preconditioner=None,
                r_tolerance: float = 0.0, min_iterations: int = 0):
     """CGNR (ceres_tpu solvers/cg.py solve_cgnr; the reference's
     cgnr_solver.cc): CG on the normal equations (J^T J + D^T D) d =
-    -J^T r, matrix-free over the bucketed BlockJacobian. The operator
-    J^T (J v) is K8, one launch per bucket (plain PyTorch on the CPU).
+    -J^T r, matrix-free over the bucketed BlockJacobian. On an f32
+    Jacobian the operator J^T (J v) is K8, one launch per bucket (plain
+    PyTorch on the CPU); on an f64 one it is the two products J^T (J v),
+    as in the JAX package, whose J^T J v kernel takes f32 buckets only.
     Starts from x0 = 0 with r0 = b - A 0, as the JAX package does.
     Returns (d, iterations as an int32 tensor)."""
     DD = D * D
 
-    def apply_A(v):
-        return jac_normal_matvec(jac, v) + DD * v
+    if jac.buckets[0].J.dtype == torch.float32:
+        def apply_A(v):
+            return jac_normal_matvec(jac, v) + DD * v
+    else:
+        def apply_A(v):
+            return jac.rmatvec(jac.matvec(v)) + DD * v
 
     b = -jac.rmatvec(res)
     result = conjugate_gradients(

@@ -69,7 +69,7 @@ from ..ops.jet_compile import (loss_param_values, make_auto_spec,
                                make_loss_spec)
 from ..ops.kernels import MAX_M, chol_solve
 from ..ops.linearize import is_snavely_bucket
-from ..ops.lin import elim, elim_v1, lin, spd_inv3
+from ..ops.lin import K1_ENTRIES, elim, elim_v1, lin, spd_inv3
 from ..ops.pcg import dense_pcg
 from ..types import LinearSolverType, PreconditionerType
 from .cg import conjugate_gradients
@@ -159,14 +159,14 @@ def _common_unsupported(program, options, meta) -> Optional[str]:
         return (f"ITERATIVE_SCHUR with {options.preconditioner_type} "
                 "(ROADMAP.md item 36, solvers/preconditioners.py)")
     if iterative and options.use_spse_initialization:
-        return ("use_spse_initialization (ROADMAP.md item 14, the "
-                "host-loop minimizer)")
+        return ("use_spse_initialization (ROADMAP.md item 14, the rest "
+                "of minimizers/trust_region.py)")
     if not options.use_mixed_precision_solves:
         return ("the f64 (non-mixed) fused step (ROADMAP.md item 11, the "
                 "rest of solvers/schur_fused.py)")
     if options.max_num_refinement_iterations > 0:
-        return ("mixed-precision refinement (ROADMAP.md item 15, "
-                "solvers/dense.py)")
+        return ("mixed-precision refinement in a Schur step (ROADMAP.md "
+                "item 18, solvers/schur.py make_schur_solver)")
     if program.has_bounds:
         return ("bounds (ROADMAP.md item 11, the rest of "
                 "solvers/schur_fused.py)")
@@ -235,9 +235,10 @@ def _explicit_unsupported(program, options, meta) -> Optional[str]:
         reason = _k5_unsupported(program, options, meta)
         if reason is not None:
             return reason
-    elif bk.loss is not None and torch.device(options.device).type == "cuda":
-        return ("a robust loss on the CUDA path (ROADMAP.md item 9, "
-                "robust-loss K1)")
+    elif (bk.loss is not None and type(bk.loss) not in K1_ENTRIES
+          and torch.device(options.device).type == "cuda"):
+        return (f"{type(bk.loss).__name__} on the Snavely bucket, whose K1 "
+                "runs the stock scalar losses only (ROADMAP.md item 9)")
     if not _explicit_viable(meta):
         return (f"{options.linear_solver_type} on a reduced camera system "
                 "too large to form densely (ROADMAP.md item 18, the rest of "

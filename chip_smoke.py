@@ -11,8 +11,11 @@ two pose graphs (io/g2o.py's generators: SE3 with 2,000 poses, SE2 with
 1,000; POSE_GRAPHS), on the JAX package's large-BA case (1,024
 cameras, 200,000 points, 1,000,000 observations; IMPLICIT_SHAPE), on
 the BAL-16-22106 problem with its cameras written as quaternions
-(QUAT_PATHS) and on the large case with its cameras written as
-quaternions (QUAT_IMPLICIT_SCHUR):
+(QUAT_PATHS), on the large case with its cameras written as
+quaternions (QUAT_IMPLICIT_SCHUR), on the BAL-16-22106 problem with a
+robust loss (ROBUST_PATHS), on the SE2 graph under Ceres's default
+options (SE2_DEFAULT_PATHS) and on tests/test_solver_e2e.py's
+helloworld, Powell and bounded problems:
 
 1. checks each kernel against its plain PyTorch version on the card, at
    the shapes its path gives it: K1-K4 (slice 1, DENSE_SCHUR; K3 bit for
@@ -38,7 +41,9 @@ quaternions (QUAT_IMPLICIT_SCHUR):
    system there (m 160); K11's auto spec (slice 6) on the
    quaternion large case's bucket (1M rows) at its start, and K10 on that
    case's scaled
-   chunk tensors (tf 10) as on the large case's; times each, its plain version
+   chunk tensors (tf 10) as on the large case's; K1 with HuberLoss(1.0)
+   and CauchyLoss(2.0) (its loss instances) on the main path's first
+   linearization; times each, its plain version
    and, where one PyTorch call computes the same function, that call,
    with CUDA events (median of 20 single calls; the kernel also as the
    mean of 100 back-to-back calls, "loop_ms"); times K3 against its
@@ -59,7 +64,15 @@ quaternions (QUAT_IMPLICIT_SCHUR):
    SCHUR_JACOBI, and DENSE_SCHUR with HuberLoss(1.0) and a cap of 100
    iterations, one warm-up and one timed each); ITERATIVE_SCHUR with
    SCHUR_JACOBI on the quaternion large case (slice 6, implicit: nf =
-   10,240), one warm-up and one timed;
+   10,240), one warm-up and one timed; DENSE_SCHUR on BAL-16-22106 with
+   HuberLoss(1.0) and with CauchyLoss(2.0) (slice 7: K1's loss), one
+   warm-up and one timed each; DENSE_SCHUR through the host-loop
+   minimizer (fused_iterations=False, an IterationCallback recording each
+   summary, minimizer_progress_to_stdout), one warm-up and two timed,
+   its walls printed beside the fused DENSE_SCHUR solves'; the SE2 graph
+   under SolverOptions() (LM, DENSE_QR, f64, the host loop), with
+   DENSE_NORMAL_CHOLESKY and with SUBSPACE_DOGLEG, one warm-up and one
+   timed each; helloworld, Powell and the bounded problem, once each;
 3. fails unless every kernel agrees within its limit (K7 with the same CG
    iteration count, K10 bit for bit), every BAL-16-22106 solve ends in
    CONVERGENCE with a final cost within 1e-5 relative of 5.028773e+04,
@@ -84,10 +97,22 @@ quaternions (QUAT_IMPLICIT_SCHUR):
    quaternion large-case solve ends in CONVERGENCE within
    QUAT_IMPLICIT_REF_REL_TOL of the JAX package's final cost, launches
    K11's auto spec once per linearization and K10 at least once per CG
-   iteration, and no other kernel; the pose-graph, large-case and
-   quaternion solves repeat the same LM and CG counts and final cost in
-   every solve (the quaternion solves' counts are compared with the JAX
-   package's in print only); and TF32 is off.
+   iteration, and no other kernel; every robust-loss solve ends in
+   CONVERGENCE within ROBUST_REF_REL_TOL of the JAX package's final
+   cost with K1-K4 launched at least once per LM iteration; the host-loop
+   solve takes HOST_LOOP_ITERATIONS LM iterations to 5.028773e+04 within
+   1e-5, K1-K4 at least once per LM iteration, and its callback sees
+   every iteration summary but the last (iteration 0 included); the SE2
+   default-option solves end in CONVERGENCE within SE2_DEFAULT_REL_TOL of
+   the JAX package's final cost, cut the position error below 0.5 of the
+   start and launch no kernel (their LM counts are printed beside the JAX
+   package's); helloworld (45.125 -> below 1e-12, x = 10), Powell (107.5
+   -> below 1e-12, |x_i| < 2e-3; its LM count beside the 15 of Ceres's
+   tutorial) and the bounded problem (clamped at (5, -4) within 1e-6)
+   hold their tests' numbers and launch no kernel; the pose-graph,
+   large-case and quaternion solves repeat the same LM and CG counts and
+   final cost in every solve (the quaternion solves' counts are compared
+   with the JAX package's in print only); and TF32 is off.
 
 Prints the card's name and power limit, one line per check and solve, a
 JSON line of the kernels (each kernel's launches from its MAIN_PATH solve
@@ -239,6 +264,69 @@ QUAT_IMPLICIT_REF_REL_TOL = 6.5e-4
 QUAT_IMPLICIT_MAX_ITERATIONS = 110
 
 
+# the default-Solve slice (the host-loop trust-region minimizer, the
+# dense solvers, f64): the 1,000-pose SE2 graph of POSE_GRAPHS["2d"]
+# under Ceres's default SolverOptions() (LM, DENSE_QR, f64, the host
+# loop), then with DENSE_NORMAL_CHOLESKY and with SUBSPACE_DOGLEG. J is
+# 3,198 x 2,997 f64, formed densely by DENSE_QR. `ref_cost` and
+# `ref_iterations` (LM) are the JAX package's on the CPU with the same
+# options (scripts/default_solve_reference.py); the gate is 1e-8 of the
+# cost, the iteration counts are reported beside the JAX ones.
+SE2_DEFAULT_PATHS = {
+    "SE2_DENSE_QR": dict(options={}, ref_cost=98.97160651954493,
+                         ref_iterations=10),
+    "SE2_DENSE_NORMAL_CHOLESKY": dict(
+        options=dict(linear_solver_type="DENSE_NORMAL_CHOLESKY"),
+        ref_cost=98.97160651954493, ref_iterations=10),
+    "SE2_SUBSPACE_DOGLEG": dict(
+        options=dict(trust_region_strategy_type="DOGLEG",
+                     dogleg_type="SUBSPACE_DOGLEG"),
+        ref_cost=98.97160652093707, ref_iterations=6),
+}
+SE2_DEFAULT_REL_TOL = 1e-8
+# BAL-16-22106 with HuberLoss(1.0) and with CauchyLoss(2.0) on
+# DENSE_SCHUR (mixed, fused): K1 with its loss. `ref_cost` is the JAX
+# package's final cost on the CPU (scripts/default_solve_reference.py
+# --paths huber,cauchy: 48 and 38 LM iterations). Its own runs from the
+# start scaled by 1 -+ 1e-7 end within 3.7e-9 (Huber) and 1.3e-8
+# (Cauchy) of it, so the gate stays the main path's 1e-5 (ROADMAP.md
+# section 3). CauchyLoss(1.0) would take ~175 LM iterations there, its
+# runs 7.6e-6 apart.
+ROBUST_PATHS = {
+    "DENSE_SCHUR_HUBER": dict(loss="HuberLoss", a=1.0,
+                              ref_cost=42802.14119413595, ref_iterations=48),
+    "DENSE_SCHUR_CAUCHY": dict(loss="CauchyLoss", a=2.0,
+                               ref_cost=39197.00781186229,
+                               ref_iterations=38),
+}
+ROBUST_REF_REL_TOL = 1e-5
+# the main path through the host loop repeats the fused loop's LM count
+HOST_LOOP_ITERATIONS = 6
+
+
+def default_options(mod, cfg, **extra):
+    """SE2_DEFAULT_PATHS[...] cfg's options in package `mod` (ceres_tpu or
+    ceres_tpu_torch): SolverOptions() with cfg's changes and `extra`."""
+    enums = {"linear_solver_type": mod.LinearSolverType,
+             "trust_region_strategy_type": mod.TrustRegionStrategyType,
+             "dogleg_type": mod.DoglegType}
+    kw = {k: getattr(enums[k], v) for k, v in cfg["options"].items()}
+    kw.update(extra)
+    return mod.SolverOptions(**kw)
+
+
+def huber_options(mod, **extra):
+    """The main path's DENSE_SCHUR options in package `mod` (run on a
+    problem with HuberLoss(1.0))."""
+    kw = dict(linear_solver_type=mod.LinearSolverType.DENSE_SCHUR,
+              preconditioner_type=mod.PreconditionerType.SCHUR_JACOBI,
+              max_num_iterations=50, function_tolerance=1e-6,
+              max_linear_solver_iterations=100,
+              use_mixed_precision_solves=True, fused_iterations=True)
+    kw.update(extra)
+    return mod.SolverOptions(**kw)
+
+
 # each kernel's main path: its "launches" in the kernels line are the
 # counts of that path's last solve (K11 has three entries, the SE3 spec's
 # and the Snavely spec's, each read from the counter of bucket_linearize,
@@ -253,7 +341,9 @@ MAIN_PATH = {"K1 lin": "DENSE_SCHUR", "K2 elim": "DENSE_SCHUR",
              "K11 bucket_linearize": "POSE_GRAPH_3D",
              "K11 bucket_linearize (Snavely)": "IMPLICIT_SCHUR",
              "K11 bucket_linearize (auto)": "QUAT_IMPLICIT_SCHUR",
-             "K5 lin_auto": "QUAT_DENSE_SCHUR"}
+             "K5 lin_auto": "QUAT_DENSE_SCHUR",
+             "K1 lin (HuberLoss(1.0))": "DENSE_SCHUR_HUBER",
+             "K1 lin (CauchyLoss(2.0))": "DENSE_SCHUR_CAUCHY"}
 
 
 def large_options(mod, **extra):
@@ -438,11 +528,13 @@ def pcg_flops(m, tf, iters, reset):
 
 
 def drive(label, options, problem, reset_state, counters, trials, gate,
-          ref_cost=REF_FINAL_COST, ref_tol=REF_REL_TOL, solve=None):
+          ref_cost=REF_FINAL_COST, ref_tol=REF_REL_TOL, solve=None,
+          walls=None):
     """Solve `trials` times on the card (the first a warm-up) with
     `solve(options, problem)` (ctt.solve unless given), each with every
     launch count set to 0 just before and read just after; `gate` raises
-    on a wrong summary. Returns the last solve's launches."""
+    on a wrong summary; the timed solves' walls (s) are appended to
+    `walls` when given. Returns the last solve's launches."""
     import torch
     import ceres_tpu_torch as ctt
     solve = solve or ctt.solve
@@ -458,7 +550,9 @@ def drive(label, options, problem, reset_state, counters, trials, gate,
         wall = time.time() - t0
         launches = {name: fn.launches for name, fn in counters.items()}
         kind = "warm-up solve" if trial == 0 else f"timed solve {trial}"
-        print(f"{label} {kind}: {summary.num_iterations} LM iterations "
+        if trial and walls is not None:
+            walls.append(wall)
+        print(f"{label} {kind}: {lm_iterations(summary)} LM iterations "
               f"({summary.num_successful_steps} accepted), "
               f"{summary.num_linear_solver_iterations} linear solver "
               f"iterations, initial cost {summary.initial_cost:.6e}, final "
@@ -472,6 +566,13 @@ def drive(label, options, problem, reset_state, counters, trials, gate,
                              f"{rel:.2e} from {ref_cost}")
         gate(summary, launches)
     return launches
+
+
+def lm_iterations(summary):
+    """LM iterations of a summary: the host loop's records iteration 0 as
+    well (its num_iterations is one more), the fused loop's none."""
+    return (len(summary.iterations) - 1 if summary.iterations
+            else summary.num_iterations)
 
 
 def main():
@@ -669,6 +770,38 @@ def main():
         cmp_lin, F32_LIMIT,
         "ceres_tpu_torch/csrc/lin.cu", "ceres_tpu/ops/pallas_lin.py:66",
         lin_carry, lin_flops, F32_FLOP_PER_S)
+    # K1's loss instances on the same first linearization: the Triggs
+    # corrector in the chain adds ~55 operations an observation (the loss,
+    # r^T J over 12 channels, the corrected J and r), counted with the
+    # rest. A loss weights the inliers' small residuals up against the
+    # outliers, so an output's largest entry shrinks and f32 rounding
+    # weighs more beside it: the plain version itself lies up to ~2e-5 of
+    # its largest entry from the same plain version run in f64 on these
+    # inputs (CPU run, PR 13). Each output's limit is F32_LIMIT, or twice
+    # the plain version's own distance from its f64 run where that is
+    # larger, measured here on these inputs; the kernel's distance from
+    # the f64 run is printed too.
+    lin64 = [a.double() if torch.is_tensor(a) and a.is_floating_point()
+             else a for a in lin_first]
+    for cfg in ROBUST_PATHS.values():
+        loss = getattr(ctt, cfg["loss"])(cfg["a"])
+        name = f"K1 lin ({cfg['loss']}({cfg['a']}))"
+        lin_loss = lin_first + (True, loss)
+        want32 = k1_plain(lin_loss)()
+        want64 = k1_plain(tuple(lin64) + (True, loss))()
+        got = k1(lin_loss)()
+        own = [rel_err(want32[k], want64[k])[0] for k in want32]
+        mine = [rel_err(got[k], want64[k])[0] for k in want32]
+        print(f"{name}: the plain version (f32) from its f64 run "
+              f"{', '.join(f'{e:.3e}' for e in own)}; the kernel from the "
+              f"f64 run {', '.join(f'{e:.3e}' for e in mine)}", flush=True)
+        kernels.append(check_kernel(
+            name, k1(lin_loss), k1_plain(lin_loss), cmp_lin,
+            [max(F32_LIMIT, 2.0 * e) for e in own],
+            "ceres_tpu_torch/csrc/lin.cu", "ceres_tpu/ops/pallas_lin.py:66",
+            lin_first, (516 + 55) * nobs, F32_FLOP_PER_S))
+        kernels[-1]["counter"] = "K1 lin"
+        del want32, want64, got
 
     cost0 = step.cost(x0)
     art = step.linearize(x0, se0, sf0, True, known_cost=cost0)
@@ -1159,7 +1292,8 @@ def main():
 
     def gate_path(label, runs, never):
         def gate(summary, launches):
-            short = [n for n in runs if launches[n] < summary.num_iterations]
+            short = [n for n in runs
+                     if launches[n] < lm_iterations(summary)]
             if short:
                 raise SystemExit(f"{label}: kernels launched fewer times "
                                  f"than LM iterations: {short}")
@@ -1312,13 +1446,14 @@ def main():
                 a[:] = a0
         return reset
 
+    fused_w = []          # the DENSE_SCHUR timed solves' walls (s)
     by_path = {
         "DENSE_SCHUR": drive(
             "DENSE_SCHUR", options, problem, reset_state, counters, 4,
             gate_path("DENSE_SCHUR", ("K1 lin", "K2 elim", "K3 chol_solve",
                                       "K3 chol_solve (shared)", "K4 cost"),
                       ("K6 elim_v1", "K7 dense_pcg",
-                       "K3 chol_solve (global)"))),
+                       "K3 chol_solve (global)")), walls=fused_w),
         "ITERATIVE_SCHUR": drive(
             "ITERATIVE_SCHUR", it_options, problem, reset_state, counters,
             3, gate_iterative),
@@ -1370,6 +1505,200 @@ def main():
                       k11="K11 bucket_linearize (auto)", runs=()),
         ref_cost=QUAT_IMPLICIT_REF_COST,
         ref_tol=QUAT_IMPLICIT_REF_REL_TOL)
+    # ---- the default-Solve slice ----
+    dense_runs = ("K1 lin", "K2 elim", "K3 chol_solve",
+                  "K3 chol_solve (shared)", "K4 cost")
+    dense_never = ("K6 elim_v1", "K7 dense_pcg", "K3 chol_solve (global)",
+                   "K5 lin_auto") + other
+    def gate_robust(label):
+        """K2-K4 at least once per LM iteration; K1 once per
+        linearization: at least once per accepted step and at most once
+        per LM iteration plus one (rejected steps re-solve from the kept
+        linearization)."""
+        def gate(summary, launches):
+            gate_path(label, dense_runs[1:], dense_never)(summary, launches)
+            n1 = launches["K1 lin"]
+            if not summary.num_successful_steps <= n1 <= \
+                    lm_iterations(summary) + 1:
+                raise SystemExit(f"{label}: K1 launched {n1} times for "
+                                 f"{summary.num_successful_steps} accepted "
+                                 f"steps of {lm_iterations(summary)}")
+        return gate
+
+    # BAL-16-22106 with a robust loss on every observation: K1's Huber and
+    # Cauchy instances on the main path
+    for path, cfg in ROBUST_PATHS.items():
+        loss = getattr(ctt, cfg["loss"])(cfg["a"])
+        r_problem, r_cams, r_pts = build_bal_ceres_problem(bal, loss=loss)
+        r_arrays = r_cams + r_pts
+        r_start = [a.copy() for a in r_arrays]
+
+        def reset_robust(arrays=r_arrays, start=r_start):
+            for a, a0 in zip(arrays, start):
+                a[:] = a0
+        print(f"{path}: the JAX package on the CPU takes "
+              f"{cfg['ref_iterations']} LM iterations to "
+              f"{cfg['ref_cost']!r}", flush=True)
+        by_path[path] = drive(
+            f"{path} ({cfg['loss']}({cfg['a']}))",
+            huber_options(ctt, device="cuda"), r_problem, reset_robust,
+            counters, 2, gate_robust(path), ref_cost=cfg["ref_cost"],
+            ref_tol=ROBUST_REF_REL_TOL)
+        del r_problem, r_arrays, r_start
+    # the main path through the host-loop minimizer: an IterationCallback
+    # recording each summary, the progress lines on stdout
+    seen_its, host_w = [], []
+
+    def record_iteration(it):
+        seen_its.append((it.iteration, it.cost, it.step_is_successful))
+        return ctt.CallbackReturnType.SOLVER_CONTINUE
+
+    def gate_host(summary, launches):
+        gate_path("DENSE_SCHUR_HOST_LOOP", dense_runs, dense_never)(
+            summary, launches)
+        lm = lm_iterations(summary)
+        records = len(summary.iterations)
+        print(f"  host loop: {lm} LM iterations, {records} iteration "
+              f"summaries (iteration 0 included), the callback saw "
+              f"{len(seen_its)}: {seen_its}", flush=True)
+        if lm != HOST_LOOP_ITERATIONS:
+            raise SystemExit(f"host loop: {lm} LM iterations, not "
+                             f"{HOST_LOOP_ITERATIONS}")
+        # the callbacks see iteration 0 and every iteration that does not
+        # end the solve on a tolerance (as in the JAX package's loop)
+        if len(seen_its) != records - 1 or seen_its[0][0] != 0:
+            raise SystemExit("host loop: the callback did not see each "
+                             "summary but the last")
+        seen_its.clear()
+    by_path["DENSE_SCHUR_HOST_LOOP"] = drive(
+        "DENSE_SCHUR_HOST_LOOP (fused_iterations=False)",
+        ctt.SolverOptions(**dict(common, fused_iterations=False,
+                                 callbacks=[record_iteration],
+                                 minimizer_progress_to_stdout=True),
+                          linear_solver_type=ctt.LinearSolverType
+                          .DENSE_SCHUR), problem, reset_state, counters, 3,
+        gate_host, walls=host_w)
+    print(f"DENSE_SCHUR at BAL-16-22106 on {smi}: host loop wall "
+          f"{min(host_w):.4f}-{max(host_w):.4f} s (runs "
+          f"{[round(w, 4) for w in host_w]}), fused loop wall "
+          f"{min(fused_w):.4f}-{max(fused_w):.4f} s (runs "
+          f"{[round(w, 4) for w in fused_w]})", flush=True)
+
+    # the 1,000-pose SE2 graph under Ceres's defaults: the f64 generic
+    # steps launch no kernel (the JAX package's f64 pass runs none)
+    g2 = graphs["2d"]
+
+    def gate_se2(label, cfg):
+        seen = []
+
+        def gate(summary, launches):
+            err = position_error(g2["positions"], g2["gt"])
+            cut = POSE_GRAPHS["2d"]["error_cut"]
+            print(f"  {label}: {lm_iterations(summary)} LM iterations "
+                  f"(JAX package on the CPU: {cfg['ref_iterations']}), "
+                  f"final cost {summary.final_cost!r} (JAX "
+                  f"{cfg['ref_cost']!r}); mean position error "
+                  f"{g2['error0']:.6f} -> {err:.6f} (limit {cut} of the "
+                  f"start); {summary.linear_solver_type_used}", flush=True)
+            if not err < cut * g2["error0"]:
+                raise SystemExit(f"{label}: position error not cut")
+            stray = [n for n, c in launches.items() if c]
+            if stray:
+                raise SystemExit(f"{label}: kernels launched on the f64 "
+                                 f"path: {stray}")
+            seen.append((lm_iterations(summary), summary.final_cost))
+            if len(set(seen)) != 1:
+                raise SystemExit(f"{label}: solves differ: {seen}")
+        return gate
+    for path, cfg in SE2_DEFAULT_PATHS.items():
+        by_path[path] = drive(
+            f"{path} (SolverOptions() defaults{', ' if cfg['options'] else ''}"
+            f"{', '.join(f'{k}={v}' for k, v in cfg['options'].items())})",
+            default_options(ctt, cfg, device="cuda"), g2["problem"],
+            reset_graph("2d"), counters, 2, gate_se2(path, cfg),
+            ref_cost=cfg["ref_cost"], ref_tol=SE2_DEFAULT_REL_TOL)
+
+    # tests/test_solver_e2e.py's helloworld, Powell and bounded problems
+    # on the card, at those tests' tolerances
+    def small_solve(label, build, options, check):
+        x = build()
+        t0 = time.time()
+        s_ = ctt.solve(options, x[0])
+        torch.cuda.synchronize()
+        print(f"{label}: {s_.termination_type}, {lm_iterations(s_)} LM "
+              f"iterations, initial cost {s_.initial_cost!r}, final cost "
+              f"{s_.final_cost!r}, x {[a.tolist() for a in x[1:]]}, wall "
+              f"{time.time() - t0:.4f} s", flush=True)
+        if not s_.is_solution_usable():
+            raise SystemExit(f"{label}: no usable solution: {s_.message}")
+        check(s_, x[1:])
+
+    def helloworld():
+        x = np.array([0.5])
+        p_ = ctt.Problem()
+        p_.add_residual_block(ctt.AutoDiffCostFunction(
+            lambda v: 10.0 - v, 1, [1]), None, x)
+        return p_, x
+
+    def check_hello(s_, xs):
+        if not (abs(s_.initial_cost - 45.125) <= 1e-12 * 45.125
+                and s_.final_cost < 1e-12
+                and abs(xs[0][0] - 10.0) <= 1e-6 * 10.0
+                and s_.termination_type == ctt.TerminationType.CONVERGENCE):
+            raise SystemExit("helloworld: off the tutorial's numbers")
+
+    def powell():
+        xs = [np.array([3.0]), np.array([-1.0]), np.array([0.0]),
+              np.array([1.0])]
+        p_ = ctt.Problem()
+        for f, a, b in (
+                (lambda x1, x2: x1 + 10.0 * x2, 0, 1),
+                (lambda x3, x4: 5.0 ** 0.5 * (x3 - x4), 2, 3),
+                (lambda x2, x3: (x2 - 2.0 * x3) ** 2, 1, 2),
+                (lambda x1, x4: 10.0 ** 0.5 * (x1 - x4) ** 2, 0, 3)):
+            p_.add_residual_block(ctt.AutoDiffCostFunction(f, 1, [1, 1]),
+                                  None, xs[a], xs[b])
+        return (p_, *xs)
+
+    def check_powell(s_, xs):
+        print(f"  Powell: {lm_iterations(s_)} LM iterations, "
+              f"{s_.num_iterations} iteration summaries with iteration 0 "
+              f"(Ceres's tutorial, DENSE_QR: 15)", flush=True)
+        if not (abs(s_.initial_cost - 107.5) <= 1e-12 * 107.5
+                and s_.final_cost < 1e-12
+                and all(abs(x[0]) < 2e-3 for x in xs)):
+            raise SystemExit("Powell: off the tutorial's numbers")
+
+    def bounded():
+        x = np.array([3.0, -2.0])
+        p_ = ctt.Problem()
+        p_.add_residual_block(ctt.AutoDiffCostFunction(
+            lambda v: torch.stack([v[0] - 10.0, v[1] + 10.0]), 2, [2]),
+            None, x)
+        p_.set_parameter_upper_bound(x, 0, 5.0)
+        p_.set_parameter_lower_bound(x, 1, -4.0)
+        return p_, x
+
+    def check_bounded(s_, xs):
+        if not (np.abs(xs[0] - [5.0, -4.0]).max() <= 1e-6
+                and s_.is_constrained):
+            raise SystemExit("bounded problem: not clamped at its bounds")
+
+    for fn in counters.values():
+        fn.launches = 0
+    small_solve("helloworld (SolverOptions(): LM, DENSE_QR, f64, host loop)",
+                helloworld, ctt.SolverOptions(device="cuda"), check_hello)
+    small_solve("Powell (DENSE_QR, gradient_tolerance 1e-10, 100 "
+                "iterations)", powell, ctt.SolverOptions(
+                    gradient_tolerance=1e-10, max_num_iterations=100,
+                    device="cuda"), check_powell)
+    small_solve("bounded problem (x0 <= 5, x1 >= -4)", bounded,
+                ctt.SolverOptions(max_num_iterations=100, device="cuda"),
+                check_bounded)
+    stray = [n for n, fn in counters.items() if fn.launches]
+    if stray:
+        raise SystemExit(f"small problems: kernels launched: {stray}")
+
     if torch.backends.cuda.matmul.allow_tf32:
         raise SystemExit("TF32 matmul is enabled")
 

@@ -16,7 +16,9 @@ card from fixed seeds, so both checkouts see the same bits:
   ne 22,106 points, 16 cameras, nf 144), built by the checkout as the
   step builds it, with the scale derived (first) and carried (the first
   call's), through the step's camera plan and lane data where the
-  checkout's wrapper takes them.
+  checkout's wrapper takes them; where the checkout's K1 has loss
+  instances (ops/lin.py K1_ENTRIES), also first with HuberLoss(1.0) and
+  with CauchyLoss(2.0).
 - K11's hand specs (ops/linearize.py bucket_linearize): Snavely on the
   large case's bucket at its start (chip_smoke.py IMPLICIT_SHAPE: 1M
   rows, R 2, NT 12, P_IN 12, P_DAT 2; xin and dat made with numpy from
@@ -367,6 +369,20 @@ def k1_runs():
                      lambda se=se, first=first: lin.lin_plain(
                          xf, xe, step.cam, step.mask, obsx, obsy, se, first),
                      lin.lin, None, f"K1 {name}"))
+    if hasattr(lin, "K1_ENTRIES"):      # the loss instances (csrc/lin.cu)
+        import ceres_tpu_torch as ctt
+        for loss in (ctt.HuberLoss(1.0), ctt.CauchyLoss(2.0)):
+            name = f"first, {type(loss).__name__}"
+            runs.append(({"kernel": "K1 lin", "scale": name,
+                          "shape": [ne, step.cam.shape[1], step.kf, nf],
+                          "lane_data_and_plan": new},
+                         lambda loss=loss: lin.lin(
+                             xf, xe, step.cam, step.mask, step.dat, se0,
+                             True, True, loss, plan=step.plan),
+                         lambda loss=loss: lin.lin_plain(
+                             xf, xe, step.cam, step.mask, obsx, obsy, se0,
+                             True, True, loss),
+                         lin.lin, None, f"K1 {name}"))
     return runs
 
 

@@ -24,6 +24,7 @@ from ceres_tpu_torch.ops.kernels import chol_solve
 from ceres_tpu_torch.ops.lin import elim, lin
 from ceres_tpu_torch.program import CompiledProgram as TorchProgram
 from ceres_tpu_torch.solvers.schur import detect_schur_structure
+from ceres_tpu_torch.solvers import schur_fused as tsf
 from ceres_tpu_torch.solvers.schur_fused import FusedSchurStep
 
 
@@ -176,7 +177,7 @@ def test_cpu_solve_launches_no_kernel():
     dict(linear_solver_type=ctt.LinearSolverType.ITERATIVE_SCHUR,
          preconditioner_type=ctt.PreconditionerType.CLUSTER_JACOBI),
     dict(use_mixed_precision_solves=False),
-    dict(fused_iterations=False),
+    dict(use_inner_iterations=True),
     dict(trust_region_strategy_type=ctt.TrustRegionStrategyType.DOGLEG),
     dict(minimizer_type=ctt.MinimizerType.LINE_SEARCH),
 ])
@@ -187,13 +188,23 @@ def test_out_of_slice_options_raise(extra):
 
 
 def test_robust_loss_on_cuda_raises_not_implemented():
-    """The CUDA linearize kernel has no robust loss yet; the step refuses
-    it before any tensor reaches the card."""
-    problem = torch_problem(small_bal(), loss=ctt.HuberLoss(1.0))
+    """The CUDA linearize kernel runs the stock scalar losses (one K1
+    instance a class); a composed loss has none, and the step refuses it
+    before any tensor reaches the card, naming ROADMAP.md item 9. A
+    HuberLoss passes the gate."""
     opts = main_path_options(ctt, device="cuda")
-    program = TorchProgram(problem, device="cpu")
-    with pytest.raises(NotImplementedError, match="robust loss"):
-        FusedSchurStep(program, opts, detect_schur_structure(program, opts))
+    for loss, refused in ((ctt.ScaledLoss(ctt.HuberLoss(1.0), 2.0), True),
+                          (ctt.HuberLoss(1.0), False)):
+        problem = torch_problem(small_bal(), loss=loss)
+        program = TorchProgram(problem, device="cpu")
+        meta = detect_schur_structure(program, opts)
+        reason = tsf.unsupported_reason(program, opts, meta)
+        if refused:
+            assert "item 9" in reason
+            with pytest.raises(NotImplementedError, match="item 9"):
+                FusedSchurStep(program, opts, meta)
+        else:
+            assert reason is None
 
 
 def test_cuda_device_without_a_card_raises():

@@ -2,9 +2,10 @@
 PyTorch versions against the JAX package's Pallas kernels
 (ceres_tpu/ops/pallas_lin.py _lin_kernel, _elim2_kernel) in interpret
 mode on the same inputs; and K1's CUDA source (csrc/lin.cu, a hand
-Snavely chain through csrc/lin_auto.cuh) against the plain version, on
-the host under tests/cuda_host_emu.py's g++ shim and, marked `cuda`, on
-the card.
+Snavely chain through csrc/lin_auto.cuh, with no loss and in its
+HuberLoss and CauchyLoss instances) against the plain version (with the
+same loss), on the host under tests/cuda_host_emu.py's g++ shim and,
+marked `cuda`, on the card.
 
 Tolerance 1e-5 relative to the largest entry: both sides are f32, and the
 port sums rows and points in another order than the TPU kernel's lane
@@ -29,7 +30,8 @@ from ceres_tpu.ops.pallas_lin import make_pallas_lin
 from ceres_tpu.program import CompiledProgram as JaxProgram
 from ceres_tpu.solvers.schur import detect_schur_structure as jax_detect
 from ceres_tpu_torch.ops import lin_auto as k5
-from ceres_tpu_torch.ops.lin import elim_plain, lin, lin_plain
+from ceres_tpu_torch.ops.lin import (K1_ENTRIES, elim_plain, k1_entry, lin,
+                                     lin_plain)
 from ceres_tpu_torch.program import CompiledProgram as TorchProgram
 from ceres_tpu_torch.solvers.schur import detect_schur_structure
 from ceres_tpu_torch.solvers.schur_fused import FusedSchurStep
@@ -232,16 +234,18 @@ def _snavely_lanes(ne, k, kf, twice, seed):
                                (se_in, torch.float32)))
 
 
-def _plain(args, first, use_scaling=True):
+def _plain(args, first, use_scaling=True, loss=None):
     xf, xe, cam, mask, dat, se_in = args
     return lin_plain(xf, xe, cam, mask, dat[..., 0], dat[..., 1], se_in,
-                     first, use_scaling)
+                     first, use_scaling, loss)
 
 
 _K1_MAIN = r"""
-  const int* h = emu_read<int>("hdr", 8);
+  const int* h = emu_read<int>("hdr", 10);
   const int ne = h[0], k = h[1], kf = h[2], pb = h[3], nchunks = h[4];
   const int nvalid = h[5], first = h[6], use_scaling = h[7];
+  const int loss = h[8], nlp = h[9];
+  const float* lp = emu_read<float>("lp", nlp > 0 ? nlp : 1);
   constexpr int NQ = 54;
   const size_t rows = (size_t)ne * k, na = (size_t)ne * 3 * kf * 9;
   const float* xf = emu_read<float>("xf", (size_t)kf * 9);
@@ -260,9 +264,11 @@ _K1_MAIN = r"""
   float* partial = emu_alloc<float>((size_t)nchunks * kf * NQ);
   float* ftf = emu_alloc<float>((size_t)kf * 81);
   float* gf = emu_alloc<float>((size_t)kf * 9);
-  if (ceres_lin(xf, xe, cam, mask, dat, nullptr, 0, se_in, first,
-                use_scaling, ne, k, kf, pb, pos, off, nchunks, ete, ge, se, A,
-                q, partial, ftf, gf, nullptr))
+  auto entry = loss == 1 ? ceres_lin_huber
+               : loss == 2 ? ceres_lin_cauchy : ceres_lin;
+  if (entry(xf, xe, cam, mask, dat, lp, nlp, se_in, first, use_scaling, ne, k,
+            kf, pb, pos, off, nchunks, ete, ge, se, A, q, partial, ftf, gf,
+            nullptr))
     return 3;
   emu_write("ete", ete, (size_t)ne * 9);
   emu_write("ge", ge, (size_t)ne * 3);
@@ -274,9 +280,16 @@ _K1_MAIN = r"""
 _EMU_EXE = []
 
 
-def _emulated_k1(tmp_path_factory, args, first, use_scaling=True):
-    """csrc/lin.cu run on the host (tests/cuda_host_emu.py) through
-    ceres_lin, with the wrapper's block choice and camera plan."""
+# the emulated main's loss codes: the entry point of each loss class
+_EMU_LOSS = {None: 0, "ceres_lin_huber": 1, "ceres_lin_cauchy": 2}
+
+
+def _emulated_k1(tmp_path_factory, args, first, use_scaling=True,
+                 loss=None):
+    """csrc/lin.cu run on the host (tests/cuda_host_emu.py) through the
+    entry point of `loss` (ops/lin.py k1_entry: ceres_lin, or its Huber or
+    Cauchy instance), with the wrapper's block choice, camera plan and
+    loss scalars."""
     from ceres_tpu_torch.ops import _cuda
     if not _EMU_EXE:
         _EMU_EXE.append(emu.build(tmp_path_factory.mktemp("k1emu"),
@@ -287,10 +300,13 @@ def _emulated_k1(tmp_path_factory, args, first, use_scaling=True):
     kf = xf.numel() // 9
     pb, _ = k5.lane_block(k, 3, 9)
     plan = k5.camera_plan(cam, mask, kf)
+    entry, lp = k1_entry(loss)
     hdr = [ne, k, kf, pb, plan.nchunks, plan.nvalid, int(first),
-           int(use_scaling)]
+           int(use_scaling), _EMU_LOSS.get(entry, 0), len(lp)]
     out = emu.run(_EMU_EXE[0], tmp_path_factory.mktemp("k1run"), {
-        "hdr": np.array(hdr, np.int32), "xf": xf.numpy(), "xe": xe.numpy(),
+        "hdr": np.array(hdr, np.int32),
+        "lp": np.array(lp or [0.0], np.float32),
+        "xf": xf.numpy(), "xe": xe.numpy(),
         "cam": cam.numpy(), "mask": mask.numpy(), "dat": dat.numpy(),
         "se_in": se_in.numpy(), "pos": plan.pos.numpy(),
         "off": plan.off.numpy()}, {
@@ -341,6 +357,75 @@ def test_k1_kernel_source_on_the_host(tmp_path_factory, name):
         _hold(got, want)
         if not first and use_scaling:
             assert np.array_equal(got["se"], args[5].numpy())
+
+
+# name: (loss, K1_EDGES case); the seeded observations (100 pixels)
+# put most lanes past the loss's scale, the small ones below it
+K1_LOSSES = {
+    "huber-masked": (ctt.HuberLoss(1.0), "masked"),
+    "huber-twice-chunks": (ctt.HuberLoss(50.0), "chunks"),
+    "huber-no-scaling": (ctt.HuberLoss(80.0), "no-scaling"),
+    "cauchy-masked": (ctt.CauchyLoss(1.0), "masked"),
+    "cauchy-k200": (ctt.CauchyLoss(50.0), "k200-past-a-block"),
+    "cauchy-chunks": (ctt.CauchyLoss(80.0), "chunks"),
+}
+
+
+@pytest.mark.parametrize("name", list(K1_LOSSES))
+def test_k1_loss_kernel_source_on_the_host(tmp_path_factory, name):
+    """csrc/lin.cu's Huber and Cauchy chains (the Triggs corrector after
+    the Snavely residual), emulated on the host, against lin_plain(...,
+    loss=) within 1e-5 of each output's largest entry, every A entry
+    written and finite (masked lanes too); the scale derived and
+    carried."""
+    if emu.gxx() is None:
+        pytest.skip("no host g++")
+    loss, edge = K1_LOSSES[name]
+    ne, k, kf, twice, use_scaling = K1_EDGES[edge]
+    args = _snavely_lanes(ne, k, kf, twice, seed=k * 1000 + ne + 1)
+    for first in (True, False):
+        got = _emulated_k1(tmp_path_factory, args, first, use_scaling, loss)
+        want = _plain(args, first, use_scaling, loss)
+        _hold(got, want)
+        # the loss moved the outputs: not the no-loss kernel's
+        plain_no_loss = _plain(args, first, use_scaling)
+        assert rel(got["gf"], plain_no_loss["gf"].numpy()) > 1e-3
+
+
+def test_k1_entries_cover_the_stock_losses():
+    """One K1 instance a stock scalar loss class, with the wrapper's
+    scalars in loss_structure order; any other loss raises, naming
+    ROADMAP.md item 9."""
+    from ceres_tpu_torch.ops import _cuda
+    for cls, entry in K1_ENTRIES.items():
+        assert _cuda._SIGNATURES[entry] is _cuda._SIGNATURES["ceres_lin"]
+        assert f"CERES_LIN_ENTRY({entry}," in (
+            _cuda.CSRC / "lin.cu").read_text()
+    assert k1_entry(ctt.HuberLoss(2.0)) == ("ceres_lin_huber", [2.0, 4.0])
+    assert k1_entry(ctt.CauchyLoss(2.0)) == ("ceres_lin_cauchy",
+                                              [4.0, 0.25])
+    with pytest.raises(NotImplementedError, match="item 9"):
+        k1_entry(ctt.ScaledLoss(ctt.HuberLoss(1.0), 2.0))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", list(K1_LOSSES))
+def test_cuda_k1_loss_matches_plain(name):
+    """On the card: K1's Huber and Cauchy instances against
+    lin_plain(..., loss=) within 1e-5, repeating their bits."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    loss, edge = K1_LOSSES[name]
+    ne, k, kf, twice, use_scaling = K1_EDGES[edge]
+    args = [a.cuda() for a in _snavely_lanes(ne, k, kf, twice,
+                                             seed=k * 1000 + ne + 1)]
+    for first in (True, False):
+        got = lin(*args, first, use_scaling, loss)
+        again = lin(*args, first, use_scaling, loss)
+        torch.cuda.synchronize()
+        _hold(got, _plain(args, first, use_scaling, loss))
+        for key in got:
+            assert torch.equal(got[key], again[key]), key
 
 
 @pytest.mark.cuda

@@ -11,14 +11,17 @@ reduced camera matrix, mixed, in either loop; bundle adjustment past the
 explicit cap (nf > 4096 camera columns) with ITERATIVE_SCHUR in the
 implicit, matrix-free mode (K10 as the CG operator); and any problem
 without Schur structure on the generic step, pose-graph SLAM
-(examples/slam.py) first. Module names mirror the JAX package's; this
-package imports torch and never jax.
+(examples/slam.py) first, with SPARSE_NORMAL_CHOLESKY on the package's
+native host LDL^T (native.py, built with g++ at first use), CGNR with
+block Jacobi or SUBSET, dynamic sparsity; Covariance (DENSE_SVD,
+SPARSE_QR); and the stock manifolds. Module names mirror the JAX
+package's; this package imports torch and never jax.
 """
 
 from .types import (  # noqa: F401
-    CallbackReturnType, DoglegType, DumpFormatType, EvaluationCallback,
-    IterationSummary,
-    LinearSolverType, MinimizerType, NumericDiffMethodType,
+    CallbackReturnType, CovarianceAlgorithmType, DoglegType, DumpFormatType,
+    EvaluationCallback, IterationSummary,
+    LinearSolverType, MinimizerType, NumericDiffMethodType, OrderingType,
     ParameterBlockOrdering, PreconditionerType, SolverOptions,
     SolverSummary, TerminationType, TrustRegionStrategyType,
 )
@@ -28,8 +31,9 @@ from .loss import (  # noqa: F401
     TukeyLoss,
 )
 from .manifolds import (  # noqa: F401
-    AutoDiffManifold, EigenQuaternionManifold, EuclideanManifold, Manifold,
-    QuaternionManifold,
+    AutoDiffManifold, EigenQuaternionManifold, EuclideanManifold, LineManifold,
+    Manifold, ProductManifold, QuaternionManifold, SphereManifold,
+    SubsetManifold,
 )
 from .cost import (  # noqa: F401
     AutoDiffCostFunction, CostFunction, NumericDiffCostFunction,
@@ -37,6 +41,7 @@ from .cost import (  # noqa: F401
 )
 from .problem import Problem, ResidualBlockId  # noqa: F401
 from .solver import Solver, solve  # noqa: F401
+from .covariance import Covariance, CovarianceOptions  # noqa: F401
 from . import rotation  # noqa: F401
 
 __version__ = "0.1.0"

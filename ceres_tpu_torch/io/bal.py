@@ -296,9 +296,10 @@ def build_bal_ceres_problem(bal: BALProblem, loss=None,
     if bal.use_quaternions and use_manifolds:
         raise NotImplementedError(
             "quaternion cameras on the quaternion x Euclidean product "
-            "manifold are not ported yet (ROADMAP.md item 26, the rest of "
-            "manifolds.py); use_manifolds=False keeps the quaternion "
-            "Euclidean")
+            "manifold are not ported yet: the fused Schur step refuses "
+            "non-Euclidean manifolds (ROADMAP.md item 11, the rest of "
+            "solvers/schur_fused.py); use_manifolds=False keeps the "
+            "quaternion Euclidean")
     functor, cam_size = ((SnavelyReprojectionErrorWithQuaternions, 10)
                          if bal.use_quaternions
                          else (SnavelyReprojectionError, 9))

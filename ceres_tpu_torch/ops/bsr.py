@@ -31,7 +31,7 @@ from typing import List, Sequence
 import numpy as np
 import torch
 
-from .kernels import group_gram_blocks, group_gram_blocks_plain
+from .kernels import group_gram_blocks, group_grams
 
 
 class ColumnSum:
@@ -277,13 +277,16 @@ def block_diag_jtj(jac: BlockJacobian, groups) -> List[torch.Tensor]:
     (gram_order); on the card one launch a group (per 8 slot views) forms
     and sums the blocks, on the CPU the per-row Grams of each slot are
     gathered and reduced in that order. An f64 Jacobian (the f64 CGNR
-    step) takes the per-row Grams and the same ordered sum on every
-    device: the JAX package forms these blocks with einsums and a
-    scatter, and its Gram kernel (K9) serves the f32 pass only."""
+    step) takes group_grams (an einsum a slot and the same ordered
+    segment sum) on every device: the JAX package forms these blocks
+    with einsums and a scatter, and its Gram kernel (K9) serves the f32
+    pass only."""
     out = []
     for g in groups:
         views = [jac.buckets[bi].slot_J(si) for (bi, si, _) in g.bucket_slots]
-        gram = (group_gram_blocks if views[0].dtype == torch.float32
-                else group_gram_blocks_plain)
-        out.append(gram(views, *g.gram_order(views[0].device)))
+        order = g.gram_order(views[0].device)
+        if views[0].dtype == torch.float32:
+            out.append(group_gram_blocks(views, *order))
+        else:
+            out.append(group_grams(views, *order))
     return out

@@ -22,6 +22,7 @@ launches in its `launches` attribute.
 from __future__ import annotations
 
 import ctypes
+import functools
 from types import SimpleNamespace
 
 import torch
@@ -165,24 +166,34 @@ def jac_normal_matvec(jac, v):
     return jac.col_sum.sum_flat(flat)
 
 
-def bucket_gram_blocks_plain(J):
-    """Plain PyTorch K9 per row: G [n, t, t] = J_n^T J_n for J [n, r, t]."""
+def row_grams(J):
+    """G [n, t, t] = J_n^T J_n for J [n, r, t], one einsum: K9's per-row
+    contract, and the f64 Grams, which the JAX package forms so, outside
+    any Pallas kernel."""
     return torch.einsum("nrt,nru->ntu", J, J)
 
 
+# plain PyTorch K9 per row
+bucket_gram_blocks_plain = row_grams
+
+
+@functools.lru_cache(maxsize=64)
+def _identity_order(n, device):
+    """(gram_map, gram_off) of block k = row k of one view, made once per
+    row count and device."""
+    rows = torch.arange(n + 1, dtype=_I32, device=device)
+    return torch.stack([torch.zeros_like(rows[:n]), rows[:n]], dim=1), rows
+
+
 def bucket_gram_blocks(J):
-    """K9 per row: see bucket_gram_blocks_plain (the TPU kernel's
-    contract); f32 on the card, J a view whose last dimension is
-    contiguous (a slot's columns of a bucket's Jacobian, read in place).
-    The card runs the group kernel on the one view with the identity map
-    (block n = row n). The solver forms its blocks with
-    group_gram_blocks."""
+    """K9 per row: see row_grams (the TPU kernel's contract); f32 on the
+    card, J a view whose last dimension is contiguous (a slot's columns
+    of a bucket's Jacobian, read in place). The card runs the group
+    kernel on the one view with the identity order (block n = row n)."""
     if not J.is_cuda:
         return bucket_gram_blocks_plain(J)
-    n = J.shape[0]
-    rows = torch.arange(n + 1, dtype=_I32, device=J.device)
-    gram_map = torch.stack([torch.zeros_like(rows[:n]), rows[:n]], dim=1)
-    G = _gram_launch([J], gram_map, rows, "bucket_gram_blocks")
+    G = _gram_launch([J], *_identity_order(J.shape[0], J.device),
+                     "bucket_gram_blocks")
     bucket_gram_blocks.launches += 1
     return G
 
@@ -209,12 +220,16 @@ def gram_sum(grams, gram_map, gram_off):
                                 axis=0, unsafe=True)
 
 
-def group_gram_blocks_plain(views, gram_map, gram_off):
-    """Plain PyTorch K9 for one tangent-size group: out [k, t, t], block
-    k the sum of J_n^T J_n over the rows n of the slot views [n_v, r_v, t]
-    that touch it, in the group's fixed order (gram_sum)."""
-    return gram_sum([bucket_gram_blocks_plain(J) for J in views], gram_map,
-                    gram_off)
+def group_grams(views, gram_map, gram_off):
+    """One tangent-size group's Grams out [k, t, t]: block k the sum of
+    row_grams over the rows of the slot views [n_v, r_v, t] that touch
+    it, in the group's fixed order (gram_sum). K9's group contract, and
+    the f64 block-Jacobi blocks."""
+    return gram_sum([row_grams(J) for J in views], gram_map, gram_off)
+
+
+# plain PyTorch K9 for one group
+group_gram_blocks_plain = group_grams
 
 
 def group_gram_blocks(views, gram_map, gram_off):

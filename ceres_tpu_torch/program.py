@@ -95,7 +95,10 @@ class CompiledProgram:
             cache[key] = cls(problem, options.device)
         return cache[key]
 
-    def __init__(self, problem, device="cuda"):
+    def __init__(self, problem, device="cuda", apply_loss: bool = True):
+        """apply_loss=False leaves the robust losses out of every cost,
+        residual and Jacobian (Covariance's apply_loss_function); the
+        buckets stay those of the program with losses."""
         self.problem = problem
         self.device = torch.device(device)
         self.dtype = torch.float64
@@ -218,7 +221,7 @@ class CompiledProgram:
                         rb.param_keys[sort_si]][1])
             bk = _Bucket()
             bk.cost = rbs[0].cost
-            bk.loss = rbs[0].loss
+            bk.loss = rbs[0].loss if apply_loss else None
             bk.n = len(rbs)
             bk.r = bk.cost.num_residuals
             bk.orig_indices = np.asarray([rb.index for rb in rbs],
@@ -314,8 +317,8 @@ class CompiledProgram:
             data = {n: torch.as_tensor(np.asarray(v))
                     for n, v in rb.cost.block_data().items()}
             r = rb.cost.make_residual_fn()(data, *params)
-            cost, _, _ = correct_residuals_and_jacobian(rb.loss, r[None],
-                                                        None)
+            cost, _, _ = correct_residuals_and_jacobian(
+                rb.loss if apply_loss else None, r[None], None)
             self.fixed_cost += float(cost[0])
 
     # ------------------------------------------------------------------

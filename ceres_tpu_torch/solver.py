@@ -11,10 +11,11 @@ JAX package decides (:547-590), and write back. The steps:
     or ITERATIVE_SCHUR in the implicit mode past the explicit cap; the
     summary's message names the mode);
   - the generic LM step (`GenericLMStep`) with DENSE_QR,
-    DENSE_NORMAL_CHOLESKY (and SPARSE_NORMAL_CHOLESKY below 200
-    effective parameters, which the JAX package also factorizes densely)
-    or CGNR, in f64, mixed (f32 linearize and solve), or mixed with
-    refinement (f64 linearize, f32 solve);
+    DENSE_NORMAL_CHOLESKY, SPARSE_NORMAL_CHOLESKY (the native host LDL^T
+    of solvers/sparse_direct.py from 200 effective parameters; below,
+    a dense factorization, as the JAX package decides) or CGNR (block
+    Jacobi or SUBSET), in f64, mixed (f32 linearize and solve), or mixed
+    with refinement (f64 linearize, f32 solve);
   - the dogleg step (`DoglegStep`), TRADITIONAL_DOGLEG or
     SUBSPACE_DOGLEG, on the same linear solvers.
 Configurations outside the slices raise NotImplementedError naming the
@@ -37,9 +38,11 @@ from .ops.bsr import BlockJacobian, RVec, block_diag_jtj
 from .program import CompiledProgram
 from .solvers.cg import solve_cgnr
 from .solvers.dense import solve_dense_normal_cholesky, solve_dense_qr
-from .solvers.preconditioners import make_block_jacobi_preconditioner
+from .solvers.preconditioners import (SubsetPreconditioner,
+                                      make_block_jacobi_preconditioner)
 from .solvers.schur import detect_schur_structure
 from .solvers.schur_fused import SchurStep, schur_step
+from .solvers.sparse_direct import SparseNormalCholeskySolver
 from .types import (DoglegType, DumpFormatType, LinearSolverType,
                     MinimizerType, PreconditionerType, SolverOptions,
                     SolverSummary, TerminationType, TrustRegionStrategyType)
@@ -51,8 +54,7 @@ _DIRECT_SOLVERS = (LinearSolverType.DENSE_QR,
                    LinearSolverType.DENSE_NORMAL_CHOLESKY,
                    LinearSolverType.SPARSE_NORMAL_CHOLESKY)
 # SPARSE_NORMAL_CHOLESKY factorizes densely below this many effective
-# parameters (ceres_tpu solver.py:54); past it the JAX package runs its
-# native sparse LDL^T
+# parameters (ceres_tpu solver.py:54); from it on, the native sparse LDL^T
 SPARSE_DENSE_CAP = 200
 
 
@@ -98,34 +100,36 @@ def generic_unsupported_reason(program, options) -> Optional[str]:
     lst = options.linear_solver_type
     if lst not in _DIRECT_SOLVERS and lst != LinearSolverType.CGNR:
         return f"{lst} on the generic step"
-    if (lst == LinearSolverType.SPARSE_NORMAL_CHOLESKY
-            and program.num_effective >= SPARSE_DENSE_CAP):
-        return (f"SPARSE_NORMAL_CHOLESKY at {program.num_effective} >= "
-                f"{SPARSE_DENSE_CAP} effective parameters (ROADMAP.md item "
-                "20, solvers/sparse_direct.py on native/)")
-    if (lst == LinearSolverType.CGNR
-            and options.preconditioner_type == PreconditionerType.SUBSET):
-        return ("the SUBSET preconditioner (ROADMAP.md item 20, native/ "
-                "and solvers/sparse_direct.py)")
     return None
 
 
 class LinearSolver:
     """The generic step's linear solver (ceres_tpu _make_linear_solver,
     :34-92): `solver(jac_s, res, D, blocks) -> (d, iterations)` minimizes
-    ||J_s d + r||^2 + ||diag(D) d||^2. DENSE_QR: QR of [J; diag(D)];
-    DENSE_NORMAL_CHOLESKY (and SPARSE_NORMAL_CHOLESKY below
+    ||J_s d + r||^2 + ||diag(D) d||^2, where `blocks(jac_s, res)` forms
+    the radius-free part once per linearization. DENSE_QR: QR of
+    [J; diag(D)]; DENSE_NORMAL_CHOLESKY (and SPARSE_NORMAL_CHOLESKY below
     SPARSE_DENSE_CAP): Cholesky of J^T J + D^2, f32 with refinement when
-    mixed; CGNR: CG on the normal equations with block Jacobi (every
-    preconditioner but IDENTITY), whose J^T J blocks `blocks(jac_s)`
-    forms once per linearization."""
+    mixed; SPARSE_NORMAL_CHOLESKY from SPARSE_DENSE_CAP on: the native
+    LDL^T of J^T J + D^2 on the host (blocks: J^T J and -J^T r there),
+    an f64 step; CGNR: CG on the normal equations with SUBSET (blocks:
+    the subset rows' J^T J on the host) or block Jacobi (every other
+    preconditioner but IDENTITY; blocks: the J^T J blocks)."""
 
     def __init__(self, program, options):
         self.kind = options.linear_solver_type
         self.groups = program.groups
         self.mixed = bool(options.use_mixed_precision_solves)
         self.refine = options.max_num_refinement_iterations
-        self.jacobi = (self.kind == LinearSolverType.CGNR
+        self.sparse = (SparseNormalCholeskySolver(program, options)
+                       if self.kind == LinearSolverType.SPARSE_NORMAL_CHOLESKY
+                       and program.num_effective >= SPARSE_DENSE_CAP
+                       else None)
+        cgnr = self.kind == LinearSolverType.CGNR
+        self.subset = (SubsetPreconditioner(program, options)
+                       if cgnr and options.preconditioner_type
+                       == PreconditionerType.SUBSET else None)
+        self.jacobi = (cgnr and self.subset is None
                        and options.preconditioner_type
                        != PreconditionerType.IDENTITY)
         self.cg_args = dict(
@@ -133,18 +137,29 @@ class LinearSolver:
             min_iterations=options.min_linear_solver_iterations,
             q_tolerance=options.eta)
 
-    def blocks(self, jac_s):
+    def blocks(self, jac_s, res):
+        if self.sparse is not None:
+            return self.sparse.system(jac_s, res)
+        if self.subset is not None:
+            return self.subset.system(jac_s)
         return block_diag_jtj(jac_s, self.groups) if self.jacobi else None
 
     def __call__(self, jac_s, res, D, blocks):
         if self.kind == LinearSolverType.DENSE_QR:
             return solve_dense_qr(jac_s, res, D)
+        if self.sparse is not None:
+            return (self.sparse.solve(blocks, D),
+                    torch.zeros((), dtype=torch.int32, device=D.device))
         if self.kind != LinearSolverType.CGNR:
             return solve_dense_normal_cholesky(
                 jac_s, res, D, mixed_precision=self.mixed,
                 refinement_iterations=self.refine)
-        precond = (make_block_jacobi_preconditioner(blocks, D, self.groups)
-                   if self.jacobi else None)
+        if self.subset is not None:
+            precond = self.subset.make(blocks, D)
+        elif self.jacobi:
+            precond = make_block_jacobi_preconditioner(blocks, D, self.groups)
+        else:
+            precond = None
         return solve_cgnr(jac_s, res, D, precond, **self.cg_args)
 
 
@@ -157,7 +172,7 @@ class GenericLinearization:
     res: RVec                   # residuals
     grad_s: torch.Tensor        # scaled gradient J_s^T r
     diag: Optional[torch.Tensor]  # clipped squared column norms of J_s
-    blocks: Optional[list]      # block-Jacobi J_s^T J_s blocks, per group
+    blocks: object              # the linear solver's radius-free part
     scale: torch.Tensor         # Jacobi column scale
     grad_max: torch.Tensor      # f64 max |gradient|
     grad_norm: torch.Tensor     # f64 ||gradient||
@@ -251,7 +266,7 @@ class GenericLMStep:
             jac_s=jac_s, res=res, grad_s=grad * scale,
             diag=(torch.clamp(jac_s.squared_column_norms(), self.min_diag,
                               self.max_diag) if with_diag else None),
-            blocks=self.linear.blocks(jac_s), scale=scale,
+            blocks=self.linear.blocks(jac_s, res), scale=scale,
             grad_max=g_norms.abs().max().double(),
             grad_norm=torch.linalg.vector_norm(g_norms).double(),
             grad_full=grad.double() if self.program.has_bounds else None)
@@ -286,8 +301,9 @@ class GenericLMStep:
         d, lin_iters = self.linear(art.jac_s, art.res, D, art.blocks)
         if self.exact_solver:
             # (J^T J + D^2) d = -g_s exactly: ||J_s d||^2 = -d.g_s - ||D d||^2
+            # (the sparse solver's step is f64 in every precision)
             Dd = D.to(d.dtype) * d
-            dg = torch.dot(d, art.grad_s)
+            dg = torch.dot(d, art.grad_s.to(d.dtype))
             mcc = -(dg + 0.5 * (-dg - torch.dot(Dd, Dd)))
         else:
             Jd = art.jac_s.matvec(d)
@@ -351,10 +367,12 @@ class DoglegStep(GenericLMStep):
         dval = ftype(1e-12)
         gn, lin_iters = self.linear(jac_s, res, torch.full_like(g, dval),
                                     art.blocks)
+        gn = gn.to(dt)
         while dval < ftype(1e2) and not valid(gn):
             dval = dval * ftype(1e2)
             gn, it = self.linear(jac_s, res, torch.full_like(g, dval),
                                  art.blocks)
+            gn = gn.to(dt)
             lin_iters = lin_iters + it
         cauchy = -alpha * g
         gn = torch.where(torch.isfinite(gn).all(), gn, cauchy)

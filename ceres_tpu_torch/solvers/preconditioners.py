@@ -7,13 +7,21 @@ parameter block, grouped by tangent size, each group's [k, t, t] blocks
 inverted in one batched Cholesky; a CG application is then one batched
 multiply per group. The J^T J blocks do not depend on the trust-region
 radius, so the generic LM step forms them once per linearization
-(ops/bsr.py block_diag_jtj) and inverts M once per damped solve. The
-other preconditioners are ROADMAP.md item 36 (SUBSET: item 20).
+(ops/bsr.py block_diag_jtj) and inverts M once per damped solve.
+
+And the SUBSET preconditioner (`SubsetPreconditioner`, ceres_tpu
+make_subset_preconditioner_factory, :58-148; the reference's
+subset_preconditioner.h:70) on the native LDL^T of
+solvers/sparse_direct.py. The other preconditioners are ROADMAP.md item
+36.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
+
+from .sparse_direct import SparseNormalCholeskyContext, bucket_grams, to_host
 
 
 def spd_inv_small(M):
@@ -49,3 +57,55 @@ def make_block_jacobi_preconditioner(jtj_blocks, D, groups):
             for g, inv in zip(groups, factors)])
 
     return apply
+
+
+class SubsetPreconditioner:
+    """SUBSET for CGNR: M = Q^T Q + D^2, Q the rows of J of the residual
+    blocks in options.residual_blocks_for_subset_preconditioner. The
+    device forms the subset rows' Grams (K9's per-row form in f32, an
+    einsum in f64) and the host assembles them once per linearization
+    (`system`); each damped solve factors M with the native LDL^T
+    (`make`), and each CG application is one copy of v to the host, one
+    backsolve and one copy back, through pinned buffers allocated once per
+    linearization. A breakdown makes the preconditioner the identity, as
+    in the JAX package. (The JAX package's device-dense variant, for TPU
+    backends without host callbacks, is not ported: ROADMAP.md.)"""
+
+    def __init__(self, program, options):
+        subset = options.residual_blocks_for_subset_preconditioner
+        if not subset:
+            raise ValueError(
+                "SUBSET preconditioner requires "
+                "residual_blocks_for_subset_preconditioner (solver.h)")
+        subset_idx = np.asarray(sorted({rb.index for rb in subset}),
+                                dtype=np.int64)
+        self.lanes = [np.nonzero(np.isin(bk.orig_indices, subset_idx))[0]
+                      for bk in program.buckets]
+        self.ctx = SparseNormalCholeskyContext(program,
+                                               lanes_per_bucket=self.lanes)
+        self.device = program.device
+
+    def system(self, jac):
+        """The subset rows' J^T J as CSC values on the host, with the
+        pinned buffers of this linearization's CG applications."""
+        values = self.ctx.assemble(to_host(*bucket_grams(jac, self.lanes)))
+        n = self.ctx.n
+        pin = self.device.type == "cuda"
+        bufs = (torch.empty(n, dtype=torch.float64, pin_memory=pin),
+                torch.empty(n, dtype=torch.float64, pin_memory=pin))
+        return values, bufs
+
+    def make(self, system, D):
+        """apply(v) = M^-1 v for the damping D."""
+        values, (v_h, x_h) = system
+        (d_sq,) = to_host(D * D)
+        self.ctx.factor_values(values, d_sq)
+        v_np, x_np = v_h.numpy(), x_h.numpy()
+
+        def apply(v):
+            v_h.copy_(v)
+            self.ctx.host_apply(v_np, out=x_np)
+            # a copy: the next application overwrites x_h
+            return x_h.to(self.device, dtype=v.dtype, copy=True)
+
+        return apply

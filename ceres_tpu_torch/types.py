@@ -100,8 +100,8 @@ class DenseLinearAlgebraLibraryType(_StrEnum):
 class SparseLinearAlgebraLibraryType(_StrEnum):
     """Reference types.h:127-144. Accepted for API parity; the sparse
     direct backend here is the from-scratch native LDL^T
-    (native/ceres_native.cpp) with a scipy fallback, regardless of the
-    requested library."""
+    (csrc/ceres_native.cpp, native.py), regardless of the requested
+    library."""
     SUITE_SPARSE = enum.auto()
     EIGEN_SPARSE = enum.auto()
     ACCELERATE_SPARSE = enum.auto()

@@ -4,7 +4,8 @@
     python3 chip_smoke.py
 
 Builds the CUDA kernels of ceres_tpu_torch/csrc/ from the sources in this
-checkout (into ceres_tpu_torch/_build/), then, on Snavely bundle
+checkout (into ceres_tpu_torch/_build/), and the native host library
+(csrc/ceres_native.cpp, g++), then, on Snavely bundle
 adjustment at the BAL-16-22106 shape (16 cameras, 22,106 points, 83,718
 observations; the seeded synthetic problem at its perturbed start), on
 two pose graphs (io/g2o.py's generators: SE3 with 2,000 poses, SE2 with
@@ -14,7 +15,8 @@ the BAL-16-22106 problem with its cameras written as quaternions
 (QUAT_PATHS), on the large case with its cameras written as
 quaternions (QUAT_IMPLICIT_SCHUR), on the BAL-16-22106 problem with a
 robust loss (ROBUST_PATHS), on the SE2 graph under Ceres's default
-options (SE2_DEFAULT_PATHS) and on tests/test_solver_e2e.py's
+options (SE2_DEFAULT_PATHS), on pose graphs at the pose counts of
+sphere2500 and M3500 (SPARSE_GRAPHS) and on tests/test_solver_e2e.py's
 helloworld, Powell and bounded problems:
 
 1. checks each kernel against its plain PyTorch version on the card, at
@@ -43,7 +45,10 @@ helloworld, Powell and bounded problems:
    case's scaled
    chunk tensors (tf 10) as on the large case's; K1 with HuberLoss(1.0)
    and CauchyLoss(2.0) (its loss instances) on the main path's first
-   linearization; times each, its plain version
+   linearization; K9's per-row form (slice 8) on each whole bucket of
+   the SE3 graph's scaled first linearization, as the mixed
+   SPARSE_NORMAL_CHOLESKY step forms its Grams; times each, its plain
+   version
    and, where one PyTorch call computes the same function, that call,
    with CUDA events (median of 20 single calls; the kernel also as the
    mean of 100 back-to-back calls, "loop_ms"); times K3 against its
@@ -72,7 +77,14 @@ helloworld, Powell and bounded problems:
    its walls printed beside the fused DENSE_SCHUR solves'; the SE2 graph
    under SolverOptions() (LM, DENSE_QR, f64, the host loop), with
    DENSE_NORMAL_CHOLESKY and with SUBSPACE_DOGLEG, one warm-up and one
-   timed each; helloworld, Powell and the bounded problem, once each;
+   timed each; slice 8 (`sparse_paths`), one warm-up and one timed each
+   but the mixed SE3 one (two timed): SPARSE_NORMAL_CHOLESKY (f64, host
+   loop, the native LDL^T) on SPARSE_GRAPHS' 2,500-pose SE3 and
+   3,500-pose SE2 graphs, on the SE3 2,000 graph mixed and fused (K11,
+   K9 per row), CGNR + SUBSET on the SE2 1,000 graph (mixed, fused), the
+   SE2 1,000 graph f64 static, Covariance there (SPARSE_QR and
+   DENSE_SVD, once each) and dynamic_sparsity; helloworld, Powell and
+   the bounded problem, once each;
 3. fails unless every kernel agrees within its limit (K7 with the same CG
    iteration count, K10 bit for bit), every BAL-16-22106 solve ends in
    CONVERGENCE with a final cost within 1e-5 relative of 5.028773e+04,
@@ -106,7 +118,16 @@ helloworld, Powell and bounded problems:
    default-option solves end in CONVERGENCE within SE2_DEFAULT_REL_TOL of
    the JAX package's final cost, cut the position error below 0.5 of the
    start and launch no kernel (their LM counts are printed beside the JAX
-   package's); helloworld (45.125 -> below 1e-12, x = 10), Powell (107.5
+   package's); the sparse paths end in CONVERGENCE within
+   SPARSE_REL_TOL (f64) or POSE_REF_REL_TOL (mixed; SUBSET against the
+   JAX f64 solve) of the JAX package's cost, cut the position error
+   below their cut, run the native LDL^T (never a dense factor), launch
+   no kernel in f64, and mixed K11 once a linearization, K9 per row at
+   least once per LM iteration (and K8 once per CG iteration with
+   SUBSET); dynamic_sparsity ends within 1e-8 of the static solve; the
+   covariance blocks agree within COVARIANCE_AGREE_TOL between
+   SPARSE_QR and DENSE_SVD and within COVARIANCE_REF_TOL of the JAX
+   package's; helloworld (45.125 -> below 1e-12, x = 10), Powell (107.5
    -> below 1e-12, |x_i| < 2e-3; its LM count beside the 15 of Ceres's
    tutorial) and the bounded problem (clamped at (5, -4) within 1e-6)
    hold their tests' numbers and launch no kernel; the pose-graph,
@@ -284,6 +305,105 @@ SE2_DEFAULT_PATHS = {
         ref_cost=98.97160652093707, ref_iterations=6),
 }
 SE2_DEFAULT_REL_TOL = 1e-8
+# slice 8: SPARSE_NORMAL_CHOLESKY on the port's native host LDL^T. Two
+# pose graphs at the pose counts of the standard sphere2500 (SE3) and M3500
+# (SE2) graphs, where CGNR + JACOBI hits the LM cap, solved with
+# pose_graph_3d.cc's options (sparse_options: f64, the host loop). The
+# references are the JAX package's on the CPU with the same options
+# (scripts/sparse_reference.py): its final cost, LM count and mean
+# position error after / before; the error cut is that share plus a
+# margin, as POSE_GRAPHS' 0.8 for 0.771.
+SPARSE_GRAPHS = {
+    "SE3_2500_SNC": dict(generator="synthetic_pose_graph_3d",
+                         args=dict(num_poses=2500, loop_every=5, seed=2),
+                         build="build_pose_graph_3d_problem",
+                         ref_cost=1427.9997044069296, ref_iterations=16,
+                         ref_error_share=0.2170719355544472,
+                         error_cut=0.25),
+    "SE2_3500_SNC": dict(generator="synthetic_pose_graph_2d",
+                         args=dict(num_poses=3500, loop_every=15, seed=1),
+                         build="build_pose_graph_2d_problem",
+                         ref_cost=319.7886355699033, ref_iterations=16,
+                         ref_error_share=0.1968058469005025,
+                         error_cut=0.23),
+}
+SPARSE_REL_TOL = 1e-8
+# the 2,000-pose SE3 graph (POSE_GRAPHS["3d"]) with SPARSE_NORMAL_CHOLESKY
+# in pose_graph_options (mixed, fused): its Grams from K9's per-row form;
+# the JAX package's mixed final cost and LM count on the CPU
+SNC_MIXED_REF = dict(ref_cost=1114.8318491297086, ref_iterations=13)
+# the 1,000-pose SE2 graph (POSE_GRAPHS["2d"]) with CGNR + SUBSET, the
+# odometry rows (the first SUBSET_ROWS residual blocks) as the subset,
+# mixed, fused. The JAX package's mixed CGNR + SUBSET does not trace (its
+# preconditioner returns f64 into the f32 CG loop), so the reference is
+# its f64 solve, fused, with the same preconditioner.
+SUBSET_ROWS = 999
+SUBSET_REF = dict(ref_cost=98.9716073821834, ref_iterations=10,
+                  ref_cg=39)
+# the 1,000-pose SE2 graph with sparse_options (static) and with
+# dynamic_sparsity; the JAX package's static final cost and LM count
+SE2_SNC_REF = dict(ref_cost=98.97160651954495, ref_iterations=10)
+# Covariance after the static solve: the blocks (p_k, p_k), (yaw_k, yaw_k)
+# and (p_k, yaw_k) of COVARIANCE_POSES, by SPARSE_QR (2,997 effective
+# parameters: the native path) and DENSE_SVD on the card; the JAX
+# package's SPARSE_QR blocks on the CPU at its own solve's end.
+COVARIANCE_POSES = (1, 250, 500, 750, 999)
+COVARIANCE_REF = [
+    # pose 1: (p, p), (yaw, yaw), (p, yaw)
+    [[0.002343832481498142, -8.656766597867308e-10],
+     [-8.656766597867308e-10, 0.002344323231589947]],
+    [[0.00037485842057388274]],
+    [[3.261936318945786e-06], [-3.3813774095666384e-06]],
+    # pose 250: (p, p), (yaw, yaw), (p, yaw)
+    [[0.11639693140775774, -0.0469690887894046],
+     [-0.04696908878940458, 0.08316331451465896]],
+    [[0.007495281420345086]],
+    [[-0.018726833966395524], [0.011232226242663184]],
+    # pose 500: (p, p), (yaw, yaw), (p, yaw)
+    [[0.5624613540540548, 0.15210487563962127],
+     [0.15210487563962102, 0.19240071264117897]],
+    [[0.013737662031780921]],
+    [[-0.06379193233376437], [-0.031016135435207464]],
+    # pose 750: (p, p), (yaw, yaw), (p, yaw)
+    [[0.3481789540678672, -0.06112374502219405],
+     [-0.061123745022193546, 0.9754156538912786]],
+    [[0.018740277854993128]],
+    [[0.020180220070912726], [-0.11113076141131578]],
+    # pose 999: (p, p), (yaw, yaw), (p, yaw)
+    [[1.1097532572022526, -0.028770207690352868],
+     [-0.0287702076903529, 0.4737123614739591]],
+    [[0.02833724123230896]],
+    [[0.12412206124847144], [-0.0016117719142837164]],
+]
+COVARIANCE_AGREE_TOL = 1e-8     # SPARSE_QR against DENSE_SVD, relative
+COVARIANCE_REF_TOL = 1e-7       # against the JAX package, relative
+
+
+def sparse_options(mod, **extra):
+    """pose_graph_3d.cc's options in package `mod`: SPARSE_NORMAL_CHOLESKY,
+    100 iterations, otherwise SolverOptions() (f64, the host loop)."""
+    kw = dict(linear_solver_type=mod.LinearSolverType.SPARSE_NORMAL_CHOLESKY,
+              max_num_iterations=100)
+    kw.update(extra)
+    return mod.SolverOptions(**kw)
+
+
+def subset_options(mod, problem, **extra):
+    """CGNR + SUBSET on `problem`'s first SUBSET_ROWS residual blocks, the
+    rest of pose_graph_options."""
+    return pose_graph_options(
+        mod, preconditioner_type=mod.PreconditionerType.SUBSET,
+        residual_blocks_for_subset_preconditioner=problem.residual_blocks()[
+            :SUBSET_ROWS], **extra)
+
+
+def covariance_pairs(positions, yaws):
+    """The requested pairs of COVARIANCE_POSES, in order."""
+    pairs = []
+    for k in COVARIANCE_POSES:
+        pairs += [(positions[k], positions[k]), (yaws[k], yaws[k]),
+                  (positions[k], yaws[k])]
+    return pairs
 # BAL-16-22106 with HuberLoss(1.0) and with CauchyLoss(2.0) on
 # DENSE_SCHUR (mixed, fused): K1 with its loss. `ref_cost` is the JAX
 # package's final cost on the CPU (scripts/default_solve_reference.py
@@ -337,6 +457,7 @@ MAIN_PATH = {"K1 lin": "DENSE_SCHUR", "K2 elim": "DENSE_SCHUR",
              "K7 dense_pcg": "ITERATIVE_SCHUR",
              "K8 bucket_jtjv": "POSE_GRAPH_3D",
              "K9 group_gram_blocks": "POSE_GRAPH_3D",
+             "K9 bucket_gram_blocks (per row)": "SE3_2000_SNC_MIXED",
              "K10 implicit_apply": "IMPLICIT_SCHUR",
              "K11 bucket_linearize": "POSE_GRAPH_3D",
              "K11 bucket_linearize (Snavely)": "IMPLICIT_SCHUR",
@@ -529,12 +650,13 @@ def pcg_flops(m, tf, iters, reset):
 
 def drive(label, options, problem, reset_state, counters, trials, gate,
           ref_cost=REF_FINAL_COST, ref_tol=REF_REL_TOL, solve=None,
-          walls=None):
+          walls=None, summaries=None):
     """Solve `trials` times on the card (the first a warm-up) with
     `solve(options, problem)` (ctt.solve unless given), each with every
     launch count set to 0 just before and read just after; `gate` raises
     on a wrong summary; the timed solves' walls (s) are appended to
-    `walls` when given. Returns the last solve's launches."""
+    `walls` and their summaries to `summaries` when given. Returns the
+    last solve's launches."""
     import torch
     import ceres_tpu_torch as ctt
     solve = solve or ctt.solve
@@ -552,6 +674,8 @@ def drive(label, options, problem, reset_state, counters, trials, gate,
         kind = "warm-up solve" if trial == 0 else f"timed solve {trial}"
         if trial and walls is not None:
             walls.append(wall)
+        if trial and summaries is not None:
+            summaries.append(summary)
         print(f"{label} {kind}: {lm_iterations(summary)} LM iterations "
               f"({summary.num_successful_steps} accepted), "
               f"{summary.num_linear_solver_iterations} linear solver "
@@ -573,6 +697,241 @@ def lm_iterations(summary):
     well (its num_iterations is one more), the fused loop's none."""
     return (len(summary.iterations) - 1 if summary.iterations
             else summary.num_iterations)
+
+
+def sparse_paths(graphs, counters, by_path, cgnr_walls, device="cuda"):
+    """Slice 8's paths (SPARSE_NORMAL_CHOLESKY on the native LDL^T,
+    SUBSET, dynamic sparsity, Covariance) on `device`, each through drive
+    with `counters`, into `by_path`: SPARSE_GRAPHS' two graphs, then, on
+    `graphs` (main's pose graphs, with the CGNR solves' summaries under
+    "cgnr" and `cgnr_walls`, their timed walls), the mixed SE3 2,000,
+    SUBSET, static, Covariance and dynamic phases. Returns the timed
+    walls of each path."""
+    import numpy as np
+    import torch
+    import ceres_tpu_torch as ctt
+    from ceres_tpu_torch.examples import slam
+    from ceres_tpu_torch.io import g2o
+    from ceres_tpu_torch.program import CompiledProgram
+
+    def reset_graph(key):
+        def reset():
+            for a, a0 in zip(graphs[key]["arrays"], graphs[key]["start"]):
+                a[:] = a0
+        return reset
+    g2 = graphs["2d"]
+
+    def gate_sparse(label, ref_iterations, runs=(), per_lin=(), cut=None,
+                    g=None):
+        """Launches: each kernel of `runs` at least once per LM iteration,
+        of `per_lin` once per linearization, no other; the position error
+        under `cut` of the start when given; every solve the same LM
+        count, linear iterations and final cost."""
+        seen = []
+
+        def gate(summary, launches):
+            n_lm = lm_iterations(summary)
+            msg = (f"  {label}: {n_lm} LM iterations (JAX package on the "
+                   f"CPU: {ref_iterations}), "
+                   f"{summary.num_linear_solver_iterations} linear solver "
+                   f"iterations, final cost {summary.final_cost!r}")
+            if g is not None:
+                err = position_error(g["positions"], g["gt"])
+                msg += (f"; mean position error {g['error0']:.6f} -> "
+                        f"{err:.6f} (share {err / g['error0']:.6f}, "
+                        f"limit {cut})")
+            print(msg, flush=True)
+            if g is not None and not err < cut * g["error0"]:
+                raise SystemExit(f"{label}: position error not cut")
+            short = [n for n in runs if launches[n] < n_lm]
+            n_lin = summary.num_linearizations_fused
+            if per_lin and not n_lin:
+                raise SystemExit(f"{label}: no linearization counted")
+            short += [n for n in per_lin if launches[n] != n_lin]
+            if short:
+                raise SystemExit(f"{label}: kernels launched fewer times "
+                                 f"than LM iterations or linearizations "
+                                 f"({n_lm}, {n_lin}): "
+                                 f"{[(n, launches[n]) for n in short]}")
+            stray = [n for n, c in launches.items()
+                     if c and n not in runs and n not in per_lin]
+            if stray:
+                raise SystemExit(f"{label}: kernels of another path "
+                                 f"launched: {stray}")
+            seen.append((n_lm, summary.num_linear_solver_iterations,
+                         summary.final_cost))
+            if len(set(seen)) != 1:
+                raise SystemExit(f"{label}: solves differ: {seen}")
+        return gate
+
+    def check_native(label, problem, options):
+        """The step that the solves of the configuration ran (cached on
+        their program) has the native LDL^T (or SUBSET on it) as its
+        linear solver: no dense factorization."""
+        step_ = CompiledProgram.get_cached(problem, options).__dict__[
+            "_fused_steps"][options.cache_key()]
+        if step_.linear.sparse is None and step_.linear.subset is None:
+            raise SystemExit(f"{label}: not the native sparse path")
+
+    sparse_walls = {}
+    for path, spec in SPARSE_GRAPHS.items():
+        t0 = time.time()
+        poses, constraints, gt = getattr(g2o, spec["generator"])(
+            **spec["args"])
+        s_problem, positions, rotations = getattr(slam, spec["build"])(
+            poses, constraints)
+        arrays = list(positions.values()) + list(rotations.values())
+        start = [a.copy() for a in arrays]
+        sg = dict(positions=positions, gt=gt,
+                  error0=position_error(positions, gt))
+        s_options = sparse_options(ctt, device=device)
+        print(f"{path}: {len(poses)} poses, {len(constraints)} edges, "
+              f"{CompiledProgram.get_cached(s_problem, s_options).num_effective}"
+              f" effective parameters; build {time.time() - t0:.1f} s",
+              flush=True)
+
+        def reset_sparse(arrays=arrays, start=start):
+            for a, a0 in zip(arrays, start):
+                a[:] = a0
+        sparse_walls[path] = []
+        by_path[path] = drive(
+            f"{path} (SPARSE_NORMAL_CHOLESKY, f64, host loop)", s_options,
+            s_problem, reset_sparse, counters, 2,
+            gate_sparse(path, spec["ref_iterations"], cut=spec["error_cut"],
+                        g=sg),
+            ref_cost=spec["ref_cost"], ref_tol=SPARSE_REL_TOL,
+            walls=sparse_walls[path])
+        check_native(path, s_problem, s_options)
+        del s_problem, arrays, start
+
+    g3 = graphs["3d"]
+    mixed_options = pose_graph_options(
+        ctt, linear_solver_type=ctt.LinearSolverType.SPARSE_NORMAL_CHOLESKY,
+        device=device)
+    sparse_walls["SE3_2000_SNC_MIXED"] = []
+    by_path["SE3_2000_SNC_MIXED"] = drive(
+        "SE3_2000_SNC_MIXED (SPARSE_NORMAL_CHOLESKY, mixed, fused)",
+        mixed_options, g3["problem"], reset_graph("3d"), counters, 3,
+        gate_sparse("SE3_2000_SNC_MIXED", SNC_MIXED_REF["ref_iterations"],
+                    runs=("K9 bucket_gram_blocks (per row)",),
+                    per_lin=("K11 bucket_linearize",),
+                    cut=POSE_GRAPHS["3d"]["error_cut"], g=g3),
+        ref_cost=SNC_MIXED_REF["ref_cost"], ref_tol=POSE_REF_REL_TOL,
+        walls=sparse_walls["SE3_2000_SNC_MIXED"])
+    check_native("SE3_2000_SNC_MIXED", g3["problem"], mixed_options)
+    print(f"SE3 2,000 poses: SPARSE_NORMAL_CHOLESKY (mixed) walls "
+          f"{[round(w, 4) for w in sparse_walls['SE3_2000_SNC_MIXED']]} s "
+          f"beside CGNR + JACOBI's {[round(w, 4) for w in cgnr_walls['3d']]}"
+          f" s in this run", flush=True)
+
+    subset_opts = subset_options(ctt, g2["problem"], device=device)
+    sparse_walls["SE2_1000_SUBSET"] = []
+    subset_summaries = []
+    by_path["SE2_1000_SUBSET"] = drive(
+        "SE2_1000_SUBSET (CGNR + SUBSET, mixed, fused)", subset_opts,
+        g2["problem"], reset_graph("2d"), counters, 2,
+        gate_sparse("SE2_1000_SUBSET (the JAX reference is its f64 solve)",
+                    SUBSET_REF["ref_iterations"],
+                    runs=("K9 bucket_gram_blocks (per row)",
+                          "K8 bucket_jtjv"),
+                    per_lin=("K11 bucket_linearize",),
+                    cut=POSE_GRAPHS["2d"]["error_cut"], g=g2),
+        ref_cost=SUBSET_REF["ref_cost"], ref_tol=POSE_REF_REL_TOL,
+        walls=sparse_walls["SE2_1000_SUBSET"], summaries=subset_summaries)
+    check_native("SE2_1000_SUBSET", g2["problem"], subset_opts)
+    s_sub, s_jac = subset_summaries[-1], graphs["2d"]["cgnr"][-1]
+    w_sub, w_jac = sparse_walls["SE2_1000_SUBSET"][-1], cgnr_walls["2d"][-1]
+    if s_sub.num_linear_solver_iterations < lm_iterations(s_sub) or \
+            by_path["SE2_1000_SUBSET"]["K8 bucket_jtjv"] < \
+            s_sub.num_linear_solver_iterations:
+        raise SystemExit("SE2_1000_SUBSET: K8 launched fewer times than CG "
+                         "iterated")
+    print(f"SE2 1,000 poses: CGNR + SUBSET {lm_iterations(s_sub)} LM / "
+          f"{s_sub.num_linear_solver_iterations} CG iterations in "
+          f"{w_sub:.4f} s ({1e3 * w_sub / s_sub.num_linear_solver_iterations:.3f}"
+          f" ms of wall a CG iteration); CGNR + JACOBI "
+          f"{lm_iterations(s_jac)} / {s_jac.num_linear_solver_iterations} in "
+          f"{w_jac:.4f} s ({1e3 * w_jac / s_jac.num_linear_solver_iterations:.3f}"
+          f" ms) in this run; the JAX package's f64 SUBSET "
+          f"{SUBSET_REF['ref_iterations']} / {SUBSET_REF['ref_cg']}",
+          flush=True)
+
+    static_options = sparse_options(ctt, device=device)
+    static_summaries = []
+    sparse_walls["SE2_1000_SNC"] = []
+    by_path["SE2_1000_SNC"] = drive(
+        "SE2_1000_SNC (SPARSE_NORMAL_CHOLESKY, f64, host loop)",
+        static_options, g2["problem"], reset_graph("2d"), counters, 2,
+        gate_sparse("SE2_1000_SNC", SE2_SNC_REF["ref_iterations"],
+                    cut=POSE_GRAPHS["2d"]["error_cut"], g=g2),
+        ref_cost=SE2_SNC_REF["ref_cost"], ref_tol=SPARSE_REL_TOL,
+        walls=sparse_walls["SE2_1000_SNC"], summaries=static_summaries)
+    check_native("SE2_1000_SNC", g2["problem"], static_options)
+    static_cost = static_summaries[-1].final_cost
+
+    # Covariance at the static solve's end (its arrays hold the solution)
+    cov_pairs = covariance_pairs(g2["positions"], g2["rotations"])
+    cov_blocks, cov_walls = {}, {}
+    for algo in ("SPARSE_QR", "DENSE_SVD"):
+        cov = ctt.Covariance(ctt.CovarianceOptions(
+            algorithm_type=getattr(ctt.CovarianceAlgorithmType, algo),
+            device=device))
+        for fn in counters.values():
+            fn.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.time()
+        if not cov.compute(cov_pairs, g2["problem"]):
+            raise SystemExit(f"COVARIANCE_SE2_1000 {algo}: {cov.message}")
+        cov_blocks[algo] = [np.asarray(cov.get_covariance_block(a, b))
+                            for a, b in cov_pairs]
+        torch.cuda.synchronize()
+        cov_walls[algo] = time.time() - t0
+        stray = [n for n, fn in counters.items() if fn.launches]
+        if stray:
+            raise SystemExit(f"COVARIANCE_SE2_1000 {algo}: kernels "
+                             f"launched: {stray}")
+        if algo == "SPARSE_QR" and cov._block_cov is None:
+            raise SystemExit("COVARIANCE_SE2_1000: SPARSE_QR did not take "
+                             "the native path")
+
+    def block_rel(got, want):
+        return float(np.max(np.abs(got - want))
+                     / max(float(np.max(np.abs(want))), 1e-300))
+    agree = max(block_rel(a, b) for a, b in zip(cov_blocks["SPARSE_QR"],
+                                                cov_blocks["DENSE_SVD"]))
+    vs_ref = max(block_rel(a, np.asarray(b)) for a, b in zip(
+        cov_blocks["SPARSE_QR"], COVARIANCE_REF))
+    vs_ref_svd = max(block_rel(a, np.asarray(b)) for a, b in zip(
+        cov_blocks["DENSE_SVD"], COVARIANCE_REF))
+    print(f"COVARIANCE_SE2_1000 ({len(cov_pairs)} blocks of poses "
+          f"{list(COVARIANCE_POSES)}): SPARSE_QR (native LDL^T, "
+          f"{cov_walls['SPARSE_QR']:.4f} s) against DENSE_SVD (cuSOLVER, "
+          f"{cov_walls['DENSE_SVD']:.4f} s): max rel diff {agree:.3e} "
+          f"(limit {COVARIANCE_AGREE_TOL:.0e}); against the JAX package: "
+          f"SPARSE_QR {vs_ref:.3e}, DENSE_SVD {vs_ref_svd:.3e} (limit "
+          f"{COVARIANCE_REF_TOL:.0e}); (p, p) of pose "
+          f"{COVARIANCE_POSES[-1]}: {cov_blocks['SPARSE_QR'][-3].tolist()}",
+          flush=True)
+    if not (agree <= COVARIANCE_AGREE_TOL and vs_ref <= COVARIANCE_REF_TOL
+            and vs_ref_svd <= COVARIANCE_REF_TOL):
+        raise SystemExit("COVARIANCE_SE2_1000: blocks disagree")
+
+    dyn_summaries = []
+    by_path["SE2_1000_DYNAMIC"] = drive(
+        "SE2_1000_DYNAMIC (SPARSE_NORMAL_CHOLESKY, dynamic_sparsity)",
+        sparse_options(ctt, dynamic_sparsity=True, device=device),
+        g2["problem"], reset_graph("2d"), counters, 2,
+        gate_sparse("SE2_1000_DYNAMIC", SE2_SNC_REF["ref_iterations"],
+                    cut=POSE_GRAPHS["2d"]["error_cut"], g=g2),
+        ref_cost=static_cost, ref_tol=SPARSE_REL_TOL,
+        walls=sparse_walls.setdefault("SE2_1000_DYNAMIC", []),
+        summaries=dyn_summaries)
+    check_native("SE2_1000_DYNAMIC", g2["problem"],
+                 sparse_options(ctt, dynamic_sparsity=True, device=device))
+    print(f"sparse paths' timed walls (s): "
+          f"{ {k: [round(w, 4) for w in v] for k, v in sparse_walls.items()} }",
+          flush=True)
+    return sparse_walls
 
 
 def main():
@@ -625,6 +984,11 @@ def main():
     t0 = time.time()
     _cuda.library()
     print(f"kernel build: {time.time() - t0:.1f} s", flush=True)
+    t0 = time.time()
+    from ceres_tpu_torch import native
+    native.library()
+    print(f"native library build (g++, csrc/ceres_native.cpp): "
+          f"{time.time() - t0:.1f} s", flush=True)
 
     t0 = time.time()
     bal = synthetic_bal_problem(**SHAPE, seed=7, pixel_noise=1.0)
@@ -944,7 +1308,8 @@ def main():
         arrays = list(positions.values()) + list(rotations.values())
         graphs[key] = dict(
             problem=g_problem, options=g_options, program=g_program,
-            bi=main_bi[0], positions=positions, gt=gt, arrays=arrays,
+            bi=main_bi[0], positions=positions, rotations=rotations,
+            gt=gt, arrays=arrays,
             start=[a.copy() for a in arrays],
             error0=position_error(positions, gt))
         print(f"pose graph {key}: {len(poses)} poses, {len(constraints)} "
@@ -1027,6 +1392,31 @@ def main():
                     2 * ns * rs * ts * ts, F32_FLOP_PER_S,
                     library=("torch.einsum('nrt,nru->ntu', J, J)",
                              lambda: torch.einsum("nrt,nru->ntu", Js, Js)))
+        if key == "3d":
+            # slice 8: K9's per-row form on each whole bucket of the same
+            # scaled Jacobian, as the mixed SPARSE_NORMAL_CHOLESKY step
+            # forms its Grams (solvers/sparse_direct.py bucket_grams)
+            for bi, bkj in enumerate(jac_s.buckets):
+                Jb = bkj.J
+                nb, rb, tb = Jb.shape
+                rec = check_kernel(
+                    f"K9 bucket_gram_blocks (per row, SE3 bucket {bi}, "
+                    f"{nb} x {rb} x {tb})",
+                    lambda: bucket_gram_blocks(Jb),
+                    lambda: bucket_gram_blocks_plain(Jb),
+                    lambda g_, w: [rel_err(g_, w)], F32_LIMIT,
+                    "ceres_tpu_torch/csrc/gram.cu",
+                    "ceres_tpu/ops/pallas_kernels.py:289", (Jb,),
+                    2 * nb * rb * tb * tb, F32_FLOP_PER_S,
+                    library=("torch.einsum('nrt,nru->ntu', J, J)",
+                             lambda: torch.einsum("nrt,nru->ntu", Jb, Jb)))
+                if bi == g["bi"]:
+                    rec["name"] = "K9 bucket_gram_blocks (per row)"
+                    rec["interleaved"] = interleaved(
+                        "K9 bucket_gram_blocks (per row) vs its plain "
+                        "version", lambda: bucket_gram_blocks(Jb),
+                        lambda: bucket_gram_blocks_plain(Jb), label="plain")
+                    kernels.append(rec)
         # K9's group kernel on each tangent-size group: block Jacobi's
         # blocks of the same scaled Jacobian, against the plain form and,
         # bit for bit, the unfused CUDA route
@@ -1462,12 +1852,14 @@ def main():
             reset_state, counters, 2,
             gate_implicit("IMPLICIT_SCHUR forced"), solve=forced_solve),
     }
+    cgnr_walls = {key: [] for key in POSE_GRAPHS}
     for key in POSE_GRAPHS:
         g = graphs[key]
         by_path[f"POSE_GRAPH_{key.upper()}"] = drive(
             f"POSE_GRAPH_{key.upper()} (CGNR, JACOBI)", g["options"],
             g["problem"], reset_graph(key), counters, 3, gate_pose(key),
-            ref_cost=POSE_GRAPHS[key]["ref_cost"], ref_tol=POSE_REF_REL_TOL)
+            ref_cost=POSE_GRAPHS[key]["ref_cost"], ref_tol=POSE_REF_REL_TOL,
+            walls=cgnr_walls[key], summaries=g.setdefault("cgnr", []))
     by_path["IMPLICIT_SCHUR"] = drive(
         "IMPLICIT_SCHUR (1,024 cameras, 1M observations)", big_options,
         big_problem, reset_big, counters, 3,
@@ -1617,6 +2009,8 @@ def main():
             default_options(ctt, cfg, device="cuda"), g2["problem"],
             reset_graph("2d"), counters, 2, gate_se2(path, cfg),
             ref_cost=cfg["ref_cost"], ref_tol=SE2_DEFAULT_REL_TOL)
+
+    sparse_paths(graphs, counters, by_path, cgnr_walls)
 
     # tests/test_solver_e2e.py's helloworld, Powell and bounded problems
     # on the card, at those tests' tolerances

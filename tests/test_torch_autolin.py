@@ -218,7 +218,9 @@ def test_quaternion_solve_matches_jax(name):
 
 
 def test_quaternion_manifold_still_raises():
-    with pytest.raises(NotImplementedError, match="item 26"):
+    """The product manifold is ported, but the fused Schur step refuses
+    non-Euclidean manifolds: ROADMAP.md item 11."""
+    with pytest.raises(NotImplementedError, match="item 11"):
         build_bal_ceres_problem(quaternion_bal(), use_quaternions=True,
                                 use_manifolds=True)
 

@@ -181,36 +181,20 @@ def test_iterative_schur_without_structure_downgrades_to_cgnr():
 @pytest.mark.parametrize("extra,item", [
     (dict(minimizer_type="LINE_SEARCH"), "item 25"),
     (dict(use_inner_iterations=True), "item 22"),
-    (dict(preconditioner_type="SUBSET"), "item 20"),
-    (dict(preconditioner_type="SUBSET", trust_region_strategy_type="DOGLEG"),
-     "item 20"),
     (dict(trust_region_problem_dump_directory="dumps"), "item 14"),
     (dict(trust_region_problem_dump_format_type="CONSOLE"), "item 14"),
-    ("big", "item 20"),
     (dict(check_gradients=True), "item 28"),
-    ("big-dogleg", "item 20"),
 ])
 def test_out_of_slice_raises(extra, item):
     """Configurations of the generic path that are not ported raise
     NotImplementedError naming the ROADMAP.md item that ports them (the
     host loop, the dense solvers, the f64 and refined CGNR steps, dogleg
     and bounds run since the default-Solve slice:
-    tests/test_torch_host_loop.py). SPARSE_NORMAL_CHOLESKY takes the dense
-    Cholesky below 200 effective parameters, as the JAX package does;
-    "big" is an 80-pose 2-D graph (240 parameters), past it."""
+    tests/test_torch_host_loop.py; SUBSET and SPARSE_NORMAL_CHOLESKY past
+    200 effective parameters since the sparse slice:
+    tests/test_torch_sparse_direct.py)."""
     problem, positions, _ = _problem(ctt, "2d")
-    if str(extra).startswith("big"):
-        problem = slam.build_pose_graph_2d_problem(
-            *g2o.synthetic_pose_graph_2d(num_poses=80, seed=6)[:2])[0]
-    if extra == "big":
-        extra = dict(linear_solver_type="SPARSE_NORMAL_CHOLESKY")
-    elif extra == "big-dogleg":
-        extra = dict(linear_solver_type="SPARSE_NORMAL_CHOLESKY",
-                     trust_region_strategy_type="DOGLEG")
-    enums = {"preconditioner_type": ctt.PreconditionerType,
-             "linear_solver_type": ctt.LinearSolverType,
-             "trust_region_strategy_type": ctt.TrustRegionStrategyType,
-             "minimizer_type": ctt.MinimizerType,
+    enums = {"minimizer_type": ctt.MinimizerType,
              "trust_region_problem_dump_format_type": ctt.DumpFormatType}
     extra = {k: (getattr(enums[k], v) if isinstance(v, str) and k in enums
                  else v) for k, v in extra.items()}

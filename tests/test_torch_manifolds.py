@@ -1,11 +1,13 @@
-"""The quaternion and AutoDiff manifolds of ceres_tpu_torch against
-ceres_tpu's (tests/test_manifolds.py and manifold_test_kit.py for the
-manifolds the pose graphs use): the manifold invariants of the
+"""The manifolds of ceres_tpu_torch against ceres_tpu's
+(tests/test_manifolds.py and manifold_test_kit.py): the quaternion,
+AutoDiff and angle manifolds the pose graphs use, and Subset, Sphere,
+Line and Product; the manifold invariants of the
 reference's manifold_test_utils.h at random points, the values of plus,
 minus and their Jacobians against the JAX package (f64, 1e-12), the
 batched plus against one block at a time, and the rotation identities.
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -52,6 +54,26 @@ CASES = [
      0.5),
     ("angle", angle_manifold(), _jax_angle(),
      lambda rng: rng.uniform(-3.0, 3.0, size=1), 0.1),
+    # the rest of the stock manifolds (tests/test_manifolds.py's cases)
+    ("subset4", ctt.SubsetManifold(4, [1, 3]), ct.SubsetManifold(4, [1, 3]),
+     lambda rng: rng.normal(size=4), 0.5),
+    ("subset_none_const", ctt.SubsetManifold(3, []),
+     ct.SubsetManifold(3, []), lambda rng: rng.normal(size=3), 0.5),
+    ("sphere3", ctt.SphereManifold(3), ct.SphereManifold(3),
+     lambda rng: normalize(rng.normal(size=3)) * 2.0, 0.5),
+    ("sphere5", ctt.SphereManifold(5), ct.SphereManifold(5),
+     lambda rng: normalize(rng.normal(size=5)), 0.5),
+    ("line3", ctt.LineManifold(3), ct.LineManifold(3),
+     lambda rng: np.concatenate([rng.normal(size=3),
+                                 normalize(rng.normal(size=3))]), 0.2),
+    ("product", ctt.ProductManifold(ctt.EuclideanManifold(2),
+                                    ctt.QuaternionManifold(),
+                                    ctt.SphereManifold(3)),
+     ct.ProductManifold(ct.EuclideanManifold(2), ct.QuaternionManifold(),
+                        ct.SphereManifold(3)),
+     lambda rng: np.concatenate([rng.normal(size=2),
+                                 normalize(rng.normal(size=4)),
+                                 normalize(rng.normal(size=3))]), 0.5),
 ]
 IDS = [c[0] for c in CASES]
 
@@ -101,18 +123,21 @@ def test_manifold_matches_jax(case):
     """plus, minus, plus_jacobian and minus_jacobian against the JAX
     package's manifold at the same points (f64)."""
     _, mt, mj, make_x, scale = case
+    # jitted once: eager JAX traces the Jacobians anew at every point
+    plus, minus, plus_jac, minus_jac = (jax.jit(f) for f in (
+        mj.plus, mj.minus, mj.plus_jacobian, mj.minus_jacobian))
     rng = np.random.default_rng(7)
     for _ in range(4):
         x = make_x(rng)
         d = scale * rng.normal(size=mt.tangent_size)
-        y = np.array(mj.plus(jnp.asarray(x), jnp.asarray(d)))
+        y = np.array(plus(jnp.asarray(x), jnp.asarray(d)))
         xt, dt = torch.as_tensor(x), torch.as_tensor(d)
         pairs = [
             (mt.plus(xt, dt), y),
             (mt.minus(torch.as_tensor(y), xt),
-             mj.minus(jnp.asarray(y), jnp.asarray(x))),
-            (mt.plus_jacobian(xt), mj.plus_jacobian(jnp.asarray(x))),
-            (mt.minus_jacobian(xt), mj.minus_jacobian(jnp.asarray(x))),
+             minus(jnp.asarray(y), jnp.asarray(x))),
+            (mt.plus_jacobian(xt), plus_jac(jnp.asarray(x))),
+            (mt.minus_jacobian(xt), minus_jac(jnp.asarray(x))),
         ]
         for a, b in pairs:
             np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=1e-12,
@@ -180,3 +205,65 @@ def test_quaternion_product_matches_jax():
     np.testing.assert_array_equal(
         ctt.rotation.quaternion_conjugate(torch.as_tensor(z)).numpy(),
         np.asarray(jrot.quaternion_conjugate(jnp.asarray(z))))
+
+
+def test_subset_manifold_holds_constants():
+    m = ctt.SubsetManifold(4, [0, 2])
+    y = m.plus(torch.tensor([1.0, 2.0, 3.0, 4.0], dtype=torch.float64),
+               torch.tensor([0.5, -0.5], dtype=torch.float64))
+    np.testing.assert_allclose(y.numpy(), [1.0, 2.5, 3.0, 3.5])
+
+
+def test_subset_manifold_accepts_numpy():
+    m = ctt.SubsetManifold(4, [1, 3])
+    out = m.plus(np.array([1.0, 2.0, 3.0, 4.0]), np.array([0.1, 0.2]))
+    np.testing.assert_allclose(out.numpy(), [1.1, 2.0, 3.2, 4.0])
+
+
+def test_sphere_norm_preserved():
+    rng = np.random.default_rng(3)
+    x = rng.normal(size=4) * 3.0
+    y = ctt.SphereManifold(4).plus(torch.as_tensor(x),
+                                   torch.as_tensor(rng.normal(size=3) * 0.4))
+    np.testing.assert_allclose(float(torch.linalg.vector_norm(y)),
+                               np.linalg.norm(x), rtol=1e-12)
+
+
+def test_line_manifold_origin_tangent_scale():
+    """The origin moves by exactly |delta_o| (line_manifold.h:212, no
+    half factor), and minus inverts plus."""
+    m = ctt.LineManifold(3)
+    x = torch.tensor([1.0, 2.0, 3.0, 0.0, 0.0, 1.0], dtype=torch.float64)
+    delta = torch.tensor([0.3, -0.7, 0.0, 0.0], dtype=torch.float64)
+    y = m.plus(x, delta)
+    np.testing.assert_allclose(float(torch.linalg.vector_norm(y[:3] - x[:3])),
+                               float(torch.linalg.vector_norm(delta[:2])),
+                               rtol=1e-12)
+    np.testing.assert_allclose(m.minus(y, x).numpy(), delta.numpy(),
+                               atol=1e-12)
+
+
+@pytest.mark.parametrize("sigma_zero", [False, True])
+def test_householder_vector_matches_jax(sigma_zero):
+    """householder_vector and _apply_householder against the JAX
+    package's, including the sigma = 0 branch (x on the last axis)."""
+    from ceres_tpu.manifolds import (_apply_householder as jax_apply,
+                                     householder_vector as jax_hv)
+    from ceres_tpu_torch.manifolds import (_apply_householder,
+                                           householder_vector)
+    rng = np.random.default_rng(5)
+    X = rng.normal(size=(6, 4))
+    if sigma_zero:
+        X[:, :-1] = 0.0
+        X[::2, -1] *= -1.0
+    Y = rng.normal(size=(6, 4))
+    v, beta = householder_vector(torch.as_tensor(X))
+    vj, bj = jax_hv(jnp.asarray(X))
+    np.testing.assert_allclose(v.numpy(), np.asarray(vj), rtol=1e-12,
+                               atol=1e-12)
+    np.testing.assert_allclose(beta.numpy(), np.asarray(bj), rtol=1e-12,
+                               atol=1e-12)
+    np.testing.assert_allclose(
+        _apply_householder(v, beta, torch.as_tensor(Y)).numpy(),
+        np.asarray(jax_apply(vj, bj, jnp.asarray(Y))), rtol=1e-12,
+        atol=1e-12)

@@ -283,23 +283,19 @@ def build_bal_ceres_problem(bal: BALProblem, loss=None,
     those numpy arrays.
 
     Quaternion cameras (use_quaternions, or a BALProblem already in
-    quaternion form) take SnavelyReprojectionErrorWithQuaternions;
-    use_manifolds=False treats the quaternion as a plain Euclidean
-    4-block (bundle_adjuster.cc --use_manifolds=false)."""
+    quaternion form) take SnavelyReprojectionErrorWithQuaternions, on the
+    quaternion x Euclidean(6) product manifold (use_manifolds, as
+    bundle_adjuster.cc --use_manifolds); use_manifolds=False treats the
+    quaternion as a plain Euclidean 4-block."""
     from ..cost import AutoDiffCostFunction
     from ..examples.snavely import (SnavelyReprojectionError,
                                     SnavelyReprojectionErrorWithQuaternions)
+    from ..manifolds import (EuclideanManifold, ProductManifold,
+                             QuaternionManifold)
     from ..problem import Problem
 
     if use_quaternions and not bal.use_quaternions:
         bal = bal.to_quaternions()
-    if bal.use_quaternions and use_manifolds:
-        raise NotImplementedError(
-            "quaternion cameras on the quaternion x Euclidean product "
-            "manifold are not ported yet: the fused Schur step refuses "
-            "non-Euclidean manifolds (ROADMAP.md item 11, the rest of "
-            "solvers/schur_fused.py); use_manifolds=False keeps the "
-            "quaternion Euclidean")
     functor, cam_size = ((SnavelyReprojectionErrorWithQuaternions, 10)
                          if bal.use_quaternions
                          else (SnavelyReprojectionError, 9))
@@ -312,4 +308,8 @@ def build_bal_ceres_problem(bal: BALProblem, loss=None,
         problem.add_residual_block(cost, loss,
                                    cam_arrays[bal.camera_index[i]],
                                    pt_arrays[bal.point_index[i]])
+    if bal.use_quaternions and use_manifolds:
+        manifold = ProductManifold(QuaternionManifold(), EuclideanManifold(6))
+        for c in cam_arrays:
+            problem.set_manifold(c, manifold)
     return problem, cam_arrays, pt_arrays

@@ -17,9 +17,10 @@ one host read; with bounds the projected gradient norm joins that read,
 and the projected line search reads each probe's cost.
 
 The termination tests, their order and the messages are the JAX
-package's. Inner iterations (ROADMAP.md item 22), the trust-region
-problem dumps (item 14) and SPSE initialization (item 14) are not ported:
-solver.py refuses them before the loop starts.
+package's. Inner iterations (ROADMAP.md item 22) and the trust-region
+problem dumps (item 14) are not ported: solver.py refuses them before
+the loop starts. SPSE initialization is the generic Schur step's
+(solvers/schur.py SchurLinearSolver).
 """
 
 from __future__ import annotations

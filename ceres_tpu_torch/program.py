@@ -541,7 +541,9 @@ class CompiledProgram:
             r64 = self._bucket_residuals(bk, x)
             cost, _, _ = correct_residuals_and_jacobian(bk.loss, r64, None)
             total = total + torch.sum(cost)
-            _, J32 = self._bucket_linearize32(bk, x)
+            # (jacfwd can give an f64 tangent from f32 inputs, ROADMAP.md
+            # section 3: the loss correction takes both sides in f32)
+            J32 = self._bucket_linearize32(bk, x)[1].to(torch.float32)
             _, rc, Jc = correct_residuals_and_jacobian(
                 bk.loss, r64.to(torch.float32), J32)
             jac_buckets.append(self._bucket_jacobian(bk,

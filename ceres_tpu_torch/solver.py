@@ -9,13 +9,21 @@ the host-loop trust-region minimizer (minimizers/trust_region.py) as the
 JAX package decides (:547-590), and write back. The steps:
   - the fused Schur step (DENSE_SCHUR, ITERATIVE_SCHUR on an explicit S,
     or ITERATIVE_SCHUR in the implicit mode past the explicit cap; the
-    summary's message names the mode);
+    summary's message names the mode),
+    where the JAX package's make_step_impl takes its fused step (LM, no
+    refinement in mixed mode, a Schur structure, not the block-sparse
+    SPARSE_SCHUR) and `schur_fused.unsupported_reason` accepts it, or
+    refuses it for a port kernel's limit (a `KernelLimit`, which the
+    fused step raises);
   - the generic LM step (`GenericLMStep`) with DENSE_QR,
     DENSE_NORMAL_CHOLESKY, SPARSE_NORMAL_CHOLESKY (the native host LDL^T
     of solvers/sparse_direct.py from 200 effective parameters; below,
-    a dense factorization, as the JAX package decides) or CGNR (block
-    Jacobi or SUBSET), in f64, mixed (f32 linearize and solve), or mixed
-    with refinement (f64 linearize, f32 solve);
+    a dense factorization, as the JAX package decides), CGNR (block
+    Jacobi or SUBSET) or the Schur family (solvers/schur.py
+    SchurLinearSolver: every Schur configuration the fused step does
+    not take, the f64 one among them), in f64, mixed (f32 linearize and
+    solve), or mixed with refinement (f64 linearize, f32 solve; the
+    Schur solvers refine outside the solve, with its solve_b);
   - the dogleg step (`DoglegStep`), TRADITIONAL_DOGLEG or
     SUBSPACE_DOGLEG, on the same linear solvers.
 Configurations outside the slices raise NotImplementedError naming the
@@ -40,8 +48,10 @@ from .solvers.cg import solve_cgnr
 from .solvers.dense import solve_dense_normal_cholesky, solve_dense_qr
 from .solvers.preconditioners import (SubsetPreconditioner,
                                       make_block_jacobi_preconditioner)
-from .solvers.schur import detect_schur_structure
+from .solvers import schur_fused
+from .solvers.schur import SchurLinearSolver, detect_schur_structure
 from .solvers.schur_fused import SchurStep, schur_step
+from .solvers.schur_sparse import sparse_schur_supported, use_sparse_schur
 from .solvers.sparse_direct import SparseNormalCholeskySolver
 from .types import (DoglegType, DumpFormatType, LinearSolverType,
                     MinimizerType, PreconditionerType, SolverOptions,
@@ -98,7 +108,8 @@ def generic_unsupported_reason(program, options) -> Optional[str]:
     """Why the generic steps (LM or dogleg) cannot run this configuration
     (naming the ROADMAP.md item that ports it), or None."""
     lst = options.linear_solver_type
-    if lst not in _DIRECT_SOLVERS and lst != LinearSolverType.CGNR:
+    if lst not in _DIRECT_SOLVERS + _SCHUR_SOLVERS and \
+            lst != LinearSolverType.CGNR:
         return f"{lst} on the generic step"
     return None
 
@@ -114,11 +125,16 @@ class LinearSolver:
     LDL^T of J^T J + D^2 on the host (blocks: J^T J and -J^T r there),
     an f64 step; CGNR: CG on the normal equations with SUBSET (blocks:
     the subset rows' J^T J on the host) or block Jacobi (every other
-    preconditioner but IDENTITY; blocks: the J^T J blocks)."""
+    preconditioner but IDENTITY; blocks: the J^T J blocks); the Schur
+    family: solvers/schur.py SchurLinearSolver (blocks: its SchurSystem,
+    the sub-Jacobians and E^T E), whose solve_b the mixed refinement of
+    GenericLMStep calls."""
 
     def __init__(self, program, options):
         self.kind = options.linear_solver_type
         self.groups = program.groups
+        self.schur = (SchurLinearSolver(program, options)
+                      if self.kind in _SCHUR_SOLVERS else None)
         self.mixed = bool(options.use_mixed_precision_solves)
         self.refine = options.max_num_refinement_iterations
         self.sparse = (SparseNormalCholeskySolver(program, options)
@@ -138,6 +154,8 @@ class LinearSolver:
             q_tolerance=options.eta)
 
     def blocks(self, jac_s, res):
+        if self.schur is not None:
+            return self.schur.system(jac_s)
         if self.sparse is not None:
             return self.sparse.system(jac_s, res)
         if self.subset is not None:
@@ -145,6 +163,8 @@ class LinearSolver:
         return block_diag_jtj(jac_s, self.groups) if self.jacobi else None
 
     def __call__(self, jac_s, res, D, blocks):
+        if self.schur is not None:
+            return self.schur(blocks, res, D)
         if self.kind == LinearSolverType.DENSE_QR:
             return solve_dense_qr(jac_s, res, D)
         if self.sparse is not None:
@@ -178,6 +198,7 @@ class GenericLinearization:
     grad_norm: torch.Tensor     # f64 ||gradient||
     grad_full: Optional[torch.Tensor]   # f64 gradient, with bounds only
     dogleg: Optional[dict] = None       # DoglegStep's radius-free parts
+    refine: Optional[tuple] = None      # (J_s f64, -J_s^T r f64): refinement
 
     @property
     def scales(self):
@@ -196,9 +217,12 @@ class GenericLMStep:
         f64 residual pass gives the cost), solve in f32.
       mixed with refinement (max_num_refinement_iterations > 0): the f64
         linearize, its J and r cast to f32 for the solve, the f64
-        gradient for the convergence norms. Only the dense normal
-        Cholesky refines (in its own precision, as in the JAX package,
-        whose generic linear solvers have no solve_b).
+        gradient for the convergence norms. The dense normal Cholesky
+        refines inside its solve; a Schur solver's f32 step is refined
+        here (lm_step, :238-252): per refinement iteration the f64
+        residual b - (J_s^T J_s + D^2) d of the damped normal equations
+        drives an f32 correction solve (its solve_b). The other solvers
+        do not refine, as in the JAX package (no solve_b).
       In both mixed branches the scale comes from the f32 pass, once.
 
     linearize: J_s = J S with S = 1 / (1 + ||J_j||) fixed at the first
@@ -221,7 +245,10 @@ class GenericLMStep:
         self.max_diag = options.max_lm_diagonal
         self.linear = LinearSolver(program, options)
         self.exact_solver = (self.mixed and options.linear_solver_type
-                             in _DIRECT_SOLVERS)
+                             in _DIRECT_SOLVERS + (
+                                 LinearSolverType.DENSE_SCHUR,
+                                 LinearSolverType.SPARSE_SCHUR))
+        self.refine_outer = self.refine > 0 and self.linear.schur is not None
 
     def initial_scales(self):
         """No scale yet: the first linearization derives it."""
@@ -232,18 +259,20 @@ class GenericLMStep:
 
     def _linearize(self, x):
         """(cost, gradient, J, r in the solve's precision, the f64
-        gradient when the branch has one apart)."""
+        gradient when the branch has one apart, the f64 J when the
+        branch refines outside the solve)."""
         prog = self.program
         if self.mixed and self.refine == 0:
-            return (*prog.linearize_fn_mixed(x), None)
+            return (*prog.linearize_fn_mixed(x), None, None)
         cost, grad, jac, res = prog.linearize_fn(x)
         if not self.mixed:
-            return cost, grad, jac, res, None
+            return cost, grad, jac, res, None, None
         f32 = torch.float32
         jac32 = BlockJacobian([b.with_J(b.J.to(f32)) for b in jac.buckets],
                               jac.num_cols, jac.col_sum)
         res32 = RVec([p.to(f32) for p in res.parts])
-        return cost, jac32.rmatvec(res32), jac32, res32, grad
+        return (cost, jac32.rmatvec(res32), jac32, res32, grad,
+                jac if self.refine_outer else None)
 
     def _scale(self, x, jac):
         """The Jacobi column scale of the first linearization, from the
@@ -256,11 +285,15 @@ class GenericLMStep:
         return 1.0 / (1.0 + torch.sqrt(jac.squared_column_norms()))
 
     def _base(self, x, scale, first, known_cost, with_diag=True):
-        cost, grad, jac, res, grad64 = self._linearize(x)
+        cost, grad, jac, res, grad64, jac64 = self._linearize(x)
         if first:
             scale = self._scale(x, jac)
         jac_s = jac.scale_columns(scale)
         g_norms = grad64 if grad64 is not None else grad
+        refine = None
+        if jac64 is not None:
+            scale64 = scale.double()
+            refine = (jac64.scale_columns(scale64), -(grad64 * scale64))
         return GenericLinearization(
             cost=cost if known_cost is None else known_cost,
             jac_s=jac_s, res=res, grad_s=grad * scale,
@@ -269,7 +302,8 @@ class GenericLMStep:
             blocks=self.linear.blocks(jac_s, res), scale=scale,
             grad_max=g_norms.abs().max().double(),
             grad_norm=torch.linalg.vector_norm(g_norms).double(),
-            grad_full=grad.double() if self.program.has_bounds else None)
+            grad_full=grad.double() if self.program.has_bounds else None,
+            refine=refine)
 
     def linearize(self, x, scale, first: bool,
                   known_cost=None) -> GenericLinearization:
@@ -299,6 +333,8 @@ class GenericLMStep:
                            device=self.program.device)
         D = torch.sqrt(art.diag / rad)
         d, lin_iters = self.linear(art.jac_s, art.res, D, art.blocks)
+        if art.refine is not None:
+            d, lin_iters = self._refine(art, D, d, lin_iters)
         if self.exact_solver:
             # (J^T J + D^2) d = -g_s exactly: ||J_s d||^2 = -d.g_s - ||D d||^2
             # (the sparse solver's step is f64 in every precision)
@@ -309,6 +345,22 @@ class GenericLMStep:
             Jd = art.jac_s.matvec(d)
             mcc = -(torch.dot(d, art.grad_s) + 0.5 * Jd.squared_norm())
         return self._out(art, d, mcc, lin_iters)
+
+
+    def _refine(self, art, D, d, lin_iters):
+        """Mixed-precision iterative refinement of a Schur step
+        (solver.h:572-589, iterative_refiner.h; ceres_tpu lm_step,
+        :238-252): d += solve_b(b - (J_s^T J_s + D^2) d), the residual in
+        f64, the correction in f32; returns the f64 step."""
+        jac64_s, b64 = art.refine
+        D64 = D.double()
+        d64 = d.double()
+        for _ in range(self.refine):
+            Hd = jac64_s.rmatvec(jac64_s.matvec(d64)) + (D64 * D64) * d64
+            dc, it = self.linear.schur.solve_b(art.blocks, D, b64 - Hd)
+            d64 = d64 + dc.double()
+            lin_iters = lin_iters + it
+        return d64, lin_iters
 
 
 class DoglegStep(GenericLMStep):
@@ -341,8 +393,8 @@ class DoglegStep(GenericLMStep):
     def _linearize(self, x):
         prog = self.program
         if self.mixed:
-            return (*prog.linearize_fn_mixed(x), None)
-        return (*prog.linearize_fn(x), None)
+            return (*prog.linearize_fn_mixed(x), None, None)
+        return (*prog.linearize_fn(x), None, None)
 
     def linearize(self, x, scale, first: bool,
                   known_cost=None) -> GenericLinearization:
@@ -453,19 +505,39 @@ class DoglegStep(GenericLMStep):
         return self._out(art, d, mcc, dl["lin_iters"])
 
 
+def takes_fused_schur_step(program, options) -> bool:
+    """Does the configuration take the fused Schur step? Where the JAX
+    package's make_step_impl takes its fused step (:165-184: LM, a Schur
+    solver, no refinement in mixed mode, a Schur structure, not the
+    block-sparse SPARSE_SCHUR) and schur_fused.unsupported_reason
+    accepts it or refuses it for a port kernel's limit (a KernelLimit,
+    which the fused step raises: the route is the same on every device,
+    and the generic step does not stand in for a kernel). Every other
+    Schur configuration runs the generic step over SchurLinearSolver; the
+    f64 one among them, which the JAX package serves with its fused f64
+    step (ROADMAP.md section 3)."""
+    if (options.trust_region_strategy_type
+            != TrustRegionStrategyType.LEVENBERG_MARQUARDT
+            or options.linear_solver_type not in _SCHUR_SOLVERS
+            or (options.use_mixed_precision_solves
+                and options.max_num_refinement_iterations > 0)):
+        return False
+    meta = detect_schur_structure(program, options)
+    if meta is None or use_sparse_schur(meta, options):
+        return False
+    reason = schur_fused.unsupported_reason(program, options, meta)
+    return reason is None or isinstance(reason, schur_fused.KernelLimit)
+
+
 def make_step(program, options):
-    """The step of the configuration (ceres_tpu make_step_impl): a Schur
-    step for the Schur solvers (LM only), else DoglegStep or
-    GenericLMStep."""
-    dogleg = (options.trust_region_strategy_type
-              == TrustRegionStrategyType.DOGLEG)
-    if options.linear_solver_type in _SCHUR_SOLVERS:
-        if dogleg:
-            raise NotImplementedError(
-                "dogleg with a Schur solver (ROADMAP.md item 18, "
-                "solvers/schur.py make_schur_solver)")
+    """The step of the configuration (ceres_tpu make_step_impl): the
+    fused Schur step where `takes_fused_schur_step`, else DoglegStep or
+    GenericLMStep (over SchurLinearSolver for a Schur solver)."""
+    if takes_fused_schur_step(program, options):
         return schur_step(program, options,
                           detect_schur_structure(program, options))
+    dogleg = (options.trust_region_strategy_type
+              == TrustRegionStrategyType.DOGLEG)
     return (DoglegStep if dogleg else GenericLMStep)(program, options)
 
 
@@ -497,12 +569,22 @@ def _maybe_downgrade_options(options, program, summary):
 
     summary.schur_structure_given = summary.schur_structure_used = (
         f"{_dim(rs)},{structure.te},{_dim(fs)}")
-    if t == LinearSolverType.SPARSE_SCHUR and structure.nf > 4096:
-        # the JAX package routes this to its block-sparse LDL^T or to
-        # ITERATIVE_SCHUR (_sparse_schur_ok)
-        raise NotImplementedError(
-            "SPARSE_SCHUR past 4096 camera columns (ROADMAP.md item 19, "
-            "solvers/schur_sparse.py)")
+    if (t == LinearSolverType.SPARSE_SCHUR and structure.nf > 4096
+            and not sparse_schur_supported(structure)):
+        # past a few thousand cameras a dense S loses; a structure the
+        # block-sparse path cannot serve takes PCG on the implicit
+        # complement (ceres_tpu solver.py:648-667)
+        options = dataclasses.replace(
+            options, linear_solver_type=LinearSolverType.ITERATIVE_SCHUR,
+            preconditioner_type=(
+                options.preconditioner_type
+                if options.preconditioner_type
+                != PreconditionerType.IDENTITY
+                else PreconditionerType.SCHUR_JACOBI))
+        summary.message = (
+            f"SPARSE_SCHUR with {structure.nf} camera-space columns: "
+            "routing the reduced solve to ITERATIVE_SCHUR (dense S "
+            "uneconomical past ~4096 columns). ")
     return options
 
 
@@ -587,6 +669,8 @@ def solve(options: SolverOptions, problem,
         x = minimize_trust_region(program, options, step, summary)
     if isinstance(step, SchurStep):
         summary.message += f" Schur step: {step.mode}."
+    elif getattr(step.linear, "schur", None) is not None:
+        summary.message += f" Schur step: {step.linear.schur.mode}."
 
     t0 = time.time()
     if summary.is_solution_usable():

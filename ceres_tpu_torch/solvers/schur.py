@@ -1,11 +1,36 @@
-"""Schur structure of a program: the e/f partition and the chunk layout.
+"""Schur-complement solvers: DENSE_SCHUR, SPARSE_SCHUR, ITERATIVE_SCHUR.
 
-Counterpart of the structural part of ceres_tpu/solvers/schur.py
+Counterpart of ceres_tpu/solvers/schur.py: the structure of a program
 (detect_schur_structure, :176; the chunk layout chunk_rows/chunk_mask,
-:319-343; f_groups; bk_slot_keys): the reference's detect_structure.cc
-and schur_eliminator chunk layout. All of it is numpy, computed once per
-program. The runtime Schur operations of that file (SchurOps, implicit
-Schur, the power-series preconditioner) are later work (ROADMAP.md).
+:319-343; f_groups; bk_slot_keys), numpy, computed once per program;
+and the runtime Schur operations over one linearization's Jacobian
+(SchurOps, :407-940; make_schur_solver, :953-1107, here the
+`SchurLinearSolver` of the generic steps):
+
+  esolve, F/Ft/E/Et_apply, the matrix-free apply_S
+    (implicit_schur_complement.h:52-91), rhs, back_substitute, the
+    explicit S (schur_complement_solver.cc) and its rhs;
+  the preconditioners IDENTITY, JACOBI (block diagonal of F^T F + D_f^2),
+    SCHUR_JACOBI (block diagonal of S) and SCHUR_POWER_SERIES_EXPANSION
+    (a truncated Neumann series around SCHUR_JACOBI);
+  DENSE_SCHUR and SPARSE_SCHUR up to solvers/schur_sparse.py's
+    SPARSE_SCHUR_DENSE_NF: the explicit S and a dense Cholesky in the
+    solve's precision; past it SPARSE_SCHUR factors the block-sparse S
+    on the native host LDL^T (schur_sparse.py); ITERATIVE_SCHUR: CG
+    (solvers/cg.py) on the explicit S (use_explicit_schur_complement, or
+    nf <= 2048 and ne te nf <= 1e8) or on apply_S, optionally from the
+    SPSE warm start; mixed precision casts J, D and b to f32.
+
+The JAX package multiplies by [n, kf] one-hots over its chunk layout
+(the TPU's scatter-free form); the port computes the same outputs in
+observation order: every sum of many rows into one point, camera or
+matrix entry (E^T E, E^T w, F^T w, F^T F, A = E^T F, the preconditioner
+blocks) is a fixed-order segment sum (ops/bsr.py ColumnSum): the
+contributions sorted stably by their target in (bucket, row) order, then
+torch.segment_reduce, in order on the CPU and by CUB's segmented reduce
+on the card. No float atomics, so a run gives the same bits every time.
+No hand kernel runs here: the JAX package's generic Schur route runs
+none either (jsl.cho_factor, a lax CG and einsums).
 """
 
 from __future__ import annotations
@@ -14,6 +39,13 @@ from collections import Counter
 from typing import List, Optional
 
 import numpy as np
+import torch
+
+from ..ops.bsr import BlockJacobian, ColumnSum, RVec, column_sum_for
+from ..ops.kernels import row_grams
+from ..types import LinearSolverType, PreconditionerType
+from .cg import conjugate_gradients
+from .preconditioners import spd_inv_small
 
 
 class _BucketSchur:
@@ -33,6 +65,16 @@ class SchurMeta:
         self.e_cols = None           # np [ne, te] int32
         self.buckets: List[_BucketSchur] = []
         self.f_groups = []           # [{t, kf, cols [kf, t], slots}]
+        self._plans = {}             # device -> _Plan
+        self._sparse_ctx = None      # (ordering, SparseSchurContext)
+
+    def plan(self, device) -> "_Plan":
+        """The meta's index tensors and fixed-order sums on `device`
+        (built at the first call)."""
+        key = str(torch.device(device))
+        if key not in self._plans:
+            self._plans[key] = _Plan(self, torch.device(device))
+        return self._plans[key]
 
 
 def _ordering_cache_key(options):
@@ -246,3 +288,490 @@ def bk_slot_keys(program, bk, si):
         cache[si] = [by_index[int(i)].param_keys[si]
                      for i in bk.orig_indices]
     return cache[si]
+
+
+# ----------------------------------------------------------------------
+# runtime Schur operations
+
+
+def _row_sum(buckets, ids, num_out, device) -> ColumnSum:
+    """Fixed-order sum of per-row units of `buckets` (concatenated in
+    bucket order) into num_out targets; ids(bi) gives each row's target."""
+    positions, columns, base = [], [], 0
+    for bi in buckets:
+        t = np.asarray(ids(bi), dtype=np.int64)
+        positions.append(base + np.arange(t.size))
+        columns.append(t)
+        base += t.size
+    if not positions:
+        positions, columns = [np.zeros(0, np.int64)], [np.zeros(0, np.int64)]
+    return ColumnSum(np.concatenate(positions), np.concatenate(columns),
+                     num_out, device)
+
+
+class _Plan:
+    """A SchurMeta's index tensors on one device and its fixed-order sums:
+    over the rows of the buckets with an e slot (e_sum: E^T E, E^T w),
+    of those with both an e and an f slot (ef_sum), and the f columns of
+    the buckets with f slots (ft_sum: F^T w); the dense F^T F and A =
+    E^T F orders and the preconditioners' block sums, at first use."""
+
+    def __init__(self, meta, device):
+        self.meta, self.device = meta, device
+        bks = meta.buckets
+        self.e_buckets = [bi for bi, bs in enumerate(bks)
+                          if bs.e_slot is not None]
+        self.f_buckets = [bi for bi, bs in enumerate(bks)
+                          if bs.f_cols is not None]
+        self.ef_buckets = [bi for bi in self.e_buckets
+                           if bks[bi].f_cols is not None]
+        self.e_ids = {bi: torch.as_tensor(bks[bi].e_ids.astype(np.int64),
+                                          device=device)
+                      for bi in self.e_buckets}
+        self.f_cols = {bi: torch.as_tensor(bks[bi].f_cols.astype(np.int64),
+                                           device=device)
+                       for bi in self.f_buckets}
+        self.e_cols = torch.as_tensor(meta.e_cols.astype(np.int64),
+                                      device=device)
+        self.f_global = torch.as_tensor(
+            meta.f_global_cols.astype(np.int64), device=device)
+        self.e_sum = _row_sum(self.e_buckets, lambda bi: bks[bi].e_ids,
+                              meta.ne, device)
+        self.ef_sum = (self.e_sum if self.ef_buckets == self.e_buckets
+                       else _row_sum(self.ef_buckets,
+                                     lambda bi: bks[bi].e_ids, meta.ne,
+                                     device))
+        self.ft_sum = column_sum_for([[bks[bi].f_cols]
+                                      for bi in self.f_buckets],
+                                     meta.nf, device)
+        self.group_cols = [torch.as_tensor(g["cols"].astype(np.int64),
+                                           device=device)
+                           for g in meta.f_groups]
+        self._a_order = None
+        self._block_sums = {}
+
+    def ftf_order(self):
+        """(perm, lengths, index) of the dense F^T F over the f buckets'
+        per-row Grams [n, tf, tf] (ColumnSum.gram_order)."""
+        return self.ft_sum.gram_order()
+
+    def a_order(self):
+        """(perm, lengths, index) of the dense A = E^T F [ne, te, nf]: each
+        row's cross Gram [te, tf] entry (i, j) to e_id te nf + i nf +
+        f_col j, sorted stably; rows in (bucket, row) order."""
+        if self._a_order is None:
+            meta, te, nf = self.meta, self.meta.te, self.meta.nf
+            targets = []
+            for bi in self.ef_buckets:
+                bs = meta.buckets[bi]
+                e = bs.e_ids.astype(np.int64)[:, None, None]
+                f = bs.f_cols.astype(np.int64)[:, None, :]
+                i = np.arange(te, dtype=np.int64)[None, :, None]
+                targets.append((e * te * nf + i * nf + f).reshape(-1))
+            tgt = (np.concatenate(targets) if targets
+                   else np.zeros(0, np.int64))
+            order = np.argsort(tgt, kind="stable")
+            index, counts = np.unique(tgt[order], return_counts=True)
+            dev = self.device
+            self._a_order = (torch.as_tensor(order, device=dev),
+                             torch.as_tensor(counts, device=dev),
+                             torch.as_tensor(index, device=dev))
+        return self._a_order
+
+    def block_sum(self, gi) -> ColumnSum:
+        """The fixed-order sum of f group gi's per-row diagonal blocks
+        over its slots (bucket, variable slot, local ids) into [kf, t, t]."""
+        if gi not in self._block_sums:
+            grp = self.meta.f_groups[gi]
+            locals_ = [local for (_, _, local) in grp["slots"]]
+            self._block_sums[gi] = _row_sum(
+                range(len(locals_)), lambda k: locals_[k], grp["kf"],
+                self.device)
+        return self._block_sums[gi]
+
+
+def _f_part(bj, bs):
+    """Concatenated F-slot sub-Jacobian [n, r, tf_bucket]."""
+    parts = [bj.slot_J(s) for s in bs.f_slots]
+    return parts[0] if len(parts) == 1 else torch.cat(parts, dim=2)
+
+
+class SchurSystem:
+    """The radius-free part of one linearization's Schur solves: the
+    buckets' e and f sub-Jacobians, E^T E without damping, and at first
+    use the dense F^T F and A = E^T F, the JACOBI blocks and the sparse
+    path's lane tensors (all independent of D)."""
+
+    def __init__(self, meta, jac, out_dtype=None):
+        """out_dtype: the precision of the steps solved from it (the
+        Jacobian's before a mixed cast; its own by default)."""
+        self.meta, self.jac = meta, jac
+        J0 = jac.buckets[0].J
+        self.dtype, self.device = J0.dtype, J0.device
+        self.out_dtype = out_dtype or self.dtype
+        self.plan = meta.plan(self.device)
+        self.Je = {bi: jac.buckets[bi].slot_J(meta.buckets[bi].e_slot)
+                   for bi in self.plan.e_buckets}
+        self.Jf = {bi: _f_part(jac.buckets[bi], meta.buckets[bi])
+                   for bi in self.plan.f_buckets}
+        self.ete = self._e_sum(
+            self.plan.e_sum,
+            [row_grams(self.Je[bi]) for bi in self.plan.e_buckets],
+            (meta.te, meta.te))
+        self.cache = {}
+
+    def _e_sum(self, col_sum, parts, unit):
+        if not parts:
+            return torch.zeros((self.meta.ne,) + unit, dtype=self.dtype,
+                               device=self.device)
+        return col_sum.sum_flat(torch.cat([p.reshape((-1,) + unit)
+                                           for p in parts]))
+
+    def ftf_and_a(self):
+        """(F^T F [nf, nf], A [ne, te, nf]) without damping, each entry a
+        fixed-order sum of the rows' Grams."""
+        if "ftf_a" not in self.cache:
+            meta, plan = self.meta, self.plan
+            nf, te = meta.nf, meta.te
+            FtF = torch.zeros(nf * nf, dtype=self.dtype, device=self.device)
+            if plan.f_buckets:
+                perm, lengths, index = plan.ftf_order()
+                flat = torch.cat([row_grams(self.Jf[bi]).reshape(-1)
+                                  for bi in plan.f_buckets])
+                FtF[index] = torch.segment_reduce(
+                    flat[perm], "sum", lengths=lengths, axis=0, unsafe=True)
+            A = torch.zeros(meta.ne * te * nf, dtype=self.dtype,
+                            device=self.device)
+            if plan.ef_buckets:
+                perm, lengths, index = plan.a_order()
+                flat = torch.cat([torch.einsum("nrt,nru->ntu", self.Je[bi],
+                                               self.Jf[bi]).reshape(-1)
+                                  for bi in plan.ef_buckets])
+                A[index] = torch.segment_reduce(
+                    flat[perm], "sum", lengths=lengths, axis=0, unsafe=True)
+            self.cache["ftf_a"] = (FtF.view(nf, nf), A.view(meta.ne, te, nf))
+        return self.cache["ftf_a"]
+
+
+class SchurOps:
+    """The Schur operations of one damped system (ceres_tpu SchurOps):
+    a SchurSystem and the damping D [num_effective], with (E^T E +
+    D_e^2)^-1 formed once (NaN blocks where it is not positive
+    definite, so that the step is invalid, as the JAX package's
+    Cholesky gives)."""
+
+    def __init__(self, system: SchurSystem, D):
+        self.system = system
+        self.meta, self.jac, self.plan = system.meta, system.jac, system.plan
+        meta = self.meta
+        d_e = D[self.plan.e_cols]                           # [ne, te]
+        self.inv_ete = spd_inv_small(system.ete + torch.diag_embed(d_e * d_e))
+        self.D_f = D[self.plan.f_global]
+        self.dtype, self.device = system.dtype, system.device
+        self._ne, self._te, self._nf = meta.ne, meta.te, meta.nf
+
+    def esolve(self, u):
+        return torch.einsum("nij,nj->ni", self.inv_ete, u)
+
+    def _zeros_rvec(self, bi):
+        bj = self.jac.buckets[bi]
+        return bj.J.new_zeros((bj.J.shape[0], bj.J.shape[1]))
+
+    def F_apply(self, v) -> RVec:
+        """F v: [nf] -> residual space."""
+        return RVec([torch.einsum("nrt,nt->nr", self.system.Jf[bi],
+                                  v[self.plan.f_cols[bi]])
+                     if bi in self.system.Jf else self._zeros_rvec(bi)
+                     for bi in range(len(self.jac.buckets))])
+
+    def E_apply(self, z) -> RVec:
+        """E z: [ne, te] -> residual space."""
+        return RVec([torch.einsum("nrt,nt->nr", self.system.Je[bi],
+                                  z[self.plan.e_ids[bi]])
+                     if bi in self.system.Je else self._zeros_rvec(bi)
+                     for bi in range(len(self.jac.buckets))])
+
+    def _et(self, col_sum, buckets, parts):
+        """E^T of per-bucket residual-space parts over `buckets`."""
+        return self.system._e_sum(
+            col_sum, [torch.einsum("nrt,nr->nt", self.system.Je[bi], parts[bi])
+                      for bi in buckets], (self._te,))
+
+    def Et_apply(self, w: RVec):
+        """E^T w: residual space -> [ne, te]."""
+        return self._et(self.plan.e_sum, self.plan.e_buckets, w.parts)
+
+    def _ft(self, parts):
+        """F^T of per-bucket parts over the f buckets: [nf]."""
+        if not self.plan.f_buckets:
+            return torch.zeros(self._nf, dtype=self.dtype, device=self.device)
+        return self.plan.ft_sum([torch.einsum("nrt,nr->nt",
+                                              self.system.Jf[bi], parts[bi])
+                                 for bi in self.plan.f_buckets])
+
+    def Ft_apply(self, w: RVec):
+        """F^T w: residual space -> [nf]."""
+        return self._ft(w.parts)
+
+    def _Fv(self, v):
+        return {bi: torch.einsum("nrt,nt->nr", self.system.Jf[bi],
+                                 v[self.plan.f_cols[bi]])
+                for bi in self.plan.f_buckets}
+
+    def _Ez(self, z, buckets):
+        return {bi: torch.einsum("nrt,nt->nr", self.system.Je[bi],
+                                 z[self.plan.e_ids[bi]]) for bi in buckets}
+
+    def apply_S(self, v):
+        """S v = F^T F v + D_f^2 v - F^T E (E^T E + D_e^2)^-1 E^T F v
+        (implicit_schur_complement.h:52-91), matrix-free."""
+        plan = self.plan
+        w = self._Fv(v)
+        z = self.esolve(self._et(plan.ef_sum, plan.ef_buckets, w))
+        Ez = self._Ez(z, plan.ef_buckets)
+        for bi, ez in Ez.items():
+            w[bi] = w[bi] - ez
+        return self._ft(w) + (self.D_f * self.D_f) * v
+
+    def rhs(self, b_e, b_f):
+        """Reduced rhs: b_f - F^T E (E^T E + D_e^2)^-1 b_e."""
+        Ez = self._Ez(self.esolve(b_e), self.plan.ef_buckets)
+        return b_f - self._ft({bi: Ez[bi] if bi in Ez else
+                               self._zeros_rvec(bi)
+                               for bi in self.plan.f_buckets})
+
+    def back_substitute(self, b_e, y):
+        """d_e = (E^T E + D_e^2)^-1 (b_e - E^T F y)
+        (implicit_schur_complement.cc:208)."""
+        w = self._Fv(y)
+        u = self._et(self.plan.ef_sum, self.plan.ef_buckets, w)
+        return self.esolve(b_e - u)
+
+    # ---- explicit S (DENSE_SCHUR / SPARSE_SCHUR, schur_complement_solver.cc)
+
+    def _assemble_S(self):
+        """S = F^T F + D_f^2 - A^T (E^T E + D_e^2)^-1 A, with A = E^T F
+        [ne, te, nf]; the correction one [nf, ne te] x [ne te, nf]
+        product."""
+        FtF, A = self.system.ftf_and_a()
+        Y = torch.einsum("nuv,nvf->nuf", self.inv_ete, A)
+        nf = self._nf
+        S_corr = A.reshape(-1, nf).T @ Y.reshape(-1, nf)
+        return FtF + torch.diag(self.D_f * self.D_f) - S_corr, A
+
+    def explicit_S(self):
+        """The dense reduced camera matrix S [nf, nf]."""
+        return self._assemble_S()[0]
+
+    def explicit_S_and_rhs(self, b_e, b_f):
+        S, A = self._assemble_S()
+        return S, b_f - torch.einsum("itf,it->f", A, self.esolve(b_e))
+
+    # ---- preconditioners
+
+    def make_preconditioner(self, kind: PreconditionerType):
+        """apply(v) = M^-1 v for the ITERATIVE_SCHUR preconditioner."""
+        if kind == PreconditionerType.IDENTITY:
+            return None
+        if kind == PreconditionerType.SCHUR_POWER_SERIES_EXPANSION:
+            return self._make_power_series_preconditioner()
+        if kind in (PreconditionerType.CLUSTER_JACOBI,
+                    PreconditionerType.CLUSTER_TRIDIAGONAL):
+            raise NotImplementedError(_cluster_message(kind))
+        if kind not in (PreconditionerType.JACOBI,
+                        PreconditionerType.SCHUR_JACOBI):
+            raise ValueError(f"{kind} is not an ITERATIVE_SCHUR "
+                             "preconditioner")
+        return self._make_block_diag_preconditioner(
+            kind == PreconditionerType.SCHUR_JACOBI)
+
+    def block_diag_S(self, subtract_cross: bool):
+        """[(cols [kf, t], blocks [kf, t, t])] per f group: the diagonal
+        blocks of S (subtract_cross) or of F^T F (JACOBI), + D_f^2. Each
+        row's terms are its own (schur_jacobi semantics: cross terms
+        within one (point, camera) pair, per row); the rows of a block
+        are summed in (slot, row) order."""
+        meta, plan, sys_ = self.meta, self.plan, self.system
+        key = "jacobi_blocks"
+        out = []
+        for gi, grp in enumerate(meta.f_groups):
+            if subtract_cross or key not in sys_.cache:
+                parts = []
+                for (bi, var_si, _) in grp["slots"]:
+                    Jf = self.jac.buckets[bi].slot_J(var_si)
+                    G = row_grams(Jf)
+                    if subtract_cross and bi in sys_.Je:
+                        Gc = torch.einsum("nrt,nru->ntu", sys_.Je[bi], Jf)
+                        MG = torch.einsum(
+                            "nij,njv->niv",
+                            self.inv_ete[plan.e_ids[bi]], Gc)
+                        G = G - torch.einsum("ntu,ntv->nuv", Gc, MG)
+                    parts.append(G)
+                t = grp["t"]
+                acc = plan.block_sum(gi).sum_flat(
+                    torch.cat([p.reshape(-1, t, t) for p in parts]))
+                if not subtract_cross:
+                    sys_.cache.setdefault(key, {})[gi] = acc
+            else:
+                acc = sys_.cache[key][gi]
+            cols = plan.group_cols[gi]
+            d = self.D_f[cols]
+            out.append((cols, acc + torch.diag_embed(d * d)))
+        return out
+
+    def _make_block_diag_preconditioner(self, subtract_cross: bool):
+        inverses = [(cols, spd_inv_small(acc))
+                    for cols, acc in self.block_diag_S(subtract_cross)]
+
+        def apply(v):
+            out = torch.zeros_like(v)
+            for cols, inv in inverses:
+                out[cols] = torch.einsum("ntu,nu->nt", inv, v[cols])
+            return out
+
+        return apply
+
+    def _make_power_series_preconditioner(self, num_terms: int = 4):
+        """Truncated Neumann series around the block-diagonal splitting
+        S = P - U: M^-1 v = sum_{k=0..K} (I - P^-1 S)^k P^-1 v, by
+        y_{k+1} = y_k - P^-1 (S y_k)
+        (power_series_expansion_preconditioner.h:44)."""
+        p_apply = self._make_block_diag_preconditioner(subtract_cross=True)
+
+        def apply(v):
+            y = p_apply(v)
+            acc = y
+            for _ in range(num_terms):
+                y = y - p_apply(self.apply_S(y))
+                acc = acc + y
+            return acc
+
+        return apply
+
+
+def _cluster_message(kind) -> str:
+    return (f"ITERATIVE_SCHUR with {kind} is not ported yet (ROADMAP.md "
+            "item 36, solvers/preconditioners.py, and item 21, "
+            "solvers/clustering.py)")
+
+
+class SchurLinearSolver:
+    """The Schur family as a linear solver of the generic steps
+    (ceres_tpu make_schur_solver): `system(jac_s)` once per
+    linearization, `solve_b(system, D, b)` the damped solve of
+    (J^T J + D^2) d = b by Schur elimination, `(system, res, D)` the
+    step with b = -J^T r. Returns (d, linear iterations as an int32
+    tensor); d in the Jacobian's precision, NaN where a factorization
+    broke down (an invalid step, which the trust-region loop rejects)."""
+
+    def __init__(self, program, options, meta=None):
+        from .schur_sparse import get_sparse_schur_context, use_sparse_schur
+        meta = meta if meta is not None else detect_schur_structure(
+            program, options)
+        if meta is None:
+            raise ValueError("Schur solver selected but no Schur structure; "
+                             "the solve should have downgraded it")
+        self.meta, self.program = meta, program
+        self.kind = options.linear_solver_type
+        self.precond_kind = options.preconditioner_type
+        self.iterative = self.kind == LinearSolverType.ITERATIVE_SCHUR
+        if self.iterative and self.precond_kind in (
+                PreconditionerType.CLUSTER_JACOBI,
+                PreconditionerType.CLUSTER_TRIDIAGONAL):
+            raise NotImplementedError(_cluster_message(self.precond_kind))
+        self.mixed = bool(options.use_mixed_precision_solves)
+        self.cg_args = dict(
+            max_iterations=options.max_linear_solver_iterations,
+            q_tolerance=options.eta,
+            min_iterations=options.min_linear_solver_iterations)
+        self.use_explicit = (options.use_explicit_schur_complement
+                             or (meta.nf <= 2048
+                                 and meta.ne * meta.te * meta.nf <= 1e8))
+        self.spse = (options.max_num_spse_iterations, options.spse_tolerance
+                     ) if options.use_spse_initialization else None
+        self.sparse = (get_sparse_schur_context(meta, program, options)
+                       if use_sparse_schur(meta, options) else None)
+        if not self.iterative:
+            self.mode = (f"{self.kind}, block-sparse S on the native LDL^T"
+                         if self.sparse is not None else
+                         f"{self.kind}, dense S")
+        else:
+            self.mode = (f"ITERATIVE_SCHUR + {self.precond_kind}, CG on the "
+                         + ("explicit S" if self.use_explicit
+                            else "implicit S"))
+        self.mode = "generic " + self.mode + (
+            ", mixed" if self.mixed else ", f64")
+
+    def system(self, jac) -> SchurSystem:
+        """The radius-free part of a linearization's solves; mixed, its
+        Jacobian cast to f32 (make_schur_solver, :1009-1023)."""
+        out_dtype = jac.buckets[0].J.dtype
+        if self.mixed and out_dtype != torch.float32:
+            jac = BlockJacobian([b.with_J(b.J.to(torch.float32))
+                                 for b in jac.buckets],
+                                jac.num_cols, jac.col_sum)
+        return SchurSystem(self.meta, jac, out_dtype)
+
+    def __call__(self, system: SchurSystem, res, D):
+        res = RVec([p.to(system.dtype) for p in res.parts])
+        return self.solve_b(system, D, -system.jac.rmatvec(res))
+
+    def solve_b(self, system: SchurSystem, D, b):
+        """(J^T J + D^2) d = b by Schur elimination (make_schur_solver's
+        solve_b; the LM step's b = -J^T r and the refinement's
+        corrections); mixed, D and b are cast to f32."""
+        if self.mixed:
+            D, b = D.to(torch.float32), b.to(torch.float32)
+        meta, plan = self.meta, system.plan
+        ops = SchurOps(system, D)
+        b_e = b[plan.e_cols]                           # [ne, te]
+        b_f = b[plan.f_global]                         # [nf]
+        iters = torch.ones((), dtype=torch.int32, device=b.device)
+        if not self.iterative:
+            if self.sparse is not None:
+                y = self.sparse.reduced_solve(ops, ops.rhs(b_e, b_f))
+            else:
+                S, rhs = ops.explicit_S_and_rhs(b_e, b_f)
+                L, info = torch.linalg.cholesky_ex(S)
+                y = torch.cholesky_solve(rhs[:, None], L)[:, 0]
+                y = torch.where(info == 0, y, torch.full_like(y, float("nan")))
+        else:
+            rhs = ops.rhs(b_e, b_f)
+            precond = ops.make_preconditioner(self.precond_kind)
+            if self.use_explicit:
+                S = ops.explicit_S()
+
+                def apply_S(v):
+                    return S @ v
+            else:
+                apply_S = ops.apply_S
+            x0 = torch.zeros_like(rhs)
+            if self.spse is not None:
+                x0 = self._spse(ops, apply_S, rhs)
+            result = conjugate_gradients(apply_S, rhs, x0,
+                                         apply_preconditioner=precond,
+                                         **self.cg_args)
+            y, iters = result.x, result.num_iterations
+        d_e = ops.back_substitute(b_e, y)
+        d = torch.zeros(self.program.num_effective, dtype=y.dtype,
+                        device=y.device)
+        d[plan.f_global] = y
+        d[plan.e_cols.reshape(-1)] = d_e.reshape(-1)
+        return d.to(system.out_dtype), iters
+
+    def _spse(self, ops, apply_S, rhs):
+        """SPSE warm start (iterative_schur_complement_solver.cc:99-111): a
+        truncated power-series estimate of S^-1 rhs around the
+        SCHUR_JACOBI splitting, x += P^-1 (rhs - S x) while the correction
+        is above spse_tolerance of x, at most max_num_spse_iterations
+        terms (one host read a term)."""
+        spse_max, spse_tol = self.spse
+        p_apply = ops._make_block_diag_preconditioner(True)
+        x = dx = p_apply(rhs)
+        i = 1
+        while i < spse_max and bool(torch.linalg.vector_norm(dx) > spse_tol
+                                    * torch.linalg.vector_norm(x)):
+            dx = p_apply(rhs - apply_S(x))
+            x = x + dx
+            i += 1
+        return x

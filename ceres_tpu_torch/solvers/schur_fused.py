@@ -1,7 +1,9 @@
 """Fused Schur LM steps for bundle adjustment (mixed precision):
-FusedSchurStep, DENSE_SCHUR and ITERATIVE_SCHUR on an explicit reduced
-camera matrix S, for one bucket of two slots (the Snavely functor through
-K1, any functor that the jet compiler traces through K5); ImplicitSchurStep,
+FusedSchurStep, DENSE_SCHUR (and SPARSE_SCHUR below
+solvers/schur_sparse.py's dense cap) and ITERATIVE_SCHUR on an explicit
+reduced camera matrix S, for one bucket of two slots (the Snavely
+functor through K1, any functor that the jet compiler traces through
+K5); ImplicitSchurStep,
 ITERATIVE_SCHUR in the implicit (matrix-free) mode for any functor with
 the [points | cameras] layout; `schur_step` picks one of them.
 
@@ -74,6 +76,7 @@ from ..ops.pcg import dense_pcg
 from ..types import LinearSolverType, PreconditionerType
 from .cg import conjugate_gradients
 from .preconditioners import spd_inv_small
+from .schur_sparse import use_sparse_schur
 
 TF, TE = 9, 3                   # the Snavely shape of K1
 # ITERATIVE_SCHUR preconditioners assembled exactly from the step's
@@ -81,6 +84,16 @@ TF, TE = 9, 3                   # the Snavely shape of K1
 _FUSED_PRECONDITIONERS = (PreconditionerType.IDENTITY,
                           PreconditionerType.JACOBI,
                           PreconditionerType.SCHUR_JACOBI)
+
+
+class KernelLimit(str):
+    """A refusal of a configuration that the JAX package's fused step
+    runs on its Pallas kernels but a kernel of the port cannot take
+    (ROADMAP.md items 9, 37, 39 and 40). The configuration keeps the
+    fused step's route (solver.py takes_fused_schur_step), whose
+    constructor raises it: the generic Schur step does not stand in for
+    a kernel. Every other refusal names a configuration that the generic
+    step serves."""
 
 
 def _slab_of(cols: np.ndarray) -> Optional[int]:
@@ -126,11 +139,11 @@ def _implicit_unsupported(program, options, meta) -> Optional[str]:
                 "serves ITERATIVE_SCHUR only (as in the JAX package)")
     for bs in meta.buckets:
         if bs.e_slot is not None and bs.chunk_rows is None:
-            return ("a bucket with no chunk layout (ROADMAP.md item 18, "
-                    "the rest of solvers/schur.py)")
+            return ("a bucket with no chunk layout, which the generic "
+                    "Schur step serves (solvers/schur.py)")
         if bs.f_cols is not None and len(bs.f_slots) != 1:
-            return ("a residual block on two f blocks (ROADMAP.md item 18, "
-                    "the rest of solvers/schur.py)")
+            return ("a residual block on two f blocks, which the generic "
+                    "Schur step serves (solvers/schur.py)")
     grp = meta.f_groups[0]
     if not program.tangent_is_ambient or _slab_of(meta.e_cols) != 0 or \
             _slab_of(meta.f_global_cols[grp["cols"]]) != meta.ne * meta.te:
@@ -141,8 +154,8 @@ def _implicit_unsupported(program, options, meta) -> Optional[str]:
             _k10_bucket(program, meta) and (
                 meta.te > MAX_TE or grp["t"] > MAX_TF
                 or program.buckets[0].r > MAX_R):
-        return (f"K10 past r <= {MAX_R}, te <= {MAX_TE}, tf <= {MAX_TF} "
-                "(ROADMAP.md item 39)")
+        return KernelLimit(f"K10 past r <= {MAX_R}, te <= {MAX_TE}, tf <= "
+                           f"{MAX_TF} (ROADMAP.md item 39)")
     return None
 
 
@@ -150,23 +163,27 @@ def _common_unsupported(program, options, meta) -> Optional[str]:
     """unsupported_reason's checks of both Schur steps."""
     lst = options.linear_solver_type
     iterative = lst == LinearSolverType.ITERATIVE_SCHUR
-    if lst == LinearSolverType.SPARSE_SCHUR:
-        return f"{lst} (ROADMAP.md item 19, solvers/schur_sparse.py)"
-    if not iterative and lst != LinearSolverType.DENSE_SCHUR:
+    if lst == LinearSolverType.SPARSE_SCHUR and use_sparse_schur(meta,
+                                                                 options):
+        return (f"{lst} on the block-sparse S, which the generic Schur "
+                "step serves (solvers/schur_sparse.py)")
+    if not iterative and lst not in (LinearSolverType.DENSE_SCHUR,
+                                     LinearSolverType.SPARSE_SCHUR):
         return f"{lst}, which is not a Schur solver (solver.py GenericLMStep)"
     if iterative and options.preconditioner_type not in \
             _FUSED_PRECONDITIONERS:
-        return (f"ITERATIVE_SCHUR with {options.preconditioner_type} "
-                "(ROADMAP.md item 36, solvers/preconditioners.py)")
+        return (f"ITERATIVE_SCHUR with {options.preconditioner_type}, which "
+                "the generic Schur step serves (solvers/schur.py; CLUSTER_* "
+                "are ROADMAP.md item 36 and item 21)")
     if iterative and options.use_spse_initialization:
-        return ("use_spse_initialization (ROADMAP.md item 14, the rest "
-                "of minimizers/trust_region.py)")
+        return ("use_spse_initialization, which the generic Schur step "
+                "serves (solvers/schur.py SchurLinearSolver)")
     if not options.use_mixed_precision_solves:
         return ("the f64 (non-mixed) fused step (ROADMAP.md item 11, the "
                 "rest of solvers/schur_fused.py)")
     if options.max_num_refinement_iterations > 0:
-        return ("mixed-precision refinement in a Schur step (ROADMAP.md "
-                "item 18, solvers/schur.py make_schur_solver)")
+        return ("mixed-precision refinement, which the generic Schur step "
+                "serves (solver.py GenericLMStep)")
     if program.has_bounds:
         return ("bounds (ROADMAP.md item 11, the rest of "
                 "solvers/schur_fused.py)")
@@ -174,8 +191,8 @@ def _common_unsupported(program, options, meta) -> Optional[str]:
         return ("non-Euclidean manifolds in the fused Schur step "
                 "(ROADMAP.md item 11, the rest of solvers/schur_fused.py)")
     if meta is None or len(meta.f_groups) != 1:
-        return ("no single-group Schur structure (ROADMAP.md item 18, the "
-                "rest of solvers/schur.py)")
+        return ("no single-group Schur structure, which the generic Schur "
+                "step serves (solvers/schur.py)")
     return None
 
 
@@ -200,13 +217,14 @@ def _k5_unsupported(program, options, meta) -> Optional[str]:
         return ("a functor that the jet compiler does not trace "
                 "(ROADMAP.md item 11, the generic fused lin phase)")
     if meta.te != TE:
-        return (f"a point block of te = {meta.te} in the explicit step, "
-                "whose K2 and K6 take te = 3 (ROADMAP.md item 40)")
+        return KernelLimit(f"a point block of te = {meta.te} in the explicit "
+                           "step, whose K2 and K6 take te = 3 (ROADMAP.md "
+                           "item 40)")
     if bk.loss is not None and (
             make_loss_spec(bk.loss) is None or len(loss_param_values(
                 bk.loss)) > k5.MAX_LOSS_PARAMS):
-        return ("a robust loss that does not trace to scalar code "
-                "(ROADMAP.md item 9)")
+        return KernelLimit("a robust loss that does not trace to scalar "
+                           "code (ROADMAP.md item 9)")
     return None
 
 
@@ -224,8 +242,8 @@ def _explicit_unsupported(program, options, meta) -> Optional[str]:
         return ("a Schur shape other than Snavely's (2, 3, 9) (ROADMAP.md "
                 "item 11, the generic fused lin phase)")
     if bs.e_slot is None or bs.f_cols is None or bs.chunk_rows is None:
-        return ("no chunk layout for the bucket (ROADMAP.md item 18, the "
-                "rest of solvers/schur.py)")
+        return ("no chunk layout for the bucket, which the generic Schur "
+                "step serves (solvers/schur.py)")
     if not program.tangent_is_ambient or _slab_of(meta.e_cols) != 0 or \
             _slab_of(meta.f_global_cols[grp["cols"]]) != meta.ne * meta.te:
         return ("constant blocks or another state layout than [points | "
@@ -237,26 +255,29 @@ def _explicit_unsupported(program, options, meta) -> Optional[str]:
             return reason
     elif (bk.loss is not None and type(bk.loss) not in K1_ENTRIES
           and torch.device(options.device).type == "cuda"):
-        return (f"{type(bk.loss).__name__} on the Snavely bucket, whose K1 "
-                "runs the stock scalar losses only (ROADMAP.md item 9)")
+        return KernelLimit(f"{type(bk.loss).__name__} on the Snavely "
+                           "bucket, whose K1 runs the stock scalar losses "
+                           "only (ROADMAP.md item 9)")
     if not _explicit_viable(meta):
         return (f"{options.linear_solver_type} on a reduced camera system "
-                "too large to form densely (ROADMAP.md item 18, the rest of "
-                "solvers/schur.py; ITERATIVE_SCHUR runs ImplicitSchurStep "
+                "too large to form densely in the fused step (the generic "
+                "Schur step serves it; ITERATIVE_SCHUR runs ImplicitSchurStep "
                 "there)")
     if meta.nf > MAX_M:
-        return (f"a reduced camera system of m = {meta.nf} > {MAX_M}, past "
-                "the one-block K3 and K7 (ROADMAP.md item 37, K7 and K3 "
-                "beyond m = 1024)")
+        return KernelLimit(f"a reduced camera system of m = {meta.nf} > "
+                           f"{MAX_M}, past the one-block K3 and K7 "
+                           "(ROADMAP.md item 37, K7 and K3 beyond m = "
+                           "1024)")
     return None
 
 
 def unsupported_reason(program, options, meta,
                        implicit: Optional[bool] = None) -> Optional[str]:
-    """Why this configuration is outside the ported slice (naming the
-    ROADMAP.md item that ports it), or None: for the implicit step
-    (implicit=True), the explicit one (False), or the one `schur_step`
-    picks (None)."""
+    """Why the fused step does not serve this configuration (naming the
+    ROADMAP.md item or the step that does), or None: for the implicit
+    step (implicit=True), the explicit one (False), or the one
+    `schur_step` picks (None). A KernelLimit where a port kernel is the
+    cause."""
     reason = _common_unsupported(program, options, meta)
     if reason is not None:
         return reason

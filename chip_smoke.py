@@ -16,8 +16,11 @@ the BAL-16-22106 problem with its cameras written as quaternions
 quaternions (QUAT_IMPLICIT_SCHUR), on the BAL-16-22106 problem with a
 robust loss (ROBUST_PATHS), on the SE2 graph under Ceres's default
 options (SE2_DEFAULT_PATHS), on pose graphs at the pose counts of
-sphere2500 and M3500 (SPARSE_GRAPHS) and on tests/test_solver_e2e.py's
-helloworld, Powell and bounded problems:
+sphere2500 and M3500 (SPARSE_GRAPHS), on the BAL-16-22106 problem under
+Ceres's bundle_adjuster options, f64 (BA_PATHS) and with quaternion
+cameras on the product manifold (QUAT_BA_PATHS), on a problem of
+Trafalgar's shape (257 cameras, 225,911 observations; TRAFALGAR) and on
+tests/test_solver_e2e.py's helloworld, Powell and bounded problems:
 
 1. checks each kernel against its plain PyTorch version on the card, at
    the shapes its path gives it: K1-K4 (slice 1, DENSE_SCHUR; K3 bit for
@@ -84,7 +87,14 @@ helloworld, Powell and bounded problems:
    K9 per row), CGNR + SUBSET on the SE2 1,000 graph (mixed, fused), the
    SE2 1,000 graph f64 static, Covariance there (SPARSE_QR and
    DENSE_SVD, once each) and dynamic_sparsity; helloworld, Powell and
-   the bounded problem, once each;
+   the bounded problem, once each; slice 9 (`ba_paths`, the generic
+   Schur step, the host loop): BA_PATHS (SPARSE_SCHUR + JACOBI, one
+   warm-up and two timed; DENSE_SCHUR, ITERATIVE_SCHUR + SCHUR_JACOBI,
+   DENSE_SCHUR with TRADITIONAL_DOGLEG, one warm-up and one timed each),
+   QUAT_BA_PATHS (f64 SPARSE_SCHUR and mixed DENSE_SCHUR, one warm-up
+   and one timed each), and examples/bundle_adjuster.run at Trafalgar's
+   shape on its defaults (twice, the same state bits) and with
+   --mixed_precision_solves (once);
 3. fails unless every kernel agrees within its limit (K7 with the same CG
    iteration count, K10 bit for bit), every BAL-16-22106 solve ends in
    CONVERGENCE with a final cost within 1e-5 relative of 5.028773e+04,
@@ -127,7 +137,14 @@ helloworld, Powell and bounded problems:
    SUBSET); dynamic_sparsity ends within 1e-8 of the static solve; the
    covariance blocks agree within COVARIANCE_AGREE_TOL between
    SPARSE_QR and DENSE_SVD and within COVARIANCE_REF_TOL of the JAX
-   package's; helloworld (45.125 -> below 1e-12, x = 10), Powell (107.5
+   package's; the bundle_adjuster paths take the generic Schur step,
+   end within their `tol` of the JAX package's cost on its generic route
+   (f64 1e-9) in its LM count (but dogleg's, reported), launch no kernel
+   in f64 and K11 at least once a linearization when mixed, and repeat
+   their counts and cost (SPARSE_SCHUR the state's bits too); each
+   Trafalgar run stops at 5 iterations within its `tol` of the JAX
+   example's cost, every damped solve on the block-sparse S and no dense
+   S formed; helloworld (45.125 -> below 1e-12, x = 10), Powell (107.5
    -> below 1e-12, |x_i| < 2e-3; its LM count beside the 15 of Ceres's
    tutorial) and the bounded problem (clamped at (5, -4) within 1e-6)
    hold their tests' numbers and launch no kernel; the pose-graph,
@@ -412,6 +429,107 @@ def covariance_pairs(positions, yaws):
 # (Cauchy) of it, so the gate stays the main path's 1e-5 (ROADMAP.md
 # section 3). CauchyLoss(1.0) would take ~175 LM iterations there, its
 # runs 7.6e-6 apart.
+# slice 9: Ceres's bundle_adjuster on its own defaults (f64,
+# SPARSE_SCHUR + JACOBI, eta 1e-2, 500 CG iterations at most, the host
+# loop) through the generic Schur step (solvers/schur.py
+# SchurLinearSolver; no kernel runs in f64) on the main path's problem.
+# `ref_cost` and `ref_iterations` (LM) are the JAX package's on the CPU
+# with the same options on its generic route (CERES_TPU_NO_FUSED_SCHUR,
+# the route the port takes; its fused f64 route gives the same LM counts
+# and, but ITERATIVE's last bits, the same costs), by
+# scripts/bundle_adjuster_reference.py --spread --fused. The paths run to
+# convergence (BA_MAX_ITERATIONS) and hold the LM count and the cost
+# within `tol`: BA_F64_REL_TOL, also for ITERATIVE, whose JAX runs from
+# the start scaled by 1 -+ 1e-7 end 4.3e-16 apart with the same counts
+# (6 LM, 77 CG; printed beside the card's), 4.4e-12 from the exact
+# solvers' cost. Dogleg is chaotic here: each Gauss-Newton point is
+# first tried with D = 1e-12, 1e-10, 1e-8, whose D^2 lies at the
+# rounding level of the scaled S of a problem with a 7-dimensional gauge
+# freedom, so whether the Cholesky there passes is decided by rounding:
+# the JAX runs from the start scaled by 1 - 1e-7, 1 + 1e-7 and 1 - 2e-7
+# take 9, 23 and 19 LM to 50461.79 (3.46e-3 above the unscaled run's 16
+# LM to 50287.73; the port on the CPU 11 LM to 50461.7936). Its gate is
+# twice that spread, its LM count reported.
+BA_MAX_ITERATIONS = 100
+BA_F64_REL_TOL = 1e-9
+BA_PATHS = {
+    "BA_SPARSE_SCHUR": dict(
+        options=dict(linear_solver_type="SPARSE_SCHUR"),
+        ref_cost=50287.7269104353, ref_iterations=6, tol=BA_F64_REL_TOL,
+        trials=3),
+    "BA_DENSE_SCHUR": dict(
+        options=dict(linear_solver_type="DENSE_SCHUR"),
+        ref_cost=50287.7269104353, ref_iterations=6, tol=BA_F64_REL_TOL,
+        trials=2),
+    "BA_ITERATIVE_SCHUR": dict(
+        options=dict(linear_solver_type="ITERATIVE_SCHUR",
+                     preconditioner_type="SCHUR_JACOBI"),
+        ref_cost=50287.7269106568, ref_iterations=6, ref_cg=77,
+        tol=BA_F64_REL_TOL, trials=2),
+    "BA_DOGLEG": dict(
+        options=dict(linear_solver_type="DENSE_SCHUR",
+                     trust_region_strategy_type="DOGLEG"),
+        ref_cost=50287.726941923705, ref_iterations=16, tol=7e-3,
+        trials=2),
+}
+# quaternion cameras on the quaternion x Euclidean(6) product manifold
+# (bundle_adjuster --use_quaternions --use_manifolds), quaternion_bal's
+# problem: f64 SPARSE_SCHUR gated as BA_PATHS (the port on the CPU ends
+# 1e-16 from JAX), and mixed DENSE_SCHUR, its Jacobian by K11's auto
+# spec (the product manifold's Plus traced into its jets), gated as
+# QUAT_PATHS are (f32 quaternion BA is chaotic; the JAX runs from the
+# scaled starts end 6.0e-9 apart, the port on the CPU 1.2e-13 from JAX).
+QUAT_BA_PATHS = {
+    "QUAT_BA_SPARSE_SCHUR": dict(
+        options=dict(linear_solver_type="SPARSE_SCHUR"),
+        ref_cost=50287.72691043516, ref_iterations=6, tol=BA_F64_REL_TOL,
+        trials=2),
+    "QUAT_BA_DENSE_SCHUR_MIXED": dict(
+        options=dict(linear_solver_type="DENSE_SCHUR",
+                     use_mixed_precision_solves=True),
+        ref_cost=50287.72691043548, ref_iterations=6, tol=5e-5, trials=2),
+}
+# Trafalgar's shape (BAL problem-257-65132-pre: 257 cameras, 65,132
+# points, 225,911 observations), synthetic, through
+# examples/bundle_adjuster.run on its defaults: f64, SPARSE_SCHUR +
+# JACOBI, 5 iterations (so NO_CONVERGENCE). nf = 2,313 >
+# SPARSE_SCHUR_DENSE_NF, so the reduced system is the block-sparse S on
+# the native LDL^T, in both packages. The main path's seed and sigmas
+# (the example perturbs with --random_seed). `ref_cost` is the JAX
+# example's on the CPU after its 5 iterations (the port on the CPU
+# 7.2e-13 from it); the mixed run's gate is twice the spread of the JAX
+# runs from the start scaled by 1 -+ 1e-7 (1.906e-4 and 3.107e-4; the
+# port on the CPU 1.25e-4).
+TRAFALGAR_ARGS = ["--synthetic_cameras", "257", "--synthetic_points",
+                  "65132", "--synthetic_observations", "225911",
+                  "--random_seed", "7", "--rotation_sigma", "0.1",
+                  "--translation_sigma", "1.0", "--point_sigma", "0.5"]
+TRAFALGAR = {
+    "TRAFALGAR_SPARSE_SCHUR": dict(
+        args=[], ref_cost=126901.6880757548, ref_iterations=5,
+        tol=BA_F64_REL_TOL, trials=2),
+    "TRAFALGAR_SPARSE_SCHUR_MIXED": dict(
+        args=["--mixed_precision_solves"], ref_cost=126909.97029166875,
+        ref_iterations=5, tol=6.3e-4, trials=1),
+}
+
+
+def ba_options(mod, cfg, **extra):
+    """bundle_adjuster's options (examples/bundle_adjuster.py
+    build_options, without progress on stdout) in package `mod`, with
+    cfg["options"] and `extra`, run to BA_MAX_ITERATIONS."""
+    enums = {"linear_solver_type": mod.LinearSolverType,
+             "preconditioner_type": mod.PreconditionerType,
+             "trust_region_strategy_type": mod.TrustRegionStrategyType}
+    kw = dict(max_num_iterations=BA_MAX_ITERATIONS, eta=1e-2,
+              max_linear_solver_iterations=500,
+              preconditioner_type=mod.PreconditionerType.JACOBI)
+    kw.update({k: getattr(enums[k], v) if k in enums else v
+               for k, v in cfg["options"].items()})
+    kw.update(extra)
+    return mod.SolverOptions(**kw)
+
+
 ROBUST_PATHS = {
     "DENSE_SCHUR_HUBER": dict(loss="HuberLoss", a=1.0,
                               ref_cost=42802.14119413595, ref_iterations=48),
@@ -932,6 +1050,166 @@ def sparse_paths(graphs, counters, by_path, cgnr_walls, device="cuda"):
           f"{ {k: [round(w, 4) for w in v] for k, v in sparse_walls.items()} }",
           flush=True)
     return sparse_walls
+
+
+def ba_paths(problem, arrays, reset_state, counters, by_path,
+             device="cuda"):
+    """Slice 9's paths (bundle_adjuster on the generic Schur step) on
+    `device`, each through drive with `counters` (but Trafalgar's, which stop
+    at 5 iterations by design), into `by_path`: BA_PATHS on the main
+    path's `problem` (its user `arrays`, reset by `reset_state`), the
+    SPARSE_SCHUR solves repeating their bits; QUAT_BA_PATHS; TRAFALGAR
+    through examples/bundle_adjuster.run, every damped solve served by
+    the block-sparse S (the solve's SparseSchurContext counts them; the
+    dense S is formed only on the branch that the context replaces), the
+    f64 run twice with the same state bits. Returns the timed walls."""
+    import hashlib
+    import numpy as np
+    import torch
+    import ceres_tpu_torch as ctt
+    from ceres_tpu_torch.examples import bundle_adjuster
+    from ceres_tpu_torch.io import bal as bal_io
+    from ceres_tpu_torch.program import CompiledProgram
+    from ceres_tpu_torch.solvers.schur import detect_schur_structure
+    from ceres_tpu_torch.solvers.schur_sparse import get_sparse_schur_context
+
+    def digest(arrs):
+        h = hashlib.sha256()
+        for a in arrs:
+            h.update(np.ascontiguousarray(a).tobytes())
+        return h.hexdigest()[:16]
+
+    def gate_ba(label, cfg, arrs, per_lin=(), bits=False):
+        """The LM count (but dogleg's), the route, launches: `per_lin`
+        at least once per linearization, no other kernel; with `bits`
+        every solve's final state the same bits."""
+        seen = []
+
+        def gate(summary, launches):
+            n_lm = lm_iterations(summary)
+            n_lin = summary.num_jacobian_evaluations
+            d = digest(arrs)
+            cg = (f" (JAX {cfg['ref_cg']})" if "ref_cg" in cfg else "")
+            rel = abs(summary.final_cost - cfg["ref_cost"]) / cfg["ref_cost"]
+            print(f"  {label}: {n_lm} LM iterations (JAX package on the "
+                  f"CPU: {cfg['ref_iterations']}), "
+                  f"{summary.num_linear_solver_iterations} linear solver "
+                  f"iterations{cg}, {n_lin} linearizations, final cost "
+                  f"{summary.final_cost!r} ({rel:.3e} from JAX, limit "
+                  f"{cfg['tol']:.1e}); state sha256 {d}; "
+                  f"{summary.message.split('Schur step: ')[-1]}", flush=True)
+            if "Schur step: generic" not in summary.message:
+                raise SystemExit(f"{label}: not the generic Schur step")
+            if "DOGLEG" not in label and n_lm != cfg["ref_iterations"]:
+                raise SystemExit(f"{label}: {n_lm} LM iterations, the JAX "
+                                 f"package {cfg['ref_iterations']}")
+            short = [n for n in per_lin if launches[n] < n_lin]
+            stray = [n for n, c in launches.items()
+                     if c and n not in per_lin]
+            if short or stray:
+                raise SystemExit(f"{label}: kernels short of the "
+                                 f"linearizations ({n_lin}): {short}; of "
+                                 f"another path: {stray}")
+            seen.append((n_lm, summary.num_linear_solver_iterations,
+                         summary.final_cost, d if bits else None))
+            if len(set(seen)) != 1:
+                raise SystemExit(f"{label}: solves differ: {seen}")
+        return gate
+
+    walls = {}
+    for label, cfg in BA_PATHS.items():
+        walls[label] = []
+        by_path[label] = drive(
+            f"{label} (bundle_adjuster options, f64, host loop)",
+            ba_options(ctt, cfg, device=device), problem, reset_state,
+            counters, cfg["trials"],
+            gate_ba(label, cfg, arrays, bits=label == "BA_SPARSE_SCHUR"),
+            ref_cost=cfg["ref_cost"], ref_tol=cfg["tol"],
+            walls=walls[label])
+
+    t0 = time.time()
+    q_problem, q_cams, q_pts = bal_io.build_bal_ceres_problem(
+        quaternion_bal(bal_io), use_quaternions=True, use_manifolds=True)
+    q_start = [a.copy() for a in q_cams + q_pts]
+    print(f"quaternion BAL-16 on the product manifold: build "
+          f"{time.time() - t0:.1f} s", flush=True)
+
+    def reset_quat():
+        for a, a0 in zip(q_cams + q_pts, q_start):
+            a[:] = a0
+    for label, cfg in QUAT_BA_PATHS.items():
+        walls[label] = []
+        mixed = cfg["options"].get("use_mixed_precision_solves", False)
+        by_path[label] = drive(
+            f"{label} (product manifold, {'mixed' if mixed else 'f64'}, "
+            f"host loop)", ba_options(ctt, cfg, device=device), q_problem,
+            reset_quat, counters, cfg["trials"],
+            gate_ba(label, cfg, q_cams + q_pts,
+                    per_lin=("K11 bucket_linearize (auto)",) if mixed
+                    else ()),
+            ref_cost=cfg["ref_cost"], ref_tol=cfg["tol"], walls=walls[label])
+    del q_problem
+
+    for label, cfg in TRAFALGAR.items():
+        walls[label], seen = [], []
+        for _ in range(cfg["trials"]):
+            for fn in counters.values():
+                fn.launches = 0
+            torch.cuda.synchronize()
+            t0 = time.time()
+            summary, t_problem, t_options, t_cams, t_pts = \
+                bundle_adjuster.run(TRAFALGAR_ARGS + cfg["args"]
+                                    + ["--device", device])
+            torch.cuda.synchronize()
+            wall = time.time() - t0
+            walls[label].append(wall)
+            launches = {n: fn.launches for n, fn in counters.items()}
+            by_path[label] = launches
+            program = CompiledProgram.get_cached(t_problem, t_options)
+            ctx = get_sparse_schur_context(
+                detect_schur_structure(program, t_options), program,
+                t_options)
+            d = digest(t_cams + t_pts)
+            n_lm = lm_iterations(summary)
+            n_lin = summary.num_jacobian_evaluations
+            rel = abs(summary.final_cost - cfg["ref_cost"]) / cfg["ref_cost"]
+            print(f"{label} (examples/bundle_adjuster.run "
+                  f"{' '.join(cfg['args']) or 'defaults'}): {n_lm} LM "
+                  f"iterations (JAX {cfg['ref_iterations']}), {n_lin} "
+                  f"linearizations, initial cost {summary.initial_cost!r}, "
+                  f"final cost {summary.final_cost!r} ({rel:.3e} from JAX "
+                  f"{cfg['ref_cost']!r}, limit {cfg['tol']:.1e}), "
+                  f"{summary.termination_type}; block-sparse solves "
+                  f"{ctx.solves} of {summary.num_linear_solves} damped "
+                  f"solves; state sha256 {d}; solve "
+                  f"{summary.total_time_in_seconds:.3f} s (preprocessor "
+                  f"{summary.preprocessor_time_in_seconds:.3f}, minimizer "
+                  f"{summary.minimizer_time_in_seconds:.3f}), run() "
+                  f"{wall:.3f} s (problem build included), launches "
+                  f"{ {n: c for n, c in launches.items() if c} }", flush=True)
+            mixed = bool(cfg["args"])
+            k11 = "K11 bucket_linearize"
+            stray = [n for n, c in launches.items()
+                     if c and not (mixed and n == k11)]
+            if not (n_lm == cfg["ref_iterations"] and rel <= cfg["tol"]
+                    and summary.termination_type
+                    == ctt.TerminationType.NO_CONVERGENCE
+                    and summary.is_solution_usable()
+                    and ctx.solves == summary.num_linear_solves > 0
+                    and not stray
+                    and (not mixed or launches[k11] >= max(n_lin, 5))
+                    and "block-sparse S on the native LDL^T"
+                    in summary.message):
+                raise SystemExit(f"{label}: off its reference, route or "
+                                 f"launches")
+            seen.append((n_lm, summary.final_cost, d))
+            if len(set(seen)) != 1:
+                raise SystemExit(f"{label}: runs differ: {seen}")
+            del t_problem, t_cams, t_pts, program, ctx
+    print(f"bundle_adjuster paths' walls (s): "
+          f"{ {k: [round(w, 4) for w in v] for k, v in walls.items()} }",
+          flush=True)
+    return walls
 
 
 def main():
@@ -2011,6 +2289,7 @@ def main():
             ref_cost=cfg["ref_cost"], ref_tol=SE2_DEFAULT_REL_TOL)
 
     sparse_paths(graphs, counters, by_path, cgnr_walls)
+    ba_paths(problem, cams + pts, reset_state, counters, by_path)
 
     # tests/test_solver_e2e.py's helloworld, Powell and bounded problems
     # on the card, at those tests' tolerances

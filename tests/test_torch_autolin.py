@@ -48,6 +48,7 @@ from ceres_tpu_torch.ops.jet_compile import make_auto_spec
 from ceres_tpu_torch.ops.lin import lin_plain
 from ceres_tpu_torch.program import CompiledProgram as TorchProgram
 from ceres_tpu_torch.rotation import angle_axis_rotate_point
+from ceres_tpu_torch.solver import takes_fused_schur_step
 from ceres_tpu_torch.solvers.schur import detect_schur_structure
 from ceres_tpu_torch.solvers.schur_fused import FusedSchurStep
 
@@ -218,11 +219,22 @@ def test_quaternion_solve_matches_jax(name):
 
 
 def test_quaternion_manifold_still_raises():
-    """The product manifold is ported, but the fused Schur step refuses
-    non-Euclidean manifolds: ROADMAP.md item 11."""
+    """Quaternion cameras on the quaternion x Euclidean(6) product
+    manifold build (io/bal.py, as the JAX package does), and the fused
+    Schur step still refuses non-Euclidean manifolds (ROADMAP.md item
+    11), so the solve takes the generic Schur step, whose parity
+    tests/test_torch_schur_solve.py holds."""
+    problem, cams, _ = build_bal_ceres_problem(
+        quaternion_bal(), use_quaternions=True, use_manifolds=True)
+    assert all(type(problem._blocks[id(c)].manifold).__name__
+               == "ProductManifold" for c in cams)
+    opts = main_path_options(ctt)
+    program = TorchProgram(problem, device="cpu")
+    meta = detect_schur_structure(program, opts)
     with pytest.raises(NotImplementedError, match="item 11"):
-        build_bal_ceres_problem(quaternion_bal(), use_quaternions=True,
-                                use_manifolds=True)
+        FusedSchurStep(program, opts, meta)
+    s = ctt.solve(main_path_options(ctt, max_num_iterations=2), problem)
+    assert "Schur step: generic DENSE_SCHUR" in s.message
 
 
 class _HomogeneousPinhole:
@@ -255,7 +267,12 @@ class _Branchy:
     ids=["te4", "untraceable"])
 def test_explicit_step_refuses(functor, point_size, match):
     """A point block of te != 3 (K2 and K6 take te = 3) and a functor the
-    jet compiler cannot trace raise, naming their ROADMAP.md items."""
+    jet compiler cannot trace: the explicit fused step raises, naming its
+    ROADMAP.md item. The untraceable functor, which the JAX package's
+    fused step runs on its generic lin phase, takes the generic Schur
+    step (solver.py takes_fused_schur_step); te = 4, which the JAX
+    package runs on its Pallas kernels, is a port kernel's limit: the
+    solve keeps the fused route and raises."""
     rng = np.random.default_rng(0)
     cams = [np.concatenate([0.05 * rng.standard_normal(3),
                             [0.1 * c, -0.1, 4.0]]) for c in range(4)]
@@ -267,8 +284,16 @@ def test_explicit_step_refuses(functor, point_size, match):
             prob.add_residual_block(ctt.AutoDiffCostFunction(
                 functor(*(0.1 * rng.standard_normal(2))), 2,
                 [6, point_size]), None, cams[c], p)
+    opts = main_path_options(ctt)
+    program = TorchProgram(prob, device="cpu")
+    meta = detect_schur_structure(program, opts)
     with pytest.raises(NotImplementedError, match=match):
-        ctt.solve(main_path_options(ctt), prob)
+        FusedSchurStep(program, opts, meta)
+    kernel_limit = match == "item 40"
+    assert takes_fused_schur_step(program, opts) == kernel_limit
+    if kernel_limit:
+        with pytest.raises(NotImplementedError, match=match):
+            ctt.solve(opts, prob)
 
 
 @pytest.mark.cuda

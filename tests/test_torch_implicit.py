@@ -373,12 +373,15 @@ def test_multi_bucket_implicit_solve_matches_jax(monkeypatch, name):
     assert abs(s_t.final_cost - s_j.final_cost) <= 1e-6 * s_j.final_cost
 
 
-def _large_problem():
+def _large_bal():
     """nf = 4,500 > 4,096: past the explicit cap. Three observations per
     point, so that the points form the eliminated set."""
-    bal = synthetic_bal_problem(num_cameras=500, num_points=5000,
-                                num_observations=15000, seed=3)
-    return torch_problem(bal)
+    return synthetic_bal_problem(num_cameras=500, num_points=5000,
+                                 num_observations=15000, seed=3)
+
+
+def _large_problem():
+    return torch_problem(_large_bal())
 
 
 def test_implicit_regime_is_in_the_slice():
@@ -397,20 +400,46 @@ def test_implicit_regime_is_in_the_slice():
     step = tsf.schur_step(program, opts, meta)
     assert isinstance(step, tsf.ImplicitSchurStep)
     assert step.k10 and "K10" in step.mode
-    with pytest.raises(NotImplementedError, match="item 18"):
+    with pytest.raises(NotImplementedError,
+                       match="too large to form densely in the fused step"):
         tsf.FusedSchurStep(program, opts, meta)
 
 
 @pytest.mark.parametrize("case,item", [("DENSE_SCHUR", "item 18"),
                                        ("f64", "item 11")])
-def test_implicit_regime_refusals(case, item):
-    """Past the explicit cap DENSE_SCHUR still refuses (no dense S), and
-    the implicit mode refuses the f64 step."""
-    extra = ({"linear_solver_type": ctt.LinearSolverType.DENSE_SCHUR}
+def test_implicit_regime_refusals(case, item, monkeypatch):
+    """Past the explicit cap the fused steps refuse DENSE_SCHUR (no dense
+    S in the fused step) and the f64 step (ROADMAP.md item 11); both run
+    on the generic Schur step since the refusals of their `item` were
+    lifted (item 18's SchurOps): DENSE_SCHUR mixed on the dense S (its
+    final cost after one LM iteration within 1e-5 of the JAX package's),
+    f64 ITERATIVE_SCHUR on the matrix-free apply_S (nf > 2048; two LM
+    iterations, the same counts and cost within 1e-9). The JAX package
+    takes its generic route for both (CERES_TPU_NO_FUSED_SCHUR for the
+    f64 one, which it would serve with its fused f64 step)."""
+    extra = ({"linear_solver_type": ctt.LinearSolverType.DENSE_SCHUR,
+              "max_num_iterations": 1}
              if case == "DENSE_SCHUR" else
-             {"use_mixed_precision_solves": False})
-    with pytest.raises(NotImplementedError, match=item):
-        ctt.solve(implicit_options(ctt, **extra), _large_problem())
+             {"use_mixed_precision_solves": False, "max_num_iterations": 2})
+    program = TorchProgram(_large_problem(), device="cpu")
+    opts = implicit_options(ctt, **extra)
+    meta = detect_schur_structure(program, opts)
+    reason = tsf.unsupported_reason(program, opts, meta)
+    assert reason is not None and (case == "DENSE_SCHUR" or item in reason)
+    monkeypatch.setenv("CERES_TPU_NO_FUSED_SCHUR", "1")
+    jextra = {k: (getattr(ct.LinearSolverType, v.name)
+                  if k == "linear_solver_type" else v)
+              for k, v in extra.items()}
+    s_j = ct.solve(implicit_options(ct, **jextra), jax_problem(_large_bal()))
+    s_t = ctt.solve(opts, _large_problem())
+    assert "Schur step: generic" in s_t.message
+    assert ("CG on the implicit S" in s_t.message) == (case == "f64")
+    assert s_t.num_iterations == s_j.num_iterations
+    tol = 1e-5 if case == "DENSE_SCHUR" else 1e-9
+    assert abs(s_t.final_cost - s_j.final_cost) <= tol * s_j.final_cost
+    if case == "f64":
+        assert s_t.num_linear_solver_iterations == \
+            s_j.num_linear_solver_iterations
 
 
 # ---- on the card ----

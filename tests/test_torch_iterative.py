@@ -29,6 +29,8 @@ from ceres_tpu.solvers.schur import detect_schur_structure as jax_detect
 from ceres_tpu_torch.ops.lin import elim_v1
 from ceres_tpu_torch.ops.pcg import dense_pcg
 from ceres_tpu_torch.program import CompiledProgram as TorchProgram
+from ceres_tpu_torch.solver import takes_fused_schur_step
+from ceres_tpu_torch.solvers import schur_fused as tsf
 from ceres_tpu_torch.solvers.schur import detect_schur_structure
 from ceres_tpu_torch.solvers.schur_fused import FusedSchurStep, spd_inv_small
 
@@ -138,12 +140,19 @@ def _bal_problem(num_cameras, num_points):
 @pytest.mark.parametrize("case,item", [
     ("implicit", "item 11"), ("spse", "item 14"), ("m_over_1024", "item 37"),
     ("cluster_jacobi", "item 36")])
-def test_out_of_slice_raises(case, item):
-    """The f64 step in the implicit regime (nf > 4096; the mixed step
-    there is slice 4, tests/test_torch_implicit.py), the SPSE warm start,
-    a reduced system past the one-block kernels (m > 1024) and a
-    preconditioner the fused path does not serve raise
-    NotImplementedError naming the ROADMAP.md item that ports them."""
+def test_out_of_slice_raises(case, item, monkeypatch):
+    """What stays outside the fused steps raises NotImplementedError
+    naming the ROADMAP.md item that ports it: the fused implicit step in
+    f64 (nf > 4096; the mixed step there is slice 4,
+    tests/test_torch_implicit.py), a reduced system past the one-block
+    kernels (m > 1024) in the fused explicit step, and, in the solve, a
+    preconditioner that no Schur route serves (CLUSTER_JACOBI). The solve
+    runs the f64 implicit case on the generic Schur step; m > 1024, which
+    the JAX package runs on its Pallas kernels, is a port kernel's limit
+    and keeps the fused route, so the solve raises. The SPSE warm start,
+    which the fused step refused until item 14 took it to the generic
+    Schur step, runs there and matches the JAX package's mixed solve
+    within 1e-5 (tests/test_torch_schur_solve.py holds it in f64)."""
     extra, problem = {}, None
     if case == "implicit":
         problem = _bal_problem(500, 5000)          # nf = 4,500
@@ -155,5 +164,26 @@ def test_out_of_slice_raises(case, item):
     if problem is None:
         problem = torch_problem(small_bal())
     pc = "CLUSTER_JACOBI" if case == "cluster_jacobi" else "SCHUR_JACOBI"
-    with pytest.raises(NotImplementedError, match=item):
-        ctt.solve(iterative_options(ctt, pc, **extra), problem)
+    opts = iterative_options(ctt, pc, **extra)
+    if case == "cluster_jacobi":
+        with pytest.raises(NotImplementedError, match=item):
+            ctt.solve(opts, problem)
+    elif case == "spse":
+        monkeypatch.setenv("CERES_TPU_NO_FUSED_SCHUR", "1")
+        s_j = ct.solve(iterative_options(ct, pc, **extra),
+                       jax_problem(small_bal()))
+        s_t = ctt.solve(opts, problem)
+        assert "Schur step: generic ITERATIVE_SCHUR" in s_t.message
+        assert abs(s_t.final_cost - s_j.final_cost) <= 1e-5 * s_j.final_cost
+    else:
+        program = TorchProgram(problem, device="cpu")
+        meta = detect_schur_structure(program, opts)
+        step_cls = (tsf.ImplicitSchurStep if case == "implicit"
+                    else FusedSchurStep)
+        with pytest.raises(NotImplementedError, match=item):
+            step_cls(program, opts, meta)
+        kernel_limit = case == "m_over_1024"
+        assert takes_fused_schur_step(program, opts) == kernel_limit
+        if kernel_limit:
+            with pytest.raises(NotImplementedError, match=item):
+                ctt.solve(opts, problem)

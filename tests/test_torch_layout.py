@@ -23,6 +23,7 @@ from ceres_tpu_torch.ops.cost import snavely_sq
 from ceres_tpu_torch.ops.kernels import chol_solve
 from ceres_tpu_torch.ops.lin import elim, lin
 from ceres_tpu_torch.program import CompiledProgram as TorchProgram
+from ceres_tpu_torch.solver import takes_fused_schur_step
 from ceres_tpu_torch.solvers.schur import detect_schur_structure
 from ceres_tpu_torch.solvers import schur_fused as tsf
 from ceres_tpu_torch.solvers.schur_fused import FusedSchurStep
@@ -181,17 +182,41 @@ def test_cpu_solve_launches_no_kernel():
     dict(trust_region_strategy_type=ctt.TrustRegionStrategyType.DOGLEG),
     dict(minimizer_type=ctt.MinimizerType.LINE_SEARCH),
 ])
-def test_out_of_slice_options_raise(extra):
-    with pytest.raises(NotImplementedError):
-        ctt.solve(main_path_options(ctt, **extra),
-                  torch_problem(small_bal()))
+def test_out_of_slice_options_raise(extra, monkeypatch):
+    """CLUSTER_JACOBI, inner iterations and line search raise
+    NotImplementedError. The f64 step and dogleg with a Schur solver,
+    which raised until the generic Schur step (ROADMAP.md item 18) took
+    them, run there and match the JAX package's generic route: f64 with
+    its LM count and final cost within 1e-9, mixed dogleg within 1e-5."""
+    runs = ("use_mixed_precision_solves" in extra
+            or "trust_region_strategy_type" in extra)
+    if not runs:
+        with pytest.raises(NotImplementedError):
+            ctt.solve(main_path_options(ctt, **extra),
+                      torch_problem(small_bal()))
+        return
+    monkeypatch.setenv("CERES_TPU_NO_FUSED_SCHUR", "1")
+    jextra = {k: (ct.TrustRegionStrategyType.DOGLEG
+                  if k == "trust_region_strategy_type" else v)
+              for k, v in extra.items()}
+    s_j = ct.solve(main_path_options(ct, **jextra), jax_problem(small_bal()))
+    s_t = ctt.solve(main_path_options(ctt, **extra),
+                    torch_problem(small_bal()))
+    assert "Schur step: generic DENSE_SCHUR" in s_t.message
+    assert s_t.termination_type == ctt.TerminationType.CONVERGENCE
+    if "use_mixed_precision_solves" in extra:
+        assert s_t.num_iterations == s_j.num_iterations
+        assert abs(s_t.final_cost - s_j.final_cost) <= 1e-9 * s_j.final_cost
+    else:
+        assert abs(s_t.final_cost - s_j.final_cost) <= 1e-5 * s_j.final_cost
 
 
 def test_robust_loss_on_cuda_raises_not_implemented():
     """The CUDA linearize kernel runs the stock scalar losses (one K1
-    instance a class); a composed loss has none, and the step refuses it
-    before any tensor reaches the card, naming ROADMAP.md item 9. A
-    HuberLoss passes the gate."""
+    instance a class); a composed loss has none: the solve keeps the
+    fused step's route (a port kernel's limit is not handed to the
+    generic Schur step) and the step refuses it, naming ROADMAP.md item
+    9. A HuberLoss passes the gate."""
     opts = main_path_options(ctt, device="cuda")
     for loss, refused in ((ctt.ScaledLoss(ctt.HuberLoss(1.0), 2.0), True),
                           (ctt.HuberLoss(1.0), False)):
@@ -201,6 +226,7 @@ def test_robust_loss_on_cuda_raises_not_implemented():
         reason = tsf.unsupported_reason(program, opts, meta)
         if refused:
             assert "item 9" in reason
+            assert takes_fused_schur_step(program, opts)
             with pytest.raises(NotImplementedError, match="item 9"):
                 FusedSchurStep(program, opts, meta)
         else:

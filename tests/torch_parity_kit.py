@@ -135,3 +135,94 @@ def pallas_interpret():
     finally:
         del os.environ["CERES_TPU_PALLAS_INTERPRET"]
 
+
+
+# ---- the generic Schur route (solvers/schur.py, schur_sparse.py) ----
+
+class JaxCameraPrior:
+    """A prior pulling a camera toward zero: residual w * camera [9]."""
+
+    def __init__(self, w):
+        self.w = w
+
+    def __call__(self, camera):
+        return self.w * camera
+
+
+class TorchCameraPrior(JaxCameraPrior):
+    pass
+
+
+def schur_bal():
+    """6 cameras, 80 points, 400 observations (five a point), perturbed."""
+    bal = synthetic_bal_problem(num_cameras=6, num_points=80,
+                                num_observations=400, seed=3,
+                                pixel_noise=1.0)
+    bal.perturb(rotation_sigma=0.02, translation_sigma=0.1,
+                point_sigma=0.05, seed=4)
+    return bal
+
+
+def schur_problem(mod, bal, prior=True, constant_camera=True,
+                  duplicates=True, heavy_point=True, loss=None):
+    """bal's Snavely blocks in package `mod`, and, each optional: a prior
+    on cameras 0-4 (an f-only bucket), camera 5 constant (its
+    observations an e-only bucket), a HuberLoss(1.0) bucket that observes
+    every fourth (camera, point) pair of bal again (duplicate rows across
+    two buckets) and, with heavy_point, point 0's observations eight
+    times more (one point of 40-odd rows in that bucket: past the JAX
+    package's padding guard, so that bucket keeps observation order
+    there). Returns (problem, camera arrays, point arrays)."""
+    build = jax_build if mod is ct else torch_build
+    snav = JaxSnavely if mod is ct else SnavelyReprojectionError
+    problem, cams, pts = build(bal, loss=loss)
+    if duplicates:
+        rows = list(range(0, bal.num_observations, 4))
+        if heavy_point:
+            rows += [i for i in range(bal.num_observations)
+                     if bal.point_index[i] == 0] * 8
+        for i in rows:
+            ox, oy = bal.observations[i]
+            problem.add_residual_block(
+                mod.AutoDiffCostFunction(snav(ox, oy), 2, [9, 3]),
+                mod.HuberLoss(1.0), cams[bal.camera_index[i]],
+                pts[bal.point_index[i]])
+    if prior:
+        prior_cls = JaxCameraPrior if mod is ct else TorchCameraPrior
+        for c in cams[:5]:
+            problem.add_residual_block(
+                mod.AutoDiffCostFunction(prior_cls(0.1), 9, [9]), None, c)
+    if constant_camera:
+        problem.set_parameter_block_constant(cams[5])
+    return problem, cams, pts
+
+
+def enum_options(mod, **kw):
+    """SolverOptions of package `mod` from keyword options whose enum
+    values may be given by name (device="cpu" for the port)."""
+    enums = {"linear_solver_type": "LinearSolverType",
+             "preconditioner_type": "PreconditionerType",
+             "trust_region_strategy_type": "TrustRegionStrategyType",
+             "dogleg_type": "DoglegType"}
+    kw = {k: (getattr(getattr(mod, enums[k]), v)
+              if k in enums and isinstance(v, str) else v)
+          for k, v in kw.items()}
+    if mod is ctt:
+        kw.setdefault("device", "cpu")
+    return mod.SolverOptions(**kw)
+
+
+@contextlib.contextmanager
+def jax_generic_schur(sparse=False):
+    """The JAX package on its generic Schur route (CERES_TPU_NO_FUSED_SCHUR,
+    the route the port takes for the f64 step), and with sparse on its
+    block-sparse SPARSE_SCHUR at any size (CERES_TPU_FORCE_SPARSE_SCHUR)."""
+    keys = ["CERES_TPU_NO_FUSED_SCHUR"] + (
+        ["CERES_TPU_FORCE_SPARSE_SCHUR"] if sparse else [])
+    for k in keys:
+        os.environ[k] = "1"
+    try:
+        yield
+    finally:
+        for k in keys:
+            del os.environ[k]

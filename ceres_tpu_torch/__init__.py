@@ -14,16 +14,23 @@ without Schur structure on the generic step, pose-graph SLAM
 (examples/slam.py) first, with SPARSE_NORMAL_CHOLESKY on the package's
 native host LDL^T (native.py, built with g++ at first use), CGNR with
 block Jacobi or SUBSET, dynamic sparsity; Covariance (DENSE_SVD,
-SPARSE_QR); and the stock manifolds. Module names mirror the JAX
-package's; this package imports torch and never jax.
+SPARSE_QR); the stock manifolds; the line-search minimizer (steepest
+descent, nonlinear CG, L-BFGS, BFGS; Armijo or Wolfe) on a Problem or a
+GradientProblem; and TinySolver, one small dense problem or a batch.
+Module names mirror the JAX package's; this package imports torch and
+never jax.
 """
 
 from .types import (  # noqa: F401
-    CallbackReturnType, CovarianceAlgorithmType, DoglegType, DumpFormatType,
-    EvaluationCallback, IterationSummary,
-    LinearSolverType, MinimizerType, NumericDiffMethodType, OrderingType,
-    ParameterBlockOrdering, PreconditionerType, SolverOptions,
-    SolverSummary, TerminationType, TrustRegionStrategyType,
+    CallbackReturnType, CovarianceAlgorithmType,
+    DenseLinearAlgebraLibraryType, DoglegType, DumpFormatType,
+    EvaluationCallback,
+    IterationSummary, LineSearchDirectionType, LineSearchInterpolationType,
+    LineSearchType, LinearSolverType, LoggingType, MinimizerType,
+    NonlinearConjugateGradientType, NumericDiffMethodType, OrderingType,
+    ParameterBlockOrdering, PreconditionerType, SolverOptions, SolverSummary,
+    SparseLinearAlgebraLibraryType,
+    TerminationType, TrustRegionStrategyType, VisibilityClusteringType,
 )
 from .loss import (  # noqa: F401
     ArctanLoss, CauchyLoss, ComposedLoss, HuberLoss, LossFunction,
@@ -42,6 +49,14 @@ from .cost import (  # noqa: F401
 from .problem import Problem, ResidualBlockId  # noqa: F401
 from .solver import Solver, solve  # noqa: F401
 from .covariance import Covariance, CovarianceOptions  # noqa: F401
+from .gradient_problem import (  # noqa: F401
+    AutoDiffFirstOrderFunction, FirstOrderFunction, GradientProblem,
+    GradientProblemSolver, NumericDiffFirstOrderFunction,
+    solve_gradient_problem,
+)
+from .tiny_solver import (  # noqa: F401
+    TinySolver, TinySolverOptions, TinySolverResult, tiny_solve,
+)
 from . import rotation  # noqa: F401
 
 __version__ = "0.1.0"

@@ -16,10 +16,12 @@ With no --input, a synthetic BAL problem is generated
 (--synthetic_cameras / _points / _observations, seeded by
 --random_seed), since BAL data files are not in the repository.
 --initial_ply / --final_ply write the cameras and points as a point
-cloud (bundle_adjuster.cc WriteToPLYFile). Flags of configurations the
-port does not run raise NotImplementedError naming their ROADMAP.md
-items: --inner_iterations (22), --line_search (25), --num_devices > 1
-(30), --preconditioner cluster_jacobi / cluster_tridiagonal (36, 21).
+cloud (bundle_adjuster.cc WriteToPLYFile). --line_search runs the
+line-search minimizer (L-BFGS with Wolfe searches, the defaults) instead
+of the trust region. Flags of configurations the port does not run raise
+NotImplementedError naming their ROADMAP.md items: --inner_iterations
+(22), --num_devices > 1 (30), --preconditioner cluster_jacobi /
+cluster_tridiagonal (36, 21).
 """
 
 from __future__ import annotations
@@ -39,10 +41,6 @@ def check_flags(args):
         raise NotImplementedError(
             "--inner_iterations: inner iterations are not ported yet "
             "(ROADMAP.md item 22, minimizers/coordinate_descent.py)")
-    if args.line_search:
-        raise NotImplementedError(
-            "--line_search: the line-search minimizer is not ported yet "
-            "(ROADMAP.md item 25, minimizers/line_search.py)")
     if args.num_devices > 1:
         raise NotImplementedError(
             "--num_devices > 1: sharded solves are not ported yet "
@@ -59,7 +57,8 @@ def build_options(ctt, args):
     from ..types import VisibilityClusteringType
     return ctt.SolverOptions(
         max_num_iterations=args.num_iterations,
-        minimizer_type=ctt.MinimizerType.TRUST_REGION,
+        minimizer_type=(ctt.MinimizerType.LINE_SEARCH if args.line_search
+                        else ctt.MinimizerType.TRUST_REGION),
         trust_region_strategy_type=_enum(ctt.TrustRegionStrategyType,
                                          args.trust_region_strategy),
         dogleg_type=_enum(ctt.DoglegType, args.dogleg),

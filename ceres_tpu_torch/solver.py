@@ -6,7 +6,8 @@ _make_linear_solver, :34; make_scale_impl, :94; _maybe_downgrade_options,
 solver on a problem without Schur structure, build the step of the
 configuration, run it in the fused LM loop (minimizers/fused.py) or in
 the host-loop trust-region minimizer (minimizers/trust_region.py) as the
-JAX package decides (:547-590), and write back. The steps:
+JAX package decides (:547-590), or run the line-search minimizer
+(minimizers/line_search.py, :591-593), and write back. The steps:
   - the fused Schur step (DENSE_SCHUR, ITERATIVE_SCHUR on an explicit S,
     or ITERATIVE_SCHUR in the implicit mode past the explicit cap; the
     summary's message names the mode),
@@ -41,6 +42,7 @@ import numpy as np
 import torch
 
 from .minimizers.fused import run_fused
+from .minimizers.line_search import minimize_line_search
 from .minimizers.trust_region import minimize_trust_region
 from .ops.bsr import BlockJacobian, RVec, block_diag_jtj
 from .program import CompiledProgram
@@ -70,10 +72,6 @@ SPARSE_DENSE_CAP = 200
 
 def _check_slice(options):
     """Raise NotImplementedError for an option outside the slice."""
-    if options.minimizer_type != MinimizerType.TRUST_REGION:
-        raise NotImplementedError(
-            "line search is not ported yet (ROADMAP.md item 25, "
-            "minimizers/line_search.py)")
     if options.use_inner_iterations:
         raise NotImplementedError(
             "inner iterations are not ported yet (ROADMAP.md item 22, "
@@ -654,23 +652,27 @@ def solve(options: SolverOptions, problem,
         return summary
 
     options = _maybe_downgrade_options(options, program, summary)
-    steps = program.__dict__.setdefault("_fused_steps", {})
-    key = options.cache_key()
-    if key not in steps:
-        steps[key] = make_step(program, options)
-    step = steps[key]
     summary.linear_solver_type_used = options.linear_solver_type
     summary.preconditioner_type_used = options.preconditioner_type
-    summary.preprocessor_time_in_seconds = time.time() - t0
-
-    if options.fused_iterations and not needs_host_loop(options, program):
-        x = run_fused(program, options, summary, step)
+    if options.minimizer_type == MinimizerType.LINE_SEARCH:
+        summary.preprocessor_time_in_seconds = time.time() - t0
+        x = minimize_line_search(program, options, summary)
     else:
-        x = minimize_trust_region(program, options, step, summary)
-    if isinstance(step, SchurStep):
-        summary.message += f" Schur step: {step.mode}."
-    elif getattr(step.linear, "schur", None) is not None:
-        summary.message += f" Schur step: {step.linear.schur.mode}."
+        steps = program.__dict__.setdefault("_fused_steps", {})
+        key = options.cache_key()
+        if key not in steps:
+            steps[key] = make_step(program, options)
+        step = steps[key]
+        summary.preprocessor_time_in_seconds = time.time() - t0
+        if options.fused_iterations and not needs_host_loop(options,
+                                                            program):
+            x = run_fused(program, options, summary, step)
+        else:
+            x = minimize_trust_region(program, options, step, summary)
+        if isinstance(step, SchurStep):
+            summary.message += f" Schur step: {step.mode}."
+        elif getattr(step.linear, "schur", None) is not None:
+            summary.message += f" Schur step: {step.linear.schur.mode}."
 
     t0 = time.time()
     if summary.is_solution_usable():

@@ -48,6 +48,14 @@ def _cho_solve(L, b):
     return torch.cholesky_solve(b[:, None], L)[:, 0]
 
 
+def cholesky_solve(S, b):
+    """y with S y = b for a dense SPD S [m, m] by the library Cholesky
+    (torch.linalg.cholesky_ex: cuSOLVER on the card, LAPACK on the CPU),
+    all NaN when S is not positive definite; nothing is read on the
+    host."""
+    return _cho_solve(_cholesky(S), b)
+
+
 def solve_dense_normal_cholesky(jac: BlockJacobian, res: RVec, D,
                                 mixed_precision: bool = False,
                                 refinement_iterations: int = 0):

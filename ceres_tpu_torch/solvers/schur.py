@@ -45,6 +45,7 @@ from ..ops.bsr import BlockJacobian, ColumnSum, RVec, column_sum_for
 from ..ops.kernels import row_grams
 from ..types import LinearSolverType, PreconditionerType
 from .cg import conjugate_gradients
+from .dense import cholesky_solve
 from .preconditioners import spd_inv_small
 
 
@@ -731,10 +732,7 @@ class SchurLinearSolver:
             if self.sparse is not None:
                 y = self.sparse.reduced_solve(ops, ops.rhs(b_e, b_f))
             else:
-                S, rhs = ops.explicit_S_and_rhs(b_e, b_f)
-                L, info = torch.linalg.cholesky_ex(S)
-                y = torch.cholesky_solve(rhs[:, None], L)[:, 0]
-                y = torch.where(info == 0, y, torch.full_like(y, float("nan")))
+                y = cholesky_solve(*ops.explicit_S_and_rhs(b_e, b_f))
         else:
             rhs = ops.rhs(b_e, b_f)
             precond = ops.make_preconditioner(self.precond_kind)

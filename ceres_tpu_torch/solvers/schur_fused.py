@@ -22,13 +22,16 @@ places as the JAX package:
     the scaled point Grams, the clipped diagonal, the scaled camera Grams.
   solve (once per damped trial), DENSE_SCHUR:
     K2 -> S_corr, rhs part, inv, z;  S = blockdiag(F^T F_s + D_f^2) - S_corr;
-    K3 -> y;  back-substitution d_e = inv (b_e - A y);  the model cost
+    K3 -> y (m = nf <= MAX_M; past it the library Cholesky, where the
+    JAX package takes XLA's cho_factor; NaN for an indefinite S either
+    way);  back-substitution d_e = inv (b_e - A y);  the model cost
     change from the exact direct solve, ||J_s d||^2 = d.b - ||D d||^2.
   solve, ITERATIVE_SCHUR:
     inv = (E^T E_s + D_e^2)^-1, z = inv b_e in PyTorch;
     K6 -> S_corr, rhs part from inv and z;  S as above;
     the preconditioner's inverted diagonal blocks (IDENTITY, JACOBI or
-    SCHUR_JACOBI); K7 -> y and the CG iteration count;  the same
+    SCHUR_JACOBI); K7 -> y and the CG iteration count (m <= MAX_M;
+    past it `explicit_cg`, solvers/cg.py on the dense S);  the same
     back-substitution; ||J_s d||^2 from the Gram identity
     d_e^T E^T E_s d_e + 2 d_e.(A y) + y^T blockdiag(F^T F_s) y, since
     an inexact CG step breaks the direct solve's identity.
@@ -72,9 +75,10 @@ from ..ops.jet_compile import (loss_param_values, make_auto_spec,
 from ..ops.kernels import MAX_M, chol_solve
 from ..ops.linearize import is_snavely_bucket
 from ..ops.lin import K1_ENTRIES, elim, elim_v1, lin, spd_inv3
-from ..ops.pcg import dense_pcg
+from ..ops.pcg import _block_apply, dense_pcg
 from ..types import LinearSolverType, PreconditionerType
 from .cg import conjugate_gradients
+from .dense import cholesky_solve
 from .preconditioners import spd_inv_small
 from .schur_sparse import use_sparse_schur
 
@@ -89,7 +93,7 @@ _FUSED_PRECONDITIONERS = (PreconditionerType.IDENTITY,
 class KernelLimit(str):
     """A refusal of a configuration that the JAX package's fused step
     runs on its Pallas kernels but a kernel of the port cannot take
-    (ROADMAP.md items 9, 37, 39 and 40). The configuration keeps the
+    (ROADMAP.md items 9, 39 and 40). The configuration keeps the
     fused step's route (solver.py takes_fused_schur_step), whose
     constructor raises it: the generic Schur step does not stand in for
     a kernel. Every other refusal names a configuration that the generic
@@ -263,11 +267,6 @@ def _explicit_unsupported(program, options, meta) -> Optional[str]:
                 "too large to form densely in the fused step (the generic "
                 "Schur step serves it; ITERATIVE_SCHUR runs ImplicitSchurStep "
                 "there)")
-    if meta.nf > MAX_M:
-        return KernelLimit(f"a reduced camera system of m = {meta.nf} > "
-                           f"{MAX_M}, past the one-block K3 and K7 "
-                           "(ROADMAP.md item 37, K7 and K3 beyond m = "
-                           "1024)")
     return None
 
 
@@ -294,6 +293,21 @@ def schur_step(program, options, meta):
     cls = ImplicitSchurStep if implicit_mode(options, meta) else \
         FusedSchurStep
     return cls(program, options, meta)
+
+
+def explicit_cg(S, b, minv_blocks, *, max_iterations: int,
+                min_iterations: int = 0, q_tolerance: float = 0.0):
+    """The reduced CG past MAX_M (the JAX fused step's XLA CG loop,
+    ceres_tpu schur_fused.py:868-881): solvers/cg.py over torch.mv(S, .)
+    from y0 = 0, the [kf, tf, tf] inverted blocks applied as K7 applies
+    them (None for IDENTITY), K7's stopping rule. Returns (y, iterations
+    as a device int32)."""
+    res = conjugate_gradients(
+        lambda v: torch.mv(S, v), b, torch.zeros_like(b),
+        apply_preconditioner=_block_apply(minv_blocks, S.shape[0]),
+        max_iterations=max_iterations, min_iterations=min_iterations,
+        q_tolerance=q_tolerance)
+    return res.x, res.num_iterations
 
 
 def precond_blocks(P_blocks, S, kf, tf, kind):
@@ -606,8 +620,17 @@ class FusedSchurStep(SchurStep):
             self.dat = auto.data_matrix(bk)[safe].contiguous()
         # the camera-sorted rows of K1's or K5's camera-side sums
         self.plan = k5.camera_plan(self.cam, self.mask, self.kf)
+        # the reduced solve, from m alone, the same on every device: the
+        # one-block K3 or K7 up to MAX_M, past it the library Cholesky or
+        # CG (where the JAX package takes XLA's cho_factor and CG loop)
+        self.library = self.nf > MAX_M
+        solve = (("CG on the explicit S (solvers/cg.py)" if self.library
+                  else "K7 dense_pcg") if self.iterative else
+                 ("library Cholesky (torch.linalg.cholesky_ex)"
+                  if self.library else "K3 chol_solve"))
         self.mode = ("explicit reduced camera matrix, linearize "
-                     + ("K1" if self.k5 is None else "K5"))
+                     + ("K1" if self.k5 is None else "K5")
+                     + f", reduced solve: {solve}, m = {self.nf}")
         # a direct solve is one linear iteration (kept on the device)
         self.one = torch.ones((), dtype=torch.int32, device=dev)
 
@@ -694,11 +717,15 @@ class FusedSchurStep(SchurStep):
         kf, nf = self.kf, self.nf
         S, rhs, inv, rad = self.reduced_system(art, radius)
         if self.iterative:
-            y, lin_iters, _ = dense_pcg(S, rhs,
-                                        self.precond_inverse(art, S, rad),
-                                        **self.pcg_args)
+            minv = self.precond_inverse(art, S, rad)
+            if self.library:
+                y, lin_iters = explicit_cg(S, rhs, minv, **self.pcg_args)
+            else:
+                y, lin_iters, _ = dense_pcg(S, rhs, minv, **self.pcg_args)
         else:
-            y, lin_iters = chol_solve(S, rhs), self.one
+            y = cholesky_solve(S, rhs) if self.library else chol_solve(S,
+                                                                       rhs)
+            lin_iters = self.one
         sA = art.s_f.reshape(nf)
 
         # back-substitution: d_e = inv (b_e - A y)

@@ -19,8 +19,12 @@ options (SE2_DEFAULT_PATHS), on pose graphs at the pose counts of
 sphere2500 and M3500 (SPARSE_GRAPHS), on the BAL-16-22106 problem under
 Ceres's bundle_adjuster options, f64 (BA_PATHS) and with quaternion
 cameras on the product manifold (QUAT_BA_PATHS), on a problem of
-Trafalgar's shape (257 cameras, 225,911 observations; TRAFALGAR) and on
-tests/test_solver_e2e.py's helloworld, Powell and bounded problems:
+Trafalgar's shape (257 cameras, 225,911 observations; TRAFALGAR), on
+Trafalgar-126's shape (126 cameras, 40,037 points, 148,117
+observations; FUSED_LARGE_M: nf 1,134, past the one-block K3 and K7),
+on gradient problems and tiny least-squares batches (LINE_SEARCH_REF's
+paths) and on tests/test_solver_e2e.py's helloworld, Powell and bounded
+problems:
 
 1. checks each kernel against its plain PyTorch version on the card, at
    the shapes its path gives it: K1-K4 (slice 1, DENSE_SCHUR; K3 bit for
@@ -50,7 +54,11 @@ tests/test_solver_e2e.py's helloworld, Powell and bounded problems:
    and CauchyLoss(2.0) (its loss instances) on the main path's first
    linearization; K9's per-row form (slice 8) on each whole bucket of
    the SE3 graph's scaled first linearization, as the mixed
-   SPARSE_NORMAL_CHOLESKY step forms its Grams; times each, its plain
+   SPARSE_NORMAL_CHOLESKY step forms its Grams; K1, K2, K6 and K4
+   (slice 10) on Trafalgar-126's first linearization (K2 and K6 each
+   output within F32_LIMIT or twice its plain version's own distance
+   from the f64 run), and times the library Cholesky and the reduced CG
+   on its first reduced systems; times each, its plain
    version
    and, where one PyTorch call computes the same function, that call,
    with CUDA events (median of 20 single calls; the kernel also as the
@@ -94,7 +102,14 @@ tests/test_solver_e2e.py's helloworld, Powell and bounded problems:
    QUAT_BA_PATHS (f64 SPARSE_SCHUR and mixed DENSE_SCHUR, one warm-up
    and one timed each), and examples/bundle_adjuster.run at Trafalgar's
    shape on its defaults (twice, the same state bits) and with
-   --mixed_precision_solves (once);
+   --mixed_precision_solves (once); slice 10 (`fused_large_m_paths`):
+   Trafalgar-126's shape with bench.py's DENSE_SCHUR and ITERATIVE_SCHUR
+   + SCHUR_JACOBI, one warm-up and one timed each; and
+   (`line_search_paths`) the tutorial's Rosenbrock, the extended
+   Rosenbrock in EXT_ROSENBROCK_N parameters (one warm-up, one timed),
+   bundle_adjuster --line_search on BAL-16-22106 and tiny_solve on
+   TINY_BATCH problems (one warm-up, one timed, then the same batch on
+   the CPU);
 3. fails unless every kernel agrees within its limit (K7 with the same CG
    iteration count, K10 bit for bit), every BAL-16-22106 solve ends in
    CONVERGENCE with a final cost within 1e-5 relative of 5.028773e+04,
@@ -144,7 +159,16 @@ tests/test_solver_e2e.py's helloworld, Powell and bounded problems:
    their counts and cost (SPARSE_SCHUR the state's bits too); each
    Trafalgar run stops at 5 iterations within its `tol` of the JAX
    example's cost, every damped solve on the block-sparse S and no dense
-   S formed; helloworld (45.125 -> below 1e-12, x = 10), Powell (107.5
+   S formed; each Trafalgar-126 solve names its route past MAX_M,
+   launches no K3 or K7, K1 once a linearization, K2 (DENSE) or K6
+   (ITERATIVE) and K4 at least once an LM iteration and nothing else,
+   stops at the JAX package's 50 iterations within its `tol` of the JAX
+   cost and repeats its count and cost; the line-search paths launch no
+   kernel, the Rosenbrocks keep the JAX package's iteration counts (the
+   extended one its final cost within 10x), the BA line search ends
+   within its `tol`, and the tiny batch matches the JAX package's count
+   digest, converged flags and sum of x, and the port's CPU batch problem
+   by problem; helloworld (45.125 -> below 1e-12, x = 10), Powell (107.5
    -> below 1e-12, |x_i| < 2e-3; its LM count beside the 15 of Ceres's
    tutorial) and the bounded problem (clamped at (5, -4) within 1e-6)
    hold their tests' numbers and launch no kernel; the pose-graph,
@@ -174,6 +198,11 @@ REF_FINAL_COST = 50287.73       # the f64 DENSE_SCHUR final cost
 REF_REL_TOL = 1e-5
 F32_LIMIT = 1e-5                # K1, K2, K6: f32 kernels, other sum order
 F64_LIMIT = 1e-12               # K4: f64 kernel
+CG_LIMIT = 1e-3                 # the reduced CG past MAX_M (f32, on the
+#   card) against the same CG in f64 on the CPU for as many iterations,
+#   relative to the largest entry of y: on the CPU at nf 1,170 the f32 CG
+#   is 1.5e-5 from the f64 one after its 2 iterations; a wrong product or
+#   preconditioner block moves y by 1e-1 and more
 # K3 and K10 round every product and sum apart in their plain versions'
 # order, so the two give the same bits
 K3_LIMIT = K10_LIMIT = 0.0
@@ -528,6 +557,138 @@ def ba_options(mod, cfg, **extra):
                for k, v in cfg["options"].items()})
     kw.update(extra)
     return mod.SolverOptions(**kw)
+
+
+# Trafalgar-126's published shape (BAL problem-126-40037-pre: 126
+# cameras, 40,037 points, 148,117 observations), synthetic (the BAL files
+# are not in the repository), the main path's seed and PERTURB, under
+# bench.py's options (large_m_options): mixed DENSE_SCHUR and explicit
+# ITERATIVE_SCHUR + SCHUR_JACOBI on the fused step. nf = 1,134 is past
+# the one-block K3 and K7 (MAX_M = 1,024): the reduced solve is the
+# library Cholesky or solvers/cg.py's CG on the dense S, and K1, K2 or
+# K6, and K4 run at nf 1,134. The synthetic ring of cameras, each point
+# seen by ~3.7 neighbours, is loosely tied: neither package converges in
+# bench.py's 50 iterations, so each run stops at the cap. `ref_cost` is
+# the JAX package's fused step on the CPU after them
+# (scripts/slice10_reference.py --paths large_m --spread, run on the
+# card's machine with the JAX package on its CPU); `tol` twice the
+# spread of its runs from the start scaled by 1 -+ 1e-7: DENSE 33, 34
+# and 33 accepted steps, 1.931e-3 and 7.488e-3 from the unscaled run;
+# ITERATIVE 37, 34 and 37 accepted, 247, 1,104 and 181 CG iterations,
+# 1.303e-1 and 8.429e-2 (an inexact CG step in a creeping trajectory).
+LARGE_M_SHAPE = dict(num_cameras=126, num_points=40037,
+                     num_observations=148117)
+FUSED_LARGE_M = {
+    "FUSED_LARGE_M_DENSE": dict(
+        solver="DENSE_SCHUR", ref_cost=97989.776558559, ref_iterations=50,
+        ref_termination="NO_CONVERGENCE", tol=1.5e-2, trials=2,
+        kernels=("K1 lin", "K2 elim", "K4 cost")),
+    "FUSED_LARGE_M_ITERATIVE": dict(
+        solver="ITERATIVE_SCHUR", ref_cost=110964.85671244198,
+        ref_iterations=50, ref_termination="NO_CONVERGENCE", tol=2.61e-1,
+        trials=2, kernels=("K1 lin", "K6 elim_v1", "K4 cost")),
+}
+
+
+def large_m_options(mod, solver, **extra):
+    """bench.py's options with linear solver `solver` (by name) in
+    package `mod`."""
+    kw = dict(linear_solver_type=getattr(mod.LinearSolverType, solver),
+              preconditioner_type=mod.PreconditionerType.SCHUR_JACOBI,
+              max_num_iterations=50, function_tolerance=1e-6,
+              max_linear_solver_iterations=100,
+              use_mixed_precision_solves=True, fused_iterations=True)
+    kw.update(extra)
+    return mod.SolverOptions(**kw)
+
+
+# The line-search minimizer (slice 10), f64, its host loop, no kernel:
+# the tutorial's Rosenbrock through GradientProblemSolver (L-BFGS; the
+# JAX example's iteration count), the extended Rosenbrock function
+# (More, Garbow and Hillstrom's problem 21 at its standard start) in
+# EXT_ROSENBROCK_N parameters by AutoDiffFirstOrderFunction (L-BFGS,
+# Wolfe; the JAX package's count and final cost), bundle_adjuster
+# --line_search on BAL-16-22106 (BA_LS_ARGS: L-BFGS, Wolfe, 50
+# iterations; the cost within twice the spread of the JAX example's runs
+# from the start scaled by 1 -+ 1e-9, at least 1e-8), and tiny_solve on
+# TINY_BATCH seeded Rosenbrock least-squares problems at once (against
+# the JAX package's jax.vmap: the converged flags, the sum of the
+# solutions, and each problem's iteration count where it is at most
+# TINY_EXACT_MAX, by tiny_counts_digest; problem by problem against the
+# port's own batch on the CPU). The ~3% of the problems that take more
+# creep along the valley with a shrinking radius, and the last-bit
+# differences of the two packages' arithmetic move the counts of 0.26%
+# of them (all past 62 iterations), each still converging to its
+# minimum: on the CPU the packages' x lie within 6.3e-11 of each other. References: scripts/slice10_reference.py
+# --paths rosenbrock,extended,ba_ls,tiny --spread.
+EXT_ROSENBROCK_N = 1_000_000
+BA_LS_ARGS = ["--synthetic_cameras", "16", "--synthetic_points", "22106",
+              "--synthetic_observations", "83718", "--random_seed", "7",
+              "--rotation_sigma", "0.1", "--translation_sigma", "1.0",
+              "--point_sigma", "0.5", "--line_search", "--num_iterations",
+              "50"]
+TINY_BATCH = 65536
+TINY_EXACT_MAX = 50
+# The BA line search stops at its cap mid-descent: the JAX runs from the
+# scaled starts end 1.339e-1 and 1.287e-1 from the unscaled run (655,
+# 662, 653 probes).
+LINE_SEARCH_REF = dict(
+    rosenbrock_iterations=17,
+    extended=dict(iterations=17, final_cost=3.2274888082438e-22,
+                  termination="CONVERGENCE"),
+    ba_ls=dict(final_cost=116522.24427716131, iterations=50,
+               termination="NO_CONVERGENCE", tol=2.68e-1),
+    tiny=dict(counts_digest=("47f0ebd834d57b30", 2169), converged=65536,
+              x_sum=196622.43696154346),
+)
+
+
+def extended_rosenbrock(T):
+    """The extended Rosenbrock function in array module T (torch, or
+    jax.numpy in the reference script): sum over the pairs of
+    (1 - x_2i)^2 + 100 (x_2i+1 - x_2i^2)^2."""
+    def f(x):
+        a, b = x[0::2], x[1::2]
+        return T.sum((1.0 - a) ** 2 + 100.0 * (b - a * a) ** 2)
+    return f
+
+
+def extended_rosenbrock_start(n):
+    """The standard start, (-1.2, 1) in every pair (numpy)."""
+    import numpy as np
+    return np.tile([-1.2, 1.0], n // 2)
+
+
+def tiny_problems(n, seed=0):
+    """n Rosenbrock least-squares problems r = (10 (x1 - x0^2), a - x0),
+    minimum (a, a^2), a in [0.5, 2), starts around (-1.2, 1): (a [n],
+    x0 [n, 2]) as numpy."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    a = rng.uniform(0.5, 2.0, n)
+    x0 = np.array([-1.2, 1.0]) + 0.5 * rng.standard_normal((n, 2))
+    return a, x0
+
+
+def tiny_residual(T):
+    def f(x, a):
+        return T.stack([10.0 * (x[1] - x[0] ** 2), a - x[0]])
+    return f
+
+
+TINY_OPTIONS = dict(max_num_iterations=200)
+
+
+def tiny_counts_digest(counts):
+    """(sha256 of the (index, count) pairs with count <= TINY_EXACT_MAX,
+    the number of problems above it) of an int array of counts."""
+    import hashlib
+    import numpy as np
+    counts = np.asarray(counts).astype(np.int32)
+    idx = np.flatnonzero(counts <= TINY_EXACT_MAX).astype(np.int32)
+    pairs = np.stack([idx, counts[idx]], axis=1)
+    return (hashlib.sha256(pairs.tobytes()).hexdigest()[:16],
+            int(counts.size - idx.size))
 
 
 ROBUST_PATHS = {
@@ -1212,6 +1373,400 @@ def ba_paths(problem, arrays, reset_state, counters, by_path,
     return walls
 
 
+def kernel_counters():
+    """Every kernel wrapper by name (each counts its launches)."""
+    from ceres_tpu_torch.ops import lin_auto as k5
+    from ceres_tpu_torch.ops.cost import snavely_sq
+    from ceres_tpu_torch.ops.implicit import implicit_apply
+    from ceres_tpu_torch.ops.kernels import (
+        CHOL_VARIANTS, bucket_gram_blocks, bucket_jtjv, chol_solve,
+        group_gram_blocks)
+    from ceres_tpu_torch.ops.lin import elim, elim_v1, lin
+    from ceres_tpu_torch.ops.linearize import (bucket_linearize,
+                                               bucket_linearize_auto)
+    from ceres_tpu_torch.ops.pcg import dense_pcg
+    return {"K1 lin": lin, "K2 elim": elim,
+            "K3 chol_solve": chol_solve,
+            "K3 chol_solve (shared)": CHOL_VARIANTS["shared"],
+            "K3 chol_solve (global)": CHOL_VARIANTS["global"],
+            "K4 cost": snavely_sq,
+            "K6 elim_v1": elim_v1, "K7 dense_pcg": dense_pcg,
+            "K8 bucket_jtjv": bucket_jtjv,
+            "K9 group_gram_blocks": group_gram_blocks,
+            "K9 bucket_gram_blocks (per row)": bucket_gram_blocks,
+            "K10 implicit_apply": implicit_apply,
+            "K11 bucket_linearize": bucket_linearize,
+            "K11 bucket_linearize (auto)": bucket_linearize_auto,
+            "K5 lin_auto": k5.lin_auto}
+
+
+def scorr_flops(ne_, nf_):
+    """K2's and K6's operations: S_corr = sum A^T (inv A) with Y = inv A
+    first, the upper triangle of S_corr (2 * 3 * nf (nf + 1) / 2 a point;
+    the kernel forms it alone at nf <= 160 and mirrors it, past that the
+    upper tile pairs), Y itself (18 nf) and rhs (6 nf); K2 adds 45 a
+    point for the inverse. Every camera column of each point's A is
+    walked, the zero blocks too."""
+    return ne_ * (3 * nf_ * (nf_ + 1) + 24 * nf_)
+
+
+def fused_large_m_paths(counters, by_path, kernels, device="cuda"):
+    """Slice 10's FUSED_LARGE_M: Trafalgar-126's shape under bench.py's
+    options. Checks K1, K2, K6 and K4 at its shapes (nf 1,134) against
+    their plain versions and adds them to `kernels`; times the library
+    Cholesky and the reduced CG on the first reduced systems; then drives
+    each path (a warm-up and a timed solve), every count from 0 before
+    each: the route past MAX_M named in the summary, K3 and K7 never
+    launched, K1 once a linearization, K2 or K6 and K4 at least once an
+    LM iteration, no other kernel; the JAX package's termination, the
+    cost within `tol` of its reference (the LM count where it gates
+    one)."""
+    import torch
+    import ceres_tpu_torch as ctt
+    from ceres_tpu_torch.io.bal import (build_bal_ceres_problem,
+                                        synthetic_bal_problem)
+    from ceres_tpu_torch.ops.cost import snavely_sq, snavely_sq_plain
+    from ceres_tpu_torch.ops.kernels import MAX_M
+    from ceres_tpu_torch.ops.lin import (elim, elim_plain, elim_v1,
+                                         elim_v1_plain, lin, lin_plain)
+    from ceres_tpu_torch.program import CompiledProgram
+    from ceres_tpu_torch.solvers.dense import cholesky_solve
+    from ceres_tpu_torch.solvers.schur import detect_schur_structure
+    from ceres_tpu_torch.solvers.schur_fused import (FusedSchurStep,
+                                                     explicit_cg)
+
+    t0 = time.time()
+    bal = synthetic_bal_problem(**LARGE_M_SHAPE, seed=7, pixel_noise=1.0)
+    bal.perturb(**PERTURB, seed=8)
+    problem, cams, pts = build_bal_ceres_problem(bal)
+    arrays = cams + pts
+    start = [a.copy() for a in arrays]
+
+    def reset():
+        for a, a0 in zip(arrays, start):
+            a[:] = a0
+    opts = {label: large_m_options(ctt, cfg["solver"], device=device)
+            for label, cfg in FUSED_LARGE_M.items()}
+    d_opts, i_opts = opts.values()
+    program = CompiledProgram.get_cached(problem, d_opts)
+    meta = detect_schur_structure(program, d_opts)
+    step = FusedSchurStep(program, d_opts, meta)
+    it_step = FusedSchurStep(program, i_opts, meta)
+    ne, nf, kf = step.ne, step.nf, step.kf
+    nobs = LARGE_M_SHAPE["num_observations"]
+    print(f"FUSED_LARGE_M: problem and steps {time.time() - t0:.1f} s; "
+          f"ne={ne} k={step.cam.shape[1]} kf={kf} nf={nf} (MAX_M {MAX_M}); "
+          f"DENSE {step.mode}; ITERATIVE {it_step.mode}", flush=True)
+    if not (step.library and it_step.library and nf > MAX_M):
+        raise SystemExit("FUSED_LARGE_M: not the route past MAX_M")
+
+    # ---- K1, K2, K6 and K4 at nf 1,134 against their plain versions ----
+    x0 = program.initial_state()
+    xe = x0[step.e_slab:step.e_slab + 3 * ne].view(ne, 3).float()
+    xf = x0[step.f_slab:step.f_slab + nf].float()
+    se0, _ = step.initial_scales()
+    lin_args = (xf, xe, step.cam, step.mask, step.dat, se0, True)
+
+    def cmp_dict(got, want):
+        return [rel_err(got[k], want[k]) for k in want]
+
+    def cmp_all(got, want):
+        return [rel_err(a, b) for a, b in zip(got, want)]
+    added = []
+    added.append(check_kernel(
+        f"K1 lin (nf {nf})", lambda: lin(*lin_args, plan=step.plan),
+        lambda: lin_plain(*lin_args[:4], step.dat[..., 0],
+                          step.dat[..., 1], *lin_args[5:]),
+        cmp_dict, F32_LIMIT, "ceres_tpu_torch/csrc/lin.cu",
+        "ceres_tpu/ops/pallas_lin.py:66", lin_args, 516 * nobs,
+        F32_FLOP_PER_S))
+    art = step.linearize(x0, *step.initial_scales(), True)
+    elim_args = (art.A, art.etes, art.gse, art.diag_e, RADIUS)
+    print(f"FUSED_LARGE_M: A {tuple(art.A.shape)}, "
+          f"{art.A.numel() * 4 / 1e9:.3f} GB", flush=True)
+
+    def own_limits(name, kernel, plain, args):
+        """Each output's limit: F32_LIMIT, or twice the plain version's
+        own distance from its f64 run on these inputs where that is
+        larger (points seen by two or three cameras have near-singular
+        E^T E blocks, whose f32 inverses the plain version itself holds
+        only to ~1e-5 here); both distances printed. The kernel is held
+        to the f64 run within these limits too, so that a kernel farther
+        from f64 than the plain version fails."""
+        want32 = plain(*args)
+        want64 = plain(*[a.double() if torch.is_tensor(a) else a
+                         for a in args])
+        got = kernel(*args)
+        own = [rel_err(w, w64)[0] for w, w64 in zip(want32, want64)]
+        mine = [rel_err(g, w64)[0] for g, w64 in zip(got, want64)]
+        print(f"{name}: the plain version (f32) from its f64 run "
+              f"{', '.join(f'{e:.3e}' for e in own)}; the kernel from the "
+              f"f64 run {', '.join(f'{e:.3e}' for e in mine)}", flush=True)
+        limits = [max(F32_LIMIT, 2.0 * e) for e in own]
+        if not all(e <= lim for e, lim in zip(mine, limits)):
+            raise SystemExit(f"{name}: the kernel is off the f64 run")
+        return limits
+    k2_limit = own_limits(f"K2 elim (nf {nf})", elim, elim_plain, elim_args)
+    added.append(check_kernel(
+        f"K2 elim (nf {nf})", lambda: elim(*elim_args),
+        lambda: elim_plain(*elim_args), cmp_all, k2_limit,
+        "ceres_tpu_torch/csrc/elim.cu", "ceres_tpu/ops/pallas_lin.py:424",
+        elim_args[:4], scorr_flops(ne, nf) + 45 * ne, F32_FLOP_PER_S))
+    rad = torch.tensor(RADIUS, dtype=torch.float32, device=device)
+    inv, z = it_step.point_inverse(art, rad)
+    k6_limit = own_limits(f"K6 elim_v1 (nf {nf})", elim_v1, elim_v1_plain,
+                          (art.A, inv, z))
+    added.append(check_kernel(
+        f"K6 elim_v1 (nf {nf})", lambda: elim_v1(art.A, inv, z),
+        lambda: elim_v1_plain(art.A, inv, z), cmp_all, k6_limit,
+        "ceres_tpu_torch/csrc/elim.cu", "ceres_tpu/ops/pallas_lin.py:387",
+        (art.A, inv, z), scorr_flops(ne, nf), F32_FLOP_PER_S))
+    k4 = step.k4
+    added.append(check_kernel(
+        f"K4 cost (nf {nf})", lambda: snavely_sq(x0, k4),
+        lambda: snavely_sq_plain(x0, k4), lambda g, w: [rel_err(g, w)],
+        F64_LIMIT, "ceres_tpu_torch/csrc/cost.cu",
+        "ceres_tpu/ops/pallas_cost.py:147",
+        (x0[k4.e_slab:k4.e_slab + 3 * k4.ne],
+         x0[k4.f_slab:k4.f_slab + 9 * k4.kf], k4.pt_idx, k4.cam_idx,
+         k4.obsx, k4.obsy), 60 * k4.n, F64_FLOP_PER_S))
+    for rec, path in zip(added, ("FUSED_LARGE_M_DENSE",
+                                 "FUSED_LARGE_M_DENSE",
+                                 "FUSED_LARGE_M_ITERATIVE",
+                                 "FUSED_LARGE_M_DENSE")):
+        rec["counter"] = rec["name"].split(" (")[0]
+        MAIN_PATH[rec["name"]] = path
+    kernels.extend(added)
+    # the reduced solves past MAX_M, at the first linearization
+    S, rhs, _, _ = step.reduced_system(art, RADIUS)
+    S_it, rhs_it, _, _ = it_step.reduced_system(art, RADIUS)
+    minv = it_step.precond_inverse(art, S_it, rad)
+    y = cholesky_solve(S, rhs)
+    y_cg, n_cg = explicit_cg(S_it, rhs_it, minv, **it_step.pcg_args)
+    chol_ms = median_ms(lambda: cholesky_solve(S, rhs))
+    cg_ms = median_ms(lambda: explicit_cg(S_it, rhs_it, minv,
+                                          **it_step.pcg_args))
+    solve_ms = median_ms(lambda: torch.linalg.solve(S, rhs))
+    # the Cholesky's backward error: its f64 residual against ||rhs||
+    chol_rel = float(torch.linalg.vector_norm(
+        S.double() @ y.double() - rhs.double())
+        / torch.linalg.vector_norm(rhs.double()))
+    # the card's reduced CG against the same CG in f64 on the CPU: as many
+    # iterations (CG_LIMIT), and its stopping rule's own count within one
+    # (the q-test compares a ratio with eta, which f32 moves by a step)
+    n_cg = int(n_cg)
+    cpu64 = [t.double().cpu() for t in (S_it, rhs_it, minv)]
+    y64, _ = explicit_cg(*cpu64, max_iterations=n_cg,
+                         min_iterations=n_cg)
+    _, n64 = explicit_cg(*cpu64, **it_step.pcg_args)
+    cg_rel = rel_err(y_cg.cpu(), y64)[0]
+    del cpu64, y64
+    print(f"FUSED_LARGE_M reduced solves at m {nf}: library Cholesky "
+          f"(torch.linalg.cholesky_ex + cholesky_solve) {chol_ms:.4f} ms, "
+          f"relative residual {chol_rel:.3e} (bound "
+          f"{bound(8 * nf * nf + 8 * nf, nf ** 3 / 3 + 2 * nf * nf, F32_FLOP_PER_S)[0]:.5f} ms); "
+          f"torch.linalg.solve {solve_ms:.4f} ms; reduced CG (solvers/cg.py"
+          f", SCHUR_JACOBI) {cg_ms:.4f} ms for {int(n_cg)} iterations "
+          f"({cg_ms / max(n_cg, 1):.4f} ms an iteration), from the f64 "
+          f"CG on the CPU {cg_rel:.3e} (limit {CG_LIMIT:.0e}), whose own "
+          f"stopping rule took {int(n64)}", flush=True)
+    if not (chol_rel <= 1e-4 and cg_rel <= CG_LIMIT
+            and abs(int(n64) - n_cg) <= 1):
+        raise SystemExit("FUSED_LARGE_M: the reduced solves are off")
+    del art, elim_args, inv, z, S, rhs, S_it, rhs_it, minv, y, y_cg
+
+    # ---- the solves ----
+    walls, fails = {}, []
+    for label, cfg in FUSED_LARGE_M.items():
+        seen, walls[label] = [], []
+        for trial in range(cfg["trials"]):
+            reset()
+            for fn in counters.values():
+                fn.launches = 0
+            torch.cuda.synchronize()
+            t0 = time.time()
+            summary = ctt.solve(opts[label], problem)
+            torch.cuda.synchronize()
+            wall = time.time() - t0
+            launches = {n: fn.launches for n, fn in counters.items()}
+            n_lm = summary.num_iterations
+            ref = cfg["ref_cost"]
+            rel = (abs(summary.final_cost - ref) / ref if ref else
+                   float("nan"))
+            kind = "warm-up" if trial == 0 else "timed"
+            if trial:
+                walls[label].append(wall)
+            print(f"{label} {kind} solve: {n_lm} LM iterations "
+                  f"({summary.num_successful_steps} accepted; JAX "
+                  f"{cfg['ref_iterations']}), "
+                  f"{summary.num_linear_solver_iterations} linear solver "
+                  f"iterations, initial cost {summary.initial_cost!r}, final "
+                  f"cost {summary.final_cost!r} ({rel:.3e} from JAX "
+                  f"{ref!r}, limit {cfg['tol']}), {summary.termination_type}"
+                  f", wall {wall:.4f} s, launches "
+                  f"{ {n: c for n, c in launches.items() if c} }; "
+                  f"{summary.message.split('Schur step: ')[-1]}",
+                  flush=True)
+            by_path[label] = launches
+            route = ("CG on the explicit S" if cfg["solver"]
+                     == "ITERATIVE_SCHUR" else "library Cholesky")
+            short = [n for n in cfg["kernels"][1:] if launches[n] < n_lm]
+            n1 = launches["K1 lin"]
+            stray = [n for n, c in launches.items()
+                     if c and n not in cfg["kernels"]]
+            if (f"reduced solve: {route}" not in summary.message or short
+                    or stray or not summary.num_successful_steps <= n1
+                    <= n_lm + 1):
+                raise SystemExit(f"{label}: route or launches off (short "
+                                 f"{short}, stray {stray}, K1 {n1})")
+            if ref is None or not (
+                    str(summary.termination_type) == cfg["ref_termination"]
+                    and rel <= cfg["tol"]
+                    and (cfg["ref_iterations"] is None
+                         or n_lm == cfg["ref_iterations"])):
+                fails.append(f"{label} off the JAX package's run")
+            seen.append((n_lm, summary.final_cost))
+            if len(set(seen)) != 1:
+                fails.append(f"{label}: solves differ: {seen}")
+    print(f"FUSED_LARGE_M walls (s): {walls}", flush=True)
+    del problem, program, step, it_step
+    if fails:
+        raise SystemExit(f"FUSED_LARGE_M: {fails}")
+    return walls
+
+
+def line_search_paths(counters, by_path, device="cuda"):
+    """Slice 10's LINE_SEARCH_PATHS (LINE_SEARCH_REF), each with every
+    kernel count from 0 and no kernel launched: the tutorial's Rosenbrock,
+    the extended Rosenbrock in EXT_ROSENBROCK_N parameters, bundle_adjuster
+    --line_search on BAL-16-22106 and a tiny_solve batch of TINY_BATCH
+    problems (against the JAX package's iteration counts, converged flags
+    and sum of the solutions, and problem by problem against the same
+    batch run by the port on the CPU)."""
+    import numpy as np
+    import torch
+    import ceres_tpu_torch as ctt
+    from ceres_tpu_torch.examples import bundle_adjuster, tutorial
+    ref = LINE_SEARCH_REF
+
+    def zero():
+        for fn in counters.values():
+            fn.launches = 0
+        torch.cuda.synchronize()
+        return time.time()
+
+    def done(label, t0):
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        launches = {n: fn.launches for n, fn in counters.items()}
+        by_path[label] = launches
+        stray = [n for n, c in launches.items() if c]
+        if stray:
+            raise SystemExit(f"{label}: kernels launched: {stray}")
+        return wall
+
+    fails = []
+    # the tutorial's Rosenbrock (GradientProblemSolver, L-BFGS)
+    t0 = zero()
+    x, s = tutorial.rosenbrock(device=device)
+    wall = done("LS_ROSENBROCK", t0)
+    n_it = len(s.iterations) - 1
+    print(f"LS_ROSENBROCK: {n_it} iterations (JAX "
+          f"{ref['rosenbrock_iterations']}), final cost {s.final_cost!r}, "
+          f"x {x.tolist()}, {s.termination_type}, wall {wall:.4f} s",
+          flush=True)
+    if not (n_it == ref["rosenbrock_iterations"]
+            and np.abs(x - 1.0).max() < 1e-6):
+        fails.append("LS_ROSENBROCK")
+
+    # the extended Rosenbrock function, EXT_ROSENBROCK_N parameters
+    n = EXT_ROSENBROCK_N
+    fn = ctt.AutoDiffFirstOrderFunction(extended_rosenbrock(torch), n)
+    ext = ref["extended"]
+    for trial in range(2):
+        x = extended_rosenbrock_start(n)
+        t0 = zero()
+        s = ctt.solve_gradient_problem(ctt.SolverOptions(
+            minimizer_type=ctt.MinimizerType.LINE_SEARCH,
+            max_num_iterations=200, device=device),
+            ctt.GradientProblem(fn), x)
+        wall = done("LS_EXTENDED_ROSENBROCK", t0)
+        n_it = len(s.iterations) - 1
+        print(f"LS_EXTENDED_ROSENBROCK (n {n}, L-BFGS, Wolfe) "
+              f"{'warm-up' if trial == 0 else 'timed'}: {n_it} iterations "
+              f"(JAX {ext['iterations']}), {s.num_line_search_steps} probes,"
+              f" initial cost {s.initial_cost!r}, final cost "
+              f"{s.final_cost!r} (JAX {ext['final_cost']!r}), "
+              f"{s.termination_type} ({s.message}), max |x - 1| "
+              f"{np.abs(x - 1.0).max():.3e}, wall {wall:.3f} s", flush=True)
+    if not (n_it == ext["iterations"]
+            and str(s.termination_type) == ext["termination"]
+            and s.final_cost <= max(10.0 * ext["final_cost"],
+                                    1e-12 * s.initial_cost)):
+        fails.append("LS_EXTENDED_ROSENBROCK")
+
+    # bundle_adjuster --line_search on BAL-16-22106, f64
+    ba = ref["ba_ls"]
+    t0 = zero()
+    s = bundle_adjuster.run(BA_LS_ARGS + ["--device", device])[0]
+    wall = done("LS_BUNDLE_ADJUSTER", t0)
+    n_it = len(s.iterations) - 1
+    rel = (abs(s.final_cost - ba["final_cost"]) / ba["final_cost"]
+           if ba["final_cost"] else float("nan"))
+    print(f"LS_BUNDLE_ADJUSTER (bundle_adjuster {' '.join(BA_LS_ARGS)}): "
+          f"{n_it} iterations (JAX {ba['iterations']}), "
+          f"{s.num_line_search_steps} probes, initial cost "
+          f"{s.initial_cost!r}, final cost {s.final_cost!r} ({rel:.3e} from "
+          f"JAX {ba['final_cost']!r}, limit {ba['tol']}), "
+          f"{s.termination_type}, solve {s.total_time_in_seconds:.3f} s, "
+          f"run() {wall:.3f} s", flush=True)
+    if not (str(s.termination_type) == ba["termination"]
+            and rel <= ba["tol"]):
+        fails.append("LS_BUNDLE_ADJUSTER")
+
+    # tiny_solve on TINY_BATCH problems at once
+    a, x0 = tiny_problems(TINY_BATCH)
+    f = tiny_residual(torch)
+    opts = ctt.TinySolverOptions(**TINY_OPTIONS)
+    for trial in range(2):
+        t0 = zero()
+        got = ctt.tiny_solve(f, torch.tensor(x0, device=device), opts,
+                             args=(torch.tensor(a, device=device),))
+        wall = done("LS_TINY_SOLVER", t0)
+        print(f"LS_TINY_SOLVER ({TINY_BATCH} problems) "
+              f"{'warm-up' if trial == 0 else 'timed'}: wall {wall:.4f} s, "
+              f"{int(got.iterations.max())} loop iterations", flush=True)
+    t0 = time.time()
+    cpu = ctt.tiny_solve(f, torch.tensor(x0), opts, args=(torch.tensor(a),))
+    cpu_wall = time.time() - t0
+    counts = got.iterations.cpu().numpy().astype(np.int32)
+    cpu_counts = cpu.iterations.numpy()
+    xs = got.x.cpu().numpy()
+    digest = tiny_counts_digest(counts)
+    tiny = ref["tiny"]
+    exact = (counts <= TINY_EXACT_MAX) | (cpu_counts <= TINY_EXACT_MAX)
+    moved = int((counts != cpu_counts).sum())
+    x_cpu = float(np.abs(xs - cpu.x.numpy()).max())
+    x_sum = float(xs.sum())
+    sol = np.stack([a, a * a], axis=1)
+    print(f"LS_TINY_SOLVER: {int(counts.sum())} iterations in all, at most "
+          f"{int(counts.max())}; counts digest {digest} (JAX "
+          f"{tiny['counts_digest']}), converged {int(got.converged.sum())} "
+          f"(JAX {tiny['converged']}), sum of x {x_sum!r} (JAX "
+          f"{tiny['x_sum']!r}); the port's CPU batch ({cpu_wall:.2f} s): "
+          f"{moved} counts differ (none may at most {TINY_EXACT_MAX}), x "
+          f"within {x_cpu:.3e}; max |x - (a, a^2)| "
+          f"{float(np.abs(xs - sol).max()):.3e}", flush=True)
+    if not (tuple(digest) == tuple(tiny["counts_digest"])
+            and np.array_equal(counts[exact], cpu_counts[exact])
+            and x_cpu <= 1e-10
+            and int(got.converged.sum()) == tiny["converged"]
+            and abs(x_sum - tiny["x_sum"]) <= 1e-12 * abs(tiny["x_sum"])):
+        fails.append("LS_TINY_SOLVER")
+    if fails:
+        raise SystemExit(f"LINE_SEARCH_PATHS: off the JAX package: {fails}")
+
+
 def main():
     import numpy as np
     import torch
@@ -1228,7 +1783,7 @@ def main():
     from ceres_tpu_torch.examples import slam
     from ceres_tpu_torch.io import g2o
     from ceres_tpu_torch.ops.kernels import (
-        CHOL_VARIANTS, _chol_launch, bucket_gram_blocks,
+        _chol_launch, bucket_gram_blocks,
         bucket_gram_blocks_plain, bucket_jtjv, bucket_jtjv_plain, chol_solve,
         chol_solve_plain, gram_sum, group_gram_blocks,
         group_gram_blocks_plain)
@@ -1267,7 +1822,6 @@ def main():
     native.library()
     print(f"native library build (g++, csrc/ceres_native.cpp): "
           f"{time.time() - t0:.1f} s", flush=True)
-
     t0 = time.time()
     bal = synthetic_bal_problem(**SHAPE, seed=7, pixel_noise=1.0)
     bal.perturb(**PERTURB, seed=8)
@@ -1318,13 +1872,6 @@ def main():
     # observation (E^T E 36, g_e 12, A 108, F^T F 324, g_f 36); the
     # residual and Jacobian arithmetic is left out, so this is a floor
     lin_flops = 516 * nobs
-    # K2/K6: S_corr = sum A^T (inv A) with Y = inv A first; the kernel
-    # forms the upper triangle only at nf <= 160 and mirrors it, so the
-    # bound counts that triangle (2 * 3 * nf (nf + 1) / 2 per point), Y
-    # itself (18 nf) and rhs (6 nf); K2 adds 45 a point for the inverse
-
-    def scorr_flops(ne_, nf_):
-        return ne_ * (3 * nf_ * (nf_ + 1) + 24 * nf_)
 
     def cmp_lin(got, want):
         return [rel_err(got[k], want[k]) for k in want]
@@ -1944,19 +2491,7 @@ def main():
     del qbig_art, qbig_inv, qJe_s, qJf_s, qplan0, k10_q
 
     # ---- the paths: solves on the card ----
-    counters = {"K1 lin": lin, "K2 elim": elim,
-                "K3 chol_solve": chol_solve,
-                "K3 chol_solve (shared)": CHOL_VARIANTS["shared"],
-                "K3 chol_solve (global)": CHOL_VARIANTS["global"],
-                "K4 cost": snavely_sq,
-                "K6 elim_v1": elim_v1, "K7 dense_pcg": dense_pcg,
-                "K8 bucket_jtjv": bucket_jtjv,
-                "K9 group_gram_blocks": group_gram_blocks,
-                "K9 bucket_gram_blocks (per row)": bucket_gram_blocks,
-                "K10 implicit_apply": implicit_apply,
-                "K11 bucket_linearize": bucket_linearize,
-                "K11 bucket_linearize (auto)": bucket_linearize_auto,
-                "K5 lin_auto": k5.lin_auto}
+    counters = kernel_counters()
 
     def gate_path(label, runs, never):
         def gate(summary, launches):
@@ -2290,6 +2825,8 @@ def main():
 
     sparse_paths(graphs, counters, by_path, cgnr_walls)
     ba_paths(problem, cams + pts, reset_state, counters, by_path)
+    fused_large_m_paths(counters, by_path, kernels)
+    line_search_paths(counters, by_path)
 
     # tests/test_solver_e2e.py's helloworld, Powell and bounded problems
     # on the card, at those tests' tolerances

@@ -10,7 +10,8 @@ f64 SPARSE_SCHUR with its fused f64 step, which the port does not have;
 ROADMAP.md section 3), the same LM count and final cost within 1e-9;
 and mixed, where both packages take their fused step, within 1e-5. The
 PLY files it writes. Each flag the port does not run raises
-NotImplementedError naming its ROADMAP.md item.
+NotImplementedError naming its ROADMAP.md item; --line_search runs and
+matches the JAX example.
 """
 
 import pytest
@@ -60,12 +61,26 @@ def test_main_matches_jax(flags, tmp_path):
 
 @pytest.mark.parametrize("flags,item", [
     (["--inner_iterations"], "item 22"),
-    (["--line_search"], "item 25"),
+    (["--line_search"], None),
     (["--num_devices", "2"], "item 30"),
     (["--preconditioner", "cluster_jacobi"], "item 36"),
     (["--preconditioner", "cluster_tridiagonal"], "item 21"),
 ], ids=["inner_iterations", "line_search", "num_devices",
         "cluster_jacobi", "cluster_tridiagonal"])
 def test_flags_outside_the_port_raise(flags, item):
+    """Each flag the port does not run raises naming its ROADMAP.md item.
+    --line_search, which raised here until item 25, runs the line-search
+    minimizer (L-BFGS, Wolfe, f64, the host loop) and keeps the JAX
+    example's iteration and probe counts, its cost within 1e-9."""
+    if item is None:
+        s_j = jax_example.main(SMALL + flags)
+        s_t = example.main(SMALL + flags + ["--device", "cpu"])
+        assert str(s_t.minimizer_type) == "LINE_SEARCH"
+        assert str(s_t.termination_type) == str(s_j.termination_type)
+        assert len(s_t.iterations) == len(s_j.iterations) == 6
+        assert s_t.num_line_search_steps == s_j.num_line_search_steps
+        assert abs(s_t.final_cost - s_j.final_cost) <= 1e-9 * s_j.final_cost
+        assert s_t.final_cost < s_t.initial_cost
+        return
     with pytest.raises(NotImplementedError, match=item):
         example.main(SMALL + flags + ["--device", "cpu"])

@@ -179,12 +179,13 @@ def test_iterative_schur_without_structure_downgrades_to_cgnr():
 
 
 @pytest.mark.parametrize("extra,item", [
-    (dict(minimizer_type="LINE_SEARCH"), "item 25"),
+    (dict(minimizer_type="LINE_SEARCH"), "item 47"),
     (dict(use_inner_iterations=True), "item 22"),
     (dict(trust_region_problem_dump_directory="dumps"), "item 14"),
     (dict(trust_region_problem_dump_format_type="CONSOLE"), "item 14"),
     (dict(check_gradients=True), "item 28"),
-])
+], ids=["extra0-item 25", "extra1-item 22", "extra2-item 14",
+        "extra3-item 14", "extra4-item 28"])
 def test_out_of_slice_raises(extra, item):
     """Configurations of the generic path that are not ported raise
     NotImplementedError naming the ROADMAP.md item that ports them (the
@@ -192,7 +193,10 @@ def test_out_of_slice_raises(extra, item):
     and bounds run since the default-Solve slice:
     tests/test_torch_host_loop.py; SUBSET and SPARSE_NORMAL_CHOLESKY past
     200 effective parameters since the sparse slice:
-    tests/test_torch_sparse_direct.py)."""
+    tests/test_torch_sparse_direct.py). The line-search minimizer runs
+    since item 25 (tests/test_torch_line_search.py); with these options'
+    fused_iterations=True it raises naming item 47, the device-resident
+    loop (the case keeps its id)."""
     problem, positions, _ = _problem(ctt, "2d")
     enums = {"minimizer_type": ctt.MinimizerType,
              "trust_region_problem_dump_format_type": ctt.DumpFormatType}

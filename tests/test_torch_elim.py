@@ -139,7 +139,8 @@ def _ba_inputs(ne, nf, seed=0, k=4):
     return t + [1e4], (t[0], inv.contiguous(), z.contiguous())
 
 
-SHAPES = [(1, 9), (257, 144), (22106, 144), (22106, 160), (3000, 1024)]
+SHAPES = [(1, 9), (257, 144), (22106, 144), (22106, 160), (3000, 1024),
+          (3000, 1134), (1000, 4096)]
 
 
 @pytest.mark.cuda

@@ -17,9 +17,9 @@ import numpy as np
 import pytest
 import torch
 
-from torch_parity_kit import (ct, ctt, jax_problem, main_path_options,
-                              pallas_interpret, rel, small_bal,
-                              torch_problem)
+from torch_parity_kit import (ct, ctt, jax_problem, large_m_bal,
+                              main_path_options, pallas_interpret, rel,
+                              small_bal, torch_problem)
 
 from ceres_tpu import solver as jax_solver
 from ceres_tpu.io.bal import synthetic_bal_problem
@@ -144,21 +144,23 @@ def test_out_of_slice_raises(case, item, monkeypatch):
     """What stays outside the fused steps raises NotImplementedError
     naming the ROADMAP.md item that ports it: the fused implicit step in
     f64 (nf > 4096; the mixed step there is slice 4,
-    tests/test_torch_implicit.py), a reduced system past the one-block
-    kernels (m > 1024) in the fused explicit step, and, in the solve, a
-    preconditioner that no Schur route serves (CLUSTER_JACOBI). The solve
-    runs the f64 implicit case on the generic Schur step; m > 1024, which
-    the JAX package runs on its Pallas kernels, is a port kernel's limit
-    and keeps the fused route, so the solve raises. The SPSE warm start,
-    which the fused step refused until item 14 took it to the generic
-    Schur step, runs there and matches the JAX package's mixed solve
-    within 1e-5 (tests/test_torch_schur_solve.py holds it in f64)."""
+    tests/test_torch_implicit.py) and, in the solve, a preconditioner
+    that no Schur route serves (CLUSTER_JACOBI). The solve runs the f64
+    implicit case on the generic Schur step. A reduced system past the
+    one-block kernels (m > 1024), which raised here until item 37, runs
+    on the fused step with the reduced CG of solvers/cg.py and matches the
+    JAX package's fused step (its XLA CG loop) within 1e-5
+    (tests/test_torch_fused_large_m.py holds DENSE_SCHUR and IDENTITY).
+    The SPSE warm start, which the fused step refused until item 14 took
+    it to the generic Schur step, runs there and matches the JAX
+    package's mixed solve within 1e-5 (tests/test_torch_schur_solve.py
+    holds it in f64)."""
     extra, problem = {}, None
     if case == "implicit":
         problem = _bal_problem(500, 5000)          # nf = 4,500
         extra["use_mixed_precision_solves"] = False
     elif case == "m_over_1024":
-        problem = _bal_problem(130, 1000)          # nf = 1,170
+        problem = torch_problem(large_m_bal())     # nf = 1,170
     elif case == "spse":
         extra["use_spse_initialization"] = True
     if problem is None:
@@ -175,15 +177,19 @@ def test_out_of_slice_raises(case, item, monkeypatch):
         s_t = ctt.solve(opts, problem)
         assert "Schur step: generic ITERATIVE_SCHUR" in s_t.message
         assert abs(s_t.final_cost - s_j.final_cost) <= 1e-5 * s_j.final_cost
+    elif case == "m_over_1024":
+        program = TorchProgram(problem, device="cpu")
+        assert takes_fused_schur_step(program, opts)
+        s_j = ct.solve(iterative_options(ct, pc), jax_problem(large_m_bal()))
+        s_t = ctt.solve(opts, problem)
+        assert ("reduced solve: CG on the explicit S (solvers/cg.py), m = "
+                "1170") in s_t.message
+        assert s_t.termination_type == ctt.TerminationType.CONVERGENCE
+        assert str(s_j.termination_type) == "CONVERGENCE"
+        assert abs(s_t.final_cost - s_j.final_cost) <= 1e-5 * s_j.final_cost
     else:
         program = TorchProgram(problem, device="cpu")
         meta = detect_schur_structure(program, opts)
-        step_cls = (tsf.ImplicitSchurStep if case == "implicit"
-                    else FusedSchurStep)
         with pytest.raises(NotImplementedError, match=item):
-            step_cls(program, opts, meta)
-        kernel_limit = case == "m_over_1024"
-        assert takes_fused_schur_step(program, opts) == kernel_limit
-        if kernel_limit:
-            with pytest.raises(NotImplementedError, match=item):
-                ctt.solve(opts, problem)
+            tsf.ImplicitSchurStep(program, opts, meta)
+        assert not takes_fused_schur_step(program, opts)

@@ -183,7 +183,9 @@ def test_cpu_solve_launches_no_kernel():
     dict(minimizer_type=ctt.MinimizerType.LINE_SEARCH),
 ])
 def test_out_of_slice_options_raise(extra, monkeypatch):
-    """CLUSTER_JACOBI, inner iterations and line search raise
+    """CLUSTER_JACOBI, inner iterations and line search with the main
+    path's fused_iterations=True (the device-resident line-search loop,
+    ROADMAP.md item 47; the host loop runs since item 25) raise
     NotImplementedError. The f64 step and dogleg with a Schur solver,
     which raised until the generic Schur step (ROADMAP.md item 18) took
     them, run there and match the JAX package's generic route: f64 with

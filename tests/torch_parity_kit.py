@@ -32,6 +32,20 @@ def small_bal():
     return bal
 
 
+def large_m_bal(num_cameras=130):
+    """num_cameras cameras (nf = 9 num_cameras; 130 is past the one-block
+    K3 and K7), 1,000 points, twelve observations a point, perturbed as
+    small_bal is. With three observations a point the synthetic ring of
+    cameras is too loosely tied to converge in 50 LM iterations in
+    either package."""
+    bal = synthetic_bal_problem(num_cameras=num_cameras, num_points=1000,
+                                num_observations=12000, seed=3,
+                                pixel_noise=1.0)
+    bal.perturb(rotation_sigma=0.02, translation_sigma=0.1,
+                point_sigma=0.05, seed=4)
+    return bal
+
+
 def quaternion_bal():
     """tests/test_autolin.py's problem (6 cameras, 150 points, 600
     observations) with its cameras written as w-first quaternions before

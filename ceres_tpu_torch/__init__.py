@@ -16,7 +16,12 @@ native host LDL^T (native.py, built with g++ at first use), CGNR with
 block Jacobi or SUBSET, dynamic sparsity; Covariance (DENSE_SVD,
 SPARSE_QR); the stock manifolds; the line-search minimizer (steepest
 descent, nonlinear CG, L-BFGS, BFGS; Armijo or Wolfe) on a Problem or a
-GradientProblem; and TinySolver, one small dense problem or a batch.
+GradientProblem; TinySolver, one small dense problem or a batch; and
+the rest of the modeling API: Problem.evaluate on `device` (residuals,
+gradient, dense or CSR Jacobian, subsets), block removal and the
+accessors, ProblemOptions, the dynamic and adapter costs, the rotation
+conversions, the cubic interpolators, GradientChecker and
+check_gradients, checkpoints and timers.
 Module names mirror the JAX package's; this package imports torch and
 never jax.
 """
@@ -43,16 +48,23 @@ from .manifolds import (  # noqa: F401
     SubsetManifold,
 )
 from .cost import (  # noqa: F401
-    AutoDiffCostFunction, CostFunction, NumericDiffCostFunction,
+    AutoDiffCostFunction, ConditionedCostFunction, CostFunction,
+    CostFunctionToFunctor, DynamicAutoDiffCostFunction,
+    DynamicCostFunctionToFunctor,
+    DynamicNumericDiffCostFunction, NormalPrior, NumericDiffCostFunction,
     NumericDiffOptions, SizedCostFunction,
 )
-from .problem import Problem, ResidualBlockId  # noqa: F401
+from .problem import Problem, ProblemOptions, ResidualBlockId  # noqa: F401
 from .solver import Solver, solve  # noqa: F401
 from .covariance import Covariance, CovarianceOptions  # noqa: F401
+from .gradient_checker import GradientChecker  # noqa: F401
 from .gradient_problem import (  # noqa: F401
     AutoDiffFirstOrderFunction, FirstOrderFunction, GradientProblem,
     GradientProblemSolver, NumericDiffFirstOrderFunction,
     solve_gradient_problem,
+)
+from .interpolation import (  # noqa: F401
+    BiCubicInterpolator, CubicInterpolator, Grid1D, Grid2D,
 )
 from .tiny_solver import (  # noqa: F401
     TinySolver, TinySolverOptions, TinySolverResult, tiny_solve,

@@ -5,7 +5,12 @@ Counterpart of ceres_tpu/cost.py for the slice: CostFunction
 (sized_cost_function.h:50), AutoDiffCostFunction
 (autodiff_cost_function.h:156), NumericDiffOptions and
 NumericDiffCostFunction (numeric_diff_cost_function.h:181, FORWARD,
-CENTRAL and RIDDERS). A functor is a plain function
+CENTRAL and RIDDERS), DynamicAutoDiffCostFunction and
+DynamicNumericDiffCostFunction (dynamic_*_cost_function.h),
+CostFunctionToFunctor and DynamicCostFunctionToFunctor
+(cost_function_to_functor.h:104, dynamic_cost_function_to_functor.h:46),
+ConditionedCostFunction (conditioned_cost_function.h:74) and NormalPrior
+(normal_prior.h:60). A functor is a plain function
 `f(*params) -> residuals` or an instance whose `__call__(self, *params)`
 uses torch operations; instance attributes (observations and the like)
 are per-residual-block data, stacked across a bucket and mapped over with
@@ -21,6 +26,7 @@ from __future__ import annotations
 import types as _types
 from typing import Callable, Optional, Sequence
 
+import numpy as np
 import torch
 
 from .types import NumericDiffMethodType
@@ -268,3 +274,173 @@ class NumericDiffCostFunction(CostFunction):
             return best.T
 
         return jfn
+
+
+class DynamicAutoDiffCostFunction(AutoDiffCostFunction):
+    """Runtime-sized AD cost (dynamic_autodiff_cost_function.h:80): the
+    functor takes one list of parameter tensors; the sizes are set with
+    add_parameter_block and set_num_residuals before the block is added
+    (fixed from then on, as a bucket's shapes are)."""
+
+    def __init__(self, functor):
+        self._functor = functor
+        self._code_key, self._call, self._data = _functor_parts(functor)
+        self._num_residuals = -1
+        self._parameter_block_sizes = []
+
+    def add_parameter_block(self, size: int):
+        self._parameter_block_sizes.append(int(size))
+
+    def set_num_residuals(self, n: int):
+        self._num_residuals = int(n)
+
+    def bucket_key(self):
+        return ("dyn_autodiff", self._code_key, self._num_residuals,
+                tuple(self._parameter_block_sizes))
+
+    def make_residual_fn(self):
+        call = self._call
+        nr = self._num_residuals
+
+        def fn(data, *params):
+            return torch.as_tensor(call(data, list(params))).reshape(nr)
+
+        return fn
+
+
+class DynamicNumericDiffCostFunction(NumericDiffCostFunction):
+    """dynamic_numeric_diff_cost_function.h: as DynamicAutoDiffCostFunction,
+    with finite-difference Jacobians."""
+
+    def __init__(self, functor, method=NumericDiffMethodType.CENTRAL,
+                 options: Optional[NumericDiffOptions] = None):
+        self._functor = functor
+        self._method = method
+        self._options = options or NumericDiffOptions()
+        self._code_key, self._call, self._data = _functor_parts(functor)
+        self._num_residuals = -1
+        self._parameter_block_sizes = []
+
+    def add_parameter_block(self, size: int):
+        self._parameter_block_sizes.append(int(size))
+
+    def set_num_residuals(self, n: int):
+        self._num_residuals = int(n)
+
+    def bucket_key(self):
+        return ("dyn_numdiff", self._code_key, self._method,
+                self._num_residuals, tuple(self._parameter_block_sizes))
+
+    def make_residual_fn(self):
+        call = self._call
+        nr = self._num_residuals
+
+        def fn(data, *params):
+            return torch.as_tensor(call(data, list(params))).reshape(nr)
+
+        return fn
+
+
+def _data_like(data, like):
+    """A cost's block data as tensors beside `like` (its device; floating
+    values in its dtype), for a cost called from inside another functor."""
+    out = {}
+    for k, v in data.items():
+        if not torch.is_tensor(v):
+            v = torch.as_tensor(np.asarray(v))
+        out[k] = v.to(device=like.device,
+                      dtype=like.dtype if v.is_floating_point() else v.dtype)
+    return out
+
+
+class CostFunctionToFunctor:
+    """A CostFunction as a functor, so analytic and AD costs mix
+    (cost_function_to_functor.h:104): a call runs the cost's residual
+    function, which jacfwd differentiates through."""
+
+    def __init__(self, cost_function: CostFunction):
+        self._cost = cost_function
+        self._fn = cost_function.make_residual_fn()
+        self._data = cost_function.block_data()
+
+    def __call__(self, *params):
+        return self._fn(_data_like(self._data, params[0]), *params)
+
+
+class DynamicCostFunctionToFunctor(CostFunctionToFunctor):
+    """A dynamically sized CostFunction as a functor
+    (dynamic_cost_function_to_functor.h:46), called with one list of
+    parameter tensors (the reference's T const* const* parameters)."""
+
+    def __call__(self, params):
+        return self._fn(_data_like(self._data, params[0]), *params)
+
+
+class ConditionedCostFunction(CostFunction):
+    """out_i = c_i(r_i) (conditioned_cost_function.h:74): one conditioner
+    a residual, a CostFunction of one residual and one parameter, a
+    callable, or None (the identity). Blocks share a bucket when they
+    share the wrapped cost's key and the conditioners themselves."""
+
+    def __init__(self, wrapped: CostFunction, conditioners):
+        super().__init__(wrapped.num_residuals,
+                         wrapped.parameter_block_sizes)
+        if len(conditioners) != wrapped.num_residuals:
+            raise ValueError("need one conditioner per residual")
+        self._wrapped = wrapped
+        self._conditioners = list(conditioners)
+
+    def bucket_key(self):
+        return ("conditioned", self._wrapped.bucket_key(),
+                tuple(id(c) for c in self._conditioners))
+
+    def block_data(self):
+        return self._wrapped.block_data()
+
+    def make_residual_fn(self):
+        inner = self._wrapped.make_residual_fn()
+        conds = [(c.make_residual_fn(), c.block_data())
+                 if isinstance(c, CostFunction) else c
+                 for c in self._conditioners]
+
+        def fn(data, *params):
+            r = inner(data, *params)
+            outs = []
+            for i, c in enumerate(conds):
+                if c is None:
+                    outs.append(r[i])
+                elif isinstance(c, tuple):
+                    outs.append(torch.reshape(
+                        c[0](_data_like(c[1], r), r[i:i + 1]), ()))
+                else:
+                    outs.append(torch.reshape(torch.as_tensor(
+                        c(r[i:i + 1])), ()))
+            return torch.stack(outs)
+
+        return fn
+
+
+class NormalPrior(CostFunction):
+    """r = A (x - b), a Gaussian prior (normal_prior.h:60); A and b ride
+    the bucket as per-block data, keyed on A's shape."""
+
+    def __init__(self, A, b):
+        A = np.asarray(A, dtype=np.float64)
+        b = np.asarray(b, dtype=np.float64)
+        if A.ndim != 2 or b.ndim != 1 or A.shape[1] != b.shape[0]:
+            raise ValueError("A must be [r, n], b must be [n]")
+        super().__init__(A.shape[0], [b.shape[0]])
+        self.A = A
+        self.b = b
+
+    def bucket_key(self):
+        return ("normal_prior", self.A.shape)
+
+    def block_data(self):
+        return {"A": self.A, "b": self.b}
+
+    def make_residual_fn(self):
+        def fn(data, x):
+            return data["A"] @ (x - data["b"])
+
+        return fn

@@ -110,6 +110,8 @@ def column_sum_for(bucket_cols: Sequence[Sequence[np.ndarray]],
             columns.append(np.asarray(c, dtype=np.int64).reshape(-1))
             off += t_s
         base += n * t_total
+    if not positions:               # no variable slot anywhere
+        positions = columns = [np.zeros(0, dtype=np.int64)]
     out = ColumnSum(np.concatenate(positions), np.concatenate(columns),
                     num_cols, device)
     out.bucket_cols = [list(slots) for slots in bucket_cols]

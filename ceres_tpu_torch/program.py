@@ -83,23 +83,40 @@ class CompiledProgram:
     """A Problem at one structure revision, with its tensors on `device`."""
 
     @classmethod
-    def get_cached(cls, problem, options):
-        """Reuse the program across solves while the problem structure is
-        unchanged (values are read fresh from the user arrays)."""
-        key = (problem._revision, str(options.device))
+    def get_cached(cls, problem, options=None, *, device=None,
+                   apply_loss: bool = True,
+                   include_fixed_blocks: bool = False):
+        """Reuse the program across solves and evaluations while the
+        problem's structure is unchanged (values are read fresh from the
+        user arrays). Keyed on the revision, the device, the dtype,
+        apply_loss and include_fixed_blocks (ceres_tpu program.py:130-153),
+        so a Problem.evaluate program never serves a solve; entries of an
+        older revision are dropped."""
+        device = torch.device(device if device is not None
+                              else options.device)
+        key = (problem._revision, str(device), str(torch.float64),
+               bool(apply_loss), bool(include_fixed_blocks))
         cache = {k: v for k, v in
                  getattr(problem, "_compiled_cache", {}).items()
                  if k[0] == problem._revision}
         problem._compiled_cache = cache
         if key not in cache:
-            cache[key] = cls(problem, options.device)
+            cache[key] = cls(problem, device, apply_loss=apply_loss,
+                             include_fixed_blocks=include_fixed_blocks)
         return cache[key]
 
-    def __init__(self, problem, device="cuda", apply_loss: bool = True):
+    def __init__(self, problem, device="cuda", apply_loss: bool = True,
+                 include_fixed_blocks: bool = False):
         """apply_loss=False leaves the robust losses out of every cost,
-        residual and Jacobian (Covariance's apply_loss_function); the
-        buckets stay those of the program with losses."""
+        residual and Jacobian (Covariance's apply_loss_function,
+        Problem.evaluate's apply_loss_function); the buckets stay those of
+        the program with losses. include_fixed_blocks keeps the residual
+        blocks whose parameters are all constant as buckets with zero
+        tangent columns (ceres_tpu program.py:265-290), where a solve's
+        program folds them into fixed_cost; such a program serves
+        Problem.evaluate (f64) and picks no K11 spec."""
         self.problem = problem
+        self.include_fixed_blocks = include_fixed_blocks
         self.device = torch.device(device)
         self.dtype = torch.float64
         records = problem._param_records()
@@ -108,8 +125,11 @@ class CompiledProgram:
         def is_fixed(rb):
             return all(problem._blocks[k].constant for k in rb.param_keys)
 
-        active_res = [rb for rb in residuals if not is_fixed(rb)]
-        fixed_res = [rb for rb in residuals if is_fixed(rb)]
+        if include_fixed_blocks:
+            active_res, fixed_res = residuals, []
+        else:
+            active_res = [rb for rb in residuals if not is_fixed(rb)]
+            fixed_res = [rb for rb in residuals if is_fixed(rb)]
         used_keys = set()
         for rb in residuals:
             used_keys.update(rb.param_keys)
@@ -268,7 +288,8 @@ class CompiledProgram:
                 bk.slots.append(sl)
             # K11 where a hand or auto spec matches an autodiff bucket,
             # chosen once; its data fields as one f32 tensor, built once
-            bk.spec = (linearize_spec(self, bk) if bk.jac_mode == "ad"
+            bk.spec = (linearize_spec(self, bk)
+                       if bk.jac_mode == "ad" and not include_fixed_blocks
                        else None)
             bk.dat32 = (bk.spec.data_matrix(bk) if bk.spec is not None
                         else None)
@@ -553,3 +574,90 @@ class CompiledProgram:
                             self.column_sum())
         res = RVec(res_parts)
         return total, jac.rmatvec(res), jac, res
+
+    # ------------------------------------------------------------------
+    # Problem::Evaluate
+
+    def _evaluate_layout(self):
+        """The maps of public_evaluate, built once a program with numpy:
+        each bucket's [n, r] destination rows (residual blocks in
+        insertion order) and its [n, t] destination columns (tangent
+        columns in parameter-block insertion order), and the tangent
+        permutation itself (ceres_tpu program.py:1043-1055 and :1093-1096
+        walk the blocks one at a time in Python for the same maps)."""
+        layout = self.__dict__.get("_eval_layout")
+        if layout is not None:
+            return layout
+        recs = self.problem._residual_records()
+        index = np.fromiter((rb.index for rb in recs), dtype=np.int64,
+                            count=len(recs))
+        sizes = np.fromiter((rb.cost.num_residuals for rb in recs),
+                            dtype=np.int64, count=len(recs))
+        start = np.zeros(int(index.max()) + 1 if recs else 0, np.int64)
+        start[index] = np.cumsum(sizes) - sizes      # index is ascending
+        order = [b for b in self.problem._param_records()
+                 if id(b.array) in self.tan_offset]
+        perm = (np.concatenate([
+            np.arange(self.tan_offset[id(b.array)],
+                      self.tan_offset[id(b.array)] + b.tangent_size)
+            for b in order]) if order else np.zeros(0, np.int64))
+        inv = np.empty(perm.size, dtype=np.int64)
+        inv[perm] = np.arange(perm.size)
+        rows, cols = [], []
+        for bk in self.buckets:
+            rows.append(start[bk.orig_indices][:, None]
+                        + np.arange(bk.r)[None, :])
+            slot_cols = [sl.cols for sl in bk.slots if sl.variable]
+            cols.append(inv[np.concatenate(slot_cols, axis=1)] if slot_cols
+                        else np.zeros((bk.n, 0), np.int64))
+        layout = self._eval_layout = (rows, cols, perm)
+        return layout
+
+    def public_evaluate(self, want_residuals, want_gradient, want_jacobian,
+                        jacobian_format: str = "dense"):
+        """Problem::Evaluate (problem_impl.cc:585; ceres_tpu program.py
+        public_evaluate, :1005-1126) at the user arrays' values, f64 on
+        the program's device: (cost, residuals in residual-block insertion
+        order and loss-corrected, gradient and Jacobian in tangent space
+        with the columns in parameter-block insertion order), as numpy,
+        each None when not asked for. jacobian_format "dense" (numpy) or
+        "csr" (scipy CSR, assembled from the blocks without densifying).
+        Each output comes to the host in one copy."""
+        x = self.initial_state()
+        if want_gradient or want_jacobian:
+            cost, grad, jac, res = self.linearize_fn(x)
+        else:
+            cost, grad, jac = self.cost_fn(x), None, None
+            res = (self.residuals_fn(x, corrected=True) if want_residuals
+                   else None)
+        rows, cols, perm = self._evaluate_layout()
+        residuals_out = grad_out = jac_out = None
+        if want_residuals:
+            residuals_out = np.zeros(self.num_rows)
+            if self.buckets:
+                residuals_out[np.concatenate([r.ravel() for r in rows])] = \
+                    self.state_to_numpy(res.flatten())
+        if want_gradient:
+            grad_out = self.state_to_numpy(grad)[perm]
+        if want_jacobian:
+            ncols = perm.size
+            parts = [(bj.J, r, c) for bj, r, c in zip(jac.buckets, rows, cols)
+                     if bj.J.shape[2]]
+            if parts:
+                vals = self.state_to_numpy(torch.cat(
+                    [J.reshape(-1) for J, _, _ in parts]))
+                r_all = np.concatenate([np.broadcast_to(
+                    r[:, :, None], J.shape).ravel() for J, r, _ in parts])
+                c_all = np.concatenate([np.broadcast_to(
+                    c[:, None, :], J.shape).ravel() for J, _, c in parts])
+            else:
+                vals = np.zeros(0)
+                r_all = c_all = np.zeros(0, np.int64)
+            if jacobian_format == "csr":
+                import scipy.sparse as sp
+                jac_out = sp.coo_matrix((vals, (r_all, c_all)),
+                                        shape=(self.num_rows, ncols)).tocsr()
+            else:
+                jac_out = np.zeros((self.num_rows, ncols))
+                jac_out[r_all, c_all] = vals
+        return float(cost), residuals_out, grad_out, jac_out

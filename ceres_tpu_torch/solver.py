@@ -45,6 +45,7 @@ from .minimizers.fused import run_fused
 from .minimizers.line_search import minimize_line_search
 from .minimizers.trust_region import minimize_trust_region
 from .ops.bsr import BlockJacobian, RVec, block_diag_jtj
+from .gradient_checker import check_problem_gradients
 from .program import CompiledProgram
 from .solvers.cg import solve_cgnr
 from .solvers.dense import solve_dense_normal_cholesky, solve_dense_qr
@@ -82,10 +83,6 @@ def _check_slice(options):
         raise NotImplementedError(
             "the trust-region problem dumps are not ported yet (ROADMAP.md "
             "item 14, the rest of minimizers/trust_region.py)")
-    if options.check_gradients:
-        raise NotImplementedError(
-            "check_gradients is not ported yet (ROADMAP.md item 28, "
-            "gradient_checker.py)")
 
 
 def needs_host_loop(options, program) -> bool:
@@ -600,8 +597,7 @@ def solve(options: SolverOptions, problem,
         summary.message = f"Invalid options: {err}"
         return summary
     _check_slice(options)
-    prob_cb = getattr(getattr(problem, "options", None),
-                      "evaluation_callback", None)
+    prob_cb = problem.options.evaluation_callback
     if prob_cb is not None and options.evaluation_callback is None:
         # Problem::Options::evaluation_callback (problem.h:179)
         options = dataclasses.replace(options, evaluation_callback=prob_cb)
@@ -650,6 +646,18 @@ def solve(options: SolverOptions, problem,
         summary.message = ("The problem has no variable parameter blocks; "
                            "nothing to optimize.")
         return summary
+
+    if options.check_gradients:
+        # solver.h check_gradients (gradient_checking_cost_function.cc):
+        # every residual block's Jacobian probed once at the start
+        # (ceres_tpu solver.py:522-530)
+        err = check_problem_gradients(
+            problem, options.gradient_check_relative_precision,
+            device=device)
+        if err is not None:
+            summary.termination_type = TerminationType.FAILURE
+            summary.message = err
+            return summary
 
     options = _maybe_downgrade_options(options, program, summary)
     summary.linear_solver_type_used = options.linear_solver_type

@@ -23,8 +23,13 @@ Trafalgar's shape (257 cameras, 225,911 observations; TRAFALGAR), on
 Trafalgar-126's shape (126 cameras, 40,037 points, 148,117
 observations; FUSED_LARGE_M: nf 1,134, past the one-block K3 and K7),
 on gradient problems and tiny least-squares batches (LINE_SEARCH_REF's
-paths) and on tests/test_solver_e2e.py's helloworld, Powell and bounded
-problems:
+paths), on the BAL-16-22106 problem with 1% of its observations moved
+30 px, filtered at ~4 px (COLMAP's default) between two solves
+(OUTLIER), Problem.evaluate at Trafalgar's shape (EVALUATE), the seven
+examples of slice 11 with every
+More-Garbow-Hillstrom problem (EXAMPLE_RUNS, MGH_REF), the gradient
+checker (GRADCHECK) and on tests/test_solver_e2e.py's helloworld, Powell
+and bounded problems:
 
 1. checks each kernel against its plain PyTorch version on the card, at
    the shapes its path gives it: K1-K4 (slice 1, DENSE_SCHUR; K3 bit for
@@ -109,7 +114,16 @@ problems:
    Rosenbrock in EXT_ROSENBROCK_N parameters (one warm-up, one timed),
    bundle_adjuster --line_search on BAL-16-22106 and tiny_solve on
    TINY_BATCH problems (one warm-up, one timed, then the same batch on
-   the CPU);
+   the CPU); slice 11 (`problem_api_paths`): OUTLIER (solve with
+   bench.py's options, Problem.evaluate on the card, remove_outliers at
+   OUTLIER_THRESHOLD with the points left bare, solve on the rebuilt
+   program), EVALUATE (the full
+   call with a CSR Jacobian twice, a subset, evaluate_residual_block on
+   EVALUATE_BLOCKS blocks, each beside the same call on the CPU),
+   EXAMPLE_RUNS and the 29 MGH solves, GRADCHECK (GradientChecker.probe
+   on GRADCHECK_BLOCKS Snavely blocks at their start, at
+   GRADCHECK_PRECISION, check_gradients solves of
+   circle_fit and robot_pose_mle, GRADCHECK_WRONG);
 3. fails unless every kernel agrees within its limit (K7 with the same CG
    iteration count, K10 bit for bit), every BAL-16-22106 solve ends in
    CONVERGENCE with a final cost within 1e-5 relative of 5.028773e+04,
@@ -168,9 +182,22 @@ problems:
    extended one its final cost within 10x), the BA line search ends
    within its `tol`, and the tiny batch matches the JAX package's count
    digest, converged flags and sum of x, and the port's CPU batch problem
-   by problem; helloworld (45.125 -> below 1e-12, x = 10), Powell (107.5
-   -> below 1e-12, |x_i| < 2e-3; its LM count beside the 15 of Ceres's
-   tutorial) and the bounded problem (clamped at (5, -4) within 1e-6)
+   by problem; OUTLIER removes the JAX package's blocks (count and
+   digest) and points, no error within OUTLIER_MARGIN of the threshold,
+   leaves its counts, launches K2, K3 and K4 at least once an LM
+   iteration and K1 once a linearization in both solves, and ends each
+   within REF_REL_TOL of the JAX cost in its termination; EVALUATE's
+   CSR structure is bit-equal to the CPU call's and its values, cost and
+   gradient norm within EVALUATE_TOL of it and of the JAX package's;
+   each example and MGH problem ends within its cost limit of the JAX
+   run in its LM count (within twice the JAX runs' spread, MGH_REF, or
+   LM_ROUNDING's allowance where it names the run), at LRE >= 4 where
+   JAX is, launching no kernel; the probe's pass flags (and the sum of
+   its largest errors within GRADCHECK_SUM_TOL), the checked solves and
+   the wrong cost's message are the JAX package's; helloworld (45.125
+   -> below 1e-12, x = 10), Powell (107.5 -> below 1e-12, |x_i| <
+   2e-3; its LM count beside the 15 of Ceres's tutorial) and the
+   bounded problem (clamped at (5, -4) within 1e-6)
    hold their tests' numbers and launch no kernel; the pose-graph,
    large-case and quaternion solves repeat the same LM and CG counts and
    final cost in every solve (the quaternion solves' counts are compared
@@ -917,6 +944,20 @@ def check_kernel(name, kernel, plain, compare, limit, source, replaces,
             "reference_call": reference[0] if reference else None}
 
 
+def scorr_gemm(A, inv):
+    """(label, call) of the S_corr product Y^T A as one GEMM (cuBLAS),
+    torch.mm(A^T, Y) over the [3 ne, nf] views, with Y = inv A formed
+    here beforehand and not timed: the floor of K2's and K6's product,
+    timed beside them as their reference. No one PyTorch call computes
+    either kernel's function (K2 also forms inv and z, both also rhs),
+    so their library_ms is null."""
+    import torch
+    A2 = A.reshape(-1, A.shape[2])
+    Y2 = torch.einsum("nuv,nvf->nuf", inv, A).reshape(-1, A.shape[2])
+    return ("torch.mm(A^T, Y): S_corr alone, Y = inv A given",
+            lambda: torch.mm(A2.t(), Y2))
+
+
 def pcg_flops(m, tf, iters, reset):
     """Operations of one K7 solve of `iters` iterations: per iteration the
     matvec (2 m^2), the block preconditioner (2 m tf; 0 for IDENTITY) and
@@ -969,6 +1010,283 @@ def drive(label, options, problem, reset_state, counters, trials, gate,
                              f"{rel:.2e} from {ref_cost}")
         gate(summary, launches)
     return launches
+
+
+# slice 11 (`problem_api_paths`). OUTLIER: the main path's problem with 1%
+# of its observations moved OUTLIER_SHIFT_PX along a random unit
+# direction (`shift_observations`, numpy.random.default_rng(OUTLIER_SEED):
+# the indices without replacement, then the directions), solved with
+# bench.py's options, evaluated, every observation whose reprojection
+# error lies past OUTLIER_THRESHOLD removed with every point left without
+# one (`remove_outliers`), and solved again. COLMAP's bundle adjustment
+# filters its observations between solves in this way.
+OUTLIER_FRACTION = 0.01
+OUTLIER_SHIFT_PX = 30.0
+OUTLIER_SEED = 11
+# the threshold: the middle of the widest gap between the JAX run's
+# errors in OUTLIER_WINDOW_PX, which starts at COLMAP's default
+# filter_max_reproj_error (4 px)
+OUTLIER_WINDOW_PX = (4.0, 5.0)
+
+
+def shift_observations(observations, fraction=OUTLIER_FRACTION,
+                       shift=OUTLIER_SHIFT_PX, seed=OUTLIER_SEED):
+    """Move round(fraction n) of the [n, 2] observations, in place, by
+    `shift` pixels each along a unit direction; returns their sorted
+    indices."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    n = observations.shape[0]
+    idx = rng.choice(n, int(round(fraction * n)), replace=False)
+    d = rng.normal(size=(idx.size, 2))
+    observations[idx] += shift * d / np.linalg.norm(d, axis=1,
+                                                    keepdims=True)
+    return np.sort(idx)
+
+
+def remove_outliers(problem, residual_blocks, points, point_index,
+                    residuals, threshold):
+    """Remove from `problem` (either package's) the residual blocks whose
+    2-vector of `residuals` (insertion order) is longer than `threshold`,
+    then every point of `points` that no residual block names any more.
+    Returns (removed block indices, removed point indices, the errors)."""
+    import numpy as np
+    err = np.hypot(residuals[0::2], residuals[1::2])
+    removed = np.nonzero(err > threshold)[0]
+    for i in removed:
+        problem.remove_residual_block(residual_blocks[i])
+    kept = np.ones(err.size, dtype=bool)
+    kept[removed] = False
+    emptied = np.nonzero(np.bincount(point_index[kept],
+                                     minlength=len(points)) == 0)[0]
+    for j in emptied:
+        problem.remove_parameter_block(points[j])
+    return removed, emptied, err
+
+
+def removed_digest(removed):
+    """sha256 of the sorted removed indices as int64 bytes."""
+    import hashlib
+    import numpy as np
+    return hashlib.sha256(np.sort(np.asarray(removed, dtype=np.int64))
+                          .tobytes()).hexdigest()
+
+
+# OUTLIER_THRESHOLD: the middle of the widest gap between the JAX CPU
+# run's errors after the first solve in OUTLIER_WINDOW_PX, 4.054505835 ..
+# 4.090549759 px, its nearest error 4.42e-3 of it away. A shifted
+# observation pulls its point (3.8 observations a point), so its
+# neighbours' errors fill 0 to ~25 px densely: at shifts of 30, 60, 150
+# and 400 px the only gaps with no block within 2% of a threshold lay in
+# the tail and removed 1-6 blocks and no point (ROADMAP.md section 3).
+# Near 4 px the errors of the JAX runs from starts scaled by 1 -+ 1e-14,
+# 1e-10 and 1e-7 move by 1.15e-5 at most and remove the same set; the
+# card's run must keep every error OUTLIER_MARGIN (87x that move) from
+# the threshold. OUTLIER_REF: the JAX package on the CPU
+# (scripts/problem_api_reference.py --parts outlier --spread): removed
+# blocks (all 837 shifted among them), their digest (removed_digest),
+# points left bare and removed, residual blocks and parameters left, and
+# each solve's (LM iterations, final cost, termination).
+OUTLIER_THRESHOLD = 4.0725
+OUTLIER_MARGIN = 1e-3
+OUTLIER_REF = dict(
+    removed=2971, emptied=625, residual_blocks=80747, parameters=64587,
+    digest="25a0bea7a0cf4a7ca798e1e37fa731df4e130008cccfeed3e83bbf9859a044ac",
+    first=(6, 278981.62451052316, "CONVERGENCE"),
+    second=(3, 48330.36224474064, "CONVERGENCE"))
+
+
+def outlier_options(mod, **extra):
+    """bench.py's options (the main path's: DENSE_SCHUR, mixed, fused)
+    in package `mod`."""
+    kw = dict(linear_solver_type=mod.LinearSolverType.DENSE_SCHUR,
+              preconditioner_type=mod.PreconditionerType.SCHUR_JACOBI,
+              max_num_iterations=50, function_tolerance=1e-6,
+              max_linear_solver_iterations=100,
+              use_mixed_precision_solves=True, fused_iterations=True)
+    kw.update(extra)
+    return mod.SolverOptions(**kw)
+
+
+# EVALUATE: Problem.evaluate at Trafalgar's shape (ba_paths' problem:
+# TRAFALGAR_ARGS' synthetic problem, normalized, perturbed with its
+# sigmas and seed), at its start, f64: the full call with residuals,
+# gradient and a CSR Jacobian, a subset (the first EVALUATE_SUBSET_ROWS
+# residual blocks over the camera blocks alone) and
+# evaluate_residual_block on EVALUATE_BLOCKS blocks.
+EVALUATE_SHAPE = dict(num_cameras=257, num_points=65132,
+                      num_observations=225911)
+EVALUATE_SUBSET_ROWS = 1000
+EVALUATE_BLOCKS = 100
+EVALUATE_TOL = 1e-12
+# the JAX package on the CPU (scripts/problem_api_reference.py --parts
+# evaluate): the full call's cost, gradient norm and nonzeros
+EVALUATE_REF = dict(cost=16310312.463707145,
+                    gradient_norm=11962294.421871321, nnz=5421864)
+
+
+def evaluate_problem(bal_io):
+    """(problem, camera arrays, point arrays) of EVALUATE in the package
+    of `bal_io` (its io.bal), as bundle_adjuster builds it from
+    TRAFALGAR_ARGS."""
+    bal = bal_io.synthetic_bal_problem(**EVALUATE_SHAPE, seed=7,
+                                       pixel_noise=1.0)
+    bal.normalize()
+    bal.perturb(rotation_sigma=0.1, translation_sigma=1.0, point_sigma=0.5,
+                seed=7)
+    return bal_io.build_bal_ceres_problem(bal)
+
+
+# EXAMPLES: the seven examples of slice 11 on their settings here, each
+# held to the JAX package's LM count and final cost within 1e-9 (1e-20
+# absolute for costs at zero) or, where the JAX runs from scaled starts
+# spread (ROADMAP.md section 3), twice that spread.
+EXAMPLE_COST_TOL = 1e-9
+EXAMPLE_COST_FLOOR = 1e-20
+
+
+def run_example(mod, name, scale=1.0, **kw):
+    """Run example `name` of EXAMPLE_RUNS in package `mod` (kw: the
+    port's device); returns (summary, what it solved). `scale` scales
+    libmv_homography's second point set (its spread)."""
+    ex = __import__(f"{mod.__name__}.examples", fromlist=["x"])
+    import importlib
+    if name in ("iteration_callback", "evaluation_callback"):
+        m = importlib.import_module(f"{ex.__name__}.callbacks_example")
+        out = getattr(m, f"{name}_demo")(**kw)
+        return out[1], out[0]
+    if name == "circle_fit":
+        m = importlib.import_module(f"{ex.__name__}.circle_fit")
+        pts = m.synthesize(num_points=60, outliers=4, cx=2.0, cy=3.0, r=5.0,
+                           seed=1)
+        x, y, r, s = m.fit_circle(pts, pts[0, 0], pts[0, 1], 1.0,
+                                  robust_threshold=0.5, **kw)
+        return s, (x, y, r)
+    if name == "ellipse_approximation":
+        m = importlib.import_module(f"{ex.__name__}.ellipse_approximation")
+        X, t, s = m.solve_ellipse(m.synthesize_ellipse_points(212), 151,
+                                  **kw)
+        return s, X
+    if name == "libmv_homography":
+        m = importlib.import_module(f"{ex.__name__}.libmv_homography")
+        H_true = [[1.243715, -0.461057, -111.964454],
+                  [0.0, 0.617589, -192.379252], [0.0, -0.000983, 1.0]]
+        import numpy as np
+        x1 = np.array([[0.0, 0.0], [320.0, 0.0], [320.0, 240.0],
+                       [0.0, 240.0], [160.0, 120.0], [80.0, 60.0]])
+        v = np.asarray(H_true) @ np.concatenate(
+            [x1, np.ones((6, 1))], axis=1).T
+        H, s = m.estimate_homography(x1, (v[:2] / v[2]).T * scale, **kw)
+        return s, H
+    if name == "robot_pose_mle":
+        m = importlib.import_module(f"{ex.__name__}.robot_pose_mle")
+        odo, rng = m.simulate_robot()
+        blocks, s = m.solve_robot_pose_mle(odo, rng, **kw)
+        return s, blocks
+    m = importlib.import_module(f"{ex.__name__}.sampled_function")
+    out = getattr(m, name)(**kw)
+    return out[1], out[0]
+
+
+EXAMPLE_RUNS = ("iteration_callback", "evaluation_callback", "circle_fit",
+                "ellipse_approximation", "libmv_homography",
+                "robot_pose_mle", "sampled_function_1d", "bicubic_2d")
+# the JAX package on the CPU (scripts/problem_api_reference.py --parts
+# examples,mgh --spread), each (LM iterations, final cost, LM spread,
+# cost spread, LRE): the spreads are the largest distances of the runs
+# from starts scaled by 1 -+ 1e-14, 1e-10 and 1e-7. An LM count may move
+# by twice the spread: the MGH runs go on to tolerances of 1e-18, so
+# their last steps follow the rounding. LM_ROUNDING names the runs that
+# part from JAX's by more from every start, because the rounding differs
+# between XLA's fused multiply-adds and PyTorch (ROADMAP.md section 3),
+# and the LM they may move: Box3D constrained ends at 115 LM in the
+# port, on the CPU and on the card, and at 118 in JAX from every start,
+# its cost 2e-14 from JAX's.
+LM_ROUNDING = {"12C": 3}
+EXAMPLE_REF = {
+    "iteration_callback": (15, 3.2514887354881905e-17, 0, 0.0, None),
+    "evaluation_callback": (38, 1.1850612001939757e-19, 0, 0.0, None),
+    "circle_fit": (20, 7.757141680339189, 0, 0.0, None),
+    "ellipse_approximation": (65, 0.02890343516382403, 0, 0.0, None),
+    # its cost spread: the JAX runs with the second point set scaled as
+    # the MGH starts are (the fit is exact, so its final cost, ~7e-13,
+    # is the rounding's)
+    "libmv_homography": (6, 6.777341999145453e-13, 0, 4.694545201e-18,
+                         None),
+    "robot_pose_mle": (3, 27.41104648996226, 0, 0.0, None),
+    "sampled_function_1d": (14, 1.041892696315879e-15, 0, 0.0, None),
+    "bicubic_2d": (6, 2.0065544817674289e-22, 0, 0.0, None),
+}
+MGH_REF = {
+    "1U": (38, 0.0, 0, 0.0, float("inf")),
+    "2U": (31, 24.492126839620013, 3, 1.4210854715202004e-14, -1.690),
+    "3U": (68, 3.6147342626644028e-34, 1, 3.345361660009756e-33, 33.141),
+    "4U": (22, 5.383621143800467e-26, 0, 1.3906016092266745e-28, 24.968),
+    "5U": (16, 0.0, 8, 0.0, float("inf")),
+    "6U": (45, 62.18109117780744, 11, 4.263256414560601e-14, 5.834),
+    "7U": (15, 1.772578656316683e-39, 0, 3.481491926877265e-45, 38.450),
+    "8U": (16, 0.004107438653289479, 7, 9.540979117872439e-18, 6.051),
+    "9U": (11, 5.639663848095383e-09, 1, 1.6940658945086007e-21, 5.610),
+    "10U": (152, 43.972927585381406, 8, 1.205506805490586e-10, 6.203),
+    "11U": (86, 0.4034352777462066, 8, 1.1102230246251565e-16, 0.093),
+    "12U": (20, 3.21612524848308e-33, 6, 4.783457533328304e-33, 32.192),
+    "13U": (23, 1.6587765139400233e-26, 0, 6.569851222803693e-33, 25.479),
+    "14U": (87, 0.0, 0, 0.0, float("inf")),
+    "15U": (30, 0.00015375280192461843, 5, 2.168404344971009e-19, 5.707),
+    "16U": (1000, 272230.49671078037, 0, 18565.592890974163, -0.728),
+    "17U": (28, 2.7324473487413534e-05, 5, 9.0801931945661e-19, 6.066),
+    "18U": (63, 6.162975822039155e-32, 7, 2.7733391199176196e-32, 30.909),
+    "19U": (35, 0.02006886814677386, 6, 3.122502256758253e-17, 6.044),
+    "3C": (146, 7.562970682951063e-11, 11, 1.6093832792984845e-22, 5.563),
+    "4C": (13, 391.99999990427716, 0, 0.0, 9.612),
+    "5C": (6, 0.0, 1, 0.0, float("inf")),
+    "7C": (19, 2.0002112583202774, 0, 0.0, -0.483),
+    "9C": (4, 5.639663848095383e-09, 3, 2.8512915714702864e-21, 5.610),
+    "11C": (51, 4.166260702207117, 3, 7.830536219444184e-11, -5.155),
+    "12C": (118, 5.317737334691197e-06, 0, 6.725441601199145e-19, -0.386),
+    "14C": (113, 0.7784798543462605, 0, 5.261895141828177e-09, 3.779),
+    "16C": (484, 44458.90290298396, 219, 21.97717233815638, 3.190),
+    "18C": (123, 0.02075775025918615, 4, 1.878993589193856e-09, -1.887),
+}
+
+
+def GRADCHECK_WRONG(mod, T, **kw):
+    """tests/test_aux_components.py's check_gradients solve of a wrong
+    analytic cost (r = 2x, dr/dx given as 3) in package `mod` (T its
+    array module); returns the summary."""
+    import numpy as np
+
+    class Bad(mod.SizedCostFunction):
+        def residuals(self, x):
+            return x * 2.0
+
+        def jacobians(self, x):
+            return [T.ones((1, 1)) * 3.0]
+
+    x = np.array([1.0])
+    problem = mod.Problem()
+    problem.add_residual_block(Bad(1, [1]), None, x)
+    return mod.solve(mod.SolverOptions(check_gradients=True, **kw), problem)
+
+
+# the JAX package on the CPU (scripts/problem_api_reference.py --parts
+# gradcheck): GRADCHECK_WRONG's message, and the probe of the first
+# GRADCHECK_BLOCKS Snavely blocks at their start at GRADCHECK_PRECISION,
+# the middle of the widest gap in the middle of the blocks' largest
+# relative errors (0.01506 .. 0.02300; central differences hold some
+# entries only to 1.4e-3 .. 1 of jacfwd's, and at 1e-8 no block
+# passes): the passes, the flags' digest as chip_smoke.py computes it,
+# and the sum of the 64 largest errors (the port's on the card and on
+# the CPU gave each block's JAX's to 5 digits, the sum to 7e-16)
+GRADCHECK_REF = dict(
+    message="Gradient check failed for residual block 0:\nJacobian for "
+            "parameter block 0 disagrees: max relative error 2.000000e-01 "
+            "> 1.000000e-08",
+    probe_pass=26, probe_digest="84de7161d1f50d8d",
+    error_sum=10.096241210198368)
+GRADCHECK_BLOCKS = 64
+GRADCHECK_PRECISION = 0.018
+GRADCHECK_SUM_TOL = 1e-9
 
 
 def lm_iterations(summary):
@@ -1511,7 +1829,8 @@ def fused_large_m_paths(counters, by_path, kernels, device="cuda"):
         f"K2 elim (nf {nf})", lambda: elim(*elim_args),
         lambda: elim_plain(*elim_args), cmp_all, k2_limit,
         "ceres_tpu_torch/csrc/elim.cu", "ceres_tpu/ops/pallas_lin.py:424",
-        elim_args[:4], scorr_flops(ne, nf) + 45 * ne, F32_FLOP_PER_S))
+        elim_args[:4], scorr_flops(ne, nf) + 45 * ne, F32_FLOP_PER_S,
+        reference=scorr_gemm(art.A, elim_plain(*elim_args)[2])))
     rad = torch.tensor(RADIUS, dtype=torch.float32, device=device)
     inv, z = it_step.point_inverse(art, rad)
     k6_limit = own_limits(f"K6 elim_v1 (nf {nf})", elim_v1, elim_v1_plain,
@@ -1520,7 +1839,8 @@ def fused_large_m_paths(counters, by_path, kernels, device="cuda"):
         f"K6 elim_v1 (nf {nf})", lambda: elim_v1(art.A, inv, z),
         lambda: elim_v1_plain(art.A, inv, z), cmp_all, k6_limit,
         "ceres_tpu_torch/csrc/elim.cu", "ceres_tpu/ops/pallas_lin.py:387",
-        (art.A, inv, z), scorr_flops(ne, nf), F32_FLOP_PER_S))
+        (art.A, inv, z), scorr_flops(ne, nf), F32_FLOP_PER_S,
+        reference=scorr_gemm(art.A, inv)))
     k4 = step.k4
     added.append(check_kernel(
         f"K4 cost (nf {nf})", lambda: snavely_sq(x0, k4),
@@ -1767,6 +2087,313 @@ def line_search_paths(counters, by_path, device="cuda"):
         raise SystemExit(f"LINE_SEARCH_PATHS: off the JAX package: {fails}")
 
 
+def problem_api_paths(counters, by_path, device="cuda"):
+    """Slice 11's phase, each part with every kernel count from 0 before
+    each solve and read after it:
+    OUTLIER: the main path's problem with shift_observations' outliers,
+    solved with bench.py's options (K1-K4 at least once an LM iteration,
+    K1 once a linearization), evaluated on the card, every observation
+    past OUTLIER_THRESHOLD removed with the points it leaves bare, solved
+    again on the program the removal forces: the removed set, the counts
+    after removal and both final costs against the JAX CPU run
+    (OUTLIER_REF, costs within REF_REL_TOL);
+    EVALUATE: Problem.evaluate at Trafalgar's shape on the card (the full
+    call with a CSR Jacobian, twice; a subset; evaluate_residual_block on
+    EVALUATE_BLOCKS blocks) against the same calls on the CPU (the CSR
+    structure bit for bit, values within EVALUATE_TOL) and the JAX CPU
+    run's cost and gradient norm (EVALUATE_REF);
+    EXAMPLES: EXAMPLE_RUNS and every More-Garbow-Hillstrom problem,
+    unconstrained and constrained, against EXAMPLE_REF and MGH_REF (no
+    kernel may launch: f64 host-loop paths);
+    GRADCHECK: GradientChecker.probe on GRADCHECK_BLOCKS Snavely blocks
+    at their start (the flags and the sum of the largest errors against
+    GRADCHECK_REF), check_gradients solves of circle_fit and
+    robot_pose_mle that pass, and GRADCHECK_WRONG, which must end in
+    FAILURE with the JAX message.
+    Each call's wall is printed."""
+    import hashlib
+    import numpy as np
+    import torch
+    import ceres_tpu_torch as ctt
+    from ceres_tpu_torch.examples import more_garbow_hillstrom as mgh
+    from ceres_tpu_torch.io import bal as bal_io
+
+    def sync():
+        if torch.device(device).type == "cuda":
+            torch.cuda.synchronize()
+
+    def zero():
+        for fn in counters.values():
+            fn.launches = 0
+        sync()
+        return time.time()
+
+    def read(label, t0):
+        sync()
+        wall = time.time() - t0
+        launches = {n: fn.launches for n, fn in counters.items()}
+        by_path[label] = launches
+        return wall, launches
+
+    fails = []
+    # ---- OUTLIER ----
+    ref = OUTLIER_REF
+    bal = bal_io.synthetic_bal_problem(**SHAPE, seed=7, pixel_noise=1.0)
+    bal.perturb(**PERTURB, seed=8)
+    shifted = shift_observations(bal.observations)
+    problem, cams, pts = bal_io.build_bal_ceres_problem(bal)
+    rbs = problem.residual_blocks()
+    # GRADCHECK probes these blocks at the start, as the JAX run does
+    probe_at = [(rb.cost, [cams[bal.camera_index[rb.index]].copy(),
+                           pts[bal.point_index[rb.index]].copy()])
+                for rb in rbs[:GRADCHECK_BLOCKS]]
+    opts = outlier_options(ctt, device=device)
+    main_k = ("K1 lin", "K2 elim", "K3 chol_solve", "K4 cost")
+    solves = []
+    for label in ("OUTLIER_FIRST", "OUTLIER_SECOND"):
+        if label == "OUTLIER_SECOND":
+            t0 = time.time()
+            _, r, _, _ = problem.evaluate(want_residuals=True, device=device)
+            w_eval = time.time() - t0
+            t0 = time.time()
+            removed, emptied, err = remove_outliers(
+                problem, rbs, pts, bal.point_index, r, OUTLIER_THRESHOLD)
+            w_remove = time.time() - t0
+            near = float(np.min(np.abs(err - OUTLIER_THRESHOLD))
+                         / OUTLIER_THRESHOLD)
+            digest = removed_digest(removed)
+            print(f"OUTLIER: evaluate on the card {w_eval:.3f} s; "
+                  f"{removed.size} blocks past {OUTLIER_THRESHOLD} px "
+                  f"removed ({np.isin(shifted, removed).sum()} of the "
+                  f"{shifted.size} shifted; digest {digest}; JAX "
+                  f"{ref['removed']}, {ref['digest']}), {emptied.size} "
+                  f"points left bare removed (JAX {ref['emptied']}), "
+                  f"{w_remove:.3f} s; nearest error {near:.3e} of the "
+                  f"threshold away (at least {OUTLIER_MARGIN:.0e}); "
+                  f"{problem.num_residual_blocks()} "
+                  f"residual blocks and {problem.num_parameters()} "
+                  f"parameters left (JAX {ref['residual_blocks']}, "
+                  f"{ref['parameters']})", flush=True)
+            if not (removed.size == ref["removed"] and near >= OUTLIER_MARGIN
+                    and digest == ref["digest"]
+                    and emptied.size == ref["emptied"]
+                    and problem.num_residual_blocks()
+                    == ref["residual_blocks"]
+                    and problem.num_parameters() == ref["parameters"]):
+                fails.append("OUTLIER removal")
+        t0 = zero()
+        s = ctt.solve(opts, problem)
+        wall, launches = read(label, t0)
+        lm = lm_iterations(s)
+        want = ref["first" if label == "OUTLIER_FIRST" else "second"]
+        rel = abs(s.final_cost - want[1]) / want[1]
+        short = [k for k in main_k[1:] if launches[k] < lm]
+        n1 = launches["K1 lin"]
+        stray = [k for k, c in launches.items() if c and k not in main_k
+                 and not k.startswith("K3 chol_solve (")]
+        print(f"{label}: {lm} LM iterations ({s.num_successful_steps} "
+              f"accepted; JAX {want[0]}), final cost {s.final_cost!r} "
+              f"({rel:.3e} from JAX {want[1]!r}), {s.termination_type}, "
+              f"wall {wall:.4f} s, launches {launches}", flush=True)
+        if (short or stray or rel > REF_REL_TOL
+                or not s.num_successful_steps <= n1 <= lm + 1
+                or str(s.termination_type) != want[2]):
+            fails.append(label)
+        solves.append(s)
+
+    # ---- EVALUATE ----
+    eref = EVALUATE_REF
+    t0 = time.time()
+    eproblem, ecams, epts = evaluate_problem(bal_io)
+    print(f"EVALUATE: problem build {time.time() - t0:.1f} s", flush=True)
+    kw = dict(want_residuals=True, want_gradient=True, want_jacobian=True,
+              jacobian_format="csr")
+    out = {}
+    for dev in (device, device, "cpu"):
+        t0 = time.time()
+        got = eproblem.evaluate(device=dev, **kw)
+        sync()
+        wall = time.time() - t0
+        again = " (its program cached)" if dev in out else ""
+        print(f"EVALUATE full on {dev}{again}: {wall:.3f} s", flush=True)
+        out[dev] = got
+    sub_rbs = eproblem.residual_blocks()[:EVALUATE_SUBSET_ROWS]
+    for dev in (device, "cpu"):
+        t0 = time.time()
+        out["sub " + dev] = eproblem.evaluate(
+            residual_blocks=sub_rbs, parameter_blocks=ecams, device=dev, **kw)
+        print(f"EVALUATE subset ({EVALUATE_SUBSET_ROWS} residual blocks x "
+              f"{len(ecams)} camera blocks) on {dev}: "
+              f"{time.time() - t0:.3f} s", flush=True)
+
+    def same(a, b):
+        """(structure equal, value distance) of two outputs."""
+        ca, ra, ga, Ja = a
+        cb, rb_, gb, Jb = b
+        struct = (np.array_equal(Ja.indptr, Jb.indptr)
+                  and np.array_equal(Ja.indices, Jb.indices))
+        dist = max(abs(ca - cb) / abs(cb),
+                   *(float(np.abs(x - y).max() / np.abs(y).max())
+                     for x, y in ((ra, rb_), (ga, gb), (Ja.data, Jb.data))))
+        return struct, dist
+
+    for label, a, b in (("full", out[device], out["cpu"]),
+                        ("subset", out["sub " + device], out["sub cpu"])):
+        struct, dist = same(a, b)
+        print(f"EVALUATE {label}: card vs CPU: CSR structure "
+              f"{'bit-equal' if struct else 'DIFFERENT'} ({a[3].shape}, "
+              f"{a[3].nnz} nonzeros), values within {dist:.3e} (limit "
+              f"{EVALUATE_TOL:.0e})", flush=True)
+        if not (struct and dist <= EVALUATE_TOL):
+            fails.append(f"EVALUATE {label}")
+    cost, res, grad, jac = out[device]
+    gnorm = float(np.linalg.norm(grad))
+    d_cost = abs(cost - eref["cost"]) / eref["cost"]
+    d_grad = abs(gnorm - eref["gradient_norm"]) / eref["gradient_norm"]
+    print(f"EVALUATE vs JAX on the CPU: cost {cost!r} ({d_cost:.3e} from "
+          f"{eref['cost']!r}), gradient norm {gnorm!r} ({d_grad:.3e} from "
+          f"{eref['gradient_norm']!r}), nonzeros {jac.nnz} (JAX "
+          f"{eref['nnz']})", flush=True)
+    if not (d_cost <= EVALUATE_TOL and d_grad <= EVALUATE_TOL
+            and jac.nnz == eref["nnz"]):
+        fails.append("EVALUATE vs JAX")
+    offset, o = {}, 0
+    for b in eproblem.parameter_blocks():
+        offset[id(b)] = o
+        o += eproblem.parameter_block_tangent_size(b)
+    all_rbs = eproblem.residual_blocks()
+    picks = np.linspace(0, len(all_rbs) - 1, EVALUATE_BLOCKS).astype(int)
+    worst = 0.0
+    t0 = time.time()
+    for i in picks:
+        rb = all_rbs[i]
+        c_b, r_b, jacs = eproblem.evaluate_residual_block(rb, device=device)
+        rows = jac[2 * i:2 * i + 2].toarray()
+        worst = max(worst, float(np.abs(r_b - res[2 * i:2 * i + 2]).max()
+                                 / np.abs(res[2 * i:2 * i + 2]).max()))
+        for arr, J in zip(eproblem.get_parameter_blocks_for_residual_block(
+                rb), jacs):
+            off = offset[id(arr)]
+            want = rows[:, off:off + J.shape[1]]
+            worst = max(worst, float(np.abs(J - want).max()
+                                     / np.abs(want).max()))
+    w_blocks = time.time() - t0
+    print(f"EVALUATE evaluate_residual_block on {EVALUATE_BLOCKS} blocks: "
+          f"{w_blocks:.3f} s ({1e3 * w_blocks / EVALUATE_BLOCKS:.2f} ms a "
+          f"block); rows and Jacobian blocks within {worst:.3e} of the full "
+          f"call's", flush=True)
+    if not worst <= EVALUATE_TOL:
+        fails.append("EVALUATE residual blocks")
+    del eproblem, ecams, epts, out, jac
+
+    # ---- EXAMPLES ----
+    def gate_run(label, s, want):
+        """want: the EXAMPLE_REF or MGH_REF entry of `label`."""
+        lm = lm_iterations(s)
+        tol = max(EXAMPLE_COST_TOL * abs(want[1]), EXAMPLE_COST_FLOOR,
+                  2.0 * want[3])
+        ok = (abs(lm - want[0]) <= max(2 * want[2],
+                                       LM_ROUNDING.get(label, 0))
+              and abs(s.final_cost - want[1]) <= tol)
+        return ok, lm, tol
+
+    for name in EXAMPLE_RUNS:
+        t0 = zero()
+        s = run_example(ctt, name, device=device)[0]
+        wall, launches = read(f"EXAMPLE_{name}", t0)
+        want = EXAMPLE_REF[name]
+        ok, lm, tol = gate_run(name, s, want)
+        stray = [k for k, c in launches.items() if c]
+        print(f"EXAMPLE {name}: {lm} LM (JAX {want[0]}, spread {want[2]}), "
+              f"final cost {s.final_cost!r} (JAX {want[1]!r}, limit "
+              f"{tol:.3e}), {s.termination_type}, wall {wall:.3f} s",
+              flush=True)
+        if not ok or stray:
+            fails.append(f"EXAMPLE {name}{' kernels ' if stray else ''}"
+                         f"{stray if stray else ''}")
+    t_mgh = zero()
+    n_mgh = 0
+    for constrained in (False, True):
+        for p in mgh.PROBLEMS:
+            key = f"{p.number}{'C' if constrained else 'U'}"
+            if key not in MGH_REF:
+                continue
+            lre, s, _ = mgh.solve_mgh(p, constrained=constrained,
+                                      device=device)
+            want = MGH_REF[key]
+            ok, lm, tol = gate_run(key, s, want)
+            ok = ok and (lre >= 4.0 or not want[4] >= 4.0)
+            n_mgh += 1
+            print(f"MGH {key} {p.name}: {lm} LM (JAX {want[0]}, spread "
+                  f"{want[2]}, allowed "
+                  f"{max(2 * want[2], LM_ROUNDING.get(key, 0))}), final cost "
+                  f"{s.final_cost!r} (JAX "
+                  f"{want[1]!r}, limit {tol:.3e}), LRE {lre:.2f} (JAX "
+                  f"{want[4]:.2f}), {s.termination_type}", flush=True)
+            if not ok:
+                fails.append(f"MGH {key}")
+    wall, launches = read("EXAMPLE_MGH", t_mgh)
+    print(f"MGH: {n_mgh} solves in {wall:.2f} s", flush=True)
+    if any(launches.values()):
+        fails.append("MGH kernels")
+
+    # ---- GRADCHECK ----
+    gref = GRADCHECK_REF
+    t0 = time.time()
+    flags, worst = [], []
+    for cost, params in probe_at:
+        res = ctt.GradientChecker(cost, device=device).probe(
+            params, GRADCHECK_PRECISION)
+        flags.append(res.return_value)
+        worst.append(res.maximum_relative_error)
+    w_probe = time.time() - t0
+    fdigest = hashlib.sha256(np.asarray(flags).tobytes()).hexdigest()[:16]
+    d_sum = abs(sum(worst) - gref["error_sum"]) / gref["error_sum"]
+    print(f"GRADCHECK probe on {GRADCHECK_BLOCKS} Snavely blocks at "
+          f"{GRADCHECK_PRECISION:g}: {sum(flags)} pass (JAX "
+          f"{gref['probe_pass']}, flags digest {fdigest}, JAX "
+          f"{gref['probe_digest']}), largest relative error "
+          f"{max(worst):.6e}, their sum {sum(worst)!r} ({d_sum:.3e} from "
+          f"JAX's, limit {GRADCHECK_SUM_TOL:.0e}), {w_probe:.3f} s",
+          flush=True)
+    if not (sum(flags) == gref["probe_pass"]
+            and fdigest == gref["probe_digest"]
+            and d_sum <= GRADCHECK_SUM_TOL):
+        fails.append("GRADCHECK probe")
+    from ceres_tpu_torch.examples import circle_fit, robot_pose_mle
+    pts_c = circle_fit.synthesize(num_points=60, outliers=4, cx=2.0, cy=3.0,
+                                  r=5.0, seed=1)
+    t0 = time.time()
+    s = circle_fit.fit_circle(pts_c, pts_c[0, 0], pts_c[0, 1], 1.0,
+                              robust_threshold=0.5, device=device,
+                              check_gradients=True)[3]
+    checked = [("circle_fit", s, time.time() - t0)]
+    odo, rng_ = robot_pose_mle.simulate_robot()
+    t0 = time.time()
+    s = robot_pose_mle.solve_robot_pose_mle(
+        odo, rng_, options=ctt.SolverOptions(max_num_iterations=500,
+                                             check_gradients=True,
+                                             device=device))[1]
+    checked.append(("robot_pose_mle", s, time.time() - t0))
+    for name, s, wall in checked:
+        want = EXAMPLE_REF[name]
+        ok, lm, tol = gate_run(name, s, want)
+        print(f"GRADCHECK check_gradients solve of {name}: "
+              f"{s.termination_type}, {lm} LM, final cost "
+              f"{s.final_cost!r} (JAX {want[1]!r}), wall {wall:.3f} s",
+              flush=True)
+        if not (ok and s.is_solution_usable()):
+            fails.append(f"GRADCHECK {name}")
+    s = GRADCHECK_WRONG(ctt, torch, device=device)
+    print(f"GRADCHECK wrong analytic cost: {s.termination_type}, "
+          f"{s.message!r} (JAX {gref['message']!r})", flush=True)
+    if not (str(s.termination_type) == "FAILURE"
+            and s.message == gref["message"]):
+        fails.append("GRADCHECK wrong cost")
+    if fails:
+        raise SystemExit(f"PROBLEM_API_PATHS: failed: {fails}")
+
+
 def main():
     import numpy as np
     import torch
@@ -1999,7 +2626,8 @@ def main():
         "K2 elim", lambda: elim(*elim_args), lambda: elim_plain(*elim_args),
         cmp_all, F32_LIMIT,
         "ceres_tpu_torch/csrc/elim.cu", "ceres_tpu/ops/pallas_lin.py:424",
-        elim_args[:4], scorr_flops(ne, nf) + 45 * ne, F32_FLOP_PER_S))
+        elim_args[:4], scorr_flops(ne, nf) + 45 * ne, F32_FLOP_PER_S,
+        reference=scorr_gemm(art.A, elim_plain(*elim_args)[2])))
     kernels[-1]["interleaved"] = interleaved(
         "K2 elim vs its plain version", lambda: elim(*elim_args),
         lambda: elim_plain(*elim_args), label="plain")
@@ -2048,7 +2676,8 @@ def main():
         "K6 elim_v1", lambda: elim_v1(art.A, inv, z),
         lambda: elim_v1_plain(art.A, inv, z), cmp_all, F32_LIMIT,
         "ceres_tpu_torch/csrc/elim.cu", "ceres_tpu/ops/pallas_lin.py:387",
-        (art.A, inv, z), scorr_flops(ne, nf), F32_FLOP_PER_S))
+        (art.A, inv, z), scorr_flops(ne, nf), F32_FLOP_PER_S,
+        reference=scorr_gemm(art.A, inv)))
     kernels[-1]["interleaved"] = interleaved(
         "K6 elim_v1 vs its plain version", lambda: elim_v1(art.A, inv, z),
         lambda: elim_v1_plain(art.A, inv, z), label="plain")
@@ -2827,6 +3456,7 @@ def main():
     ba_paths(problem, cams + pts, reset_state, counters, by_path)
     fused_large_m_paths(counters, by_path, kernels)
     line_search_paths(counters, by_path)
+    problem_api_paths(counters, by_path)
 
     # tests/test_solver_e2e.py's helloworld, Powell and bounded problems
     # on the card, at those tests' tolerances

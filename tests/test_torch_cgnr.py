@@ -183,7 +183,7 @@ def test_iterative_schur_without_structure_downgrades_to_cgnr():
     (dict(use_inner_iterations=True), "item 22"),
     (dict(trust_region_problem_dump_directory="dumps"), "item 14"),
     (dict(trust_region_problem_dump_format_type="CONSOLE"), "item 14"),
-    (dict(check_gradients=True), "item 28"),
+    (dict(check_gradients=True, use_inner_iterations=True), "item 22"),
 ], ids=["extra0-item 25", "extra1-item 22", "extra2-item 14",
         "extra3-item 14", "extra4-item 28"])
 def test_out_of_slice_raises(extra, item):
@@ -196,7 +196,9 @@ def test_out_of_slice_raises(extra, item):
     tests/test_torch_sparse_direct.py). The line-search minimizer runs
     since item 25 (tests/test_torch_line_search.py); with these options'
     fused_iterations=True it raises naming item 47, the device-resident
-    loop (the case keeps its id)."""
+    loop (the case keeps its id). check_gradients runs since item 28
+    (tests/test_torch_aux.py); its case keeps its id and holds a
+    gradient-checking solve to item 22's refusal of inner iterations."""
     problem, positions, _ = _problem(ctt, "2d")
     enums = {"minimizer_type": ctt.MinimizerType,
              "trust_region_problem_dump_format_type": ctt.DumpFormatType}

@@ -11,9 +11,12 @@ SPARSE_QR_DENSE_CAP effective parameters the R factor of its QR. Past
 that cap SPARSE_QR computes the requested blocks only: the undamped
 normal equations factored once by the native LDL^T of
 solvers/sparse_direct.py, one backsolve per requested column, the rank
-policy read from the factor's inertia and pivot ratio. The JAX package's
-branch of that path for problems with Schur structure (SchurOps) is
-ROADMAP.md item 18 and raises here. The SVD, the QR and the triangular
+policy read from the factor's inertia and pivot ratio; on a problem with
+Schur structure (the JAX package's branch, ceres_tpu covariance.py
+:180-237) the reduced camera matrix S of solvers/schur.py's SchurOps
+instead, its Cholesky, and per requested column the reduced rhs, the
+solve and the back-substitution, 256 columns a batch. The SVD, the QR,
+the Cholesky and the triangular
 solves are torch.linalg calls on options.device (cuSOLVER on the card),
 as the JAX package computes them with jnp.linalg outside any Pallas
 kernel.
@@ -31,7 +34,7 @@ import numpy as np
 import torch
 
 from .program import CompiledProgram
-from .solvers.schur import detect_schur_structure
+from .solvers.schur import SchurOps, SchurSystem, detect_schur_structure
 from .solvers.sparse_direct import (SparseNormalCholeskyContext,
                                     bucket_grams, to_host)
 from .types import CovarianceAlgorithmType
@@ -39,6 +42,9 @@ from .types import CovarianceAlgorithmType
 # SPARSE_QR takes the dense QR of J up to this many effective parameters
 # (ceres_tpu covariance.py:123), the native LDL^T past it
 SPARSE_QR_DENSE_CAP = 2000
+# unit columns solved together on the Schur branch (ceres_tpu
+# covariance.py:222)
+COVARIANCE_BATCH = 256
 
 
 class CovarianceOptions:
@@ -169,19 +175,84 @@ class Covariance:
             col_of_block[key] = (pos, tb)
             pos += tb
 
-        if detect_schur_structure(prog, None) is not None:
-            self._block_cov = None
-            raise NotImplementedError(
-                "the Schur-structure branch of the scalable SPARSE_QR "
-                "covariance (SchurOps) is not ported yet (ROADMAP.md item "
-                "18, solvers/schur.py)")
+        meta = detect_schur_structure(prog, None)
+        X = (self._schur_columns(prog, meta, cols) if meta is not None
+             else self._native_columns(prog, cols))
+        if X is None:
+            return False
+        if not np.all(np.isfinite(X)):
+            self._message = "Non-finite covariance back-solve."
+            return False
+        for a, b in var_pairs:
+            oa, ta, _ = self._tangent_slice(a)
+            p0, tb = col_of_block[id(b)]
+            self._block_cov[(id(a), id(b))] = X[p0:p0 + tb, oa:oa + ta].T
+        return True
+
+    def _schur_columns(self, prog, meta, cols):
+        """Columns `cols` of inverse(J^T J) as rows of an [m, n] array, by
+        Schur elimination (ceres_tpu covariance.py:180-237): S of the
+        undamped system, its Cholesky (a NaN or a reciprocal condition
+        estimate (min / max of its diagonal)^2 below the options' minimum
+        fails, with the JAX package's messages), then per batch of 256
+        unit columns b: z = (E^T E)^-1 b_e, the reduced rhs b_f - A^T z
+        with A = E^T F, y = S^-1 rhs and d_e = (E^T E)^-1 (b_e - A y).
+        None on failure."""
+        n = prog.num_effective
+        _, _, jac, _ = prog.linearize_fn(prog.initial_state())
+        system = SchurSystem(meta, jac)
+        ops = SchurOps(system, torch.zeros(n, dtype=system.dtype,
+                                           device=system.device))
+        L, info = torch.linalg.cholesky_ex(ops.explicit_S())
+        if int(info) != 0 or bool(torch.isnan(L).any()):
+            self._message = ("Rank deficient normal equations in the "
+                             "Schur covariance path (gauge freedom?); "
+                             "hold a gauge or use DENSE_SVD.")
+            return None
+        cd = torch.diagonal(L).abs().cpu().numpy()
+        rcn = float((cd.min() / cd.max()) ** 2) if cd.size else 0.0
+        eps = self.options.min_reciprocal_condition_number
+        if rcn < eps:
+            self._message = (
+                f"Rank deficient normal equations: reciprocal condition "
+                f"number estimate {rcn:e} < {eps:e} (Schur covariance "
+                f"path). Hold a gauge, or use DENSE_SVD with "
+                f"null_space_rank.")
+            return None
+        _, A = system.ftf_and_a()
+        e_cols, f_global = system.plan.e_cols, system.plan.f_global
+        X = np.zeros((len(cols), n))
+        for s0 in range(0, len(cols), COVARIANCE_BATCH):
+            c = torch.as_tensor(cols[s0:s0 + COVARIANCE_BATCH],
+                                device=system.device)
+            B = c.numel()
+            b = torch.zeros((B, n), dtype=system.dtype, device=system.device)
+            b[torch.arange(B, device=system.device), c] = 1.0
+            b_e, b_f = b[:, e_cols], b[:, f_global]
+            z = torch.einsum("nij,bnj->bni", ops.inv_ete, b_e)
+            rhs = b_f - torch.einsum("itf,bit->bf", A, z)
+            y = torch.cholesky_solve(rhs.T, L).T
+            d_e = torch.einsum("nij,bnj->bni", ops.inv_ete,
+                               b_e - torch.einsum("itf,bf->bit", A, y))
+            out = torch.zeros_like(b)
+            out[:, f_global] = y
+            out[:, e_cols.reshape(-1)] = d_e.reshape(B, -1)
+            X[s0:s0 + B] = out.cpu().numpy()
+        return X
+
+    def _native_columns(self, prog, cols):
+        """Columns `cols` of inverse(J^T J) as rows of an [m, n] array, by
+        the native LDL^T of the undamped normal equations; None on
+        failure."""
+        n = prog.num_effective
+        opts = self.options
         ctx = SparseNormalCholeskyContext(prog)
         _, _, jac, _ = prog.linearize_fn(prog.initial_state())
         grams = to_host(*bucket_grams(jac))
         if not ctx.factor_values(ctx.assemble(grams), np.zeros(n)):
             self._message = ("Rank deficient normal equations in the "
                              "sparse covariance path.")
-            return False
+            return None
         # the rank policy from the LDL^T inertia (covariance.h:281-329):
         # J^T J is positive semidefinite, so a negative pivot or a tiny
         # pivot ratio is numerical rank deficiency
@@ -193,21 +264,14 @@ class Covariance:
                 f"negative pivots), reciprocal condition number estimate "
                 f"{rcn:e} < {opts.min_reciprocal_condition_number:e}. Use "
                 f"DENSE_SVD with null_space_rank.")
-            return False
+            return None
         X = np.zeros((len(cols), n))
         e = np.zeros(n)
         for i, col in enumerate(cols):
             e[col] = 1.0
             ctx.host_apply(e, out=X[i])
             e[col] = 0.0
-        if not np.all(np.isfinite(X)):
-            self._message = "Non-finite covariance back-solve."
-            return False
-        for a, b in var_pairs:
-            oa, ta, _ = self._tangent_slice(a)
-            p0, tb = col_of_block[id(b)]
-            self._block_cov[(id(a), id(b))] = X[p0:p0 + tb, oa:oa + ta].T
-        return True
+        return X
 
     def _tangent_slice(self, values):
         """(tangent offset, tangent size, block); the offset is None for a

@@ -1,484 +1,44 @@
-// K2: damped point elimination into the reduced camera system, and K6,
-// the same elimination from a given inverse.
-//
-// K2 replaces ceres_tpu/ops/pallas_lin.py::_elim2_kernel. Per point n:
-//   M_n   = EtE_s[n] + diag[n] / radius            (3x3 SPD)
-//   inv_n = M_n^-1 (closed-form cofactor inverse)
-//   z_n   = inv_n * (-g_se[n])
-// and over all points
-//   S_corr = sum_n A_n^T inv_n A_n   [nf, nf]
-//   rhs    = sum_n A_n^T z_n         [nf]
-// with A [ne, 3, nf] from the linearize kernel (lin.cu, lin_auto.cuh).
-// K6 (ELIM v1) replaces ceres_tpu/ops/pallas_lin.py::_elim_kernel: the
-// same S_corr and rhs from an inv [ne, 3, 3] and z [ne, 3] that the caller
-// gives (the ITERATIVE_SCHUR step forms them in PyTorch). The two share
-// the kernels below; K2 forms inv and z as it stages each point.
-//
-// Bound on the H100: operations. S_corr is a rank-3 update per point,
-// 6 nf^2 flops with Y_n = inv_n A_n formed first, or 6 nf (nf + 1) / 2 for
-// the upper triangle, which is all the kernel computes at nf <= 160:
-// 1.46 GFLOP at BAL-16-22106 (ne 22,106, nf 144), ~22 us at the f32 rate,
-// against 38 MB of A (~11 us of memory time). In practice shared memory's
-// bandwidth sets it: each thread reads 2 R values a rank-1 update.
-//
-// Design: a split-K product with register tiles, plain f32 FMAs on the
-// CUDA cores (no tensor-core or TF32 pass).
-// - Output tiles of 16 R x 16 R; at nf <= 160 one tile (R = ceil(nf/16))
-//   holds all of S_corr, else tiles of 128 (R = 8) over the upper pairs
-//   of tiles, the lower ones mirrored. Thread (tr, tc) of 256 owns rows
-//   tr + 16 p and columns tc + 16 q of its tile: R x R accumulators, or
-//   at nf <= 160 only q >= p (R (R + 1) / 2 of them: the upper triangle,
-//   all threads busy).
-// - Each block takes one tile pair and a contiguous, fixed range of
-//   points (ops/lin.py elim_plan: two blocks per SM over the pairs). It
-//   stages A_n's rows of its windows for 8 points at a time in shared
-//   memory with cp.async (16 B where A's rows allow it), double-buffered,
-//   so the next group's copy runs under this group's product; one warp per
-//   point then forms Y_n = inv_n A_n once (K2: inv_n and z_n from the
-//   staged EtE, g and diagonal first, written out for the back
-//   substitution) and stores A_n and Y_n with each tile row transposed to
-//   [16][R padded to 2], so that a thread's R values are contiguous and
-//   load as 8 B words (free of bank conflicts); every thread then applies
-//   the 3 rank-1 updates to its tile. rhs is summed in the same pass: A is read once per call.
-// - Deterministic sums: each block writes its tile's partial sums; a
-//   second kernel adds them over the blocks in a fixed order (8 strided
-//   runs, then the 8 runs in order) and mirrors. No atomics: two calls
-//   give the same bits. Two launches a call.
-// Dense in the camera columns: a point touches about 4 of 16 camera
-// blocks at BAL-16, and skipping the zero blocks is later work.
+// K2 and K6 (csrc/elim.cuh): the entry points, which pick the unit of
+// the call's point size (elim_te<N>.cu).
 
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "elim.cuh"
 
 namespace {
 
-constexpr int TE = 3;
-constexpr int THREADS = 256;
-constexpr int G = THREADS / 32;      // points per stage, one warp each
-constexpr int PW = 16;               // staged words a point (15 or 12 used)
-constexpr int QW = 4;                // K2's z a point, for rhs
-constexpr int MAX_R = 10;            // one tile up to nf = 160
-constexpr int TILE_R = 8;            // tiles of 128 past that
-
-__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
-  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
-               "l"(src));
-}
-
-__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
-  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s),
-               "l"(src));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_group 0;\n" ::);
-}
-
-// Copy columns [c0, c0 + W) of A's rows (n, u) for points n .. n + cnt - 1
-// into dst [cnt][3][ld].
-__device__ __forceinline__ void stage_window(float* dst, int ld,
-                                             const float* A, int n, int cnt,
-                                             int nf, int c0, int W, bool vec,
-                                             int tid) {
-  if (c0 == 0 && W == nf && ld == nf) {          // one contiguous span
-    const float* src = A + (size_t)n * TE * nf;
-    const int total = cnt * TE * nf;
-    if (vec) {
-      for (int k = 4 * tid; k < total; k += 4 * THREADS)
-        cp_async16(dst + k, src + k);
-    } else {
-      for (int k = tid; k < total; k += THREADS) cp_async4(dst + k, src + k);
-    }
-    return;
+cudaError_t launch(int te, CERES_ELIM_PARAMS) {
+  switch (te) {
+    case 1: return elim_units::launch_te1(k2, CERES_ELIM_ARGS);
+    case 2: return elim_units::launch_te2(k2, CERES_ELIM_ARGS);
+    case 3: return elim_units::launch_te3(k2, CERES_ELIM_ARGS);
+    case 4: return elim_units::launch_te4(k2, CERES_ELIM_ARGS);
+    case 5: return elim_units::launch_te5(k2, CERES_ELIM_ARGS);
+    case 6: return elim_units::launch_te6(k2, CERES_ELIM_ARGS);
   }
-  const int per = vec ? W / 4 : W;
-  for (int k = tid; k < cnt * TE * per; k += THREADS) {
-    const int row = k / per, ch = k - row * per;
-    const float* src = A + ((size_t)n * TE + row) * nf + c0;
-    if (vec)
-      cp_async16(dst + row * ld + 4 * ch, src + 4 * ch);
-    else
-      cp_async4(dst + row * ld + ch, src + ch);
-  }
-}
-
-// Copy the per-point words of points n .. n + cnt - 1 into dst [cnt][PW]:
-// p0's 9 at 0, p1's 3 at 9, p2's 3 (if any) at 12.
-__device__ __forceinline__ void stage_words(float* dst, const float* p0,
-                                            const float* p1, const float* p2,
-                                            int n, int cnt, int tid) {
-  const int total = cnt * (p2 ? 15 : 12);
-  for (int k = tid; k < total; k += THREADS) {
-    if (k < 9 * cnt) {
-      const int pt = k / 9, e = k - 9 * pt;
-      cp_async4(dst + pt * PW + e, p0 + (size_t)(n + pt) * 9 + e);
-    } else if (k < 12 * cnt) {
-      const int pt = (k - 9 * cnt) / 3, e = k - 9 * cnt - 3 * pt;
-      cp_async4(dst + pt * PW + 9 + e, p1 + (size_t)(n + pt) * 3 + e);
-    } else {
-      const int pt = (k - 12 * cnt) / 3, e = k - 12 * cnt - 3 * pt;
-      cp_async4(dst + pt * PW + 12 + e, p2 + (size_t)(n + pt) * 3 + e);
-    }
-  }
-}
-
-// A thread's R values of a tile row, padded to whole 8 B loads.
-__host__ __device__ constexpr int padded(int R) { return (R + 1) & ~1; }
-
-// Shared memory in floats; ops/lin.py elim_plan mirrors it.
-size_t smem_floats(int R, int nt, int ld) {
-  const size_t buf = (size_t)G * TE * ld;
-  const size_t tile = (size_t)G * TE * 16 * padded(R);
-  return 2 * buf * (nt > 1 ? 2 : 1) + 2 * tile + 2 * G * PW + G * QW;
-}
-
-// grid (splits, pairs), THREADS threads: the partial S_corr of one tile
-// pair over one range of points, and (diagonal pairs) its rows' rhs.
-// K2: p0 = EtE_s [ne, 9], p1 = g_se [ne, 3], p2 = diag [ne, 3]; K6: p0 =
-// inv [ne, 9], p1 = z [ne, 3], p2 = null.
-template <int R, bool TRI, bool K2>
-__global__ void __launch_bounds__(THREADS, 2)
-    scorr_kernel(const float* __restrict__ A, const float* __restrict__ p0,
-                 const float* __restrict__ p1, const float* __restrict__ p2,
-                 float rad, int ne, int nf, int nt, int pts, int ld, int vec,
-                 float* __restrict__ inv_out, float* __restrict__ z_out,
-                 float* __restrict__ part, float* __restrict__ rpart) {
-  constexpr int W16 = 16 * R;
-  constexpr int RP = padded(R);
-  constexpr int LD = 16 * RP;          // a tile row: [16][RP], see below
-  constexpr int NACC = TRI ? R * (R + 1) / 2 : R * R;
-  extern __shared__ __align__(16) float smem[];
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int tr = tid >> 4, tc = tid & 15;
-  const int split = blockIdx.x, pair = blockIdx.y;
-  int ti = 0, rest = pair;             // pairs ti <= tj, row by row
-  while (rest >= nt - ti) {
-    rest -= nt - ti;
-    ++ti;
-  }
-  const int tj = ti + rest;
-  const bool diag = ti == tj;
-  const int r0 = ti * W16, c0 = tj * W16;
-  const int Wr = min(W16, nf - r0), Wc = min(W16, nf - c0);
-  // Staged rows of A ([2][G][3][ld], ld the window: nf at nt = 1, else
-  // 128) and, at nt > 1, of the column window; then for the product the
-  // group's A (row window) and Y = inv A (column window) with each tile
-  // row stored as [16][RP]: column c at (c % 16) RP + c / 16, so that
-  // thread (tr, tc)'s R values (columns tr + 16 p, tc + 16 q) are
-  // contiguous and load as RP / 2 8-byte words.
-  const int buf_words = G * TE * ld;
-  float* sA = smem;
-  float* sB = sA + 2 * buf_words;
-  float* pA = sB + (nt > 1 ? 2 * buf_words : 0);    // [G][3][LD]
-  float* pY = pA + G * TE * LD;                     // [G][3][LD]
-  float* sP = pY + G * TE * LD;                     // [2][G][PW]
-  float* sQ = sP + 2 * G * PW;                      // [G][QW]
-
-  const int n_begin = split * pts, n_end = min(ne, n_begin + pts);
-  const int ngroups = (n_end - n_begin + G - 1) / G;
-  auto stage = [&](int g, int buf) {
-    const int n = n_begin + g * G, cnt = min(G, n_end - n);
-    stage_window(sA + buf * buf_words, ld, A, n, cnt, nf, r0, Wr, vec, tid);
-    if (!diag)
-      stage_window(sB + buf * buf_words, ld, A, n, cnt, nf, c0, Wc, vec,
-                   tid);
-    stage_words(sP + buf * G * PW, p0, p1, p2, n, cnt, tid);
-    cp_async_commit();
-  };
-
-  float acc[NACC];
-#pragma unroll
-  for (int k = 0; k < NACC; ++k) acc[k] = 0.f;
-  float racc = 0.f;
-  stage(0, 0);
-  for (int g = 0; g < ngroups; ++g) {
-    const int buf = g & 1;
-    const int n = n_begin + g * G, cnt = min(G, n_end - n);
-    cp_async_wait_all();
-    __syncthreads();                  // group g staged; group g - 1 done
-
-    // ---- Y = inv A for point `warp` of the group (K2: inv, z first) ----
-    if (warp < cnt) {
-      const float* P = sP + buf * G * PW + warp * PW;
-      float iv[9];
-      if (K2) {
-        const float a = P[0] + P[12] / rad;
-        const float b = P[1];
-        const float c = P[2];
-        const float d = P[4] + P[13] / rad;
-        const float ee = P[5];
-        const float f = P[8] + P[14] / rad;
-        const float co00 = d * f - ee * ee;
-        const float co01 = c * ee - b * f;
-        const float co02 = b * ee - c * d;
-        const float co11 = a * f - c * c;
-        const float co12 = b * c - a * ee;
-        const float co22 = a * d - b * b;
-        const float invdet = 1.f / (a * co00 + b * co01 + c * co02);
-        iv[0] = co00 * invdet; iv[1] = co01 * invdet; iv[2] = co02 * invdet;
-        iv[3] = co01 * invdet; iv[4] = co11 * invdet; iv[5] = co12 * invdet;
-        iv[6] = co02 * invdet; iv[7] = co12 * invdet; iv[8] = co22 * invdet;
-        if (lane == 0) {
-          float zz[TE];
-#pragma unroll
-          for (int u = 0; u < TE; ++u) {
-            float s = iv[u * 3 + 0] * (-P[9]);
-            s = s + iv[u * 3 + 1] * (-P[10]);
-            s = s + iv[u * 3 + 2] * (-P[11]);
-            zz[u] = s;
-            sQ[warp * QW + u] = s;
-          }
-          if (pair == 0) {
-#pragma unroll
-            for (int k = 0; k < 9; ++k) inv_out[(size_t)(n + warp) * 9 + k] = iv[k];
-#pragma unroll
-            for (int u = 0; u < TE; ++u) z_out[(size_t)(n + warp) * TE + u] = zz[u];
-          }
-        }
-      } else {
-#pragma unroll
-        for (int k = 0; k < 9; ++k) iv[k] = P[k];
-      }
-      const float* Aw = sA + buf * buf_words + warp * TE * ld;
-      const float* Bw = (diag ? sA : sB) + buf * buf_words + warp * TE * ld;
-      float* pAw = pA + warp * TE * LD;
-      float* pYw = pY + warp * TE * LD;
-      for (int c = lane; c < Wc; c += 32) {
-        const int pos = (c & 15) * RP + (c >> 4);
-        const float b0 = Bw[c], b1 = Bw[ld + c], b2 = Bw[2 * ld + c];
-#pragma unroll
-        for (int u = 0; u < TE; ++u)
-          pYw[u * LD + pos] = iv[u * 3] * b0 + iv[u * 3 + 1] * b1 +
-                              iv[u * 3 + 2] * b2;
-        if (diag) {
-          pAw[pos] = b0;
-          pAw[LD + pos] = b1;
-          pAw[2 * LD + pos] = b2;
-        }
-      }
-      if (!diag) {
-        for (int c = lane; c < Wr; c += 32) {
-          const int pos = (c & 15) * RP + (c >> 4);
-#pragma unroll
-          for (int u = 0; u < TE; ++u) pAw[u * LD + pos] = Aw[u * ld + c];
-        }
-      }
-    }
-    __syncthreads();                  // Y and z of group g ready
-    if (g + 1 < ngroups) stage(g + 1, buf ^ 1);
-
-    // ---- the 3 rank-1 updates of each point on this thread's tile ----
-    const float* zsrc = K2 ? sQ : sP + buf * G * PW + 9;
-    const int zstride = K2 ? QW : PW;
-    for (int pt = 0; pt < cnt; ++pt) {
-      const float* Ap = pA + pt * TE * LD;
-      const float* Yp = pY + pt * TE * LD;
-#pragma unroll
-      for (int u = 0; u < TE; ++u) {
-        float av[RP], yv[RP];
-        const float2* a2 =
-            reinterpret_cast<const float2*>(Ap + u * LD + tr * RP);
-        const float2* y2 =
-            reinterpret_cast<const float2*>(Yp + u * LD + tc * RP);
-#pragma unroll
-        for (int v = 0; v < RP / 2; ++v) {
-          const float2 a = a2[v], y = y2[v];
-          av[2 * v] = a.x; av[2 * v + 1] = a.y;
-          yv[2 * v] = y.x; yv[2 * v + 1] = y.y;
-        }
-        int k = 0;
-#pragma unroll
-        for (int p = 0; p < R; ++p) {
-#pragma unroll
-          for (int q = TRI ? p : 0; q < R; ++q) {
-            acc[k] = fmaf(av[p], yv[q], acc[k]);
-            ++k;
-          }
-        }
-      }
-      if (diag && tc < R) {             // row tr + 16 tc
-        const float* z = zsrc + pt * zstride;
-        const int i = tr * RP + tc;
-        racc = fmaf(Ap[i], z[0], racc);
-        racc = fmaf(Ap[LD + i], z[1], racc);
-        racc = fmaf(Ap[2 * LD + i], z[2], racc);
-      }
-    }
-  }
-
-  float* out = part + ((size_t)split * gridDim.y + pair) * NACC * THREADS;
-#pragma unroll
-  for (int k = 0; k < NACC; ++k) out[k * THREADS + tid] = acc[k];
-  if (diag && tc < R) {
-    const int i = tr + 16 * tc;
-    if (i < Wr) rpart[(size_t)split * nf + r0 + i] = racc;
-  }
-}
-
-// The sum of the partials over the splits, in a fixed order: warp h of a
-// block adds splits h, h + 8, ... for 32 outputs, then the 8 runs are
-// added in order. Writes S_corr (mirrored from the upper entries) and rhs.
-template <int R, bool TRI>
-__global__ void __launch_bounds__(THREADS)
-    scorr_reduce_kernel(const float* __restrict__ part,
-                        const float* __restrict__ rpart, int splits,
-                        int pairs, int nt, int nf, float* __restrict__ S,
-                        float* __restrict__ rhs) {
-  constexpr int NACC = TRI ? R * (R + 1) / 2 : R * R;
-  constexpr int RUNS = THREADS / 32;
-  __shared__ float runs[RUNS][32];
-  const size_t per_split = (size_t)pairs * NACC * THREADS;
-  const size_t total = per_split + nf;
-  const int lane = threadIdx.x & 31, h = threadIdx.x >> 5;
-  const size_t k = (size_t)blockIdx.x * 32 + lane;
-  float s = 0.f;
-  if (k < per_split) {
-#pragma unroll 4
-    for (int sp = h; sp < splits; sp += RUNS) s += part[sp * per_split + k];
-  } else if (k < total) {
-#pragma unroll 4
-    for (int sp = h; sp < splits; sp += RUNS)
-      s += rpart[(size_t)sp * nf + (k - per_split)];
-  }
-  runs[h][lane] = s;
-  __syncthreads();
-  if (h != 0 || k >= total) return;
-  float sum = runs[0][lane];
-#pragma unroll
-  for (int r = 1; r < RUNS; ++r) sum += runs[r][lane];
-  if (k >= per_split) {
-    rhs[k - per_split] = sum;
-    return;
-  }
-  const int pair = (int)(k / ((size_t)NACC * THREADS));
-  const int rem = (int)(k - (size_t)pair * NACC * THREADS);
-  int e = rem / THREADS;
-  const int t = rem - e * THREADS, tr = t >> 4, tc = t & 15;
-  int p = 0, q;
-  if (TRI) {
-    while (e >= R - p) {
-      e -= R - p;
-      ++p;
-    }
-    q = p + e;
-    if (p == q && tr > tc) return;      // a lower entry: its mirror is kept
-  } else {
-    p = e / R;
-    q = e - p * R;
-  }
-  int ti = 0, rest = pair;
-  while (rest >= nt - ti) {
-    rest -= nt - ti;
-    ++ti;
-  }
-  const int tj = ti + rest;
-  const int i = ti * 16 * R + tr + 16 * p, j = tj * 16 * R + tc + 16 * q;
-  if (i >= nf || j >= nf) return;
-  S[(size_t)i * nf + j] = sum;
-  if (i != j && (TRI || ti != tj)) S[(size_t)j * nf + i] = sum;
-}
-
-constexpr int MAX_DEVICES = 64;
-
-template <int R, bool TRI, bool K2>
-cudaError_t run(const float* A, const float* p0, const float* p1,
-                const float* p2, float rad, int ne, int nf, int nt,
-                int splits, int pts, int ld, size_t smem, float* inv,
-                float* z, float* part, float* rpart, float* S, float* rhs,
-                cudaStream_t stream) {
-  // the dynamic shared memory each device has granted this kernel so far:
-  // set the attribute once, not on every launch
-  static size_t granted[MAX_DEVICES];
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return err;
-  if (dev >= MAX_DEVICES) return cudaErrorInvalidDevice;
-  if (smem > 48 * 1024 && smem > granted[dev]) {
-    err = cudaFuncSetAttribute(scorr_kernel<R, TRI, K2>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)smem);
-    if (err != cudaSuccess) return err;
-    granted[dev] = smem;
-  }
-  const int pairs = nt * (nt + 1) / 2;
-  const int vec = nf % 4 == 0 && ((uintptr_t)A & 15) == 0;
-  scorr_kernel<R, TRI, K2><<<dim3(splits, pairs), THREADS, smem, stream>>>(
-      A, p0, p1, p2, rad, ne, nf, nt, pts, ld, vec, inv, z, part, rpart);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  constexpr int NACC = TRI ? R * (R + 1) / 2 : R * R;
-  const size_t total = (size_t)pairs * NACC * THREADS + nf;
-  scorr_reduce_kernel<R, TRI><<<(unsigned)((total + 31) / 32), THREADS, 0,
-                                stream>>>(part, rpart, splits, pairs, nt, nf,
-                                          S, rhs);
-  return cudaGetLastError();
-}
-
-// Validate the wrapper's plan (ops/lin.py elim_plan) and launch.
-template <bool K2>
-cudaError_t elim_launch(const float* A, const float* p0, const float* p1,
-                        const float* p2, float rad, int ne, int nf, int R,
-                        int nt, int splits, int pts, int smem, float* inv,
-                        float* z, float* part, float* rpart, float* S,
-                        float* rhs, cudaStream_t stream) {
-  const bool one = nf <= 16 * MAX_R;
-  if (ne < 1 || nf < 1 || splits < 1 || pts < 1 ||
-      (size_t)splits * pts < (size_t)ne || (size_t)(splits - 1) * pts >= (size_t)ne ||
-      R != (one ? (nf + 15) / 16 : TILE_R) ||
-      nt != (one ? 1 : (nf + 16 * TILE_R - 1) / (16 * TILE_R)))
-    return cudaErrorInvalidValue;
-  const int ld = one ? nf : 16 * R;
-  if ((size_t)smem < sizeof(float) * smem_floats(R, nt, ld))
-    return cudaErrorInvalidValue;
-#define CERES_SCORR_R(r)                                                    \
-  case r:                                                                   \
-    return run<r, true, K2>(A, p0, p1, p2, rad, ne, nf, nt, splits, pts, ld, \
-                            smem, inv, z, part, rpart, S, rhs, stream);
-  if (!one)
-    return run<TILE_R, false, K2>(A, p0, p1, p2, rad, ne, nf, nt, splits,
-                                  pts, ld, smem, inv, z, part, rpart, S, rhs,
-                                  stream);
-  switch (R) {
-    CERES_SCORR_R(1)
-    CERES_SCORR_R(2)
-    CERES_SCORR_R(3)
-    CERES_SCORR_R(4)
-    CERES_SCORR_R(5)
-    CERES_SCORR_R(6)
-    CERES_SCORR_R(7)
-    CERES_SCORR_R(8)
-    CERES_SCORR_R(9)
-    CERES_SCORR_R(10)
-  }
-#undef CERES_SCORR_R
   return cudaErrorInvalidValue;
 }
 
 }  // namespace
 
 // plan: R, nt, splits, pts and smem (bytes) from ops/lin.py elim_plan;
-// scratch: part [splits, pairs, NACC, 256], rpart [splits, nf].
+// scratch: part [splits, pairs, NACC, 256], rpart [splits, nf]. K2 takes
+// te 1 to 3, K6 te 1 to MAX_TE.
 extern "C" int ceres_elim(const float* A, const float* etes, const float* gse,
-                          const float* diag, float rad, int ne, int nf, int R,
-                          int nt, int splits, int pts, int smem, float* scorr,
-                          float* rhs, float* inv, float* z, float* part,
-                          float* rpart, cudaStream_t stream) {
-  return (int)elim_launch<true>(A, etes, gse, diag, rad, ne, nf, R, nt,
-                                splits, pts, smem, inv, z, part, rpart, scorr,
-                                rhs, stream);
+                          const float* diag, float rad, int te, int ne,
+                          int nf, int R, int nt, int splits, int pts,
+                          int smem, float* scorr, float* rhs, float* inv,
+                          float* z, float* part, float* rpart,
+                          cudaStream_t stream) {
+  if (te < 1 || te > 3) return (int)cudaErrorInvalidValue;
+  return (int)launch(te, true, A, etes, gse, diag, rad, ne, nf, R, nt, splits,
+                     pts, smem, inv, z, part, rpart, scorr, rhs, stream);
 }
 
 extern "C" int ceres_elim_v1(const float* A, const float* inv, const float* z,
-                             int ne, int nf, int R, int nt, int splits,
-                             int pts, int smem, float* scorr, float* rhs,
-                             float* part, float* rpart, cudaStream_t stream) {
-  return (int)elim_launch<false>(A, inv, z, nullptr, 1.f, ne, nf, R, nt,
-                                 splits, pts, smem, nullptr, nullptr, part,
-                                 rpart, scorr, rhs, stream);
+                             int te, int ne, int nf, int R, int nt,
+                             int splits, int pts, int smem, float* scorr,
+                             float* rhs, float* part, float* rpart,
+                             cudaStream_t stream) {
+  return (int)launch(te, false, A, inv, z, nullptr, 1.f, ne, nf, R, nt,
+                     splits, pts, smem, nullptr, nullptr, part, rpart, scorr,
+                     rhs, stream);
 }

@@ -18,10 +18,12 @@ With no --input, a synthetic BAL problem is generated
 --initial_ply / --final_ply write the cameras and points as a point
 cloud (bundle_adjuster.cc WriteToPLYFile). --line_search runs the
 line-search minimizer (L-BFGS with Wolfe searches, the defaults) instead
-of the trust region. Flags of configurations the port does not run raise
-NotImplementedError naming their ROADMAP.md items: --inner_iterations
-(22), --num_devices > 1 (30), --preconditioner cluster_jacobi /
-cluster_tridiagonal (36, 21).
+of the trust region; --inner_iterations refines each step by block
+coordinate descent (minimizers/coordinate_descent.py); --preconditioner
+cluster_jacobi / cluster_tridiagonal cluster the cameras by visibility
+(solvers/clustering.py, --visibility_clustering canonical_views or
+single_linkage). --num_devices > 1 raises NotImplementedError naming its
+ROADMAP.md item (30).
 """
 
 from __future__ import annotations
@@ -37,20 +39,10 @@ def _enum(cls, name):
 
 def check_flags(args):
     """Raise NotImplementedError for a flag outside the port."""
-    if args.inner_iterations:
-        raise NotImplementedError(
-            "--inner_iterations: inner iterations are not ported yet "
-            "(ROADMAP.md item 22, minimizers/coordinate_descent.py)")
     if args.num_devices > 1:
         raise NotImplementedError(
             "--num_devices > 1: sharded solves are not ported yet "
             "(ROADMAP.md item 30, parallel/)")
-    if args.preconditioner.lower() in ("cluster_jacobi",
-                                       "cluster_tridiagonal"):
-        raise NotImplementedError(
-            f"--preconditioner {args.preconditioner} is not ported yet "
-            "(ROADMAP.md item 36, solvers/preconditioners.py, and item 21, "
-            "solvers/clustering.py)")
 
 
 def build_options(ctt, args):
@@ -74,6 +66,7 @@ def build_options(ctt, args):
         max_num_spse_iterations=args.max_num_spse_iterations,
         eta=args.eta,
         max_linear_solver_iterations=args.max_linear_solver_iterations,
+        use_inner_iterations=args.inner_iterations,
         use_mixed_precision_solves=args.mixed_precision_solves,
         max_num_refinement_iterations=args.max_num_refinement_iterations,
         max_solver_time_in_seconds=args.max_solver_time,

@@ -15,10 +15,17 @@ Pallas kernel here either). A least-squares program's cost and gradient
 come from its f64 linearize (program.py linearize_fn); a gradient
 problem's program (gradient_problem.py) gives them directly.
 
-The device-resident loop of ceres_tpu/minimizers/line_search_fused.py is
-not ported (ROADMAP.md item 47): solver.py and gradient_problem.py raise
-for fused_iterations=True where the JAX package would run it, and run
-this loop where it would not.
+With fused_iterations=True, where the JAX package runs its
+device-resident loop (ceres_tpu/minimizers/line_search_fused.py;
+fused_line_search_ok), this loop runs and reports as that loop does: no
+per-iteration records, num_iterations_fused, the device loop's messages.
+The two take the same steps except in two corners: the device loop
+probes once more where the zoom's bracket has shrunk below
+min_line_search_step_size, and it runs the search of the iteration that
+fails on too many restarts. PyTorch has no device-side loop, so a port
+of that loop pays for a fixed run of masked probe slots an iteration
+(on an H100 it took 3-19 times the host loop's wall, PERF.md); it
+waits for CUDA-graph capture (ROADMAP.md item 48).
 """
 
 from __future__ import annotations
@@ -272,20 +279,40 @@ def fused_line_search_ok(program, options) -> bool:
             and not getattr(program, "has_bounds", False))
 
 
+# the host loop's messages that the device loop words otherwise
+# (ceres_tpu line_search_fused.py _MESSAGES), by their first words
+_FUSED_MESSAGES = (
+    ("Gradient tolerance reached", "Gradient tolerance reached."),
+    ("Line search failed", "Line search failed to find a valid step."))
+
+
+def _report_as_fused(summary: SolverSummary):
+    """The summary as the JAX package's run_fused_line_search fills it
+    (:506-531): no per-iteration records; num_iterations_fused counts the
+    successful iterations and the one that failed, if any."""
+    summary.num_iterations_fused = summary.num_successful_steps + int(
+        summary.termination_type == TerminationType.FAILURE)
+    summary.iterations = []
+    for prefix, message in _FUSED_MESSAGES:
+        if summary.message.startswith(prefix):
+            summary.message = message
+
+
 def minimize_line_search(program, options, summary: SolverSummary, x0=None):
     """The outer loop (line_search_minimizer.cc:85) from x0 (the program's
     initial state unless given): fills the summary (iteration 0 and one
-    IterationSummary an iteration) and returns the final x. Raises
-    NotImplementedError for fused_iterations=True where the JAX package
-    runs its device-resident loop, whose trajectory this loop does not
-    repeat bit for bit (ROADMAP.md item 47)."""
+    IterationSummary an iteration) and returns the final x. With
+    fused_iterations=True, where the JAX package runs its device loop
+    (ceres_tpu line_search.py:257-263), the summary is reported as that
+    loop's (_report_as_fused)."""
+    x = _minimize(program, options, summary, x0)
     if options.fused_iterations and x0 is None and \
             fused_line_search_ok(program, options):
-        raise NotImplementedError(
-            "fused_iterations=True with the line-search minimizer: the "
-            "device-resident loop is not ported yet (ROADMAP.md item 47, "
-            "minimizers/line_search_fused.py); set fused_iterations=False "
-            "for the host loop")
+        _report_as_fused(summary)
+    return x
+
+
+def _minimize(program, options, summary: SolverSummary, x0):
     t_start = time.time()
     cost_and_grad = _cost_and_gradient_fn(program)
     x = program.initial_state() if x0 is None else x0

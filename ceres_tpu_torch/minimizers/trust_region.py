@@ -17,22 +17,33 @@ one host read; with bounds the projected gradient norm joins that read,
 and the projected line search reads each probe's cost.
 
 The termination tests, their order and the messages are the JAX
-package's. Inner iterations (ROADMAP.md item 22) and the trust-region
-problem dumps (item 14) are not ported: solver.py refuses them before
-the loop starts. SPSE initialization is the generic Schur step's
-(solvers/schur.py SchurLinearSolver).
+package's. With use_inner_iterations each valid candidate is refined by
+one pass of block coordinate descent (minimizers/coordinate_descent.py;
+ceres_tpu trust_region.py:475-489, trust_region_minimizer.cc:506
+DoInnerIterationsIfNeeded), kept only where it lowers the cost. The
+trust-region problem dumps (solver.h:706-734; ceres_tpu
+trust_region.py:205-225, :375-400) write, for each iteration that
+trust_region_minimizer_iterations_to_dump names (every one when it is
+empty), the f64 dense Jacobian at x, the residuals, the gradient, x, the
+step and the radius: one `ceres_tpu_iteration_NNN.npz` in
+trust_region_problem_dump_directory (TEXTFILE), or one line of their
+norms on stdout (CONSOLE). SPSE initialization is the generic Schur
+step's (solvers/schur.py SchurLinearSolver).
 """
 
 from __future__ import annotations
 
 import math
+import os
 import time
 from typing import Optional
 
+import numpy as np
 import torch
 
-from ..types import (CallbackReturnType, IterationSummary, SolverSummary,
-                     TerminationType, TrustRegionStrategyType)
+from ..types import (CallbackReturnType, DumpFormatType, IterationSummary,
+                     SolverSummary, TerminationType, TrustRegionStrategyType)
+from .coordinate_descent import make_inner_iteration_fn
 
 
 class TrustRegionStepEvaluator:
@@ -167,6 +178,41 @@ def _log_line(it: IterationSummary):
           f"{it.cumulative_time_in_seconds:10.2e}")
 
 
+def make_dump_fn(program, options):
+    """dump(iteration, x, delta, radius) of the trust-region problem
+    dumps, or None when no dump is asked for (ceres_tpu
+    trust_region.py:205-225, :375-400)."""
+    dump_dir = options.trust_region_problem_dump_directory
+    console = (options.trust_region_problem_dump_format_type
+               == DumpFormatType.CONSOLE)
+    if not dump_dir and not console:
+        return None
+    if dump_dir and not console:
+        os.makedirs(dump_dir, exist_ok=True)
+    which = options.trust_region_minimizer_iterations_to_dump
+
+    def dump(iteration, x, delta, radius):
+        if which and iteration not in which:
+            return
+        _, grad, jac, res = program.linearize_fn(x)
+        J = jac.to_dense().cpu().numpy()
+        r = res.flatten().cpu().numpy()
+        g = grad.cpu().numpy()
+        if console:
+            print(f"ceres_tpu iteration {iteration}: J {J.shape} "
+                  f"|J|_F={np.linalg.norm(J):.6e} "
+                  f"|r|={np.linalg.norm(r):.6e} "
+                  f"|g|={np.linalg.norm(g):.6e} "
+                  f"radius={radius:.6e}")
+        else:
+            np.savez(os.path.join(dump_dir,
+                                  f"ceres_tpu_iteration_{iteration:03d}.npz"),
+                     J=J, residuals=r, gradient=g, x=x.cpu().numpy(),
+                     delta=delta.cpu().numpy(), radius=radius)
+
+    return dump
+
+
 def minimize_trust_region(program, options, step, summary: SolverSummary,
                           x0=None):
     """Run the trust-region loop with `step` from x0 (the program's
@@ -184,6 +230,9 @@ def minimize_trust_region(program, options, step, summary: SolverSummary,
     proj_ls = (make_projected_line_search_fn(program, options)
                if bounds and options.max_num_line_search_step_size_iterations
                > 0 else None)
+    inner = (make_inner_iteration_fn(program, options)
+             if options.use_inner_iterations else None)
+    dump = make_dump_fn(program, options)
     total_cost_time = total_jacobian_time = total_solver_time = 0.0
 
     def finish(xx, cost):
@@ -305,6 +354,8 @@ def minimize_trust_region(program, options, step, summary: SolverSummary,
             gradient_norm=grad_norm, trust_region_radius=strategy.radius,
             linear_solver_iterations=lin_iters,
             step_solver_time_in_seconds=t_solve)
+        if dump is not None:
+            dump(iteration, x, out["delta"], strategy.radius)
 
         # gradient convergence, on the fresh linearization
         if grad_max <= options.gradient_tolerance:
@@ -363,6 +414,20 @@ def minimize_trust_region(program, options, step, summary: SolverSummary,
             new_cost, new_x_norm = host[5], host[6]
             new_cost_t = cand[0]
             summary.num_residual_evaluations += 1
+        if inner is not None and math.isfinite(new_cost):
+            # refine the candidate; keep the refined x only if its cost
+            # is lower (ceres_tpu trust_region.py:475-489)
+            t_in = time.time()
+            x_ref = inner(x_new)
+            ref_cost_t = step.cost(x_ref).to(torch.float64)
+            ref_cost, ref_norm = torch.stack(
+                [ref_cost_t, program.state_norm(x_ref)]).tolist()
+            summary.num_residual_evaluations += 1
+            if math.isfinite(ref_cost) and ref_cost < new_cost:
+                x_new, new_cost, new_x_norm = x_ref, ref_cost, ref_norm
+                new_cost_t = ref_cost_t
+            summary.num_inner_iteration_steps += 1
+            summary.inner_iteration_time_in_seconds += time.time() - t_in
         total_cost_time += time.time() - t0
 
         relative_decrease = (step_evaluator.step_quality(new_cost, mcc)

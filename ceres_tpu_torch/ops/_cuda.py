@@ -57,9 +57,9 @@ _SIGNATURES = {
     **{f"ceres_lin_{name}": None for name in (
         "huber", "soft_l_one", "cauchy", "arctan", "tolerant", "tukey")},
     "ceres_elim": [_P, _P, _P, _P, ctypes.c_float, _I, _I, _I, _I, _I,
-                   _I, _I, _P, _P, _P, _P, _P, _P, _P],
-    "ceres_elim_v1": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P,
-                      _P, _P],
+                   _I, _I, _I, _P, _P, _P, _P, _P, _P, _P],
+    "ceres_elim_v1": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P,
+                      _P, _P, _P],
     "ceres_chol_solve": [_P, _P, _I, _P, _P, _P],
     "ceres_chol_solve_shared": [_P, _P, _I, _P, _P],
     "ceres_fast_math_check": [_P, _P, _I, _I, _P, _P, _P, _P],

@@ -8,7 +8,7 @@ with an int32 camera map cam [ne, k] and a mask [ne, k] (1 on real
 lanes).
 
 `lin`, `elim` and `elim_v1` launch the CUDA kernels of csrc/lin.cu and
-csrc/elim.cu for CUDA tensors and run their plain PyTorch versions
+csrc/elim.cuh for CUDA tensors and run their plain PyTorch versions
 (`lin_plain`, `elim_plain`, `elim_v1_plain`) for CPU tensors. Each
 wrapper counts its launches in its `launches` attribute. `lin` takes the
 lanes' observations as one dat [ne, k, 2] tensor and the camera plan of
@@ -48,12 +48,24 @@ K1_ENTRIES = {None: "ceres_lin", HuberLoss: "ceres_lin_huber",
               SoftLOneLoss: "ceres_lin_soft_l_one",
               CauchyLoss: "ceres_lin_cauchy", ArctanLoss: "ceres_lin_arctan",
               TolerantLoss: "ceres_lin_tolerant", TukeyLoss: "ceres_lin_tukey"}
-# elim.cu: threads a block, points a stage (one warp each), staged words
-# a point, K2's z words a point, the widest single tile (16 x 10) and the
-# tile past it (16 x 8)
-_ELIM_THREADS, _ELIM_GROUP, _ELIM_PW, _ELIM_QW = 256, 8, 16, 4
+# elim.cuh: threads a block, points a stage (one warp each), the widest
+# single tile (16 x 10) and the tile past it (16 x 8)
+_ELIM_THREADS, _ELIM_GROUP = 256, 8
 _ELIM_MAX_R, _ELIM_TILE_R = 10, 8
 _ELIM_BLOCKS_PER_SM = 2
+# the point sizes of K2 (its closed-form inverses, as the JAX package's
+# have_elim2) and of K6 (elim.cuh's instances)
+K2_MAX_TE, K6_MAX_TE = 3, 6
+
+
+def _elim_pw(te):
+    """elim.cuh pw: staged words a point, padded to whole 16 B."""
+    return (te * te + 2 * te + 3) & ~3
+
+
+def _elim_qw(te):
+    """elim.cuh qw: K2's z words a point."""
+    return (te + 3) & ~3
 
 
 def _snavely_lane(cam, pt, ox, oy, valid):
@@ -163,33 +175,52 @@ def spd_inv3(M):
     return torch.stack(rows, dim=-2) * inv_det[..., None, None]
 
 
+def spd_inv_closed(M):
+    """[..., t, t] SPD -> inverse in closed form for t = 1, 2 and 3, from
+    the upper triangle (the JAX package's _elim2_kernel and
+    _spd_inv_small forms, which K2 computes)."""
+    t = M.shape[-1]
+    if t == 1:
+        return 1.0 / M
+    if t == 2:
+        a, b, d = M[..., 0, 0], M[..., 0, 1], M[..., 1, 1]
+        inv_det = 1.0 / (a * d - b * b)
+        return torch.stack([torch.stack([d, -b], dim=-1),
+                            torch.stack([-b, a], dim=-1)],
+                           dim=-2) * inv_det[..., None, None]
+    if t == 3:
+        return spd_inv3(M)
+    raise ValueError(f"no closed-form inverse of a {t} x {t} block")
+
+
 def elim_plain(A, etes, gse, diag, rad):
-    """Plain PyTorch K2. A [ne, 3, nf] e-scaled cross tensor, etes [ne, 9]
-    scaled point Grams, gse [ne, 3] scaled e gradient, diag [ne, 3] clipped
-    scaled diagonal, rad the trust-region radius (a float, used in f32).
-    Returns
-    (S_corr [nf, nf], rhs [nf], inv [ne, 3, 3], z [ne, 3]) with
-    inv = (etes + diag/rad)^-1, z = inv (-gse), S_corr = sum A^T inv A,
-    rhs = sum A^T z."""
-    ne = A.shape[0]
+    """Plain PyTorch K2. A [ne, te, nf] e-scaled cross tensor (te <= 3),
+    etes [ne, te^2] scaled point Grams, gse [ne, te] scaled e gradient,
+    diag [ne, te] clipped scaled diagonal, rad the trust-region radius (a
+    float, used in f32). Returns
+    (S_corr [nf, nf], rhs [nf], inv [ne, te, te], z [ne, te]) with
+    inv = (etes + diag/rad)^-1 (spd_inv_closed), z = inv (-gse),
+    S_corr = sum A^T inv A, rhs = sum A^T z."""
+    ne, te = A.shape[0], A.shape[1]
     rad = torch.tensor(rad, dtype=A.dtype, device=A.device)
-    M = etes.view(ne, TE, TE) + torch.diag_embed(diag / rad)
-    inv = spd_inv3(M)
+    M = etes.view(ne, te, te) + torch.diag_embed(diag / rad)
+    inv = spd_inv_closed(M)
     z = torch.einsum("nij,nj->ni", inv, -gse)
     S_corr, rhs = elim_v1_plain(A, inv, z)
     return S_corr, rhs, inv, z
 
 
 @functools.lru_cache(maxsize=64)
-def elim_plan(ne, nf, sms):
-    """K2's and K6's launch plan on a card with `sms` SMs (csrc/elim.cu):
+def elim_plan(ne, nf, sms, te=TE):
+    """K2's and K6's launch plan on a card with `sms` SMs for point blocks
+    of `te` columns (csrc/elim.cuh):
     R (a block's output tile is 16 R x 16 R, each of its 256 threads an
     R x R strided part: one tile at nf <= 160, its upper triangle only;
     else tiles of 128 over the nt (nt + 1) / 2 upper tile pairs), the
     point ranges (split s of `splits` takes points [s pts, min(ne,
     (s + 1) pts)): contiguous, in order, covering [0, ne)), the dynamic
     shared memory in
-    bytes (elim.cu smem_floats) and the shapes of the call's `buffers`:
+    bytes (elim.cuh smem_floats) and the shapes of the call's `buffers`:
     S_corr, rhs, the partial sums of S_corr and of rhs, inv, z.
     Cached: the LM loop calls K2 or K6 once an iteration at one shape."""
     if ne < 1 or nf < 1:
@@ -204,22 +235,22 @@ def elim_plan(ne, nf, sms):
     target = max(1, _ELIM_BLOCKS_PER_SM * sms // pairs)
     pts = -(-ne // min(target, ne))
     splits = -(-ne // pts)
-    buf = _ELIM_GROUP * TE * ld
-    tile = _ELIM_GROUP * TE * 16 * ((R + 1) & ~1)
+    buf = _ELIM_GROUP * te * ld
+    tile = _ELIM_GROUP * te * 16 * ((R + 1) & ~1)
     floats = (2 * buf * (2 if nt > 1 else 1) + 2 * tile
-              + 2 * _ELIM_GROUP * _ELIM_PW + _ELIM_GROUP * _ELIM_QW)
+              + 2 * _ELIM_GROUP * _elim_pw(te) + _ELIM_GROUP * _elim_qw(te))
     return dict(R=R, nt=nt, tri=tri, pairs=pairs, splits=splits, pts=pts,
                 smem=4 * floats,
                 buffers=((nf, nf), (nf,), (splits, pairs, nacc, _ELIM_THREADS),
-                         (splits, nf), (ne, TE, TE), (ne, TE)))
+                         (splits, nf), (ne, te, te), (ne, te)))
 
 
 def _elim_buffers(A, with_point):
     """The plan of one K2/K6 call on A, and its outputs and scratch as
     views of one allocation (one call into the caching allocator, not
     six): S_corr, rhs, the partial sums and, with_point, inv and z."""
-    ne, _, nf = A.shape
-    plan = elim_plan(ne, nf, _cuda.sm_count(A.device))
+    ne, te, nf = A.shape
+    plan = elim_plan(ne, nf, _cuda.sm_count(A.device), te)
     shapes = plan["buffers"] if with_point else plan["buffers"][:4]
     flat = torch.empty(sum(math.prod(sh) for sh in shapes),
                        dtype=torch.float32, device=A.device)
@@ -231,14 +262,16 @@ def elim(A, etes, gse, diag, rad):
     """K2: see elim_plain for the contract."""
     if not A.is_cuda:
         return elim_plain(A, etes, gse, diag, rad)
-    ne, _, nf = A.shape
+    ne, te, nf = A.shape
+    if not 1 <= te <= K2_MAX_TE:
+        raise ValueError(f"elim: te = {te}; K2 takes 1 to {K2_MAX_TE}")
     f32 = torch.float32
-    _cuda.check(A, (ne, TE, nf), f32, "elim: A")
-    _cuda.check(etes, (ne, TE * TE), f32, "elim: etes")
-    _cuda.check(gse, (ne, TE), f32, "elim: gse")
-    _cuda.check(diag, (ne, TE), f32, "elim: diag")
+    _cuda.check(A, (ne, te, nf), f32, "elim: A")
+    _cuda.check(etes, (ne, te * te), f32, "elim: etes")
+    _cuda.check(gse, (ne, te), f32, "elim: gse")
+    _cuda.check(diag, (ne, te), f32, "elim: diag")
     plan, (S_corr, rhs, part, rpart, inv, z) = _elim_buffers(A, True)
-    _cuda.launch("ceres_elim", A, etes, gse, diag, float(rad), ne, nf,
+    _cuda.launch("ceres_elim", A, etes, gse, diag, float(rad), te, ne, nf,
                  plan["R"], plan["nt"], plan["splits"], plan["pts"],
                  plan["smem"], S_corr, rhs, inv, z, part, rpart)
     elim.launches += 1
@@ -249,9 +282,9 @@ elim.launches = 0
 
 
 def elim_v1_plain(A, inv, z):
-    """Plain PyTorch K6. A [ne, 3, nf], inv [ne, 3, 3], z [ne, 3] (f32).
-    Returns (S_corr [nf, nf], rhs [nf]) with S_corr = sum A^T inv A,
-    rhs = sum A^T z."""
+    """Plain PyTorch K6. A [ne, te, nf], inv [ne, te, te], z [ne, te]
+    (f32). Returns (S_corr [nf, nf], rhs [nf]) with S_corr = sum A^T inv
+    A, rhs = sum A^T z."""
     Y = torch.einsum("nuv,nvf->nuf", inv, A)
     S_corr = torch.einsum("nui,nuj->ij", A, Y)
     rhs = torch.einsum("nui,nu->i", A, z)
@@ -262,15 +295,17 @@ def elim_v1(A, inv, z):
     """K6: see elim_v1_plain for the contract."""
     if not A.is_cuda:
         return elim_v1_plain(A, inv, z)
-    ne, _, nf = A.shape
+    ne, te, nf = A.shape
+    if not 1 <= te <= K6_MAX_TE:
+        raise ValueError(f"elim_v1: te = {te}; K6 takes 1 to {K6_MAX_TE}")
     f32 = torch.float32
-    _cuda.check(A, (ne, TE, nf), f32, "elim_v1: A")
-    _cuda.check(inv, (ne, TE, TE), f32, "elim_v1: inv")
-    _cuda.check(z, (ne, TE), f32, "elim_v1: z")
+    _cuda.check(A, (ne, te, nf), f32, "elim_v1: A")
+    _cuda.check(inv, (ne, te, te), f32, "elim_v1: inv")
+    _cuda.check(z, (ne, te), f32, "elim_v1: z")
     plan, (S_corr, rhs, part, rpart) = _elim_buffers(A, False)
-    _cuda.launch("ceres_elim_v1", A, inv, z, ne, nf, plan["R"], plan["nt"],
-                 plan["splits"], plan["pts"], plan["smem"], S_corr, rhs,
-                 part, rpart)
+    _cuda.launch("ceres_elim_v1", A, inv, z, te, ne, nf, plan["R"],
+                 plan["nt"], plan["splits"], plan["pts"], plan["smem"],
+                 S_corr, rhs, part, rpart)
     elim_v1.launches += 1
     return S_corr, rhs
 

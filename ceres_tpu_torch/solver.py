@@ -27,8 +27,10 @@ JAX package decides (:547-590), or run the line-search minimizer
     Schur solvers refine outside the solve, with its solve_b);
   - the dogleg step (`DoglegStep`), TRADITIONAL_DOGLEG or
     SUBSPACE_DOGLEG, on the same linear solvers.
-Configurations outside the slices raise NotImplementedError naming the
-ROADMAP.md item that ports them; none runs another path quietly.
+Inner iterations and the trust-region problem dumps run the host loop,
+as in the JAX package. Configurations outside the slices raise
+NotImplementedError naming the ROADMAP.md item that ports them; none runs
+another path quietly.
 """
 
 from __future__ import annotations
@@ -41,6 +43,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from .minimizers.coordinate_descent import is_ordering_valid
 from .minimizers.fused import run_fused
 from .minimizers.line_search import minimize_line_search
 from .minimizers.trust_region import minimize_trust_region
@@ -71,27 +74,18 @@ _DIRECT_SOLVERS = (LinearSolverType.DENSE_QR,
 SPARSE_DENSE_CAP = 200
 
 
-def _check_slice(options):
-    """Raise NotImplementedError for an option outside the slice."""
-    if options.use_inner_iterations:
-        raise NotImplementedError(
-            "inner iterations are not ported yet (ROADMAP.md item 22, "
-            "minimizers/coordinate_descent.py)")
-    if (options.trust_region_problem_dump_directory
-            or options.trust_region_problem_dump_format_type
-            == DumpFormatType.CONSOLE):
-        raise NotImplementedError(
-            "the trust-region problem dumps are not ported yet (ROADMAP.md "
-            "item 14, the rest of minimizers/trust_region.py)")
-
-
 def needs_host_loop(options, program) -> bool:
     """The configurations that the fused loop cannot serve (ceres_tpu
     solver.py:547-562): callbacks, nonmonotonic steps, per-iteration
-    logging, evaluation callbacks, update_state_every_iteration, a finite
-    wall-clock budget, dynamic sparsity and bounds."""
+    logging, inner iterations, the trust-region problem dumps, evaluation
+    callbacks, update_state_every_iteration, a finite wall-clock budget,
+    dynamic sparsity and bounds."""
     return bool(options.callbacks or options.use_nonmonotonic_steps
                 or options.minimizer_progress_to_stdout
+                or options.use_inner_iterations
+                or options.trust_region_problem_dump_directory
+                or options.trust_region_problem_dump_format_type
+                == DumpFormatType.CONSOLE
                 or options.evaluation_callback is not None
                 or options.update_state_every_iteration
                 or options.max_solver_time_in_seconds < 1e9
@@ -596,7 +590,6 @@ def solve(options: SolverOptions, problem,
         summary.termination_type = TerminationType.FAILURE
         summary.message = f"Invalid options: {err}"
         return summary
-    _check_slice(options)
     prob_cb = problem.options.evaluation_callback
     if prob_cb is not None and options.evaluation_callback is None:
         # Problem::Options::evaluation_callback (problem.h:179)
@@ -635,6 +628,20 @@ def solve(options: SolverOptions, problem,
     summary.num_threads_used = 1
     summary.mixed_precision_solves_used = bool(
         options.use_mixed_precision_solves)
+    summary.inner_iterations_given = bool(options.use_inner_iterations)
+    summary.inner_iterations_used = bool(options.use_inner_iterations)
+    if (options.use_inner_iterations
+            and options.inner_iteration_ordering is not None
+            and not is_ordering_valid(program,
+                                      options.inner_iteration_ordering)):
+        # solver.cc rejects an inner ordering whose groups are not
+        # independent sets up front (coordinate_descent_minimizer.h:76)
+        summary.termination_type = TerminationType.FAILURE
+        summary.message = (
+            "Invalid inner_iteration_ordering: each group must be an "
+            "independent set (no two blocks of a group may share a "
+            "residual block).")
+        return summary
     summary.dense_linear_algebra_library_type = (
         options.dense_linear_algebra_library_type)
     summary.sparse_linear_algebra_library_type = (

@@ -11,8 +11,10 @@ and the runtime Schur operations over one linearization's Jacobian
     (implicit_schur_complement.h:52-91), rhs, back_substitute, the
     explicit S (schur_complement_solver.cc) and its rhs;
   the preconditioners IDENTITY, JACOBI (block diagonal of F^T F + D_f^2),
-    SCHUR_JACOBI (block diagonal of S) and SCHUR_POWER_SERIES_EXPANSION
-    (a truncated Neumann series around SCHUR_JACOBI);
+    SCHUR_JACOBI (block diagonal of S), SCHUR_POWER_SERIES_EXPANSION
+    (a truncated Neumann series around SCHUR_JACOBI) and CLUSTER_JACOBI /
+    CLUSTER_TRIDIAGONAL (S on the camera clusters' pattern of
+    solvers/clustering.py, factored densely; cluster_masks);
   DENSE_SCHUR and SPARSE_SCHUR up to solvers/schur_sparse.py's
     SPARSE_SCHUR_DENSE_NF: the explicit S and a dense Cholesky in the
     solve's precision; past it SPARSE_SCHUR factors the block-sparse S
@@ -45,6 +47,7 @@ from ..ops.bsr import BlockJacobian, ColumnSum, RVec, column_sum_for
 from ..ops.kernels import row_grams
 from ..types import LinearSolverType, PreconditionerType
 from .cg import conjugate_gradients
+from .clustering import cluster_membership
 from .dense import cholesky_solve
 from .preconditioners import spd_inv_small
 
@@ -470,6 +473,7 @@ class SchurOps:
         self.D_f = D[self.plan.f_global]
         self.dtype, self.device = system.dtype, system.device
         self._ne, self._te, self._nf = meta.ne, meta.te, meta.nf
+        self._S = None
 
     def esolve(self, u):
         return torch.einsum("nij,nj->ni", self.inv_ete, u)
@@ -561,8 +565,12 @@ class SchurOps:
         return FtF + torch.diag(self.D_f * self.D_f) - S_corr, A
 
     def explicit_S(self):
-        """The dense reduced camera matrix S [nf, nf]."""
-        return self._assemble_S()[0]
+        """The dense reduced camera matrix S [nf, nf], formed once per
+        damped system (the CLUSTER preconditioners and the explicit CG
+        share it)."""
+        if self._S is None:
+            self._S = self._assemble_S()[0]
+        return self._S
 
     def explicit_S_and_rhs(self, b_e, b_f):
         S, A = self._assemble_S()
@@ -570,15 +578,16 @@ class SchurOps:
 
     # ---- preconditioners
 
-    def make_preconditioner(self, kind: PreconditionerType):
-        """apply(v) = M^-1 v for the ITERATIVE_SCHUR preconditioner."""
+    def make_preconditioner(self, kind: PreconditionerType, masks=None):
+        """apply(v) = M^-1 v for the ITERATIVE_SCHUR preconditioner;
+        `masks` (cluster_masks) for the CLUSTER kinds."""
         if kind == PreconditionerType.IDENTITY:
             return None
         if kind == PreconditionerType.SCHUR_POWER_SERIES_EXPANSION:
             return self._make_power_series_preconditioner()
         if kind in (PreconditionerType.CLUSTER_JACOBI,
                     PreconditionerType.CLUSTER_TRIDIAGONAL):
-            raise NotImplementedError(_cluster_message(kind))
+            return self._make_cluster_preconditioner(*masks)
         if kind not in (PreconditionerType.JACOBI,
                         PreconditionerType.SCHUR_JACOBI):
             raise ValueError(f"{kind} is not an ITERATIVE_SCHUR "
@@ -632,6 +641,19 @@ class SchurOps:
 
         return apply
 
+    def _make_cluster_preconditioner(self, mask, diag_mask):
+        """CLUSTER_JACOBI / CLUSTER_TRIDIAGONAL
+        (visibility_based_preconditioner.h:127; ceres_tpu SchurOps.
+        _make_cluster_preconditioner): the solve with cluster_factor's L
+        of S."""
+        L, _ = cluster_factor(self.explicit_S(), mask, diag_mask)
+
+        def apply(v):
+            y = torch.linalg.solve_triangular(L, v[:, None], upper=False)
+            return torch.linalg.solve_triangular(L.T, y, upper=True)[:, 0]
+
+        return apply
+
     def _make_power_series_preconditioner(self, num_terms: int = 4):
         """Truncated Neumann series around the block-diagonal splitting
         S = P - U: M^-1 v = sum_{k=0..K} (I - P^-1 S)^k P^-1 v, by
@@ -650,10 +672,60 @@ class SchurOps:
         return apply
 
 
-def _cluster_message(kind) -> str:
-    return (f"ITERATIVE_SCHUR with {kind} is not ported yet (ROADMAP.md "
-            "item 36, solvers/preconditioners.py, and item 21, "
-            "solvers/clustering.py)")
+def cluster_factor(S, mask, diag_mask):
+    """(L, fell_back): the lower Cholesky factor of S restricted to a
+    CLUSTER preconditioner's pattern (cluster_masks: the clusters'
+    diagonal blocks, plus the spanning forest's blocks for TRIDIAGONAL)
+    with a 1e-12 diagonal jitter. The forest's pattern can be indefinite;
+    then the cluster-diagonal pattern, a principal submatrix of S and so
+    positive definite, is factored instead, picked on the device with no
+    host read (fell_back, a 0-d bool tensor)."""
+    jitter = torch.diag(1e-12 * torch.diagonal(S))
+    L1, info1 = torch.linalg.cholesky_ex(S * mask.to(S.dtype) + jitter)
+    L2, _ = torch.linalg.cholesky_ex(S * diag_mask.to(S.dtype) + jitter)
+    bad = (info1 != 0) | torch.isnan(L1).any()
+    return torch.where(bad, L2, L1), bad
+
+
+def camera_clustering(program, meta, kind, clustering_type):
+    """(membership, forest, col_cluster) of a CLUSTER preconditioner
+    (solvers/clustering.py cluster_membership): each camera's cluster,
+    the spanning forest's cluster pairs (None for CLUSTER_JACOBI) and
+    each f column's cluster. Computed on the host once per Schur
+    structure, kind and clustering type (cached on the meta)."""
+    key = (str(kind), str(clustering_type))
+    cache = meta.__dict__.setdefault("_clusterings", {})
+    if key not in cache:
+        membership, forest = cluster_membership(
+            program, meta, PreconditionerType(kind).name,
+            clustering_type=clustering_type)
+        col_cluster = np.zeros(meta.nf, dtype=np.int64)
+        flat = 0
+        for grp in meta.f_groups:
+            for li in range(grp["kf"]):
+                col_cluster[grp["cols"][li]] = membership[flat]
+                flat += 1
+        cache[key] = (membership, forest, col_cluster)
+    return cache[key]
+
+
+def cluster_masks(program, meta, kind, clustering_type, device):
+    """(mask, diag_mask) [nf, nf] bool tensors on `device` of a CLUSTER
+    preconditioner (ceres_tpu make_schur_solver, :965-990): True where
+    the f columns' cameras share a cluster (diag_mask) or, for
+    CLUSTER_TRIDIAGONAL, lie in two clusters joined by the spanning
+    forest (mask). Built on the host from camera_clustering: the
+    clusters' adjacency (each cluster with itself and its forest edges,
+    both ways), indexed by the columns' clusters."""
+    membership, forest, col_cluster = camera_clustering(
+        program, meta, kind, clustering_type)
+    adjacency = np.eye(int(membership.max()) + 1, dtype=bool)
+    for a, b in forest or ():
+        adjacency[a, b] = adjacency[b, a] = True
+    mask = adjacency[col_cluster[:, None], col_cluster[None, :]]
+    diag_mask = col_cluster[:, None] == col_cluster[None, :]
+    return (torch.as_tensor(mask, device=device),
+            torch.as_tensor(diag_mask, device=device))
 
 
 class SchurLinearSolver:
@@ -676,10 +748,12 @@ class SchurLinearSolver:
         self.kind = options.linear_solver_type
         self.precond_kind = options.preconditioner_type
         self.iterative = self.kind == LinearSolverType.ITERATIVE_SCHUR
-        if self.iterative and self.precond_kind in (
-                PreconditionerType.CLUSTER_JACOBI,
-                PreconditionerType.CLUSTER_TRIDIAGONAL):
-            raise NotImplementedError(_cluster_message(self.precond_kind))
+        self.masks = (cluster_masks(program, meta, self.precond_kind,
+                                    options.visibility_clustering_type,
+                                    program.device)
+                      if self.iterative and self.precond_kind in (
+                          PreconditionerType.CLUSTER_JACOBI,
+                          PreconditionerType.CLUSTER_TRIDIAGONAL) else None)
         self.mixed = bool(options.use_mixed_precision_solves)
         self.cg_args = dict(
             max_iterations=options.max_linear_solver_iterations,
@@ -735,7 +809,7 @@ class SchurLinearSolver:
                 y = cholesky_solve(*ops.explicit_S_and_rhs(b_e, b_f))
         else:
             rhs = ops.rhs(b_e, b_f)
-            precond = ops.make_preconditioner(self.precond_kind)
+            precond = ops.make_preconditioner(self.precond_kind, self.masks)
             if self.use_explicit:
                 S = ops.explicit_S()
 

@@ -74,7 +74,8 @@ from ..ops.jet_compile import (loss_param_values, make_auto_spec,
                                make_loss_spec)
 from ..ops.kernels import MAX_M, chol_solve
 from ..ops.linearize import is_snavely_bucket
-from ..ops.lin import K1_ENTRIES, elim, elim_v1, lin, spd_inv3
+from ..ops.lin import (K1_ENTRIES, K2_MAX_TE, elim, elim_v1, lin,
+                      spd_inv_closed)
 from ..ops.pcg import _block_apply, dense_pcg
 from ..types import LinearSolverType, PreconditionerType
 from .cg import conjugate_gradients
@@ -93,7 +94,7 @@ _FUSED_PRECONDITIONERS = (PreconditionerType.IDENTITY,
 class KernelLimit(str):
     """A refusal of a configuration that the JAX package's fused step
     runs on its Pallas kernels but a kernel of the port cannot take
-    (ROADMAP.md items 9, 39 and 40). The configuration keeps the
+    (ROADMAP.md items 9 and 39). The configuration keeps the
     fused step's route (solver.py takes_fused_schur_step), whose
     constructor raises it: the generic Schur step does not stand in for
     a kernel. Every other refusal names a configuration that the generic
@@ -177,8 +178,8 @@ def _common_unsupported(program, options, meta) -> Optional[str]:
     if iterative and options.preconditioner_type not in \
             _FUSED_PRECONDITIONERS:
         return (f"ITERATIVE_SCHUR with {options.preconditioner_type}, which "
-                "the generic Schur step serves (solvers/schur.py; CLUSTER_* "
-                "are ROADMAP.md item 36 and item 21)")
+                "the generic Schur step serves (solvers/schur.py, the "
+                "CLUSTER_* preconditioners on solvers/clustering.py)")
     if iterative and options.use_spse_initialization:
         return ("use_spse_initialization, which the generic Schur step "
                 "serves (solvers/schur.py SchurLinearSolver)")
@@ -205,8 +206,8 @@ def _k5_unsupported(program, options, meta) -> Optional[str]:
     that is not Snavely's: two variable slots with no manifold, te <= 6,
     tf <= 12, r <= 8 (its kf <= 64 is a TPU cost cap, not kept), a
     functor the jet compiler traces, and a loss it traces. Every bucket
-    of the port is differentiated by autodiff (its jac_mode "ad"). K2 and
-    K6 take te = 3 only."""
+    of the port is differentiated by autodiff (its jac_mode "ad"). K2 takes
+    te <= 3 and K6 te <= 6, K5's own bound."""
     bk, grp = program.buckets[0], meta.f_groups[0]
     if len(bk.slots) != 2 or any(not sl.variable or sl.manifold is not None
                                  for sl in bk.slots):
@@ -220,10 +221,6 @@ def _k5_unsupported(program, options, meta) -> Optional[str]:
     if make_auto_spec(program, bk) is None:
         return ("a functor that the jet compiler does not trace "
                 "(ROADMAP.md item 11, the generic fused lin phase)")
-    if meta.te != TE:
-        return KernelLimit(f"a point block of te = {meta.te} in the explicit "
-                           "step, whose K2 and K6 take te = 3 (ROADMAP.md "
-                           "item 40)")
     if bk.loss is not None and (
             make_loss_spec(bk.loss) is None or len(loss_param_values(
                 bk.loss)) > k5.MAX_LOSS_PARAMS):
@@ -420,9 +417,9 @@ def cam_reduce(contrib, camr, camm):
 
 
 def _spd_inv_e(M):
-    """[n, t, t] SPD -> inverse: by cofactors for t = 3, as ceres_tpu's
+    """[n, t, t] SPD -> inverse: in closed form for t <= 3, as ceres_tpu's
     _spd_inv_small; by Cholesky otherwise."""
-    return spd_inv3(M) if M.shape[-1] == 3 else spd_inv_small(M)
+    return spd_inv_closed(M) if M.shape[-1] <= 3 else spd_inv_small(M)
 
 
 def sj_chunk_blocks(Ge_s, M, fids, dup: bool):
@@ -630,6 +627,8 @@ class FusedSchurStep(SchurStep):
                   if self.library else "K3 chol_solve"))
         self.mode = ("explicit reduced camera matrix, linearize "
                      + ("K1" if self.k5 is None else "K5")
+                     + ", eliminate " + ("K6" if self.iterative
+                                         or self.te > K2_MAX_TE else "K2")
                      + f", reduced solve: {solve}, m = {self.nf}")
         # a direct solve is one linear iteration (kept on the device)
         self.one = torch.ones((), dtype=torch.int32, device=dev)
@@ -676,19 +675,20 @@ class FusedSchurStep(SchurStep):
         """inv = (E^T E_s + D_e^2)^-1 [ne, te, te] and z = inv (-g_se)
         [ne, te] at the f32 radius tensor `rad` (K6's inputs)."""
         inv = _spd_inv_e(art.etes.view(self.ne, self.te, self.te)
-                         + torch.diag_embed(art.diag_e / rad))
+                         + torch.diag_embed(art.diag_e / rad)).contiguous()
         return inv, torch.einsum("nij,nj->ni", inv, -art.gse)
 
     def reduced_system(self, art: Linearization, radius: float):
-        """The elimination (K2 for DENSE_SCHUR; inv, z and K6 for
-        ITERATIVE_SCHUR) and the assembly of the reduced camera system at
-        `radius`: returns (S [nf, nf], rhs [nf], inv [ne, te, te], rad f32
-        tensor)."""
+        """The elimination (K2 for DENSE_SCHUR with te <= 3; inv, z and K6
+        for ITERATIVE_SCHUR and past te = 3, as the JAX package's step
+        runs its _elim_kernel where have_elim2 is false) and the assembly
+        of the reduced camera system at `radius`: returns (S [nf, nf],
+        rhs [nf], inv [ne, te, te], rad f32 tensor)."""
         kf, nf, tf = self.kf, self.nf, self.tf
         rad = torch.tensor(radius, dtype=torch.float32,
                            device=self.program.device)
         sA = art.s_f.reshape(nf)
-        if self.iterative:
+        if self.iterative or self.te > K2_MAX_TE:
             inv, z = self.point_inverse(art, rad)
             S_corr_u, rhsa_u = elim_v1(art.A, inv, z)
         else:

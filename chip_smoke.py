@@ -1718,14 +1718,23 @@ def kernel_counters():
             "K5 lin_auto": k5.lin_auto}
 
 
-def scorr_flops(ne_, nf_):
-    """K2's and K6's operations: S_corr = sum A^T (inv A) with Y = inv A
-    first, the upper triangle of S_corr (2 * 3 * nf (nf + 1) / 2 a point;
-    the kernel forms it alone at nf <= 160 and mirrors it, past that the
-    upper tile pairs), Y itself (18 nf) and rhs (6 nf); K2 adds 45 a
-    point for the inverse. Every camera column of each point's A is
-    walked, the zero blocks too."""
-    return ne_ * (3 * nf_ * (nf_ + 1) + 24 * nf_)
+def scorr_flops(ne_, nf_, te=3):
+    """K2's and K6's operations for point blocks of `te`: S_corr = sum
+    A^T (inv A) with Y = inv A first, the upper triangle of S_corr
+    (2 te nf (nf + 1) / 2 a point; the kernel forms it alone at nf <= 160
+    and mirrors it, past that the upper tile pairs), Y itself (2 te^2 nf)
+    and rhs (2 te nf); K2 adds INV_Z_FLOPS[te] a point. Every camera
+    column of each point's A is walked, the zero blocks too."""
+    return ne_ * (te * nf_ * (nf_ + 1) + 2 * te * te * nf_ + 2 * te * nf_)
+
+
+# K2's operations a point for its damped inverse and z, by point size
+# (csrc/elim.cuh damped_inverse, from the staged EtE and g): the damping
+# (a division and a sum a diagonal entry), the closed form's products,
+# sums and one reciprocal, the scaling of the inverse's distinct entries
+# and z's te^2 products: te 1: 2 + 1 + 1; te 2: 4 + 3 (det) + 1 + 3 + 4;
+# te 3: 6 + 18 (cofactors) + 5 (det) + 1 + 6 + 9
+INV_Z_FLOPS = {1: 4, 2: 15, 3: 45}
 
 
 def fused_large_m_paths(counters, by_path, kernels, device="cuda"):
@@ -1828,8 +1837,9 @@ def fused_large_m_paths(counters, by_path, kernels, device="cuda"):
     added.append(check_kernel(
         f"K2 elim (nf {nf})", lambda: elim(*elim_args),
         lambda: elim_plain(*elim_args), cmp_all, k2_limit,
-        "ceres_tpu_torch/csrc/elim.cu", "ceres_tpu/ops/pallas_lin.py:424",
-        elim_args[:4], scorr_flops(ne, nf) + 45 * ne, F32_FLOP_PER_S,
+        "ceres_tpu_torch/csrc/elim.cuh", "ceres_tpu/ops/pallas_lin.py:424",
+        elim_args[:4], scorr_flops(ne, nf) + INV_Z_FLOPS[3] * ne,
+        F32_FLOP_PER_S,
         reference=scorr_gemm(art.A, elim_plain(*elim_args)[2])))
     rad = torch.tensor(RADIUS, dtype=torch.float32, device=device)
     inv, z = it_step.point_inverse(art, rad)
@@ -1838,7 +1848,7 @@ def fused_large_m_paths(counters, by_path, kernels, device="cuda"):
     added.append(check_kernel(
         f"K6 elim_v1 (nf {nf})", lambda: elim_v1(art.A, inv, z),
         lambda: elim_v1_plain(art.A, inv, z), cmp_all, k6_limit,
-        "ceres_tpu_torch/csrc/elim.cu", "ceres_tpu/ops/pallas_lin.py:387",
+        "ceres_tpu_torch/csrc/elim.cuh", "ceres_tpu/ops/pallas_lin.py:387",
         (art.A, inv, z), scorr_flops(ne, nf), F32_FLOP_PER_S,
         reference=scorr_gemm(art.A, inv)))
     k4 = step.k4
@@ -2394,6 +2404,833 @@ def problem_api_paths(counters, by_path, device="cuda"):
         raise SystemExit(f"PROBLEM_API_PATHS: failed: {fails}")
 
 
+# slice 12 (`solver_options_paths`): the rest of Solver::Options, each
+# path driven with every kernel count set to 0 just before it and read
+# just after. References: scripts/slice12_reference.py (the JAX package
+# on the CPU; `cluster` on the card's machine, CPU only).
+#
+# FUSED_LS: the line-search minimizer with fused_iterations=True, which
+# the port runs on its host loop and reports as the JAX package's
+# device-resident loop reports (minimizers/line_search.py): the
+# tutorial's Rosenbrock, the extended Rosenbrock in EXT_ROSENBROCK_N
+# parameters (L-BFGS, Wolfe) and the BA line search of FUSED_LS_BA_ARGS
+# (f64), each beside fused_iterations=False on the same problem. Gates:
+# the fused run's x and final cost bit for bit the host run's, its
+# counts the host run's, no per-iteration records; against the JAX fused
+# loop, as the CPU tests hold it, the counts where they are at most 50
+# (both Rosenbrocks end in fewer) and the BA run, cut at 3 iterations,
+# on its count and cost (FUSED_LS_REF). No kernel may launch.
+# The BA line search cut at 3 iterations (BA_LS_ARGS's problem and
+# options). From this start it is chaotic from the first iterations: the
+# JAX fused runs from starts scaled by 1 -+ 1e-12 end 3.1e-2 and 3.3e-2
+# apart after 10 iterations (1 -+ 1e-9: 7.4e-1 and 5.2e-3), so only a
+# short cut holds the port to the JAX loop.
+FUSED_LS_BA_ARGS = BA_LS_ARGS[:-1] + ["3"]
+# INNER: bundle_adjuster --inner_iterations on BAL-16-22106 under its
+# defaults (f64, SPARSE_SCHUR + JACOBI, 5 iterations): the JAX package's
+# LM count and inner-iteration steps, its cost within BA_F64_REL_TOL. No
+# kernel may launch (the f64 generic step runs none).
+INNER_ARGS = ["--synthetic_cameras", "16", "--synthetic_points", "22106",
+              "--synthetic_observations", "83718", "--random_seed", "7",
+              "--rotation_sigma", "0.1", "--translation_sigma", "1.0",
+              "--point_sigma", "0.5", "--inner_iterations"]
+# CLUSTER: bundle_adjuster at Trafalgar's shape (TRAFALGAR_ARGS), 5
+# iterations, ITERATIVE_SCHUR with CLUSTER_JACOBI (canonical views) and
+# CLUSTER_TRIDIAGONAL (single linkage: canonical views at this shape
+# puts every camera in a handful of clusters whose forest is short), in
+# f64 and mixed, beside SCHUR_JACOBI in f64 (its PCG iterations for the
+# comparison). The mixed runs linearize through K11's Snavely spec
+# (counted). The JAX package's mixed CLUSTER solve does not trace
+# (ROADMAP.md section 3): every run is gated against its f64 solve.
+CLUSTER_PATHS = {
+    "CLUSTER_JACOBI": ["--preconditioner", "cluster_jacobi"],
+    "CLUSTER_TRIDIAGONAL": ["--preconditioner", "cluster_tridiagonal",
+                            "--visibility_clustering", "single_linkage"],
+    "CLUSTER_JACOBI_MIXED": ["--preconditioner", "cluster_jacobi",
+                             "--mixed_precision_solves"],
+    "CLUSTER_TRIDIAGONAL_MIXED": ["--preconditioner", "cluster_tridiagonal",
+                                  "--visibility_clustering",
+                                  "single_linkage",
+                                  "--mixed_precision_solves"],
+    "CLUSTER_SCHUR_JACOBI": ["--preconditioner", "schur_jacobi"],
+}
+CLUSTER_COMMON = ["--linear_solver", "iterative_schur"]
+# The mixed runs' preconditioner on their first damped system (S in
+# f32, as the solve formed it): its pattern equal to the one this script
+# builds from the clustering, the same factor picked (the forest's or
+# the cluster-diagonal fallback) as cluster_factor picks for the same S
+# in f64, and the f32 solve's normwise backward error
+# ||M y - v|| / (||M||_F ||y|| + ||v||), M = L64 L64^T, within
+# CLUSTER_F32_LIMIT. An f32 Cholesky solve of order nf keeps it below
+# sqrt(nf) eps32 (~3e-6 at nf 2,313; 6.8e-9 for CLUSTER_TRIDIAGONAL on
+# a 12-camera problem on the CPU); a wrong pattern or the other factor
+# leaves the dropped blocks' share of S in it (6.3e-4 there with the
+# fallback factor forced).
+CLUSTER_F32_LIMIT = 1e-5
+# DUMP: the SE2 1,000-pose graph under SolverOptions() (LM, DENSE_QR,
+# f64, the host loop) with TEXTFILE dumps of the iterations in
+# DUMP_ITERATIONS (iteration 0 is no step and writes none) and again
+# with the CONSOLE line; each .npz array held against the port's own
+# CPU run of the same solve within DUMP_TOL relative to its largest
+# entry, the radius equal, the console lines' norms within DUMP_TOL.
+DUMP_ITERATIONS = (0, 1, 2)
+DUMP_TOL = 1e-9
+# COV_SCHUR: Covariance SPARSE_QR (past SPARSE_QR_DENSE_CAP: the Schur
+# branch) on the unperturbed BAL-16-22106 problem with cameras 0 and 1
+# held constant; the blocks of COV_PAIRS against the JAX package's
+# within COV_SCHUR_TOL relative to each block's largest entry.
+COV_PAIRS = ((2, 2), (2, 9), (9, 9), (0, 9))
+COV_SCHUR_TOL = 1e-8
+# TE: BAL-16-sized problems (SHAPE, seed 7, TE_PERTURB) whose points are
+# homogeneous (te 4: [X, Y, Z, 1] at the start) or confined to their own
+# depth plane (te 2: (X, Y), Z fixed per observation), the Snavely
+# camera, mixed DENSE_SCHUR and ITERATIVE_SCHUR + SCHUR_JACOBI on the
+# fused step: K5, then K2 (te 2, DENSE_SCHUR) or K6, and K3 or K7.
+# TE_PERTURB is milder than PERTURB: from PERTURB's start the
+# homogeneous points wander along their scale directions and the JAX
+# runs from starts scaled by 1 -+ 1e-7 end 29% apart after 50 LM
+# iterations; from this one both point sizes converge to the main path's
+# minimum.
+TE_PERTURB = dict(rotation_sigma=0.01, translation_sigma=0.1,
+                  point_sigma=0.05)
+TE_PATHS = {"TE4_DENSE_SCHUR": (4, "DENSE_SCHUR"),
+            "TE4_ITERATIVE_SCHUR": (4, "ITERATIVE_SCHUR"),
+            "TE2_DENSE_SCHUR": (2, "DENSE_SCHUR"),
+            "TE2_ITERATIVE_SCHUR": (2, "ITERATIVE_SCHUR")}
+
+
+# The JAX package's references (scripts/slice12_reference.py --spread:
+# fused_ls, inner, cov and te on the CPU here; cluster on the card's
+# machine with CUDA_VISIBLE_DEVICES=).
+FUSED_LS_REF = {
+    # (iterations, probes, successful steps, message) of the JAX fused
+    # loop; both end within 50 iterations, so their counts are gated
+    "FUSED_LS_ROSENBROCK": dict(
+        counts=(17, 30, 17, "Gradient tolerance reached.")),
+    "FUSED_LS_EXTENDED_ROSENBROCK": dict(
+        counts=(17, 30, 17, "Gradient tolerance reached.")),
+    # cut at 3 iterations (33 probes); its Wolfe searches branch on the
+    # last bits from the first iteration: the runs from the start scaled
+    # by 1 -+ 1e-12 end 1.758e-7 and 4.411e-2 away with 28 and 33 probes
+    # (1 -+ 1e-9: 6.2e-1 and 6.4e-4; the port on the CPU 1.6e-5 with 29):
+    # the gate is twice the larger 1e-12 spread
+    "FUSED_LS_BUNDLE_ADJUSTER": dict(iterations=3,
+                                     final_cost=425832.4334201157,
+                                     tol=8.82e-2),
+}
+INNER_REF = dict(iterations=4, inner_steps=4, final_cost=50287.72691043025)
+# TE: the JAX fused step's runs; the spreads from the start scaled by
+# 1 -+ 1e-7 are at most 9.2e-13 (DENSE_SCHUR) and 3.98e-7 (te 4
+# ITERATIVE_SCHUR, 8-14 LM), below the f32 parting of the two packages:
+# the gate is REF_REL_TOL, the main path's, on the cost, and the LM
+# counts are reported
+TE_REF = {
+    "TE4_DENSE_SCHUR": dict(iterations=9, final_cost=50287.72691050271,
+                            tol=REF_REL_TOL, termination="CONVERGENCE"),
+    "TE4_ITERATIVE_SCHUR": dict(iterations=14,
+                                final_cost=50287.74698251675,
+                                tol=REF_REL_TOL, termination="CONVERGENCE"),
+    "TE2_DENSE_SCHUR": dict(iterations=4, final_cost=236679.65161814087,
+                            tol=REF_REL_TOL, termination="CONVERGENCE"),
+    "TE2_ITERATIVE_SCHUR": dict(iterations=5, final_cost=236679.6516197831,
+                                tol=REF_REL_TOL, termination="CONVERGENCE"),
+}
+# CLUSTER: the JAX package's f64 runs on the card's machine's CPU (5 LM,
+# both stopping at the cap mid-descent): CLUSTER_JACOBI's canonical views
+# put the 257 cameras in 86 clusters (no forest), CLUSTER_TRIDIAGONAL's
+# single linkage leaves each camera its own cluster and chains them by
+# a 256-edge forest. The runs from the start scaled by 1 -+ 1e-7 end
+# 1.425e-8 / 1.424e-8 and 1.743e-8 / 1.750e-8 away with the same PCG
+# counts: the f64 gates are twice the larger spread (SCHUR_JACOBI's,
+# whose spread was not run, takes CLUSTER_TRIDIAGONAL's), with the PCG
+# count. The mixed runs (the JAX package's do not trace) are gated on
+# the f64 run at CLUSTER_MIXED_TOL: f32 PCG to eta 1e-2 stops at other
+# counts (198 and 264 against 199 and 346 in a dev run on the card) and
+# the trajectory, mid-descent at the cap, ends up to 5.2e-3 away.
+CLUSTER_MIXED_TOL = 1e-2
+CLUSTER_REF = {
+    "CLUSTER_JACOBI": dict(iterations=5, pcg=199,
+                           final_cost=126840.79531332356, tol=2.9e-8,
+                           termination="NO_CONVERGENCE",
+                           digest="3bc6aaf2a1f04bb5"),
+    "CLUSTER_TRIDIAGONAL": dict(iterations=5, pcg=346,
+                                final_cost=127525.29264516539, tol=3.5e-8,
+                                termination="NO_CONVERGENCE",
+                                digest="0b8023e9c2028623"),
+    "CLUSTER_SCHUR_JACOBI": dict(iterations=5, pcg=311,
+                                 final_cost=127866.71752428461, tol=3.5e-8,
+                                 termination="NO_CONVERGENCE"),
+}
+CLUSTER_REF["CLUSTER_JACOBI_MIXED"] = dict(
+    CLUSTER_REF["CLUSTER_JACOBI"], tol=CLUSTER_MIXED_TOL)
+CLUSTER_REF["CLUSTER_TRIDIAGONAL_MIXED"] = dict(
+    CLUSTER_REF["CLUSTER_TRIDIAGONAL"], tol=CLUSTER_MIXED_TOL)
+# COV_PAIRS's blocks of the JAX package's Schur branch, row-major 9 x 9
+COV_SCHUR_REF = [
+    [8.730379430971101e-08, 8.52193870078295e-09, -1.0734988445690596e-08,
+     -1.436651414604721e-09, 7.4048795918453835e-09, -1.2899698925188953e-07,
+     6.889446254513712e-06, 3.5308399912693835e-08, 5.859479959011365e-08,
+     8.521938700782955e-09, 1.9241516361451004e-07, -1.1561063673983703e-08,
+     -1.7359408930790217e-08, 1.8084361220865225e-09, -4.023373495258783e-07,
+     2.2656336267997362e-05, 3.148532278215731e-08, 7.25956444430689e-08,
+     -1.0734988445690596e-08, -1.1561063673983703e-08, 7.22836972085693e-08,
+     7.16019036617476e-10, -4.5844596402026635e-09, 3.050555903692207e-08,
+     -1.5416113914305764e-06, -1.769281108774624e-08, -6.133773312597513e-08,
+     -1.4366514146047214e-09, -1.7359408930790217e-08, 7.160190366174749e-10,
+     3.549101331642566e-07, -4.080539394329152e-08, -1.5563724740798303e-07,
+     3.1043536004516444e-06, 4.078430050234278e-08, -2.182816438012278e-07,
+     7.404879591845384e-09, 1.8084361220865241e-09, -4.584459640202663e-09,
+     -4.080539394329154e-08, 1.0157051618104385e-07, -3.4894025704090916e-08,
+     3.0153200206237597e-06, 3.3131224241295026e-09, 1.787460697624868e-07,
+     -1.2899698925188956e-07, -4.0233734952587835e-07, 3.050555903692203e-08,
+     -1.556372474079832e-07, -3.489402570409096e-08, 0.00018454729636088613,
+     -0.011086411645367836, -1.680377375156992e-05, -2.2744712914292536e-05,
+     6.889446254513713e-06, 2.2656336267997342e-05, -1.541611391430575e-06,
+     3.1043536004516487e-06, 3.015320020623761e-06, -0.011086411645367835,
+     0.73768154534656, -0.0016739719274260591, 0.010874844877722995,
+     3.530839991269377e-08, 3.148532278215739e-08, -1.769281108774624e-08,
+     4.0784300502342736e-08, 3.313122424129519e-09, -1.6803773751569897e-05,
+     -0.0016739719274260598, 0.00014243320601085515, -0.0005658920255721183,
+     5.85947995901139e-08, 7.259564444306818e-08, -6.133773312597507e-08,
+     -2.182816438012277e-07, 1.7874606976248663e-07, -2.2744712914292573e-05,
+     0.010874844877722998, -0.0005658920255721183, 0.002668405149199714],
+    [3.2465534644270903e-09, 3.030811175042144e-08, -3.0422455503450293e-08,
+     1.5369058202510094e-09, 6.275315771238416e-10, 3.9998370460099586e-08,
+     -1.6490254999408786e-06, -1.0765723061183142e-08, 3.428317468349851e-08,
+     -1.579969350566347e-08, 9.877374057025624e-08, -9.032899246972053e-09,
+     1.6844268718344735e-08, 4.055164048538017e-10, 4.5401533867749355e-07,
+     -2.105817861283281e-05, -3.06791319835256e-08, 1.1272271258921355e-07,
+     3.084679044984614e-08, -3.7129244874361384e-09, 1.2543265507978457e-08,
+     -3.099822055623959e-09, -2.9645187805817983e-09, 1.4245629811002912e-08,
+     -1.874398058821813e-06, -3.511702171870508e-09, 8.510069385096889e-09,
+     -2.9134820336200376e-09, -1.086935015011002e-09, 2.8395868342334006e-09,
+     -1.296578081795306e-07, 6.78702899588785e-08, -8.919588224822721e-07,
+     1.5895491097087334e-06, 1.8600799714174583e-08, -3.473836046652135e-08,
+     -3.2522744218665527e-09, 1.1885957482249923e-09, -2.257995447495322e-09,
+     2.4591331610218127e-08, 1.5539787462700046e-08, 1.8473568051197098e-07,
+     -4.939770177027517e-07, -1.5409624470203893e-09, 1.2843424444020257e-08,
+     1.4720488121025988e-07, -9.970671254769452e-07, -3.582849069850447e-08,
+     3.0004530701729336e-07, -3.720340878008389e-08, 3.675694382346498e-06,
+     -0.00020051571423873048, 1.0880411248264154e-06, -3.772358902231207e-06,
+     -6.040998338115988e-06, 5.3344577979966984e-05, 2.2030824070817395e-06,
+     3.1487754589128978e-06, 1.2852823297719722e-06, -0.00018509518241305328,
+     0.01970595795451252, -0.00018405024600302814, 0.0004625234260790016,
+     -3.953410698506552e-08, 1.5790342490145535e-08, -7.680370913852604e-09,
+     9.887092350207732e-08, -5.453883806186563e-09, 1.7554009787332234e-06,
+     -0.00021946856389766167, 4.6814231783892775e-06,
+     -1.0978119081978874e-05, 7.066680222572376e-08, 4.110059179370914e-07,
+     -2.6239237347085617e-08, -4.947047035833655e-07, 7.092945623896693e-08,
+     -4.275438982664841e-06, 0.00047723443994088656, -1.257502540033323e-05,
+     3.8705477400679125e-05],
+    [2.460844944396472e-07, -1.789195287337935e-08, 1.3670532809236905e-08,
+     4.5053777696731485e-09, -2.594906018099537e-09, -1.4676187719941806e-07,
+     1.061065610179009e-05, 9.353468335101968e-09, -7.603985526900276e-10,
+     -1.789195287337939e-08, 8.357667628238178e-07, 2.326405387504637e-08,
+     5.458384895772374e-09, 8.050248516340176e-09, 1.7679399899836667e-07,
+     -9.442249939379611e-06, -9.773152113403355e-08, 1.8270955997230114e-07,
+     1.367053280923687e-08, 2.3264053875046427e-08, 2.372711340786494e-07,
+     -4.002987157928249e-09, 6.04281786485706e-09, -1.403701575601562e-07,
+     6.965697218792233e-06, 3.913137067646726e-08, -5.1062591636967285e-08,
+     4.50537776967314e-09, 5.458384895772339e-09, -4.00298715792826e-09,
+     1.5622150410063403e-06, -1.3880763151186093e-08, 5.105922825023638e-07,
+     -8.634376838103554e-06, 5.7963508896232245e-08, 3.094189162733578e-07,
+     -2.5949060180995382e-09, 8.050248516340166e-09, 6.0428178648570586e-09,
+     -1.3880763151186118e-08, 2.472257094825324e-07, -4.1600639558219246e-07,
+     -2.1572755604791288e-06, -1.6406168804162114e-08,
+     -8.894082627346196e-09, -1.467618771994187e-07, 1.7679399899836953e-07,
+     -1.4037015756015582e-07, 5.105922825023609e-07, -4.160063955821918e-07,
+     0.00020775677124110814, -0.012830172723710082, -1.90265235215219e-05,
+     1.2806473951421875e-05, 1.0610656101790138e-05, -9.442249939379659e-06,
+     6.965697218792215e-06, -8.634376838103476e-06, -2.1572755604791356e-06,
+     -0.012830172723710087, 0.9216957053486585, -0.001649915308527814,
+     0.007518330335557443, 9.353468335102134e-09, -9.773152113403395e-08,
+     3.9131370676467154e-08, 5.7963508896231537e-08, -1.6406168804162038e-08,
+     -1.9026523521521863e-05, -0.0016499153085278143, 0.0001270061498467986,
+     -0.00043114574448228666, -7.603985526905482e-10, 1.8270955997230178e-07,
+     -5.106259163696704e-08, 3.094189162733602e-07, -8.894082627346363e-09,
+     1.2806473951421812e-05, 0.007518330335557441, -0.0004311457444822867,
+     0.0018630792430335348],
+    [0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0,
+     0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0,
+     0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0,
+     0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0,
+     0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0,
+     0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0]]
+
+
+def point_size_functor(T, rot, te):
+    """The Snavely camera observing a point block of `te` columns, in
+    array module T with rotation module `rot` (torch and the port's, or
+    jax.numpy and the JAX package's): te 4 a homogeneous point
+    [X, Y, Z, W] (p = R X + W t), te 2 a point (X, Y) on the plane of its
+    depth z, a per-observation datum. T and rot are closed over, not
+    attributes: the JAX package batches a functor's numeric attributes."""
+    class PointSize:
+        def __init__(self, observed_x, observed_y, z=0.0):
+            self.observed_x, self.observed_y = observed_x, observed_y
+            if te == 2:
+                self.z = z
+
+        def __call__(self, camera, point):
+            if te == 4:
+                p = (rot.angle_axis_rotate_point(camera[:3], point[:3])
+                     + camera[3:6] * point[3])
+            else:
+                p = rot.angle_axis_rotate_point(
+                    camera[:3], T.stack([point[0], point[1], self.z])
+                ) + camera[3:6]
+            xp = -p[0] / p[2]
+            yp = -p[1] / p[2]
+            r2 = xp * xp + yp * yp
+            distortion = 1.0 + r2 * (camera[7] + camera[8] * r2)
+            return T.stack([camera[6] * distortion * xp - self.observed_x,
+                            camera[6] * distortion * yp - self.observed_y])
+    return PointSize
+
+
+def point_size_problem(mod, T, rot, te, bal, scale=1.0):
+    """(problem, camera arrays, point arrays) of `bal` with point blocks of
+    te 4 or 2 (point_size_functor), the start scaled by `scale`."""
+    import numpy as np
+    functor = point_size_functor(T, rot, te)
+    cams = [np.asarray(c, dtype=np.float64) * scale for c in bal.cameras]
+    pts = [(np.append(p, 1.0) if te == 4 else p[:2].copy()) * scale
+           for p in bal.points]
+    problem = mod.Problem()
+    for k in range(bal.num_observations):
+        c, p = int(bal.camera_index[k]), int(bal.point_index[k])
+        ox, oy = (float(v) for v in bal.observations[k])
+        f = (functor(ox, oy) if te == 4
+             else functor(ox, oy, float(bal.points[p][2])))
+        problem.add_residual_block(mod.AutoDiffCostFunction(f, 2, [9, te]),
+                                   None, cams[c], pts[p])
+    return problem, cams, pts
+
+
+def te_options(mod, solver, **extra):
+    """The TE paths' options: bench.py's (the main path's) with the
+    solver named."""
+    kw = dict(linear_solver_type=getattr(mod.LinearSolverType, solver),
+              preconditioner_type=mod.PreconditionerType.SCHUR_JACOBI,
+              max_num_iterations=50, function_tolerance=1e-6,
+              max_linear_solver_iterations=100,
+              use_mixed_precision_solves=True, fused_iterations=True)
+    kw.update(extra)
+    return mod.SolverOptions(**kw)
+
+
+def cluster_digest(membership, forest):
+    """sha256 (16 hex digits) of a clustering: the int64 membership's bytes
+    and the forest's edges."""
+    import hashlib
+    import numpy as np
+    h = hashlib.sha256(np.asarray(membership, dtype=np.int64).tobytes())
+    h.update(repr(sorted(forest or [])).encode())
+    return h.hexdigest()[:16]
+
+
+def cluster_f32_check(captured, col_cluster, forest):
+    """(ok, text) of CLUSTER_F32_LIMIT's check on a mixed run's first
+    cluster_factor call, `captured` = (S, mask, diag_mask, L, fell_back):
+    the mask against the pattern built here from each f column's cluster
+    and the forest's cluster pairs, the f64 factor of the same S, the f32
+    solve's backward error and its distance from the f64 solve."""
+    import torch
+    from ceres_tpu_torch.solvers.schur import cluster_factor
+    S, mask, diag_mask, L32, bad32 = captured
+    cc = torch.as_tensor(col_cluster, device=S.device)
+    own = cc[:, None] == cc[None, :]
+    same_diag = torch.equal(diag_mask, own)
+    for a, b in forest or ():
+        own |= (((cc[:, None] == a) & (cc[None, :] == b))
+                | ((cc[:, None] == b) & (cc[None, :] == a)))
+    same_mask = torch.equal(mask, own)
+    L64, bad64 = cluster_factor(S.double(), mask, diag_mask)
+    gen = torch.Generator(device=S.device).manual_seed(7)
+    v = torch.randn(S.shape[0], generator=gen, device=S.device,
+                    dtype=torch.float64)
+    y32 = torch.cholesky_solve(v.float()[:, None], L32)[:, 0].double()
+    y64 = torch.cholesky_solve(v[:, None], L64)[:, 0]
+    M = L64 @ L64.T
+    backward = float(torch.linalg.vector_norm(M @ y32 - v) / (
+        torch.linalg.matrix_norm(M) * torch.linalg.vector_norm(y32)
+        + torch.linalg.vector_norm(v)))
+    forward = float(torch.linalg.vector_norm(y32 - y64)
+                    / torch.linalg.vector_norm(y64))
+    ok = (same_mask and same_diag and bool(bad32) == bool(bad64)
+          and backward <= CLUSTER_F32_LIMIT)
+    return ok, (f"f32 preconditioner on the first damped system: pattern "
+                f"{'equal' if same_mask and same_diag else 'DIFFERENT'} to "
+                f"the clustering's, fallback factor f32 {bool(bad32)} / "
+                f"f64 {bool(bad64)}, backward error {backward:.3e} (limit "
+                f"{CLUSTER_F32_LIMIT}), {forward:.3e} from the f64 solve")
+
+
+def fused_ls_problems(mod, T, make_rosenbrock, build_options, bal_io):
+    """The FUSED_LS problems in package `mod` (array module T, the
+    tutorial's make_rosenbrock, bundle_adjuster's build_options and the
+    package's io.bal): [(label, run)], run(scale=1.0, **extra) -> (summary,
+    x as numpy) solving one afresh, its start scaled by `scale`, with the
+    options `extra` adds (fused_iterations, device)."""
+    import dataclasses
+    import numpy as np
+
+    def rosenbrock(scale=1.0, **extra):
+        x = np.array([-1.2, 1.0]) * scale
+        s = mod.solve_gradient_problem(mod.SolverOptions(
+            minimizer_type=mod.MinimizerType.LINE_SEARCH,
+            max_num_iterations=200, **extra),
+            mod.GradientProblem(make_rosenbrock()), x)
+        return s, x
+
+    def extended(scale=1.0, **extra):
+        n = EXT_ROSENBROCK_N
+        x = extended_rosenbrock_start(n) * scale
+        s = mod.solve_gradient_problem(mod.SolverOptions(
+            minimizer_type=mod.MinimizerType.LINE_SEARCH,
+            max_num_iterations=200, **extra), mod.GradientProblem(
+                mod.AutoDiffFirstOrderFunction(extended_rosenbrock(T), n)),
+            x)
+        return s, x
+
+    def ba(scale=1.0, **extra):
+        from ceres_tpu_torch.examples.bundle_adjuster import parse_args
+        flags = parse_args(FUSED_LS_BA_ARGS)
+        bal = bal_io.synthetic_bal_problem(
+            flags.synthetic_cameras, flags.synthetic_points,
+            flags.synthetic_observations, seed=flags.random_seed,
+            pixel_noise=1.0)
+        bal.normalize()
+        bal.perturb(rotation_sigma=flags.rotation_sigma,
+                    translation_sigma=flags.translation_sigma,
+                    point_sigma=flags.point_sigma, seed=flags.random_seed)
+        problem, cams, pts = bal_io.build_bal_ceres_problem(bal)
+        for a in cams + pts:
+            a *= scale
+        opts = build_options(mod, flags)
+        if not hasattr(opts, "device"):
+            extra.pop("device", None)
+        opts = dataclasses.replace(opts, minimizer_progress_to_stdout=False,
+                                   **extra)
+        s = mod.solve(opts, problem)
+        return s, np.concatenate([a.ravel() for a in cams + pts])
+
+    return [("FUSED_LS_ROSENBROCK", rosenbrock),
+            ("FUSED_LS_EXTENDED_ROSENBROCK", extended),
+            ("FUSED_LS_BUNDLE_ADJUSTER", ba)]
+
+
+def solver_options_paths(counters, by_path, kernels, smi, device="cuda"):
+    """Slice 12's phase: FUSED_LS, INNER, CLUSTER, DUMP, COV_SCHUR and TE
+    (their comments above), each path with every kernel count set to 0
+    just before it and read just after. The TE paths' kernels (K5, K2 at
+    te 2, K6 at te 2 and 4, K3, K7) are held to their plain versions at
+    that te and added to `kernels`. Raises once every path has printed
+    its numbers, if one was off its gate."""
+    import contextlib
+    import dataclasses
+    import io
+    import tempfile
+    import numpy as np
+    import torch
+    import ceres_tpu_torch as ctt
+    from ceres_tpu_torch import rotation as trot
+    from ceres_tpu_torch.examples import bundle_adjuster, slam
+    from ceres_tpu_torch.examples.tutorial import make_rosenbrock
+    from ceres_tpu_torch.io import bal as bal_io
+    from ceres_tpu_torch.io import g2o
+    from ceres_tpu_torch.program import CompiledProgram
+    from ceres_tpu_torch.solvers import schur
+    from ceres_tpu_torch.solvers.schur import (camera_clustering,
+                                               detect_schur_structure)
+    from ceres_tpu_torch.solvers.schur_fused import FusedSchurStep
+    fails = []
+
+    def zero():
+        for fn in counters.values():
+            fn.launches = 0
+        torch.cuda.synchronize()
+        return time.time()
+
+    def done(label, t0):
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        by_path[label] = {n: fn.launches for n, fn in counters.items()}
+        return wall, {n: c for n, c in by_path[label].items() if c}
+
+    # ---- FUSED_LS: fused_iterations=True beside the host loop's run ----
+    for label, run in fused_ls_problems(ctt, torch, make_rosenbrock,
+                                        bundle_adjuster.build_options,
+                                        bal_io):
+        runs, want = {}, FUSED_LS_REF[label]
+        for fused in (True, False):
+            t0 = zero()
+            s, x = run(fused_iterations=fused, device=device)
+            wall, launched = done(label if fused else f"{label}_HOST", t0)
+            runs[fused] = (s, x)
+            n_it = s.num_iterations_fused if fused else s.num_iterations - 1
+            print(f"{label} (fused_iterations={fused}): "
+                  f"{n_it} iterations, {s.num_line_search_steps} probes, "
+                  f"{s.num_successful_steps} successful, final cost "
+                  f"{s.final_cost!r}, {s.termination_type} ({s.message}), "
+                  f"wall {wall:.4f} s ({1e3 * wall / max(n_it, 1):.3f} ms "
+                  f"an iteration), launches {launched}", flush=True)
+            if launched:
+                fails.append(f"{label}: kernels launched: {launched}")
+        (s, x), (s_h, x_h) = runs[True], runs[False]
+        n_it = s.num_iterations_fused
+        same = (np.array_equal(x, x_h) and s.final_cost == s_h.final_cost
+                and s.iterations == [] and n_it == len(s_h.iterations) - 1
+                and (s.num_line_search_steps, s.num_successful_steps)
+                == (s_h.num_line_search_steps, s_h.num_successful_steps))
+        print(f"  {label}: the fused report is the host run's (x and cost "
+              f"bit for bit, counts): {same}; the JAX fused loop {want}",
+              flush=True)
+        if not same:
+            fails.append(f"{label}: the fused run is not the host run")
+        if "counts" in want:
+            ok = ((n_it, s.num_line_search_steps, s.num_successful_steps,
+                   s.message) == want["counts"]
+                  and float(np.abs(x - 1.0).max()) <= 1e-6)
+        else:
+            ok = (n_it == want["iterations"] and abs(
+                s.final_cost - want["final_cost"])
+                <= want["tol"] * want["final_cost"])
+        if not ok:
+            fails.append(f"{label}: off the JAX fused loop")
+
+    # ---- INNER: bundle_adjuster --inner_iterations at BAL-16 ----
+    want = INNER_REF
+    with contextlib.redirect_stdout(io.StringIO()):
+        t0 = zero()
+        s = bundle_adjuster.run(INNER_ARGS + ["--device", device])[0]
+        wall, launched = done("INNER", t0)
+    print(f"INNER (bundle_adjuster {' '.join(INNER_ARGS)}): "
+          f"{lm_iterations(s)} LM iterations (JAX {want['iterations']}), "
+          f"{s.num_inner_iteration_steps} inner-iteration steps (JAX "
+          f"{want['inner_steps']}), {s.inner_iteration_time_in_seconds:.3f}"
+          f" s in them, final cost {s.final_cost!r} (JAX "
+          f"{want['final_cost']!r}), {s.termination_type}, wall {wall:.3f} "
+          f"s, launches {launched}", flush=True)
+    if launched or not (
+            lm_iterations(s) == want["iterations"]
+            and s.num_inner_iteration_steps == want["inner_steps"]
+            and abs(s.final_cost - want["final_cost"])
+            <= BA_F64_REL_TOL * want["final_cost"]):
+        fails.append("INNER: off the JAX package's run")
+
+    # ---- CLUSTER at Trafalgar's shape: one problem, each path's flags ----
+    flags0 = bundle_adjuster.parse_args(TRAFALGAR_ARGS + ["--device",
+                                                          device])
+    t0 = time.time()
+    _, problem, cams, pts = bundle_adjuster.make_problem(ctt, flags0)
+    start = [a.copy() for a in cams + pts]
+    print(f"CLUSTER: Trafalgar's problem built in {time.time() - t0:.1f} s",
+          flush=True)
+    for label, flags in CLUSTER_PATHS.items():
+        for a, a0 in zip(cams + pts, start):
+            a[:] = a0
+        opts = bundle_adjuster.build_options(ctt, bundle_adjuster.parse_args(
+            TRAFALGAR_ARGS + CLUSTER_COMMON + flags + ["--device", device]))
+        mixed = "--mixed_precision_solves" in flags
+        # a mixed solve's first preconditioner factor, for
+        # cluster_f32_check
+        factor, captured = schur.cluster_factor, []
+
+        def capture(*args):
+            out = factor(*args)
+            if not captured:
+                captured.extend((*args, *out))
+            return out
+        if mixed:
+            schur.cluster_factor = capture
+        try:
+            with contextlib.redirect_stdout(io.StringIO()):  # its progress
+                t0 = zero()
+                s = ctt.solve(opts, problem)
+                wall, launched = done(label, t0)
+        finally:
+            schur.cluster_factor = factor
+        want = CLUSTER_REF[label]
+        rel = abs(s.final_cost - want["final_cost"]) / want["final_cost"]
+        line = (f"{label}: {lm_iterations(s)} LM iterations (JAX "
+                f"{want['iterations']}), {s.num_linear_solver_iterations} "
+                f"PCG iterations (JAX f64 {want['pcg']}), final cost "
+                f"{s.final_cost!r} ({rel:.3e} from JAX f64 "
+                f"{want['final_cost']!r}, limit {want['tol']}), "
+                f"{s.termination_type}, preprocessor "
+                f"{s.preprocessor_time_in_seconds:.3f} s, wall {wall:.3f} s,"
+                f" launches {launched}")
+        ok = (rel <= want["tol"] and lm_iterations(s) == want["iterations"]
+              and str(s.termination_type) == want["termination"])
+        if mixed:
+            ok &= launched.get("K11 bucket_linearize", 0) >= lm_iterations(s)
+        else:
+            ok &= not launched and (s.num_linear_solver_iterations
+                                    == want["pcg"])
+        if "SCHUR_JACOBI" not in label:
+            program = CompiledProgram.get_cached(problem, opts)
+            membership, forest, col_cluster = camera_clustering(
+                program, detect_schur_structure(program, opts),
+                opts.preconditioner_type, opts.visibility_clustering_type)
+            digest = cluster_digest(membership, forest)
+            line += (f"; {int(membership.max()) + 1} clusters, "
+                     f"{len(forest or [])} forest edges, digest "
+                     f"{digest} (JAX {want['digest']})")
+            ok &= digest == want["digest"]
+            if mixed:
+                f32_ok, text = cluster_f32_check(captured, col_cluster,
+                                                 forest)
+                line += "; " + text
+                ok &= f32_ok
+        print(line, flush=True)
+        if not ok:
+            fails.append(f"{label}: off the JAX package's f64 run")
+    del problem, cams, pts, start, opts, s
+    torch.cuda.empty_cache()
+
+    # ---- DUMP: the SE2 graph's dumps on the card beside the CPU's ----
+    poses, edges, _ = g2o.synthetic_pose_graph_2d(num_poses=1000, seed=1)
+    dumps, lines = {}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for dev in (device, "cpu"):
+            problem = slam.build_pose_graph_2d_problem(poses, edges)[0]
+            # the CPU solve stops after the last dumped iteration: the
+            # same solve up to there (a DENSE_QR iteration of this graph
+            # takes ~2.5 s of host)
+            opts = ctt.SolverOptions(
+                device=dev, trust_region_problem_dump_directory=os.path.join(
+                    tmp, dev),
+                trust_region_minimizer_iterations_to_dump=DUMP_ITERATIONS,
+                **({} if dev == device
+                   else {"max_num_iterations": max(DUMP_ITERATIONS)}))
+            t0 = zero()
+            s = ctt.solve(opts, problem)
+            wall, launched = done(f"DUMP_TEXTFILE ({dev})", t0)
+            files = sorted(os.listdir(os.path.join(tmp, dev)))
+            dumps[dev] = {f: dict(np.load(os.path.join(tmp, dev, f)))
+                          for f in files}
+            problem = slam.build_pose_graph_2d_problem(poses, edges)[0]
+            out = io.StringIO()
+            with contextlib.redirect_stdout(out):
+                s2 = ctt.solve(dataclasses.replace(
+                    opts, trust_region_problem_dump_directory=None,
+                    trust_region_minimizer_iterations_to_dump=(),
+                    trust_region_problem_dump_format_type=ctt.DumpFormatType
+                    .CONSOLE), problem)
+            lines[dev] = [ln for ln in out.getvalue().splitlines()
+                          if ln.startswith("ceres_tpu iteration")]
+            print(f"DUMP ({dev}): {lm_iterations(s)} LM iterations, final "
+                  f"cost {s.final_cost!r}, files {files}, wall {wall:.3f} s"
+                  f", launches {launched}; CONSOLE: {lm_iterations(s2)} LM "
+                  f"iterations, {len(lines[dev])} lines, the first "
+                  f"{lines[dev][0] if lines[dev] else None!r}", flush=True)
+    errs = {}
+    for f, arrays in dumps["cpu"].items():
+        card = dumps[device].get(f, {})
+        for key, a in arrays.items():
+            b = card.get(key)
+            errs[f"{f}:{key}"] = (float("inf") if b is None
+                                  or b.shape != a.shape else float(
+                                      np.abs(b - a).max()
+                                      / max(np.abs(a).max(), 1e-300)))
+    n_card, n_cpu = ([[float(v.split()[0]) for v in ln.split("=")[1:]]
+                      for ln in lines[d]] for d in (device, "cpu"))
+    n_err = (max(float(np.max(np.abs(np.subtract(a, b)) / np.abs(b)))
+                 for a, b in zip(n_card, n_cpu))
+             if len(n_cpu) == max(DUMP_ITERATIONS) <= len(n_card)
+             else float("inf"))
+    names = [f"ceres_tpu_iteration_{i:03d}.npz" for i in DUMP_ITERATIONS
+             if i > 0]
+    print(f"DUMP: the card's arrays from the CPU's, max relative "
+          f"{max(errs.values(), default=float('inf')):.3e} (limit "
+          f"{DUMP_TOL:.0e}: {({k: f'{v:.2e}' for k, v in errs.items()})}); "
+          f"the CONSOLE lines' norms {n_err:.3e}", flush=True)
+    if not (sorted(dumps[device]) == sorted(dumps["cpu"]) == names
+            and max(errs.values()) <= DUMP_TOL and n_err <= DUMP_TOL):
+        fails.append("DUMP: the card's dumps are off the CPU's")
+
+    # ---- COV_SCHUR: covariance blocks on the Schur branch ----
+    bal = bal_io.synthetic_bal_problem(**SHAPE, seed=7, pixel_noise=1.0)
+    blocks = {}
+    for dev in (device, "cpu"):
+        problem, cams, _ = bal_io.build_bal_ceres_problem(bal)
+        problem.set_parameter_block_constant(cams[0])
+        problem.set_parameter_block_constant(cams[1])
+        cov = ctt.Covariance(ctt.CovarianceOptions(
+            algorithm_type=ctt.CovarianceAlgorithmType.SPARSE_QR,
+            device=dev))
+        pairs = [(cams[a], cams[b]) for a, b in COV_PAIRS]
+        t0 = zero()
+        ok = cov.compute(pairs, problem)
+        wall, launched = done(f"COV_SCHUR ({dev})", t0)
+        blocks[dev] = ([np.asarray(cov.get_covariance_block_in_tangent_space(
+            a, b)) for a, b in pairs] if ok else None)
+        print(f"COV_SCHUR ({dev}): ok {ok} {cov.message!r}, wall "
+              f"{wall:.3f} s, launches {launched}", flush=True)
+    if blocks[device] is None or blocks["cpu"] is None:
+        fails.append("COV_SCHUR: Compute failed")
+    else:
+        def block_rel(a, b):
+            return float(np.abs(a - b).max() / max(np.abs(b).max(), 1e-300))
+        jax_err = [block_rel(g, np.asarray(w).reshape(g.shape))
+                   for g, w in zip(blocks[device], COV_SCHUR_REF)]
+        cpu_err = [block_rel(g, w)
+                   for g, w in zip(blocks[device], blocks["cpu"])]
+        print(f"COV_SCHUR: blocks {list(COV_PAIRS)} from the JAX package's "
+              f"{[f'{e:.3e}' for e in jax_err]}, from the port's CPU run "
+              f"{[f'{e:.3e}' for e in cpu_err]} (limit {COV_SCHUR_TOL:.0e})",
+              flush=True)
+        if max(jax_err + cpu_err) > COV_SCHUR_TOL:
+            fails.append("COV_SCHUR: off the JAX package's blocks")
+
+    # ---- TE: K5, K2 (te 2) or K6, and K3 or K7 at te != 3 ----
+    bal = bal_io.synthetic_bal_problem(**SHAPE, seed=7, pixel_noise=1.0)
+    bal.perturb(**TE_PERTURB, seed=8)
+    te_kernels = {"TE4_DENSE_SCHUR": ("K5 lin_auto", "K6 elim_v1",
+                                      "K3 chol_solve"),
+                  "TE4_ITERATIVE_SCHUR": ("K5 lin_auto", "K6 elim_v1",
+                                          "K7 dense_pcg"),
+                  "TE2_DENSE_SCHUR": ("K5 lin_auto", "K2 elim",
+                                      "K3 chol_solve"),
+                  "TE2_ITERATIVE_SCHUR": ("K5 lin_auto", "K6 elim_v1",
+                                          "K7 dense_pcg")}
+    built = {}
+    for label, (te, solver) in TE_PATHS.items():
+        opts = te_options(ctt, solver, device=device)
+        if te not in built:
+            problem, cams, pts = point_size_problem(ctt, torch, trot, te, bal)
+            built[te] = (problem, cams, pts, [a.copy() for a in cams + pts])
+            program = CompiledProgram.get_cached(problem, opts)
+            meta = detect_schur_structure(program, opts)
+            kernels.extend(te_kernel_checks(
+                label, te, FusedSchurStep(program, opts, meta), program,
+                meta, te_kernels, device))
+        problem, cams, pts, start = built[te]
+        program = CompiledProgram.get_cached(problem, opts)
+        step = FusedSchurStep(program, opts,
+                              detect_schur_structure(program, opts))
+        want = TE_REF[label]
+        for trial in range(2):
+            for a, a0 in zip(cams + pts, start):
+                a[:] = a0
+            t0 = zero()
+            s = ctt.solve(opts, problem)
+            wall, launched = done(label, t0)
+            rel = abs(s.final_cost - want["final_cost"]) / want["final_cost"]
+            short = [k for k in te_kernels[label] if not launched.get(k)]
+            stray = [k for k in launched if k not in te_kernels[label]
+                     and not k.startswith("K3 chol_solve (")]
+            print(f"{label} {'warm-up' if trial == 0 else 'timed'}: "
+                  f"{lm_iterations(s)} LM iterations (JAX "
+                  f"{want['iterations']}), final cost {s.final_cost!r} "
+                  f"({rel:.3e} from JAX {want['final_cost']!r}, limit "
+                  f"{want['tol']}), {s.termination_type}, wall {wall:.4f} s,"
+                  f" launches {launched}; {step.mode}", flush=True)
+            if short or stray or not (
+                    rel <= want["tol"] and str(s.termination_type)
+                    == want["termination"]):
+                fails.append(f"{label}: off the JAX run or its kernels "
+                             f"(short {short}, stray {stray})")
+    del built, problem, program, step
+    if fails:
+        raise SystemExit(f"SOLVER_OPTIONS_PATHS: {fails}")
+
+
+def te_kernel_checks(label, te, step, program, meta, te_kernels, device):
+    """The TE paths' kernels at point size `te` on the first
+    linearization of `step` (the DENSE_SCHUR step of `label`): K5, K2
+    (te <= 3) and K6 at RADIUS, K3 on the DENSE_SCHUR reduced system and
+    K7 on the ITERATIVE_SCHUR one, each against its plain version by
+    check_kernel; their records, each read from the path of its kernel at
+    this te."""
+    import torch
+    import ceres_tpu_torch as ctt
+    from ceres_tpu_torch.ops import lin_auto as k5
+    from ceres_tpu_torch.ops.kernels import chol_solve, chol_solve_plain
+    from ceres_tpu_torch.ops.lin import (elim, elim_plain, elim_v1,
+                                         elim_v1_plain)
+    from ceres_tpu_torch.ops.pcg import dense_pcg, dense_pcg_plain
+    from ceres_tpu_torch.solvers.schur_fused import FusedSchurStep
+    ne, nf = step.ne, step.nf
+    x0 = program.initial_state()
+    xe = x0[step.e_slab:step.e_slab + te * ne].view(ne, te).float()
+    xf = x0[step.f_slab:step.f_slab + nf].float()
+    se0, sf0 = step.initial_scales()
+    args = (step.k5, xf, xe, step.cam, step.mask, step.dat, se0, True, True,
+            step.loss)
+    # operations: the emitted chain (one a line) and the epilogue's
+    # products per observation (E^T E, g_e, A, F^T F, g_f), as the
+    # quaternion path's K5 check counts them
+    chain_ops = sum(1 for ln in k5.chain_source(step.k5, None).splitlines()
+                    if ln.lstrip().startswith("const "))
+    epi_ops = 2 * 2 * (te * (te + 1) // 2 + te + te * 9 + 45 + 9)
+    added = [check_kernel(
+        f"K5 lin_auto (te {te})", lambda: k5.lin_auto(*args, plan=step.plan),
+        lambda: k5.lin_auto_plain(*args),
+        lambda g, w: [rel_err(g[k], w[k]) for k in w], F32_LIMIT,
+        "ceres_tpu_torch/csrc/lin_auto.cuh",
+        "ceres_tpu/ops/pallas_lin.py:272", args[1:7],
+        (chain_ops + epi_ops) * SHAPE["num_observations"], F32_FLOP_PER_S)]
+    art = step.linearize(x0, se0, sf0, True)
+    rad = torch.tensor(RADIUS, dtype=torch.float32, device=device)
+    inv, z = step.point_inverse(art, rad)
+
+    def cmp_all(got, want):
+        return [rel_err(a, b) for a, b in zip(got, want)]
+    if te <= 3:
+        e_args = (art.A, art.etes, art.gse, art.diag_e, RADIUS)
+        added.append(check_kernel(
+            f"K2 elim (te {te})", lambda: elim(*e_args),
+            lambda: elim_plain(*e_args), cmp_all, F32_LIMIT,
+            "ceres_tpu_torch/csrc/elim.cuh",
+            "ceres_tpu/ops/pallas_lin.py:424", e_args[:4],
+            scorr_flops(ne, nf, te) + INV_Z_FLOPS[te] * ne, F32_FLOP_PER_S,
+            reference=scorr_gemm(art.A, inv)))
+    added.append(check_kernel(
+        f"K6 elim_v1 (te {te})", lambda: elim_v1(art.A, inv, z),
+        lambda: elim_v1_plain(art.A, inv, z), cmp_all, F32_LIMIT,
+        "ceres_tpu_torch/csrc/elim.cuh", "ceres_tpu/ops/pallas_lin.py:387",
+        (art.A, inv, z), scorr_flops(ne, nf, te), F32_FLOP_PER_S,
+        reference=scorr_gemm(art.A, inv)))
+    S, rhs, _, _ = step.reduced_system(art, RADIUS)
+    added.append(check_kernel(
+        f"K3 chol_solve (te {te}, m {nf})", lambda: chol_solve(S, rhs),
+        lambda: chol_solve_plain(S, rhs), lambda g, w: [rel_err(g, w)],
+        K3_LIMIT, "ceres_tpu_torch/csrc/chol.cu",
+        "ceres_tpu/ops/pallas_kernels.py:190", (S, rhs),
+        nf ** 3 / 3 + 2 * nf * nf, F32_FLOP_PER_S,
+        library=("torch.linalg.solve(S, rhs)",
+                 lambda: torch.linalg.solve(S, rhs))))
+    it_step = FusedSchurStep(program, te_options(
+        ctt, "ITERATIVE_SCHUR", device=device), meta)
+    S_i, rhs_i, _, rad_i = it_step.reduced_system(art, RADIUS)
+    minv = it_step.precond_inverse(art, S_i, rad_i)
+    pcg_kw = it_step.pcg_args
+
+    def cmp_pcg(got, want):
+        if int(got[1]) != int(want[1]):
+            raise SystemExit(f"K7 (te {te}): CG iteration counts differ: "
+                             f"{int(got[1])}, {int(want[1])}")
+        return [rel_err(got[0], want[0])]
+    added.append(check_kernel(
+        f"K7 dense_pcg (te {te}, m {nf})",
+        lambda: dense_pcg(S_i, rhs_i, minv, **pcg_kw),
+        lambda: dense_pcg_plain(S_i, rhs_i, minv, **pcg_kw), cmp_pcg,
+        PCG_LIMIT, "ceres_tpu_torch/csrc/pcg.cu",
+        "ceres_tpu/ops/pallas_pcg.py:46", (S_i, rhs_i, minv),
+        lambda got: pcg_flops(nf, 9, int(got[1]), 10), F32_FLOP_PER_S,
+        reference=("torch.linalg.solve(S, rhs) (an exact solve: another "
+                   "function, timed as a yardstick)",
+                   lambda: torch.linalg.solve(S_i, rhs_i))))
+    for rec in added:
+        rec["counter"] = rec["name"].split(" (")[0]
+        MAIN_PATH[rec["name"]] = next(
+            p for p, ks in te_kernels.items()
+            if rec["counter"] in ks and p.startswith(f"TE{te}_"))
+    return added
+
+
 def main():
     import numpy as np
     import torch
@@ -2625,8 +3462,9 @@ def main():
     kernels.append(check_kernel(
         "K2 elim", lambda: elim(*elim_args), lambda: elim_plain(*elim_args),
         cmp_all, F32_LIMIT,
-        "ceres_tpu_torch/csrc/elim.cu", "ceres_tpu/ops/pallas_lin.py:424",
-        elim_args[:4], scorr_flops(ne, nf) + 45 * ne, F32_FLOP_PER_S,
+        "ceres_tpu_torch/csrc/elim.cuh", "ceres_tpu/ops/pallas_lin.py:424",
+        elim_args[:4], scorr_flops(ne, nf) + INV_Z_FLOPS[3] * ne,
+        F32_FLOP_PER_S,
         reference=scorr_gemm(art.A, elim_plain(*elim_args)[2])))
     kernels[-1]["interleaved"] = interleaved(
         "K2 elim vs its plain version", lambda: elim(*elim_args),
@@ -2675,7 +3513,7 @@ def main():
     kernels.append(check_kernel(
         "K6 elim_v1", lambda: elim_v1(art.A, inv, z),
         lambda: elim_v1_plain(art.A, inv, z), cmp_all, F32_LIMIT,
-        "ceres_tpu_torch/csrc/elim.cu", "ceres_tpu/ops/pallas_lin.py:387",
+        "ceres_tpu_torch/csrc/elim.cuh", "ceres_tpu/ops/pallas_lin.py:387",
         (art.A, inv, z), scorr_flops(ne, nf), F32_FLOP_PER_S,
         reference=scorr_gemm(art.A, inv)))
     kernels[-1]["interleaved"] = interleaved(
@@ -3013,15 +3851,15 @@ def main():
     check_kernel(
         f"K2 elim (quaternion cameras, nf {q_nf})",
         lambda: elim(*q_elim), lambda: elim_plain(*q_elim), cmp_all,
-        F32_LIMIT, "ceres_tpu_torch/csrc/elim.cu",
+        F32_LIMIT, "ceres_tpu_torch/csrc/elim.cuh",
         "ceres_tpu/ops/pallas_lin.py:424", q_elim[:4],
-        scorr_flops(q_ne, q_nf) + 45 * q_ne, F32_FLOP_PER_S)
+        scorr_flops(q_ne, q_nf) + INV_Z_FLOPS[3] * q_ne, F32_FLOP_PER_S)
     q_inv, q_z = q_step.point_inverse(q_art, rad)
     check_kernel(
         f"K6 elim_v1 (quaternion cameras, nf {q_nf})",
         lambda: elim_v1(q_art.A, q_inv, q_z),
         lambda: elim_v1_plain(q_art.A, q_inv, q_z), cmp_all, F32_LIMIT,
-        "ceres_tpu_torch/csrc/elim.cu", "ceres_tpu/ops/pallas_lin.py:387",
+        "ceres_tpu_torch/csrc/elim.cuh", "ceres_tpu/ops/pallas_lin.py:387",
         (q_art.A, q_inv, q_z), scorr_flops(q_ne, q_nf), F32_FLOP_PER_S)
     q_S, q_rhs, _, _ = q_step.reduced_system(q_art, RADIUS)
     check_kernel(
@@ -3299,12 +4137,12 @@ def main():
         g = graphs[key]
         by_path[f"POSE_GRAPH_{key.upper()}"] = drive(
             f"POSE_GRAPH_{key.upper()} (CGNR, JACOBI)", g["options"],
-            g["problem"], reset_graph(key), counters, 3, gate_pose(key),
+            g["problem"], reset_graph(key), counters, 2, gate_pose(key),
             ref_cost=POSE_GRAPHS[key]["ref_cost"], ref_tol=POSE_REF_REL_TOL,
             walls=cgnr_walls[key], summaries=g.setdefault("cgnr", []))
     by_path["IMPLICIT_SCHUR"] = drive(
         "IMPLICIT_SCHUR (1,024 cameras, 1M observations)", big_options,
-        big_problem, reset_big, counters, 3,
+        big_problem, reset_big, counters, 2,
         gate_implicit("IMPLICIT_SCHUR"), ref_cost=IMPLICIT_REF_COST,
         ref_tol=IMPLICIT_REF_REL_TOL)
     other = ("K8 bucket_jtjv", "K9 group_gram_blocks",
@@ -3457,6 +4295,7 @@ def main():
     fused_large_m_paths(counters, by_path, kernels)
     line_search_paths(counters, by_path)
     problem_api_paths(counters, by_path)
+    solver_options_paths(counters, by_path, kernels, smi)
 
     # tests/test_solver_e2e.py's helloworld, Powell and bounded problems
     # on the card, at those tests' tolerances

@@ -9,7 +9,8 @@ __syncthreads. A warp's __shfl_down_sync and __shfl_xor_sync go through
 exchange slots between two barriers of its 32 threads, and a bulk copy on an mbarrier
 (`bulk_load` / `bulk_wait`, which a source defines for the card unless
 CUDA_HOST_EMU is set) is a copy by the issuing thread that then
-releases the waiters. The arithmetic is the host's (no FMA
+releases the waiters; a source's cp.async helpers copy at once under
+CUDA_HOST_EMU. Grids may be two-dimensional (dim3). The arithmetic is the host's (no FMA
 contraction), so results are held to the plain versions within a
 tolerance, not to the card's bits.
 
@@ -97,7 +98,13 @@ inline void bulk_wait(uint64_t* bar) {
          == 0)
     std::this_thread::yield();
 }
+struct float2 { float x, y; };
 struct float4 { float x, y, z, w; };
+struct dim3 {
+  unsigned x, y, z;
+  dim3(unsigned x_ = 1, unsigned y_ = 1, unsigned z_ = 1)
+      : x(x_), y(y_), z(z_) {}
+};
 struct int2 { int x, y; };
 inline float4 make_float4(float x, float y, float z, float w) {
   return float4{x, y, z, w};
@@ -140,29 +147,30 @@ inline cudaError_t cudaOccupancyMaxActiveBlocksPerMultiprocessor(
   return cudaSuccess;
 }
 template <class K, class... A>
-void emu_launch(K kernel, unsigned grid, unsigned block, size_t smem,
+void emu_launch(K kernel, dim3 grid, unsigned block, size_t smem,
                 cudaStream_t, A... args) {
   if (smem > sizeof(emu_smem)) abort();
   emu_smem_used = std::max(emu_smem_used, smem);
   blockDim = {block, 1, 1};
-  gridDim = {grid, 1, 1};
+  gridDim = {grid.x, grid.y, 1};
   emu_shfl.assign(block, 0.f);
   emu_warp_bar.clear();
   for (unsigned w = 0; w < block; w += 32)
     emu_warp_bar.emplace_back(
         std::make_unique<std::barrier<>>(std::min(32u, block - w)));
-  for (unsigned b = 0; b < grid; ++b) {
-    std::barrier<> bar(block);
-    emu_bar = &bar;
-    std::vector<std::thread> ts;
-    for (unsigned t = 0; t < block; ++t)
-      ts.emplace_back([=] {
-        blockIdx = {b, 0, 0};
-        threadIdx = {t, 0, 0};
-        kernel(args...);
-      });
-    for (auto& th : ts) th.join();
-  }
+  for (unsigned by = 0; by < grid.y; ++by)
+    for (unsigned b = 0; b < grid.x; ++b) {
+      std::barrier<> bar(block);
+      emu_bar = &bar;
+      std::vector<std::thread> ts;
+      for (unsigned t = 0; t < block; ++t)
+        ts.emplace_back([=] {
+          blockIdx = {b, by, 0};
+          threadIdx = {t, 0, 0};
+          kernel(args...);
+        });
+      for (auto& th : ts) th.join();
+    }
 }
 template <class T>
 T* emu_read(const char* name, size_t count) {

@@ -33,6 +33,7 @@ import cuda_host_emu as emu
 
 from torch_parity_kit import (ct, ctt, jax_problem, jax_quaternion_problem,
                               main_path_options, pallas_interpret,
+                              point_problem,
                               quaternion_bal, quaternion_solve_bal, rel,
                               small_bal, torch_problem,
                               torch_quaternion_problem)
@@ -263,16 +264,18 @@ class _Branchy:
 
 
 @pytest.mark.parametrize("functor,point_size,match", [
-    (_HomogeneousPinhole, 4, "item 40"), (_Branchy, 3, "item 11")],
+    (_HomogeneousPinhole, 4, None), (_Branchy, 3, "item 11")],
     ids=["te4", "untraceable"])
 def test_explicit_step_refuses(functor, point_size, match):
-    """A point block of te != 3 (K2 and K6 take te = 3) and a functor the
-    jet compiler cannot trace: the explicit fused step raises, naming its
-    ROADMAP.md item. The untraceable functor, which the JAX package's
-    fused step runs on its generic lin phase, takes the generic Schur
-    step (solver.py takes_fused_schur_step); te = 4, which the JAX
-    package runs on its Pallas kernels, is a port kernel's limit: the
-    solve keeps the fused route and raises."""
+    """A functor the jet compiler cannot trace: the explicit fused step
+    raises, naming its ROADMAP.md item, and the solve takes the generic
+    Schur step (solver.py takes_fused_schur_step), as the JAX package's
+    fused step runs it on its generic lin phase. A point block of te = 4
+    (the homogeneous point), which the explicit step refused until K6
+    took every te the JAX kernels take (ROADMAP.md item 40): the step
+    builds on the fused route (K5, then K6 after the PyTorch inverse),
+    and the solve keeps the JAX fused step's LM count and its cost within
+    5e-4 over five iterations (tests/test_torch_elim_te.py states why)."""
     rng = np.random.default_rng(0)
     cams = [np.concatenate([0.05 * rng.standard_normal(3),
                             [0.1 * c, -0.1, 4.0]]) for c in range(4)]
@@ -287,13 +290,21 @@ def test_explicit_step_refuses(functor, point_size, match):
     opts = main_path_options(ctt)
     program = TorchProgram(prob, device="cpu")
     meta = detect_schur_structure(program, opts)
-    with pytest.raises(NotImplementedError, match=match):
-        FusedSchurStep(program, opts, meta)
-    kernel_limit = match == "item 40"
-    assert takes_fused_schur_step(program, opts) == kernel_limit
-    if kernel_limit:
+    if match is not None:
         with pytest.raises(NotImplementedError, match=match):
-            ctt.solve(opts, prob)
+            FusedSchurStep(program, opts, meta)
+        assert not takes_fused_schur_step(program, opts)
+        return
+    step = FusedSchurStep(program, opts, meta)
+    assert (step.te, step.k5 is not None) == (4, True)
+    assert "eliminate K6" in step.mode
+    assert takes_fused_schur_step(program, opts)
+    s_j = ct.solve(main_path_options(ct, max_num_iterations=5),
+                   point_problem(ct, 4))
+    s_t = ctt.solve(main_path_options(ctt, max_num_iterations=5),
+                    point_problem(ctt, 4))
+    assert s_t.num_iterations == s_j.num_iterations
+    assert abs(s_t.final_cost - s_j.final_cost) <= 5e-4 * s_j.final_cost
 
 
 @pytest.mark.cuda

@@ -60,27 +60,46 @@ def test_main_matches_jax(flags, tmp_path):
 
 
 @pytest.mark.parametrize("flags,item", [
-    (["--inner_iterations"], "item 22"),
+    (["--inner_iterations"], None),
     (["--line_search"], None),
     (["--num_devices", "2"], "item 30"),
-    (["--preconditioner", "cluster_jacobi"], "item 36"),
-    (["--preconditioner", "cluster_tridiagonal"], "item 21"),
+    (["--linear_solver", "iterative_schur", "--preconditioner",
+      "cluster_jacobi"], None),
+    (["--linear_solver", "iterative_schur", "--preconditioner",
+      "cluster_tridiagonal", "--visibility_clustering", "single_linkage"],
+     None),
 ], ids=["inner_iterations", "line_search", "num_devices",
         "cluster_jacobi", "cluster_tridiagonal"])
 def test_flags_outside_the_port_raise(flags, item):
-    """Each flag the port does not run raises naming its ROADMAP.md item.
-    --line_search, which raised here until item 25, runs the line-search
+    """--num_devices 2, which the port does not run, raises naming its
+    ROADMAP.md item. The other cases raised until the port ran them (the
+    cases keep their ids): --line_search (item 25) runs the line-search
     minimizer (L-BFGS, Wolfe, f64, the host loop) and keeps the JAX
-    example's iteration and probe counts, its cost within 1e-9."""
+    example's iteration and probe counts, its cost within 1e-9;
+    --inner_iterations (item 22) and ITERATIVE_SCHUR with
+    --preconditioner cluster_jacobi / cluster_tridiagonal (items 36 and
+    21; the latter with single-linkage clustering) keep the JAX example's
+    LM count (and inner-iteration steps), its cost within 1e-9."""
     if item is None:
         s_j = jax_example.main(SMALL + flags)
         s_t = example.main(SMALL + flags + ["--device", "cpu"])
-        assert str(s_t.minimizer_type) == "LINE_SEARCH"
         assert str(s_t.termination_type) == str(s_j.termination_type)
-        assert len(s_t.iterations) == len(s_j.iterations) == 6
-        assert s_t.num_line_search_steps == s_j.num_line_search_steps
         assert abs(s_t.final_cost - s_j.final_cost) <= 1e-9 * s_j.final_cost
         assert s_t.final_cost < s_t.initial_cost
+        if "--line_search" not in flags:
+            assert s_t.num_iterations == s_j.num_iterations
+            assert s_t.num_inner_iteration_steps == \
+                s_j.num_inner_iteration_steps
+            assert ("--inner_iterations" in flags) == (
+                s_t.num_inner_iteration_steps > 0)
+            if "iterative_schur" in flags:
+                assert "CLUSTER" in s_t.message
+                assert s_t.num_linear_solver_iterations == \
+                    s_j.num_linear_solver_iterations
+            return
+        assert str(s_t.minimizer_type) == "LINE_SEARCH"
+        assert len(s_t.iterations) == len(s_j.iterations) == 6
+        assert s_t.num_line_search_steps == s_j.num_line_search_steps
         return
     with pytest.raises(NotImplementedError, match=item):
         example.main(SMALL + flags + ["--device", "cpu"])

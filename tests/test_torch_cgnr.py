@@ -179,30 +179,82 @@ def test_iterative_schur_without_structure_downgrades_to_cgnr():
 
 
 @pytest.mark.parametrize("extra,item", [
-    (dict(minimizer_type="LINE_SEARCH"), "item 47"),
+    (dict(minimizer_type="LINE_SEARCH", max_num_iterations=10), "item 47"),
     (dict(use_inner_iterations=True), "item 22"),
-    (dict(trust_region_problem_dump_directory="dumps"), "item 14"),
-    (dict(trust_region_problem_dump_format_type="CONSOLE"), "item 14"),
+    (dict(trust_region_problem_dump_directory="dumps",
+          use_mixed_precision_solves=False), "item 14"),
+    (dict(trust_region_problem_dump_format_type="CONSOLE",
+          use_mixed_precision_solves=False), "item 14"),
     (dict(check_gradients=True, use_inner_iterations=True), "item 22"),
 ], ids=["extra0-item 25", "extra1-item 22", "extra2-item 14",
         "extra3-item 14", "extra4-item 28"])
-def test_out_of_slice_raises(extra, item):
-    """Configurations of the generic path that are not ported raise
-    NotImplementedError naming the ROADMAP.md item that ports them (the
-    host loop, the dense solvers, the f64 and refined CGNR steps, dogleg
-    and bounds run since the default-Solve slice:
-    tests/test_torch_host_loop.py; SUBSET and SPARSE_NORMAL_CHOLESKY past
-    200 effective parameters since the sparse slice:
-    tests/test_torch_sparse_direct.py). The line-search minimizer runs
-    since item 25 (tests/test_torch_line_search.py); with these options'
-    fused_iterations=True it raises naming item 47, the device-resident
-    loop (the case keeps its id). check_gradients runs since item 28
-    (tests/test_torch_aux.py); its case keeps its id and holds a
-    gradient-checking solve to item 22's refusal of inner iterations."""
-    problem, positions, _ = _problem(ctt, "2d")
+def test_out_of_slice_raises(extra, item, tmp_path, capsys):
+    """Configurations of the generic path that raised NotImplementedError
+    naming their ROADMAP.md items until the port ran them; each case
+    keeps its id and now holds the port to the JAX package on the SE2
+    graph. The line-search minimizer with these options'
+    fused_iterations=True (item 47, the device-resident loop), cut at 10
+    iterations: the JAX fused loop's counts and x within 1e-10. Inner
+    iterations (item 22; with check_gradients, item 28, the case's id):
+    the JAX host loop's LM count, inner-iteration steps and successful
+    steps, the final cost within 1e-6. The trust-region problem dumps
+    (item 14), in f64: the same solve (LM count, cost within 1e-6) and,
+    TEXTFILE, the same files, each array within 1e-8 of the JAX package's
+    relative to its largest entry and the radius equal; CONSOLE, the same
+    lines (the first one character for character, the norms of the
+    others within 1e-6)."""
     enums = {"minimizer_type": ctt.MinimizerType,
              "trust_region_problem_dump_format_type": ctt.DumpFormatType}
-    extra = {k: (getattr(enums[k], v) if isinstance(v, str) and k in enums
-                 else v) for k, v in extra.items()}
-    with pytest.raises(NotImplementedError, match=item):
-        ctt.solve(_options(ctt, "JACOBI", **extra), problem)
+    dump_dirs = {}
+    runs = []
+    for mod in (ct, ctt):
+        kw = {k: (getattr(getattr(mod, enums[k].__name__), v)
+                  if isinstance(v, str) and k in enums else v)
+              for k, v in extra.items()}
+        if "trust_region_problem_dump_directory" in kw:
+            kw["trust_region_problem_dump_directory"] = dump_dirs[mod] = \
+                str(tmp_path / mod.__name__)
+        problem, positions, _ = _problem(mod, "2d")
+        capsys.readouterr()
+        s = mod.solve(_options(mod, "JACOBI", **kw), problem)
+        out = capsys.readouterr().out
+        runs.append((s, positions, [ln for ln in out.splitlines()
+                                    if ln.startswith("ceres_tpu iteration")]))
+    (s_j, pos_j, lines_j), (s_t, pos_t, lines_t) = runs
+    assert s_t.is_solution_usable(), s_t.message
+    assert str(s_t.termination_type) == str(s_j.termination_type)
+    x_j = np.concatenate([pos_j[k] for k in sorted(pos_j)])
+    x_t = np.concatenate([pos_t[k] for k in sorted(pos_t)])
+    if "minimizer_type" in extra:
+        assert s_t.num_iterations_fused == s_j.num_iterations_fused == 10
+        assert s_t.num_line_search_steps == s_j.num_line_search_steps
+        assert np.abs(x_t - x_j).max() <= 1e-10 * np.abs(x_j).max()
+        return
+    assert s_t.num_iterations == s_j.num_iterations
+    assert s_t.num_successful_steps == s_j.num_successful_steps
+    assert s_t.num_inner_iteration_steps == s_j.num_inner_iteration_steps
+    assert ("use_inner_iterations" in extra) == (
+        s_t.num_inner_iteration_steps > 0)
+    assert abs(s_t.final_cost - s_j.final_cost) <= 1e-6 * s_j.final_cost
+    assert len(lines_t) == len(lines_j)
+    assert ("trust_region_problem_dump_format_type" in extra) == bool(lines_t)
+    for lt, lj in zip(lines_t, lines_j):
+        assert lt.split("=")[0] == lj.split("=")[0]
+        nt = [float(v.split()[0]) for v in lt.split("=")[1:]]
+        nj = [float(v.split()[0]) for v in lj.split("=")[1:]]
+        assert np.allclose(nt, nj, rtol=1e-6, atol=0)
+    if lines_t:
+        assert lines_t[0] == lines_j[0]
+    if dump_dirs:
+        names_j = sorted(p.name for p in (tmp_path / "ceres_tpu").iterdir())
+        names_t = sorted(p.name for p in
+                         (tmp_path / "ceres_tpu_torch").iterdir())
+        assert names_t == names_j and len(names_j) == s_j.num_iterations - 1
+        for name in names_j:
+            dj = np.load(tmp_path / "ceres_tpu" / name)
+            dt = np.load(tmp_path / "ceres_tpu_torch" / name)
+            assert sorted(dt.files) == sorted(dj.files)
+            assert float(dt["radius"]) == float(dj["radius"])
+            for key in ("J", "residuals", "gradient", "x", "delta"):
+                assert dt[key].shape == dj[key].shape, key
+                assert rel(dt[key], dj[key]) <= 1e-8, (name, key)

@@ -145,8 +145,13 @@ def test_out_of_slice_raises(case, item, monkeypatch):
     naming the ROADMAP.md item that ports it: the fused implicit step in
     f64 (nf > 4096; the mixed step there is slice 4,
     tests/test_torch_implicit.py) and, in the solve, a preconditioner
-    that no Schur route serves (CLUSTER_JACOBI). The solve runs the f64
-    implicit case on the generic Schur step. A reduced system past the
+    that no Schur route served until this slice (CLUSTER_JACOBI: the
+    case keeps its id, and its solve now runs on the generic Schur step,
+    solvers/schur.py's cluster preconditioner, in f64: the JAX package's
+    mixed CLUSTER solve does not trace, ROADMAP.md section 3; its LM
+    count and final cost within 1e-9 of the JAX package's f64 solve). The
+    solve runs the f64 implicit case on the generic Schur step. A reduced
+    system past the
     one-block kernels (m > 1024), which raised here until item 37, runs
     on the fused step with the reduced CG of solvers/cg.py and matches the
     JAX package's fused step (its XLA CG loop) within 1e-5
@@ -168,8 +173,17 @@ def test_out_of_slice_raises(case, item, monkeypatch):
     pc = "CLUSTER_JACOBI" if case == "cluster_jacobi" else "SCHUR_JACOBI"
     opts = iterative_options(ctt, pc, **extra)
     if case == "cluster_jacobi":
-        with pytest.raises(NotImplementedError, match=item):
-            ctt.solve(opts, problem)
+        extra["use_mixed_precision_solves"] = False
+        opts = iterative_options(ctt, pc, **extra)
+        assert not takes_fused_schur_step(TorchProgram(problem, device="cpu"),
+                                          opts)
+        s_j = ct.solve(iterative_options(ct, pc, **extra),
+                       jax_problem(small_bal()))
+        s_t = ctt.solve(opts, problem)
+        assert ("Schur step: generic ITERATIVE_SCHUR + CLUSTER_JACOBI"
+                in s_t.message)
+        assert s_t.num_iterations == s_j.num_iterations
+        assert abs(s_t.final_cost - s_j.final_cost) <= 1e-9 * s_j.final_cost
     elif case == "spse":
         monkeypatch.setenv("CERES_TPU_NO_FUSED_SCHUR", "1")
         s_j = ct.solve(iterative_options(ct, pc, **extra),

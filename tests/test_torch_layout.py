@@ -183,19 +183,41 @@ def test_cpu_solve_launches_no_kernel():
     dict(minimizer_type=ctt.MinimizerType.LINE_SEARCH),
 ])
 def test_out_of_slice_options_raise(extra, monkeypatch):
-    """CLUSTER_JACOBI, inner iterations and line search with the main
-    path's fused_iterations=True (the device-resident line-search loop,
-    ROADMAP.md item 47; the host loop runs since item 25) raise
-    NotImplementedError. The f64 step and dogleg with a Schur solver,
+    """Options that raised NotImplementedError until the port ran them;
+    each case keeps its id and now holds the port to the JAX package on
+    the main path's problem. CLUSTER_JACOBI (ROADMAP.md items 36 and 21)
+    runs mixed on the generic Schur step and lands within 1e-9 of the JAX
+    package's f64 solve (its mixed CLUSTER solve does not trace, section
+    3), in as many LM iterations. Inner iterations (item 22) run the host
+    loop around the fused step: the JAX package's LM count and inner
+    steps, the final cost within 1e-9. The line search with the main
+    path's fused_iterations=True (item 47) runs the device-resident loop:
+    cut at five iterations, the JAX fused loop's counts and the final
+    cost within 1e-10. The f64 step and dogleg with a Schur solver,
     which raised until the generic Schur step (ROADMAP.md item 18) took
     them, run there and match the JAX package's generic route: f64 with
     its LM count and final cost within 1e-9, mixed dogleg within 1e-5."""
-    runs = ("use_mixed_precision_solves" in extra
-            or "trust_region_strategy_type" in extra)
-    if not runs:
-        with pytest.raises(NotImplementedError):
-            ctt.solve(main_path_options(ctt, **extra),
-                      torch_problem(small_bal()))
+    if "preconditioner_type" in extra or "use_inner_iterations" in extra \
+            or "minimizer_type" in extra:
+        cut = ({"max_num_iterations": 5} if "minimizer_type" in extra
+               else {})
+        jextra = {k: getattr(getattr(ct, type(v).__name__), v.name)
+                  if hasattr(v, "name") else v for k, v in extra.items()}
+        if "preconditioner_type" in extra:
+            jextra["use_mixed_precision_solves"] = False
+        s_j = ct.solve(main_path_options(ct, **jextra, **cut),
+                       jax_problem(small_bal()))
+        s_t = ctt.solve(main_path_options(ctt, **extra, **cut),
+                        torch_problem(small_bal()))
+        assert s_t.is_solution_usable(), s_t.message
+        assert str(s_t.termination_type) == str(s_j.termination_type)
+        assert s_t.num_iterations == s_j.num_iterations
+        assert s_t.num_inner_iteration_steps == s_j.num_inner_iteration_steps
+        tol = 1e-10 if cut else 1e-9
+        assert abs(s_t.final_cost - s_j.final_cost) <= tol * s_j.final_cost
+        if cut:
+            assert s_t.num_iterations_fused == 5
+            assert s_t.num_line_search_steps == s_j.num_line_search_steps
         return
     monkeypatch.setenv("CERES_TPU_NO_FUSED_SCHUR", "1")
     jextra = {k: (ct.TrustRegionStrategyType.DOGLEG

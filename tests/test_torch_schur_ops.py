@@ -23,11 +23,13 @@ from torch_parity_kit import (ct, ctt, rel, schur_bal, schur_problem)
 from ceres_tpu.ops.bsr import RVec as JaxRVec
 from ceres_tpu.program import CompiledProgram as JaxProgram
 from ceres_tpu.solvers.schur import SchurOps as JaxOps
+from ceres_tpu.solvers.schur import make_schur_solver
 from ceres_tpu.solvers.schur import \
     detect_schur_structure as jax_detect
 from ceres_tpu_torch.ops.bsr import RVec
 from ceres_tpu_torch.program import CompiledProgram as TorchProgram
 from ceres_tpu_torch.solvers.schur import (SchurOps, SchurSystem,
+                                           cluster_masks,
                                            detect_schur_structure)
 
 TOL = 1e-12
@@ -67,7 +69,8 @@ def pair():
         b_e=rng.standard_normal((tmeta.ne, tmeta.te)),
         b_f=rng.standard_normal(tmeta.nf),
         y=rng.standard_normal(tmeta.nf),
-        w=[rng.standard_normal(tuple(b.J.shape[:2])) for b in tjac.buckets])
+        w=[rng.standard_normal(tuple(b.J.shape[:2])) for b in tjac.buckets],
+        programs=(jprog, jmeta, tprog, tmeta))
     return jops, tops, ins
 
 
@@ -126,9 +129,28 @@ def test_preconditioners_match(pair, kind):
 
 @pytest.mark.parametrize("kind", ["CLUSTER_JACOBI", "CLUSTER_TRIDIAGONAL"])
 def test_cluster_preconditioners_raise(pair, kind):
-    """The visibility-based preconditioners name their ROADMAP.md items."""
-    with pytest.raises(NotImplementedError, match="item 36.*item 21"):
-        pair[1].make_preconditioner(getattr(ctt.PreconditionerType, kind))
+    """The visibility-based preconditioners, which raised naming their
+    ROADMAP.md items (36, 21) until this slice (the cases keep their
+    ids): S restricted to the camera clusters' pattern (and the spanning
+    forest's, TRIDIAGONAL), factored densely, its apply on a seeded v
+    against the JAX package's, whose masks make_schur_solver builds (reset
+    first: the JAX meta keeps the first kind's masks)."""
+    jops, tops, ins = pair
+    jprog, jmeta, program, meta = ins["programs"]
+    jmeta.cluster_mask = None
+    jkind = getattr(ct.PreconditionerType, kind)
+    make_schur_solver(jprog, ct.SolverOptions(
+        linear_solver_type=ct.LinearSolverType.ITERATIVE_SCHUR,
+        preconditioner_type=jkind))
+    masks = cluster_masks(program, meta, getattr(ctt.PreconditionerType,
+                                                 kind), "CANONICAL_VIEWS",
+                          "cpu")
+    assert np.array_equal(masks[0].numpy(), jmeta.cluster_mask > 0)
+    assert np.array_equal(masks[1].numpy(), jmeta.cluster_mask_diag > 0)
+    apply = tops.make_preconditioner(getattr(ctt.PreconditionerType, kind),
+                                     masks)
+    want = jops(lambda ops: ops.make_preconditioner(jkind)(_j(ins["v"])))
+    assert rel(apply(_t(ins["v"])).numpy(), np.asarray(want)) <= TOL
 
 
 def test_block_diag_blocks_match(pair):

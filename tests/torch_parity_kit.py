@@ -8,6 +8,7 @@ same numpy arrays, with the main path's solver options.
 import contextlib
 import os
 
+import jax.numpy as jnp
 import numpy as np
 import torch
 
@@ -17,8 +18,10 @@ from ceres_tpu.examples.snavely import \
     SnavelyReprojectionError as JaxSnavely
 from ceres_tpu.io.bal import build_bal_ceres_problem as jax_build
 from ceres_tpu.io.bal import synthetic_bal_problem
+from ceres_tpu.rotation import angle_axis_rotate_point as jax_rotate
 from ceres_tpu_torch.examples.snavely import SnavelyReprojectionError
 from ceres_tpu_torch.io.bal import build_bal_ceres_problem as torch_build
+from ceres_tpu_torch.rotation import angle_axis_rotate_point
 
 torch.set_num_threads(1)      # the suite runs several workers
 
@@ -240,3 +243,55 @@ def jax_generic_schur(sparse=False):
     finally:
         for k in keys:
             del os.environ[k]
+
+
+# ---- point blocks of te != 3 (the explicit step's K2 at te <= 3, K6) ----
+
+def point_functor(port, te):
+    """A 6-parameter camera (angle-axis, translation) observing a point
+    block of te 1 (the depth z of a point (x, y, z) whose x and y are
+    data), 2 (inverse-plane: the point (u, v, 1) in its own frame), 4
+    (homogeneous, [X, Y, Z, W]) or 5 (homogeneous and a depth offset b,
+    p_z + 0.1 b), in either package. The package and te are closed over:
+    the JAX package batches a functor's numeric attributes as data."""
+    T, rot = ((torch, angle_axis_rotate_point) if port
+              else (jnp, jax_rotate))
+
+    class Point:
+        def __init__(self, ox, oy, x=0.0, y=0.0):
+            self.ox, self.oy = float(ox), float(oy)
+            if te == 1:
+                self.x, self.y = float(x), float(y)
+
+        def __call__(self, cam, pt):
+            if te == 1:
+                p = rot(cam[0:3], T.stack([self.x, self.y, pt[0]])) \
+                    + cam[3:6]
+            elif te == 2:
+                p = rot(cam[0:3], T.stack([pt[0], pt[1],
+                                           T.ones_like(pt[0])])) + cam[3:6]
+            else:
+                p = rot(cam[0:3], pt[0:3]) + cam[3:6] * pt[3]
+            z = p[2] + 0.1 * pt[4] if te == 5 else p[2]
+            return T.stack([p[0] / z - self.ox, p[1] / z - self.oy])
+    return Point
+
+
+def point_problem(mod, te, seed=0, cameras=4, points=30):
+    """test_torch_autolin.py's te-4 problem (4 cameras, 30 points, each
+    seen by every camera, seeded offsets), or its counterpart at te 1, 2
+    or 5."""
+    rng = np.random.default_rng(seed)
+    cams = [np.concatenate([0.05 * rng.standard_normal(3),
+                            [0.1 * c, -0.1, 4.0]]) for c in range(cameras)]
+    xyz = [0.5 * rng.standard_normal(3) for _ in range(points)]
+    pts = [np.append(q, [1.0, 0.0])[:te] if te != 1 else q[2:3].copy()
+           for q in xyz]
+    prob = mod.Problem()
+    functor = point_functor(mod is ctt, te)
+    for q, p in zip(xyz, pts):
+        for c in range(cameras):
+            prob.add_residual_block(mod.AutoDiffCostFunction(
+                functor(*(0.1 * rng.standard_normal(2)), q[0], q[1]), 2,
+                [6, te]), None, cams[c], p)
+    return prob

@@ -21,7 +21,8 @@ the rest of the modeling API: Problem.evaluate on `device` (residuals,
 gradient, dense or CSR Jacobian, subsets), block removal and the
 accessors, ProblemOptions, the dynamic and adapter costs, the rotation
 conversions, the cubic interpolators, GradientChecker and
-check_gradients, checkpoints and timers.
+check_gradients, checkpoints and timers; solve_batched (batch.py), many
+problems of one structure in batch or pipeline mode.
 Module names mirror the JAX package's; this package imports torch and
 never jax.
 """
@@ -56,6 +57,7 @@ from .cost import (  # noqa: F401
 )
 from .problem import Problem, ProblemOptions, ResidualBlockId  # noqa: F401
 from .solver import Solver, solve  # noqa: F401
+from .batch import solve_batched  # noqa: F401
 from .covariance import Covariance, CovarianceOptions  # noqa: F401
 from .gradient_checker import GradientChecker  # noqa: F401
 from .gradient_problem import (  # noqa: F401

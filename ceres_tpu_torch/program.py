@@ -69,8 +69,11 @@ class _Bucket:
 
 def _jac_mode(cost) -> str:
     """How a bucket's Jacobian is formed (ceres_tpu program.py:448-456):
-    "numdiff", "analytic" (a SizedCostFunction that overrides jacobians)
-    or "ad"."""
+    "numdiff", "analytic" (a SizedCostFunction that overrides jacobians),
+    "host" (a cost evaluated on the host a bucket at a time, `host_rows`:
+    the C API's costs, which vmap cannot call) or "ad"."""
+    if hasattr(cost, "host_rows"):
+        return "host"
     if isinstance(cost, NumericDiffCostFunction):
         return "numdiff"
     if (isinstance(cost, SizedCostFunction)
@@ -420,8 +423,7 @@ class CompiledProgram:
 
     def _bucket_residuals(self, bk, x):
         """Uncorrected residuals [n, r] of one bucket."""
-        return torch.func.vmap(bk.residual_fn)(bk.data,
-                                               *self._bucket_params(bk, x))
+        return self.rows_residuals(bk, self._bucket_params(bk, x), bk.data)
 
     def cost_fn(self, x):
         """Total cost 0.5 sum_i rho_i(||r_i||^2) + fixed_cost, in f64."""
@@ -445,10 +447,42 @@ class CompiledProgram:
             k11 = (bucket_linearize_auto if isinstance(bk.spec, AutoSpec)
                    else bucket_linearize)
             return k11(bk.spec, xin, bk.dat32)
+        return self.rows_linearize(bk, params, bk.data, dtype)
+
+    @staticmethod
+    def rows_residuals(bk, params, data):
+        """Uncorrected residuals [n, r] of rows of bucket `bk` at the
+        per-slot parameters `params` ([n, size] each) with the per-row
+        `data`, by torch.func.vmap (batch.py passes the rows of many
+        problems at once); a "host" bucket by its cost's host_rows."""
+        if bk.jac_mode == "host":
+            return bk.cost.host_rows(params, data, False)[0].to(
+                params[0].dtype)
+        return torch.func.vmap(bk.residual_fn)(data, *params)
+
+    @staticmethod
+    def rows_linearize(bk, params, data, dtype):
+        """(residuals [n, r], J [n, r, t_total]) of rows of bucket `bk`
+        in `dtype`, tangent space, uncorrected, by the bucket's jac_mode
+        (the plain route of _bucket_linearize: no K11)."""
         data = {k: (v.to(dtype) if v.is_floating_point() else v)
-                for k, v in bk.data.items()}
+                for k, v in data.items()}
         fn = bk.residual_fn
+        device = params[0].device
         var_slots = [(i, sl) for i, sl in enumerate(bk.slots) if sl.variable]
+        if bk.jac_mode == "host":
+            r, jacs = bk.cost.host_rows(params, data, bool(var_slots))
+            Jts = []
+            for i, sl in var_slots:
+                J = jacs[i]
+                if sl.manifold is not None and not isinstance(
+                        sl.manifold, EuclideanManifold):
+                    J = J @ torch.func.vmap(sl.manifold.plus_jacobian)(
+                        params[i].double())
+                Jts.append(J)
+            J = (torch.cat(Jts, dim=-1) if Jts
+                 else r.new_zeros(r.shape + (0,)))
+            return r.to(dtype), J.to(dtype)
         if not var_slots:
             r = torch.func.vmap(fn)(data, *params)
             return r, r.new_zeros(r.shape + (0,))
@@ -464,7 +498,7 @@ class CompiledProgram:
                     return r, r
 
                 zeros = tuple(torch.zeros(sl.tangent_size, dtype=dtype,
-                                          device=x.device)
+                                          device=device)
                               for _, sl in var_slots)
                 Js, r = torch.func.jacfwd(
                     g, argnums=tuple(range(len(zeros))),

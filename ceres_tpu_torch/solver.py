@@ -35,6 +35,7 @@ another path quietly.
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 import time
 from dataclasses import dataclass
@@ -242,6 +243,15 @@ class GenericLMStep:
     def initial_scales(self):
         """No scale yet: the first linearization derives it."""
         return (None,)
+
+    def bind(self, program):
+        """This step on another program of the same structure (every
+        integer layout bitwise equal; batch.py checks it). The step reads
+        every value through the program, and its linear solver holds the
+        structure alone."""
+        step = copy.copy(self)
+        step.program = program
+        return step
 
     def cost(self, x):
         return self.program.cost_fn(x)

@@ -60,6 +60,7 @@ runs where S and A = E^T F are too large to form (_explicit_viable):
 
 from __future__ import annotations
 
+import copy
 from dataclasses import dataclass
 from typing import Optional
 
@@ -540,10 +541,19 @@ class SchurStep:
         self.nf = self.kf * self.tf
         self.e_slab = _slab_of(meta.e_cols)
         self.f_slab = _slab_of(meta.f_global_cols[grp["cols"]])
-        self.loss = bk.loss
-        # K4 prices the candidates of a single Snavely bucket; its inputs
-        # in bucket row order, checked once here
+        self.meta = meta
         self.k4 = None
+
+    def _bind_data(self, program):
+        """The fields a step takes from the program's data rather than its
+        structure: the loss and K4's inputs (K4 prices the candidates of a
+        single Snavely bucket; its inputs in bucket row order, checked
+        once here). Each subclass's constructor calls it last."""
+        meta = self.meta
+        bk, bs = program.buckets[0], meta.buckets[0]
+        grp = meta.f_groups[0]
+        self.program = program
+        self.loss = bk.loss
         if (len(program.buckets) == 1 and is_snavely_bucket(bk)
                 and bs.e_slot is not None and bs.f_cols is not None
                 and (self.te, self.tf, bk.r) == (TE, TF, 2)):
@@ -555,6 +565,15 @@ class SchurStep:
                 torch.as_tensor(np.asarray(local, np.int32), device=dev),
                 bk.data["observed_x"].contiguous(),
                 bk.data["observed_y"].contiguous())
+
+    def bind(self, program):
+        """This step on another program of the same structure (every
+        integer layout bitwise equal; batch.py checks it): the layouts,
+        plans and kernel choices are shared, the data fields taken from
+        `program`. Solves the same as a step built on `program`."""
+        step = copy.copy(self)
+        step._bind_data(program)
+        return step
 
     def initial_scales(self):
         """Zero scales for the first linearization (which derives them)."""
@@ -594,29 +613,26 @@ class FusedSchurStep(SchurStep):
         rows, cmask = bs.chunk_rows, bs.chunk_mask       # [ne, k]
         self.mask = torch.as_tensor(np.ascontiguousarray(cmask, np.float32),
                                     device=dev)
+        self._auto = self._safe = None
         if is_snavely_bucket(bk):
             # K1 inputs, chunk layout (masked lanes: camera 0, obs 0)
             self.k5 = None
-            obs = np.stack([bk.data[f].cpu().numpy().astype(np.float32)
-                            for f in ("observed_x", "observed_y")], axis=1)
             self.cam = torch.as_tensor(
                 np.ascontiguousarray(local[rows] * cmask).astype(np.int32),
                 device=dev)
-            self.dat = torch.as_tensor(np.ascontiguousarray(
-                obs[rows] * cmask[..., None]).astype(np.float32), device=dev)
         else:
             # K5 inputs, chunk layout; a masked lane carries its point's
             # first valid lane's camera and data (ops/lin_auto.py)
-            auto = make_auto_spec(program, bk)
+            self._auto = make_auto_spec(program, bk)
             var = [i for i, sl in enumerate(bk.slots) if sl.variable]
-            self.k5 = k5.lin_auto_spec(auto, var[bs.e_slot])
-            safe = torch.as_tensor(k5.safe_rows(rows, cmask).astype(np.int64),
-                                   device=dev)
+            self.k5 = k5.lin_auto_spec(self._auto, var[bs.e_slot])
+            self._safe = torch.as_tensor(
+                k5.safe_rows(rows, cmask).astype(np.int64), device=dev)
             self.cam = torch.as_tensor(local.astype(np.int32),
-                                       device=dev)[safe].contiguous()
-            self.dat = auto.data_matrix(bk)[safe].contiguous()
+                                       device=dev)[self._safe].contiguous()
         # the camera-sorted rows of K1's or K5's camera-side sums
         self.plan = k5.camera_plan(self.cam, self.mask, self.kf)
+        self._bind_data(program)
         # the reduced solve, from m alone, the same on every device: the
         # one-block K3 or K7 up to MAX_M, past it the library Cholesky or
         # CG (where the JAX package takes XLA's cho_factor and CG loop)
@@ -632,6 +648,21 @@ class FusedSchurStep(SchurStep):
                      + f", reduced solve: {solve}, m = {self.nf}")
         # a direct solve is one linear iteration (kept on the device)
         self.one = torch.ones((), dtype=torch.int32, device=dev)
+
+    def _bind_data(self, program):
+        """SchurStep's data fields and the observations of K1 or K5 in
+        the chunk layout (K1: masked lanes carry observation 0)."""
+        super()._bind_data(program)
+        bk, bs = program.buckets[0], self.meta.buckets[0]
+        if self.k5 is None:
+            rows, cmask = bs.chunk_rows, bs.chunk_mask
+            obs = np.stack([bk.data[f].cpu().numpy().astype(np.float32)
+                            for f in ("observed_x", "observed_y")], axis=1)
+            self.dat = torch.as_tensor(np.ascontiguousarray(
+                obs[rows] * cmask[..., None]).astype(np.float32),
+                device=program.device)
+        else:
+            self.dat = self._auto.data_matrix(bk)[self._safe].contiguous()
 
     def linearize(self, x, s_e, s_f, first: bool, known_cost=None):
         """Linearize at x. first=True derives the Jacobi scales from this
@@ -825,6 +856,18 @@ class ImplicitSchurStep(SchurStep):
         self.mode = ("implicit (matrix-free) Schur complement, CG operator "
                      + ("K10" if self.k10 else "in plain PyTorch over "
                         f"{len(self.plans)} buckets"))
+        self._bind_data(program)
+
+    def _bind_data(self, program):
+        """SchurStep's data fields, and each plan on its bucket of
+        `program` (the plans read their bucket's data and K11 inputs)."""
+        super()._bind_data(program)
+        plans = []
+        for p, bk in zip(self.plans, program.buckets):
+            q = copy.copy(p)
+            q.bk = bk
+            plans.append(q)
+        self.plans = plans
 
     def linearize(self, x, s_e_in, s_f_in, first: bool,
                   known_cost=None):

@@ -333,6 +333,13 @@ class SolverOptions:
     # does not copy the parameter vector into the user's numpy arrays;
     # call summary.write_back() to do so.
     defer_parameter_writeback: bool = False
+    # solve_batched's execution mode (batch.py): "batch" runs every
+    # element's LM iteration as one set of batched tensor operations with
+    # a leading element axis, in lockstep until the slowest element
+    # terminates; "pipeline" runs each element through the single-solve
+    # fused loop back to back, with the kernels the single solve takes;
+    # "auto" picks by residual count (batch.BATCH_CROSSOVER_RESIDUALS).
+    batch_mode: str = "auto"
 
     def cache_key(self):
         """Hashable signature of every option that affects the built
@@ -365,6 +372,8 @@ class SolverOptions:
                 return f"{name} must be > 0"
         if self.max_num_iterations < 0:
             return "max_num_iterations must be >= 0"
+        if self.batch_mode not in ("auto", "batch", "pipeline"):
+            return "batch_mode must be 'auto', 'batch' or 'pipeline'"
         if self.min_trust_region_radius > self.max_trust_region_radius:
             return "min_trust_region_radius > max_trust_region_radius"
         if not (0 < self.max_line_search_step_contraction

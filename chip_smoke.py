@@ -28,8 +28,11 @@ paths), on the BAL-16-22106 problem with 1% of its observations moved
 (OUTLIER), Problem.evaluate at Trafalgar's shape (EVALUATE), the seven
 examples of slice 11 with every
 More-Garbow-Hillstrom problem (EXAMPLE_RUNS, MGH_REF), the gradient
-checker (GRADCHECK) and on tests/test_solver_e2e.py's helloworld, Powell
-and bounded problems:
+checker (GRADCHECK), slice 12's paths (`solver_options_paths`), slice
+13's (`slice13_paths`: solve_batched in pipeline and batch mode, the C
+API's curve_fitting.c, denoising, the libmv and NIST examples; its
+comment block names each gate) and on tests/test_solver_e2e.py's
+helloworld, Powell and bounded problems:
 
 1. checks each kernel against its plain PyTorch version on the card, at
    the shapes its path gives it: K1-K4 (slice 1, DENSE_SCHUR; K3 bit for
@@ -3231,6 +3234,736 @@ def te_kernel_checks(label, te, step, program, meta, te_kernels, device):
     return added
 
 
+# slice 13 (`slice13_paths`): solve_batched in both modes, the C API, the
+# NIST / PGM / libmv readers and the last example families, each path
+# driven with every kernel count set to 0 just before it and read just
+# after. Every input is written by this script from a seed in the
+# published formats (no NIST, FoE, PGM or libmv file ships with the
+# repo). References: scripts/slice13_reference.py (the JAX package on the
+# CPU).
+#
+# PIPELINE: four BAL-16-22106 problems (the main path's graph,
+# perturbed by PERTURB with the seeds PIPELINE_SEEDS), solved by
+# solve_batched(batch_mode="pipeline") with bench.py's options, each
+# beside ctt.solve of the same problem: counts, final cost and the
+# state's sha256 bit for bit; the final costs within REF_REL_TOL of the
+# JAX package's f64 DENSE_SCHUR solves (PIPELINE_REF); K1-K4 at least
+# once an LM iteration of every element. The four ctt.solve calls run
+# twice: the first builds each program's step (pipeline mode binds the
+# template's), the second reuses it.
+PIPELINE_SEEDS = (1, 2, 3, 4)
+# BATCH_RANSAC: examples/ransac_homography on RANSAC_N correspondences
+# with RANSAC_OUTLIERS gross outliers (synthetic_correspondences, seed 4)
+# and RANSAC_HYPOTHESES hypotheses (hypotheses(), seed 0) in batch mode:
+# H within 1e-2 of the truth, no outlier admitted, 80% of the inliers
+# found (tests/test_examples.py's ransac gates); every element
+# converges to a final cost at EXAMPLE_COST_FLOOR, as JAX's do. The
+# minimal samples' fits are exact to rounding, so their counts are the
+# rounding's (JAX's own runs from hypotheses scaled by 1 -+ 1e-12 move
+# them by up to 7; RANSAC_REF): they are printed beside JAX's, not gated.
+# The same 1,024 refinements from starts moved by RANSAC_PROFILE_MOVE
+# (`ransac_moved_starts`), where LM runs for real: each element's count
+# the JAX batched run's (RANSAC_MOVED_REF, the counts' digest; JAX's runs
+# from those starts scaled by 1 -+ 1e-12 keep every count), the final
+# costs above RANSAC_MOVED_SMALL (the elements that end on the iteration
+# cap) within BATCH_BA_TOL of JAX's and every other below it (they stop
+# on function tolerance on the way to an exact fit, where the last step's
+# rounding sets the cost: 2.4e-14 apart on the CPU). The launch check:
+# torch.profiler's CUDA kernels of those refinements run for 1 and 3 LM
+# iterations at each of RANSAC_PROFILE_BATCHES elements; an iteration's
+# kernels (the difference, halved) and the whole 1-iteration solve's
+# must be the same at both sizes. The example runs once on 64 hypotheses first (the first
+# use of each kernel loads it).
+RANSAC_N, RANSAC_OUTLIERS, RANSAC_HYPOTHESES = 2000, 600, 1024
+RANSAC_PROFILE_BATCHES = (64, 1024)
+RANSAC_PROFILE_MOVE = 1e-3
+RANSAC_MOVED_SMALL = 1e-3
+
+
+def ransac_moved_starts(hs):
+    """The hypotheses moved by RANSAC_PROFILE_MOVE (relative, seeded)."""
+    import numpy as np
+    move = np.random.default_rng(9).standard_normal((len(hs), 9))
+    return [h * (1.0 + RANSAC_PROFILE_MOVE * m) for h, m in zip(hs, move)]
+
+
+def counts_digest(counts):
+    import hashlib
+    import numpy as np
+    return hashlib.sha256(np.asarray(counts, np.int64).tobytes()
+                          ).hexdigest()[:16]
+# BATCH_BA: BATCH_BA_ELEMENTS multi-start elements of tests/test_batch.py's
+# graph (BATCH_BA_SHAPE, seed 11, pixel noise 0.5), each perturbed by
+# BATCH_BA_PERTURB with its own seed (1, 2, ...), f64 DENSE_SCHUR in batch
+# mode: each element's LM count the JAX batched run's and its final cost
+# within BATCH_BA_TOL (BATCH_BA_REF).
+BATCH_BA_ELEMENTS = 64
+BATCH_BA_SHAPE = dict(num_cameras=4, num_points=150, num_observations=600)
+BATCH_BA_PERTURB = dict(rotation_sigma=0.05, translation_sigma=0.3,
+                        point_sigma=0.2)
+BATCH_BA_TOL = 1e-9
+# C_API: the shim built by ceres_tpu_torch.capi.build(),
+# examples/curve_fitting_c/curve_fitting.c compiled with gcc against it
+# and run on the card: its OK line, and m and c within C_API_TOL of the
+# JAX C API's Python-level run on the same data (C_API_REF).
+C_API_TOL = 1e-10
+# DENOISING: a DENOISE_SIZE^2 image (a smooth pattern with seeded noise,
+# written by io/pgm.py write_pgm and read back) and DENOISE_FILTERS
+# seeded DENOISE_FOE_SIZE^2 filters written in the .foe format; the
+# example's f64 CGNR + JACOBI (tests/test_denoising.py's options) within
+# DENOISE_TOL, or twice the spread of the JAX runs from scaled starts, of
+# the JAX package's final cost (DENOISE_REF), its total variation below
+# the input's; then mixed and fused (K8 on every CG application, K9 on
+# every linearization, K11's launches counted), its final cost within
+# DENOISE_MIXED_TOL, or that spread, of the f64 run's.
+DENOISE_SIZE, DENOISE_FILTERS, DENOISE_FOE_SIZE = 128, 8, 3
+DENOISE_TOL, DENOISE_MIXED_TOL = 1e-9, 1e-5
+# LIBMV: a problem at problem_01.bin's published shape (LIBMV_SHAPE),
+# written by io/libmv.py write_libmv_test_problem and read by the port's
+# reader, solved with solve_libmv's defaults and with LIBMV_REFINE (focal
+# length, principal point, k1 and k2): final costs within LIBMV_TOL, or
+# twice the cost spread of the JAX runs from starts scaled by 1 -+ 1e-10,
+# of the JAX package's; an LM count may move by twice their count spread
+# (LIBMV_REF).
+LIBMV_SHAPE = dict(num_cameras=333, num_tracks=26, num_markers=5421)
+LIBMV_TOL = 1e-9
+# NIST: three files in the StRD format, an exponential (Misra1a's model),
+# a rational (Thurber's) and a sum of exponentials (Lanczos1's: as
+# NIST's Lanczos1, data with no noise), data from NIST_SPECS' parameters
+# with seeded noise, the certified values from a tight JAX f64 solve
+# (NIST_CERTIFIED); examples/nist_runner.py run_suite must reach the JAX
+# run's LRE within NIST_LRE_TOL at both starts and its final cost within
+# NIST_COST_TOL (EXAMPLE_COST_FLOOR at Lanczos1's exact fit) (NIST_REF).
+# Counts are not gated: these runs go on to tolerances of 1e-18, so
+# their last steps follow the rounding (ROADMAP.md section 3). The noise
+# is small enough that every LRE is the rounding's cap of 11 from starts
+# scaled by 1 -+ 1e-10 in both packages on the CPU: with NIST-like noise
+# (Thurber's sigma 10, Lanczos3's 1e-5) the LREs of both packages spread
+# over 7.5-11 with the rounding of the last steps.
+NIST_LRE_TOL, NIST_COST_TOL = 0.1, 1e-9
+# name: (the parameters the data is made from, start 1, start 2, the
+# predictor's values as numpy.linspace's (start, stop, num), the noise's
+# sigma, its seed)
+NIST_SPECS = {
+    "Misra1a": ((238.94212918, 5.5015643181e-4), (500.0, 1e-4),
+                (250.0, 5e-4), (77.6, 790.0, 14), 0.1, 1),
+    "Thurber": ((1288.1396800, 1491.0792535, 583.23836877, 75.416644291,
+                 0.96629502864, 0.39797285797, 0.049727297349),
+                (1000.0, 1000.0, 400.0, 40.0, 0.7, 0.3, 0.03),
+                (1300.0, 1500.0, 500.0, 75.0, 1.0, 0.4, 0.05),
+                (-3.067, 2.2, 37), 0.01, 2),
+    "Lanczos1": ((0.086816414977, 0.95498101505, 0.84400777463,
+                  2.9515951832, 1.5825685901, 4.9863565084),
+                 (1.2, 0.3, 5.6, 5.5, 6.5, 7.6),
+                 (0.5, 0.7, 3.6, 4.2, 4.0, 6.3),
+                 (0.0, 1.15, 24), 0.0, 3),
+}
+
+
+def nist_data(name):
+    """(x [n], y [n]) of NIST_SPECS[name]: the model (io/nist.py's
+    NIST_MODELS formula, in numpy) at its parameters plus seeded noise."""
+    import numpy as np
+    b, _, _, xs, sigma, seed = NIST_SPECS[name]
+    b, x = np.asarray(b), np.linspace(*xs)
+    if name == "Misra1a":
+        y = b[0] * (1.0 - np.exp(-b[1] * x))
+    elif name == "Thurber":
+        y = ((b[0] + b[1] * x + b[2] * x ** 2 + b[3] * x ** 3)
+             / (1.0 + b[4] * x + b[5] * x ** 2 + b[6] * x ** 3))
+    else:
+        y = (b[0] * np.exp(-b[1] * x) + b[2] * np.exp(-b[3] * x)
+             + b[4] * np.exp(-b[5] * x))
+    return x, y + sigma * np.random.default_rng(seed).standard_normal(
+        x.size)
+
+
+def write_nist_files(directory, certified):
+    """Write NIST_SPECS' files into `directory` with the given certified
+    {name: (parameters, residual sum of squares)}."""
+    from ceres_tpu_torch.io.nist import write_nist_test_file
+    for name, (_, s1, s2, _, _, _) in NIST_SPECS.items():
+        x, y = nist_data(name)
+        b, rss = certified[name]
+        write_nist_test_file(os.path.join(directory, name + ".dat"), name,
+                             x, y, (s1, s2), b, rss)
+
+
+def denoise_inputs(directory, size=DENOISE_SIZE, filters=DENOISE_FILTERS,
+                   foe_size=DENOISE_FOE_SIZE, seed=5):
+    """Write the DENOISING image (a smooth pattern with seeded noise,
+    sigma 20 grey levels, as PGM) and its FoE filters (zero-mean, seeded,
+    alphas in [0.5, 2]) into `directory`; returns (pgm path, foe path)."""
+    import numpy as np
+    from ceres_tpu_torch.examples.denoising import write_foe
+    from ceres_tpu_torch.io.pgm import write_pgm
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[0:size, 0:size] / size
+    clean = 128 + 60 * np.sin(6 * xx) * np.cos(4 * yy) + 40 * (xx - yy)
+    img = np.clip(clean + 20.0 * rng.standard_normal(clean.shape), 0, 255)
+    pgm = os.path.join(directory, f"noisy_{size}.pgm")
+    write_pgm(pgm, img)
+    fs = rng.standard_normal((filters, foe_size * foe_size))
+    fs -= fs.mean(axis=1, keepdims=True)
+    fs /= np.linalg.norm(fs, axis=1, keepdims=True)
+    foe = os.path.join(directory, f"{foe_size}x{foe_size}.foe")
+    write_foe(foe, foe_size, rng.uniform(0.5, 2.0, filters), fs)
+    return pgm, foe
+
+
+def denoise_options(mod, **extra):
+    """tests/test_denoising.py's options (f64 CGNR + JACOBI)."""
+    kw = dict(linear_solver_type=mod.LinearSolverType.CGNR,
+              preconditioner_type=mod.PreconditionerType.JACOBI,
+              max_num_iterations=20, max_linear_solver_iterations=50)
+    kw.update(extra)
+    return mod.SolverOptions(**kw)
+
+
+def c_api_data():
+    """curve_fitting.c's samples: y = exp(0.3 x + 0.1) plus its LCG
+    noise in [-0.05, 0.05], 30 samples over [0, 5] ([30, 2] f64)."""
+    import numpy as np
+    data, state = [], 12345
+    for i in range(30):
+        x = 5.0 * i / 29
+        state = (state * 1664525 + 1013904223) % 2 ** 32
+        noise = ((state >> 8) % 1000) / 10000.0 - 0.05
+        data.append((x, np.exp(0.3 * x + 0.1) + noise))
+    return np.ascontiguousarray(np.asarray(data, np.float64))
+
+
+def batch_ba_problems(mod, bal_io, n=BATCH_BA_ELEMENTS):
+    """BATCH_BA's elements in package `mod`: [(problem, arrays)]."""
+    out = []
+    for seed in range(1, n + 1):
+        bal = bal_io.synthetic_bal_problem(**BATCH_BA_SHAPE, seed=11,
+                                           pixel_noise=0.5)
+        bal.perturb(**BATCH_BA_PERTURB, seed=seed)
+        problem, cams, pts = bal_io.build_bal_ceres_problem(bal)
+        out.append((problem, cams + pts))
+    return out
+
+
+def batch_ba_options(mod, **extra):
+    kw = dict(linear_solver_type=mod.LinearSolverType.DENSE_SCHUR,
+              max_num_iterations=40, function_tolerance=1e-9,
+              fused_iterations=True, batch_mode="batch")
+    kw.update(extra)
+    return mod.SolverOptions(**kw)
+
+
+# the JAX package on the CPU (scripts/slice13_reference.py --spread):
+# PIPELINE's f64 DENSE_SCHUR final costs by perturbation seed
+PIPELINE_REF = {1: 50287.72692110798, 2: 50287.7269116191,
+                3: 50287.72692054427, 4: 50287.726910469704}
+# every element starts at its minimal sample's exact fit (initial costs
+# 2.4e-23 at most), so its count is the rounding's: JAX's own runs from
+# hypotheses scaled by 1 -+ 1e-12 move 1-3 counts by up to `spread`. Each
+# element's count within `spread` of JAX's (`common` but for `others`),
+# and every final cost at most EXAMPLE_COST_FLOOR where JAX's are.
+RANSAC_REF = dict(common=1, others={190: 4, 434: 5}, spread=7,
+                  max_final_cost=1.385259220816131e-24)
+RANSAC_MOVED_REF = dict(
+    digest='5e0edce973b53a69', small_max=3.803481210264238e-06,
+    large={
+        190: 0.19550951783881923,
+        192: 0.08080239775112397,
+        228: 0.1639216176642947,
+        328: 0.16663279631414601,
+        489: 0.9873760855660445,
+        568: 0.5880507178202647,
+        573: 0.3427082135592802,
+        680: 0.038446163822308914,
+        712: 0.22059272004461758,
+        746: 1.1464187614892203,
+        754: 0.23163920524669676,
+        953: 0.20143711802218972})
+BATCH_BA_REF = dict(
+    iterations=[5, 5, 5, 5, 5, 5, 5, 5, 5, 5, 6, 5, 5, 5, 5, 5, 5, 5, 5, 5,
+                5, 6, 6, 9, 5, 5, 5, 5, 5, 5, 5, 5, 5, 5, 5, 5, 5, 5, 5, 5,
+                5, 5, 5, 5, 5, 5, 5, 6, 6, 5, 5, 5, 5, 5, 5, 5, 5, 6, 5, 5,
+                5, 5, 5, 5],
+    costs=[
+        91.84328743111479, 91.84328743112361, 91.84328743110552,
+        91.8432874311001, 91.84328743109975, 91.84328743110032,
+        91.84328743110089, 91.84328743111048, 91.84328743112589,
+        91.84328743110899, 91.84328743110035, 91.84328743110163,
+        91.84328743121509, 91.84328743110457, 91.84328743110045,
+        91.84328743112414, 91.84328743111749, 91.84328743110672,
+        91.8432874311061, 91.84328743110245, 91.84328743110066,
+        91.84328743109985, 91.84328743110102, 91.84328743110014,
+        91.84328743111962, 91.8432874311446, 91.84328743111358,
+        91.84328743110224, 91.84328743117001, 91.84328743110333,
+        91.84328743110638, 91.84328743110075, 91.84328743110532,
+        91.84328743109987, 91.84328743110028, 91.84328743111128,
+        91.84328743110014, 91.84328743110379, 91.84328743111226,
+        91.84328743111227, 91.84328743111966, 91.84328743110471,
+        91.8432874311, 91.84328743110336, 91.84328743110004,
+        91.84328743110838, 91.84328743110116, 91.84328743110514,
+        91.84328743109988, 91.84328743109982, 91.8432874311105,
+        91.8432874311006, 91.84328743115647, 91.84328743110007,
+        91.8432874311098, 91.8432874311009, 91.84328743110075,
+        91.84328743110086, 91.84328743110335, 91.84328743109992,
+        91.84328743110055, 91.8432874311033, 91.84328743110143,
+        91.84328743111764,
+    ])
+C_API_REF = dict(m=0.2981654070033879, c=0.10890962412699288)
+# the f64 run stops at its 20-iteration cap mid-descent, where CG's
+# truncation decides the steps: JAX runs from starts scaled by 1 -+ 1e-10
+# end `cost_spread` apart, so the gate is twice that (as FUSED_LARGE_M
+# gates its capped runs)
+DENOISE_REF = dict(final_cost=25283.62327777336,
+                   cost_spread=4.7767482691671896e-05)
+# iterations, final cost, and the spread of the JAX runs from starts
+# scaled by 1 -+ 1e-10 in LM count and relative cost (the gates take
+# twice a spread where it is wider than LIBMV_TOL, as MGH_REF gates the
+# MGH runs)
+LIBMV_REF = {
+    "LIBMV": dict(iterations=5, final_cost=1089.3717397682724, spread=0,
+                  cost_spread=3.756960097797992e-15),
+    "LIBMV_REFINE": dict(iterations=15, final_cost=1088.9896302720283,
+                         spread=0, cost_spread=5.407744968617057e-14)}
+NIST_CERTIFIED = {
+    'Misra1a': ([237.45158813885968, 0.0005543340065017676],
+        0.048727660801120176),
+    'Thurber': (
+        [1288.1402424526996, 1491.0554969930429, 583.2223565410173,
+         75.41357589311008, 0.9662792529727016, 0.3979664596906446,
+         0.049721674463778204],
+        0.0030079811961561884),
+    'Lanczos1': (
+        [0.08681641497699982, 0.9549810150500014, 0.8440077746300002,
+         2.951595183199997, 1.5825685901, 4.986356508400002],
+        6.548161810916602e-32),
+}
+# name: ((LRE at start 1, start 2), (final cost at start 1, start 2))
+NIST_REF = {
+    'Lanczos1': ((11.0, 11.0),
+        (2.1690785998661244e-32, 4.085378894531424e-32)),
+    'Misra1a': ((11.0, 11.0),
+        (0.024363830400560314, 0.024363830400562225)),
+    'Thurber': ((11.0, 11.0),
+        (0.0015039905980583626, 0.00150399059807575)),
+}
+
+
+def slice13_paths(counters, by_path, device="cuda"):
+    """Slice 13's phase: PIPELINE, BATCH_RANSAC (with the launch check),
+    BATCH_BA, C_API, DENOISING, LIBMV and NIST (their comments above),
+    each with every kernel count set to 0 just before it and read just
+    after. Prints each part's wall; raises once every part has printed
+    its numbers, if one was off its gate."""
+    import hashlib
+    import shutil
+    import site
+    import tempfile
+    import numpy as np
+    import torch
+    import ceres_tpu_torch as ctt
+    from ceres_tpu_torch import capi
+    from ceres_tpu_torch.examples import denoising, nist_runner
+    from ceres_tpu_torch.examples import libmv_bundle_adjuster as lba
+    from ceres_tpu_torch.examples import ransac_homography as rh
+    from ceres_tpu_torch.io import bal as bal_io
+    from ceres_tpu_torch.io.libmv import (BUNDLE_FOCAL_LENGTH,
+                                          BUNDLE_PRINCIPAL_POINT,
+                                          BUNDLE_RADIAL, read_libmv_problem,
+                                          write_libmv_test_problem)
+    from ceres_tpu_torch.io.pgm import read_pgm
+    fails, walls = [], {}
+    tmp = tempfile.mkdtemp(prefix="slice13_")
+    t_phase = time.time()
+
+    def sync():
+        if torch.device(device).type == "cuda":
+            torch.cuda.synchronize()
+
+    def zero():
+        for fn in counters.values():
+            fn.launches = 0
+        sync()
+        return time.time()
+
+    def read(label, t0):
+        sync()
+        walls[label] = time.time() - t0
+        by_path[label] = {n: fn.launches for n, fn in counters.items()}
+        return walls[label], {n: c for n, c in by_path[label].items() if c}
+
+    def check(ok, msg):
+        print(("  ok: " if ok else "  FAIL: ") + msg, flush=True)
+        if not ok:
+            fails.append(msg)
+
+    def close(a, b, tol, floor=0.0):
+        return abs(a - b) <= tol * abs(b) + floor
+
+    def state_sha(arrays):
+        h = hashlib.sha256()
+        for a in arrays:
+            h.update(np.ascontiguousarray(a).tobytes())
+        return h.hexdigest()[:16]
+
+    # ---- PIPELINE ----
+    elems = pipeline_problems(bal_io)
+    starts = [[a.copy() for a in arrs] for _, arrs in elems]
+
+    def reset(i):
+        for a, a0 in zip(elems[i][1], starts[i]):
+            a[:] = a0
+
+    opts = huber_options(ctt, device=device, batch_mode="pipeline")
+    for i in range(len(elems)):
+        reset(i)
+    ctt.solve_batched(opts, [p for p, _ in elems])        # warm-up
+    for i in range(len(elems)):
+        reset(i)
+    t0 = zero()
+    sums = ctt.solve_batched(opts, [p for p, _ in elems])
+    wall, launched = read("PIPELINE", t0)
+    piped = [state_sha(arrs) for _, arrs in elems]
+    print(f"PIPELINE (solve_batched, pipeline mode, {len(elems)} BAL-16 "
+          f"elements, bench.py's options): wall {wall:.4f} s, launches "
+          f"{launched}", flush=True)
+    for rnd in ("first", "second"):
+        # the first ctt.solve of a program builds its step (the Schur
+        # structure, the chunk layout, the camera plan), which pipeline
+        # mode binds from the template's; the second reuses it
+        singles, single_walls = [], []
+        for i, (problem, arrs) in enumerate(elems):
+            reset(i)
+            t1 = zero()
+            s = ctt.solve(opts, problem)
+            w, _ = read(f"PIPELINE_SINGLE_{i}", t1)
+            single_walls.append(w)
+            singles.append((s, state_sha(arrs)))
+        print(f"PIPELINE: the four ctt.solve calls, {rnd} round: "
+              f"{sum(single_walls):.4f} s "
+              f"({', '.join(f'{w:.4f}' for w in single_walls)})",
+              flush=True)
+    lm_total = 0
+    for i, (sb, seed) in enumerate(zip(sums, PIPELINE_SEEDS)):
+        s, sha = singles[i]
+        lm_total += sb.num_iterations
+        print(f"PIPELINE element {i} (perturbation seed {seed}): "
+              f"{sb.num_iterations} LM ({sb.num_successful_steps} "
+              f"accepted), final cost {sb.final_cost!r}, state {piped[i]}; "
+              f"ctt.solve {s.num_iterations} LM, {s.final_cost!r}, "
+              f"{sha}; JAX {PIPELINE_REF.get(seed)!r}", flush=True)
+        check(sb.termination_type == ctt.TerminationType.CONVERGENCE
+              and (sb.num_iterations, sb.num_successful_steps,
+                   sb.num_linear_solver_iterations, sb.final_cost,
+                   piped[i]) == (s.num_iterations, s.num_successful_steps,
+                                 s.num_linear_solver_iterations,
+                                 s.final_cost, sha),
+              f"PIPELINE element {i} bit for bit ctt.solve's")
+        check(seed in PIPELINE_REF and close(sb.final_cost,
+                                             PIPELINE_REF[seed],
+                                             REF_REL_TOL),
+              f"PIPELINE element {i} within {REF_REL_TOL} of JAX")
+    for k in ("K1 lin", "K2 elim", "K3 chol_solve", "K4 cost"):
+        check(by_path["PIPELINE"][k] >= lm_total,
+              f"PIPELINE {k}: {by_path['PIPELINE'][k]} launches for "
+              f"{lm_total} LM iterations")
+    del elems, starts
+
+    # ---- BATCH_RANSAC ----
+    x1, x2, H_true, out = rh.synthetic_correspondences(RANSAC_N,
+                                                       RANSAC_OUTLIERS)
+    rh.ransac_homography(x1, x2, num_hypotheses=64, device=device,
+                         batch_mode="batch")                     # warm-up
+    t0 = zero()
+    H, mask, (rsums, polish) = rh.ransac_homography(
+        x1, x2, num_hypotheses=RANSAC_HYPOTHESES, device=device,
+        batch_mode="batch")
+    wall, launched = read("BATCH_RANSAC", t0)
+    H = H / H[2, 2]
+    err = float(np.linalg.norm(H - H_true / H_true[2, 2]))
+    true_in = np.ones(RANSAC_N, bool)
+    true_in[out] = False
+    counts = np.array([s.num_iterations for s in rsums])
+    costs = np.array([s.final_cost for s in rsums])
+    ref = RANSAC_REF
+    want = np.full(len(counts), ref["common"])
+    for i, c in ref["others"].items():
+        want[i] = c
+    print(f"BATCH_RANSAC ({RANSAC_HYPOTHESES} hypotheses, batch mode, "
+          f"{RANSAC_N} correspondences, {RANSAC_OUTLIERS} outliers): wall "
+          f"{wall:.4f} s (the refinement "
+          f"{rsums[0].minimizer_time_in_seconds:.4f} s), ||H - H_true|| "
+          f"{err:.3e}, inliers {int(mask.sum())} of {int(true_in.sum())}, "
+          f"outliers admitted {int((mask & ~true_in).sum())}, counts "
+          f"{dict(zip(*np.unique(counts, return_counts=True)))} (JAX "
+          f"{dict(zip(*np.unique(want, return_counts=True)))}; "
+          f"{int((counts != want).sum())} differ, by "
+          f"{int(np.abs(counts - want).max())} at most), largest cost "
+          f"{costs.max():.3e} (JAX {ref['max_final_cost']:.3e}), launches "
+          f"{launched}", flush=True)
+    check(err < 1e-2 and not (mask & ~true_in).any()
+          and mask.sum() >= 0.8 * true_in.sum(),
+          "BATCH_RANSAC recovers H")
+    check(all(s.termination_type == ctt.TerminationType.CONVERGENCE
+              for s in rsums) and costs.max() <= EXAMPLE_COST_FLOOR,
+          "BATCH_RANSAC converges to the rounding floor, as JAX's runs")
+    check(not any(launched.values()), "BATCH_RANSAC launches no kernel")
+
+    # the refinements from moved starts, against JAX's counts
+    samples, hs = rh.hypotheses(x1, x2, RANSAC_HYPOTHESES, 0)
+    probs = [rh.build_refine_problem(x1[idx], x2[idx], h)
+             for idx, h in zip(samples, hs)]
+    h0 = ransac_moved_starts(hs)
+    for h, hh in zip(hs, h0):
+        h[:] = hh
+    t0 = zero()
+    msums = ctt.solve_batched(ctt.SolverOptions(
+        max_num_iterations=20, function_tolerance=1e-10, device=device,
+        batch_mode="batch"), probs)
+    wall, launched = read("BATCH_RANSAC_MOVED", t0)
+    mc = [s.num_iterations for s in msums]
+    mf = np.array([s.final_cost for s in msums])
+    large = RANSAC_MOVED_REF["large"]
+    others = np.ones(len(mf), bool)
+    others[list(large)] = False
+    print(f"BATCH_RANSAC_MOVED (the refinements from starts moved by "
+          f"{RANSAC_PROFILE_MOVE}): wall {wall:.4f} s (the refinement "
+          f"{msums[0].minimizer_time_in_seconds:.4f} s), counts "
+          f"{dict(zip(*np.unique(mc, return_counts=True)))} digest "
+          f"{counts_digest(mc)} (JAX {RANSAC_MOVED_REF['digest']}), the "
+          f"{len(large)} costs past {RANSAC_MOVED_SMALL} "
+          f"{max(abs(mf[i] - c) / c for i, c in large.items()):.3e} from "
+          f"JAX's at most, the others below {mf[others].max():.3e} (JAX "
+          f"{RANSAC_MOVED_REF['small_max']:.3e})", flush=True)
+    check(counts_digest(mc) == RANSAC_MOVED_REF["digest"],
+          "BATCH_RANSAC_MOVED counts the JAX batched run's")
+    check(all(close(mf[i], c, BATCH_BA_TOL) for i, c in large.items())
+          and mf[others].max() <= RANSAC_MOVED_SMALL,
+          "BATCH_RANSAC_MOVED costs against JAX's")
+
+    # the launch check: CUDA kernels of 1 and 3 LM iterations (on the card
+    # only: the profiler sees no CUDA kernel elsewhere)
+    batches = RANSAC_PROFILE_BATCHES if torch.device(device).type == \
+        "cuda" else ()
+    kernels_of = {}
+    for B in batches:
+        for iters in (1, 3):
+            o = ctt.SolverOptions(max_num_iterations=iters, device=device,
+                                  batch_mode="batch",
+                                  gradient_tolerance=1e-300,
+                                  function_tolerance=1e-300,
+                                  parameter_tolerance=1e-300)
+            for h, hh in zip(hs[:B], h0[:B]):
+                h[:] = hh
+            ctt.solve_batched(o, probs[:B])                     # warm-up
+            for h, hh in zip(hs[:B], h0[:B]):
+                h[:] = hh
+            sync()
+            with torch.profiler.profile(activities=[
+                    torch.profiler.ProfilerActivity.CUDA]) as prof:
+                ss = ctt.solve_batched(o, probs[:B])
+                sync()
+            kern = [e for e in prof.events()
+                    if e.device_type == torch.autograd.DeviceType.CUDA
+                    and not e.name.startswith(("Memcpy", "Memset"))]
+            kernels_of[(B, iters)] = len(kern)
+            check(all(s.num_iterations == iters for s in ss),
+                  f"launch check B={B}: every element ran {iters} "
+                  f"iterations")
+    per_it = {B: (kernels_of[(B, 3)] - kernels_of[(B, 1)]) / 2
+              for B in batches}
+    print(f"BATCH_RANSAC launch check (torch.profiler, CUDA kernels): "
+          + ", ".join(f"{B} elements: {kernels_of[(B, 1)]} for a "
+                      f"1-iteration solve, {per_it[B]} an LM iteration"
+                      for B in batches), flush=True)
+    check(not batches or (len(set(per_it.values())) == 1
+                          and len({kernels_of[(B, 1)] for B in batches})
+                          == 1 and per_it[batches[0]] > 0),
+          "BATCH_RANSAC kernels an iteration independent of the batch")
+    del probs
+
+    # ---- BATCH_BA ----
+    elems = batch_ba_problems(ctt, bal_io)
+    opts = batch_ba_options(ctt, device=device)
+    t0 = zero()
+    bsums = ctt.solve_batched(opts, [p for p, _ in elems])
+    wall, launched = read("BATCH_BA", t0)
+    counts = [s.num_iterations for s in bsums]
+    costs = np.array([s.final_cost for s in bsums])
+    ref = BATCH_BA_REF
+    print(f"BATCH_BA ({len(elems)} elements, f64 DENSE_SCHUR, batch "
+          f"mode): wall {wall:.4f} s, counts "
+          f"{dict(zip(*np.unique(counts, return_counts=True)))}, costs "
+          f"{costs.min():.10e} .. {costs.max():.10e}, largest distance "
+          f"to JAX "
+          f"{np.max(np.abs(costs - ref.get('costs', costs)) / costs):.3e}"
+          f", launches {launched}", flush=True)
+    check(all(s.termination_type == ctt.TerminationType.CONVERGENCE
+              for s in bsums) and counts == ref.get("iterations"),
+          "BATCH_BA counts the JAX batched run's")
+    check(bool(np.all(np.abs(costs - np.asarray(ref.get("costs", 0)))
+                      <= BATCH_BA_TOL * costs)),
+          f"BATCH_BA costs within {BATCH_BA_TOL} of JAX")
+    del elems
+
+    # ---- C_API ----
+    t0 = zero()
+    lib = capi.build()
+    exe = os.path.join(tmp, "curve_fitting_c")
+    src = os.path.join(os.path.dirname(ctt.__file__), "examples",
+                       "curve_fitting_c", "curve_fitting.c")
+    subprocess.run(["gcc", "-O2", src, "-I" + str(capi.HEADER.parent),
+                    "-L" + str(lib.parent), "-lceres_tpu_torch_c",
+                    "-Wl,-rpath," + str(lib.parent), "-o", exe, "-lm"],
+                   check=True, capture_output=True)
+    build_wall = time.time() - t0
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [os.path.dirname(os.path.dirname(ctt.__file__))]
+        + site.getsitepackages()))
+    env.pop("CERES_TPU_TORCH_DEVICE", None)       # the card, by default
+    if torch.device(device).type != "cuda":
+        env["CERES_TPU_TORCH_DEVICE"] = device
+    t1 = time.time()
+    run = subprocess.run([exe], env=env, capture_output=True, text=True,
+                         timeout=600)
+    wall, launched = read("C_API", t0)
+    got = {}
+    for line in run.stdout.splitlines():
+        if line.startswith("Final m:"):
+            m_s, c_s = line[len("Final m:"):].split(", c:")
+            got = dict(m=float(m_s), c=float(c_s))
+    print(f"C_API (curve_fitting.c through the shim, on the card): shim and "
+          f"gcc {build_wall:.1f} s, run {time.time() - t1:.1f} s; "
+          f"{run.stdout.strip()!r}; JAX {C_API_REF}", flush=True)
+    if run.returncode != 0:
+        print(run.stderr[-3000:], flush=True)
+    check(run.returncode == 0 and "CURVE_FITTING_C_OK" in run.stdout
+          and bool(got) and all(abs(got[k] - C_API_REF.get(k, np.inf))
+                                <= C_API_TOL for k in ("m", "c")),
+          f"C_API m and c within {C_API_TOL} of JAX")
+
+    # ---- DENOISING ----
+    t0 = time.time()
+    pgm, foe_path = denoise_inputs(tmp)
+    img = read_pgm(pgm)
+    foe = denoising.FieldsOfExperts(foe_path)
+    built = {}
+    for label in ("f64", "mixed"):
+        built[label] = denoising.build_denoising_problem(img, foe)
+    print(f"DENOISING: inputs and two {DENOISE_SIZE}^2 problems built in "
+          f"{time.time() - t0:.1f} s", flush=True)
+    results = {}
+    for label, extra in (("f64", {}),
+                         ("mixed", dict(use_mixed_precision_solves=True,
+                                        fused_iterations=True))):
+        problem, pixels = built[label]
+        t0 = zero()
+        s = ctt.solve(denoise_options(ctt, device=device, **extra), problem)
+        path = "DENOISING" if label == "f64" else "DENOISING_MIXED"
+        wall, launched = read(path, t0)
+        out_img = denoising.pixels_to_image(pixels)
+        results[label] = s
+        print(f"{path} ({label}): {s.num_iterations} LM, "
+              f"{s.num_linear_solver_iterations} CG, final cost "
+              f"{s.final_cost!r} (JAX {DENOISE_REF.get('final_cost')!r}), "
+              f"total variation {denoising.total_variation(img):.6g} -> "
+              f"{denoising.total_variation(out_img):.6g}, wall {wall:.4f} "
+              f"s, launches {launched}", flush=True)
+        check(s.is_solution_usable() and denoising.total_variation(out_img)
+              < denoising.total_variation(img), f"{path} smooths")
+        spread = 2.0 * DENOISE_REF["cost_spread"]
+        if label == "f64":
+            tol = max(DENOISE_TOL, spread)
+            check(close(s.final_cost, DENOISE_REF["final_cost"], tol),
+                  f"{path} within {tol:.3e} of JAX")
+            check(not any(launched.values()), f"{path} launches no kernel")
+        else:
+            tol = max(DENOISE_MIXED_TOL, spread)
+            check(close(s.final_cost, results["f64"].final_cost, tol),
+                  f"{path} within {tol:.3e} of the f64 run")
+            check(launched.get("K8 bucket_jtjv", 0)
+                  >= s.num_linear_solver_iterations
+                  and launched.get("K9 group_gram_blocks", 0)
+                  >= s.num_successful_steps + 1,
+                  f"{path} K8 every CG application, K9 every "
+                  f"linearization")
+    del built
+
+    # ---- LIBMV ----
+    t0 = time.time()
+    lp = lba.synthetic_libmv_problem(**LIBMV_SHAPE)
+    path = os.path.join(tmp, "problem_shape_01.bin")
+    write_libmv_test_problem(path, lp)
+    back = read_libmv_problem(path)
+    print(f"LIBMV: {len(back.cameras)} cameras, {len(back.points)} tracks, "
+          f"{len(back.markers)} markers written and read in "
+          f"{time.time() - t0:.1f} s", flush=True)
+    check((len(back.cameras), len(back.points), len(back.markers))
+          == tuple(LIBMV_SHAPE.values()), "LIBMV shape")
+    for flags, label in ((0, "LIBMV"), (BUNDLE_FOCAL_LENGTH
+                                         | BUNDLE_PRINCIPAL_POINT
+                                         | BUNDLE_RADIAL, "LIBMV_REFINE")):
+        t0 = zero()
+        s, intr, _, _ = lba.solve_libmv(path, flags, device=device)
+        wall, launched = read(label, t0)
+        want = LIBMV_REF[label]
+        print(f"{label} (refine_intrinsics {flags}): {s.num_iterations} LM "
+              f"(JAX {want.get('iterations')} -+ {want.get('spread')}), "
+              f"{s.num_inner_iteration_steps} inner steps, final cost "
+              f"{s.final_cost!r} (JAX {want.get('final_cost')!r}), "
+              f"intrinsics {np.round(intr[:5], 6).tolist()}, wall "
+              f"{wall:.4f} s (preprocessor "
+              f"{s.preprocessor_time_in_seconds:.3f} s), launches "
+              f"{launched}", flush=True)
+        tol = max(LIBMV_TOL, 2.0 * want["cost_spread"])
+        check(close(s.final_cost, want["final_cost"], tol)
+              and abs(s.num_iterations - want["iterations"])
+              <= 2 * want["spread"], f"{label} within {tol:.3e} of JAX, "
+              f"its count within {2 * want['spread']}")
+        check(not any(launched.values()), f"{label} launches no kernel")
+
+    # ---- NIST ----
+    nist_dir = os.path.join(tmp, "nist")
+    os.makedirs(nist_dir)
+    write_nist_files(nist_dir, NIST_CERTIFIED)
+    t0 = zero()
+    lres, _, nsums = nist_runner.run_suite(nist_dir, verbose=False,
+                                           device=device)
+    wall, launched = read("NIST", t0)
+    for name in sorted(NIST_SPECS):
+        want_lre, want_cost = NIST_REF.get(name, ((None,) * 2, (None,) * 2))
+        for k in range(2):
+            s = nsums[name][k]
+            print(f"NIST {name} start {k + 1}: LRE {lres[name][k]:.3f} (JAX "
+                  f"{want_lre[k]}), {s.num_iterations} LM, final cost "
+                  f"{s.final_cost!r} (JAX {want_cost[k]!r})", flush=True)
+            check(want_lre[k] is not None
+                  and abs(lres[name][k] - want_lre[k]) <= NIST_LRE_TOL
+                  and close(s.final_cost, want_cost[k], NIST_COST_TOL,
+                            EXAMPLE_COST_FLOOR),
+                  f"NIST {name} start {k + 1} against JAX")
+    print(f"NIST: wall {wall:.4f} s, launches {launched}", flush=True)
+    check(not any(launched.values()), "NIST launches no kernel")
+
+    shutil.rmtree(tmp, ignore_errors=True)
+    print(f"slice13_paths: {time.time() - t_phase:.1f} s; walls "
+          + ", ".join(f"{k} {v:.4f}" for k, v in walls.items()),
+          flush=True)
+    if fails:
+        raise SystemExit(f"slice13_paths: {len(fails)} checks failed: "
+                         f"{fails}")
+
+
+def pipeline_problems(bal_io, seeds=PIPELINE_SEEDS):
+    """PIPELINE's elements: [(problem, arrays)]."""
+    out = []
+    for s in seeds:
+        bal = bal_io.synthetic_bal_problem(**SHAPE, seed=7, pixel_noise=1.0)
+        bal.perturb(**PERTURB, seed=s)
+        problem, cams, pts = bal_io.build_bal_ceres_problem(bal)
+        out.append((problem, cams + pts))
+    return out
+
+
 def main():
     import numpy as np
     import torch
@@ -4296,6 +5029,7 @@ def main():
     line_search_paths(counters, by_path)
     problem_api_paths(counters, by_path)
     solver_options_paths(counters, by_path, kernels, smi)
+    slice13_paths(counters, by_path)
 
     # tests/test_solver_e2e.py's helloworld, Powell and bounded problems
     # on the card, at those tests' tolerances

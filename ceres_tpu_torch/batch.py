@@ -75,11 +75,13 @@ ITEM_49 = "ROADMAP.md item 49 (the rest of batch mode)"
 
 def _fused_capable(program, options) -> bool:
     """The configurations the fused loop serves (ceres_tpu batch.py:110,
-    whose list is solver.py needs_host_loop's; options.fused_iterations
-    is ignored: the batched solve is the fused loop)."""
+    whose list is solver.py needs_host_loop's, and no mesh: a sharded
+    solve runs each element through solve; options.fused_iterations is
+    ignored: the batched solve is the fused loop)."""
     from .solver import needs_host_loop
     return (options.minimizer_type == MinimizerType.TRUST_REGION
-            and not needs_host_loop(options, program))
+            and not needs_host_loop(options, program)
+            and options.mesh is None)
 
 
 # ---------------------------------------------------------------- structure

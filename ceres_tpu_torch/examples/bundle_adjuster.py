@@ -22,8 +22,13 @@ of the trust region; --inner_iterations refines each step by block
 coordinate descent (minimizers/coordinate_descent.py); --preconditioner
 cluster_jacobi / cluster_tridiagonal cluster the cameras by visibility
 (solvers/clustering.py, --visibility_clustering canonical_views or
-single_linkage). --num_devices > 1 raises NotImplementedError naming its
-ROADMAP.md item (30).
+single_linkage). --num_devices N > 1 solves over N ranks
+(SolverOptions.mesh = N): inside an initialized torch.distributed group
+of world size N (torchrun) as that rank; run as a plain program, it
+spawns its N ranks (parallel/launch.py run_ranks, --backend: gloo on the
+CPU, nccl on the card by default) and rank 0 prints the report. Its
+options print progress on stdout, a host-loop configuration, so each
+rank runs the single-device route, as the JAX example does.
 """
 
 from __future__ import annotations
@@ -37,17 +42,10 @@ def _enum(cls, name):
     return cls[name.upper()]
 
 
-def check_flags(args):
-    """Raise NotImplementedError for a flag outside the port."""
-    if args.num_devices > 1:
-        raise NotImplementedError(
-            "--num_devices > 1: sharded solves are not ported yet "
-            "(ROADMAP.md item 30, parallel/)")
-
-
 def build_options(ctt, args):
     from ..types import VisibilityClusteringType
     return ctt.SolverOptions(
+        mesh=args.num_devices if args.num_devices > 1 else None,
         max_num_iterations=args.num_iterations,
         minimizer_type=(ctt.MinimizerType.LINE_SEARCH if args.line_search
                         else ctt.MinimizerType.TRUST_REGION),
@@ -114,8 +112,11 @@ def parse_args(argv=None):
     ap.add_argument("--line_search", action="store_true")
     ap.add_argument("--mixed_precision_solves", action="store_true")
     ap.add_argument("--num_devices", type=int, default=1,
-                    help="shard the solve over this many devices (not "
-                         "ported: ROADMAP.md item 30)")
+                    help="shard the solve over this many ranks "
+                         "(SolverOptions.mesh)")
+    ap.add_argument("--backend", default="",
+                    help="the spawned ranks' torch.distributed backend "
+                         "(default: gloo on the CPU, nccl on the card)")
     ap.add_argument("--max_num_refinement_iterations", type=int, default=0)
     ap.add_argument("--rotation_sigma", type=float, default=0.0)
     ap.add_argument("--translation_sigma", type=float, default=0.0)
@@ -164,9 +165,12 @@ def run(argv=None):
     """Solve the flags' problem; print the full report and the wall
     (on stderr). Returns (summary, problem, options, camera arrays,
     point arrays), the arrays holding the solution."""
+    import torch.distributed as dist
     import ceres_tpu_torch as ctt
     args = parse_args(argv)
-    check_flags(args)
+    if args.num_devices > 1 and not (dist.is_available()
+                                     and dist.is_initialized()):
+        return _spawn(ctt, args, argv)
     bal, problem, cams, pts = make_problem(ctt, args)
     if args.initial_ply:
         write_ply(args.initial_ply, bal, cams, pts)
@@ -178,6 +182,35 @@ def run(argv=None):
     if args.final_ply:
         write_ply(args.final_ply, bal, cams, pts)
     return summary, problem, options, cams, pts
+
+
+def _rank(argv):
+    """One spawned rank: run(argv), the report printed by rank 0 only."""
+    import contextlib
+    import os
+    import torch.distributed as dist
+    if dist.get_rank() == 0:
+        summary, _, _, cams, pts = run(argv)
+    else:
+        with open(os.devnull, "w") as null, contextlib.redirect_stdout(null):
+            summary, _, _, cams, pts = run(argv)
+    summary._pending_writeback = None
+    return summary, cams, pts
+
+
+def _spawn(ctt, args, argv):
+    """run(argv) on args.num_devices spawned ranks; rank 0's summary and
+    arrays (no problem: it stays in the ranks)."""
+    import sys
+    from ..parallel.launch import run_ranks
+    # the ranks import the rank body by its module's name (not __main__)
+    from . import bundle_adjuster
+    backend = args.backend or ("gloo" if args.device == "cpu" else "nccl")
+    argv = sys.argv[1:] if argv is None else list(argv)
+    results = run_ranks(bundle_adjuster._rank, args.num_devices, backend,
+                        args.device, timeout=3600.0, args=(argv,))
+    summary, cams, pts = results[0]
+    return summary, None, build_options(ctt, args), cams, pts
 
 
 def main(argv=None):

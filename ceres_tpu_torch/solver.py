@@ -28,7 +28,9 @@ JAX package decides (:547-590), or run the line-search minimizer
   - the dogleg step (`DoglegStep`), TRADITIONAL_DOGLEG or
     SUBSPACE_DOGLEG, on the same linear solvers.
 Inner iterations and the trust-region problem dumps run the host loop,
-as in the JAX package. Configurations outside the slices raise
+as in the JAX package. With `options.mesh` (a torch.distributed group's
+ranks) a device-loop configuration runs sharded over the ranks where a
+sharded path serves it (parallel/solve_sharded.py, :564-585 there). Configurations outside the slices raise
 NotImplementedError naming the ROADMAP.md item that ports them; none runs
 another path quietly.
 """
@@ -679,10 +681,19 @@ def solve(options: SolverOptions, problem,
     options = _maybe_downgrade_options(options, program, summary)
     summary.linear_solver_type_used = options.linear_solver_type
     summary.preconditioner_type_used = options.preconditioner_type
+    x = None
     if options.minimizer_type == MinimizerType.LINE_SEARCH:
         summary.preprocessor_time_in_seconds = time.time() - t0
         x = minimize_line_search(program, options, summary)
-    else:
+    elif options.mesh is not None and not needs_host_loop(options, program):
+        # the sharded solve over options.mesh's ranks (ceres_tpu
+        # solver.py:564-585); a problem no sharded path takes runs the
+        # single-device route below on each rank, as there, and so do
+        # the host-loop configurations (bounds, callbacks, ...)
+        from .parallel.solve_sharded import try_solve_sharded
+        summary.preprocessor_time_in_seconds = time.time() - t0
+        x = try_solve_sharded(program, options, summary)
+    if x is None and options.minimizer_type != MinimizerType.LINE_SEARCH:
         steps = program.__dict__.setdefault("_fused_steps", {})
         key = options.cache_key()
         if key not in steps:
@@ -698,6 +709,12 @@ def solve(options: SolverOptions, problem,
             summary.message += f" Schur step: {step.mode}."
         elif getattr(step.linear, "schur", None) is not None:
             summary.message += f" Schur step: {step.linear.schur.mode}."
+        if options.mesh is not None:
+            summary.message += (
+                " options.mesh: each rank ran the single-device route ("
+                + ("a host-loop configuration" if needs_host_loop(
+                    options, program) else "no sharded path serves this "
+                   "problem") + ").")
 
     t0 = time.time()
     if summary.is_solution_usable():

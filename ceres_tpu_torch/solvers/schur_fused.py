@@ -230,10 +230,12 @@ def _k5_unsupported(program, options, meta) -> Optional[str]:
     return None
 
 
-def _explicit_unsupported(program, options, meta) -> Optional[str]:
+def _explicit_unsupported(program, options, meta,
+                          viable: Optional[bool] = None) -> Optional[str]:
     """unsupported_reason's checks of the explicit step (K1 on one
     Snavely bucket, K5 on one bucket of any other traced functor; S formed
-    densely)."""
+    densely). `viable` overrides _explicit_viable (a sharded step holds A
+    a shard at a time, parallel/sharded_fused.py)."""
     if len(program.buckets) != 1 or len(meta.buckets) != 1:
         return ("more than one residual-block bucket (ROADMAP.md item 11, "
                 "the generic fused lin phase)")
@@ -260,7 +262,7 @@ def _explicit_unsupported(program, options, meta) -> Optional[str]:
         return KernelLimit(f"{type(bk.loss).__name__} on the Snavely "
                            "bucket, whose K1 runs the stock scalar losses "
                            "only (ROADMAP.md item 9)")
-    if not _explicit_viable(meta):
+    if not (_explicit_viable(meta) if viable is None else viable):
         return (f"{options.linear_solver_type} on a reduced camera system "
                 "too large to form densely in the fused step (the generic "
                 "Schur step serves it; ITERATIVE_SCHUR runs ImplicitSchurStep "
@@ -269,19 +271,21 @@ def _explicit_unsupported(program, options, meta) -> Optional[str]:
 
 
 def unsupported_reason(program, options, meta,
-                       implicit: Optional[bool] = None) -> Optional[str]:
+                       implicit: Optional[bool] = None,
+                       viable: Optional[bool] = None) -> Optional[str]:
     """Why the fused step does not serve this configuration (naming the
     ROADMAP.md item or the step that does), or None: for the implicit
     step (implicit=True), the explicit one (False), or the one
     `schur_step` picks (None). A KernelLimit where a port kernel is the
-    cause."""
+    cause. `viable` overrides the explicit step's size cap."""
     reason = _common_unsupported(program, options, meta)
     if reason is not None:
         return reason
     if implicit is None:
         implicit = implicit_mode(options, meta)
-    check = _implicit_unsupported if implicit else _explicit_unsupported
-    return check(program, options, meta)
+    if implicit:
+        return _implicit_unsupported(program, options, meta)
+    return _explicit_unsupported(program, options, meta, viable)
 
 
 def schur_step(program, options, meta):
@@ -518,11 +522,35 @@ class _BucketPlan:
                  "fids32", "camr", "camm", "dup")
 
 
+class LocalReduce:
+    """The reductions of a Schur step on one device: the identity. A
+    sharded step's reducer (parallel/group.py Group) sums, maxes and
+    gathers over its ranks at the same places."""
+
+    @staticmethod
+    def sum(*tensors):
+        return list(tensors)
+
+    @staticmethod
+    def max(t):
+        return t
+
+    @staticmethod
+    def gather_rows(t):
+        return t
+
+
 class SchurStep:
     """What the explicit and the implicit Schur steps share: the options,
     the shape of the single f group, the zero initial scales and the
     candidate cost (K4 for a single Snavely bucket). Holds the layout
-    constants on the program's device."""
+    constants on the program's device. `red` reduces the shard-local
+    parts over the ranks of a sharded solve (the identity here); `work`
+    is the dtype of the Jacobians, Grams and the reduced solve (f32: the
+    mixed solve; a sharded f64 implicit step sets the program's)."""
+
+    red = LocalReduce
+    work = torch.float32
 
     def __init__(self, program, options, meta):
         self.program = program
@@ -559,12 +587,21 @@ class SchurStep:
                 and (self.te, self.tf, bk.r) == (TE, TF, 2)):
             dev = program.device
             local = next(s[2] for s in grp["slots"] if s[0] == 0)
+            rows = self._k4_rows()
+            sel = slice(None) if rows is None else rows
+            tsel = (slice(None) if rows is None
+                    else torch.as_tensor(rows, device=dev))
             self.k4 = SnavelyCost(
-                self.e_slab, self.f_slab, self.ne, self.kf,
-                torch.as_tensor(bs.e_ids.astype(np.int32), device=dev),
-                torch.as_tensor(np.asarray(local, np.int32), device=dev),
-                bk.data["observed_x"].contiguous(),
-                bk.data["observed_y"].contiguous())
+                self.e_slab, self.f_slab, meta.ne, self.kf,
+                torch.as_tensor(bs.e_ids[sel].astype(np.int32), device=dev),
+                torch.as_tensor(np.asarray(local, np.int32)[sel],
+                                device=dev),
+                bk.data["observed_x"][tsel].contiguous(),
+                bk.data["observed_y"][tsel].contiguous())
+
+    def _k4_rows(self):
+        """The bucket rows K4 prices (None: all; a shard's own rows)."""
+        return None
 
     def bind(self, program):
         """This step on another program of the same structure (every
@@ -578,10 +615,15 @@ class SchurStep:
     def initial_scales(self):
         """Zero scales for the first linearization (which derives them)."""
         dev = self.program.device
-        return (torch.zeros(self.ne, self.te, dtype=torch.float32,
-                            device=dev),
-                torch.zeros(self.kf, self.tf, dtype=torch.float32,
-                            device=dev))
+        return (torch.zeros(self.ne, self.te, dtype=self.work, device=dev),
+                torch.zeros(self.kf, self.tf, dtype=self.work, device=dev))
+
+    def step_delta(self, d_e, d_f):
+        """The f64 step from the points' part [ne, te] (this rank's, the
+        ranks' gathered in order) and the cameras' [nf]: the state layout
+        is [points | cameras] (unsupported_reason)."""
+        d_e = self.red.gather_rows(d_e.double())[:self.meta.ne]
+        return torch.cat([d_e.reshape(-1), d_f.double().reshape(-1)])
 
     def cost(self, x):
         """f64 total cost at x: K4 for a single Snavely bucket, else the
@@ -600,7 +642,7 @@ class FusedSchurStep(SchurStep):
     (chosen once, here, from the functor, as the JAX package chooses)."""
 
     def __init__(self, program, options, meta):
-        reason = unsupported_reason(program, options, meta, implicit=False)
+        reason = self._unsupported(program, options, meta)
         if reason is not None:
             raise NotImplementedError(f"not in the ported slice: {reason}")
         super().__init__(program, options, meta)
@@ -610,7 +652,7 @@ class FusedSchurStep(SchurStep):
         dev = program.device
         local = np.asarray(
             next(s[2] for s in meta.f_groups[0]["slots"] if s[0] == 0))
-        rows, cmask = bs.chunk_rows, bs.chunk_mask       # [ne, k]
+        rows, cmask = self._chunks()                     # [ne, k]
         self.mask = torch.as_tensor(np.ascontiguousarray(cmask, np.float32),
                                     device=dev)
         self._auto = self._safe = None
@@ -649,13 +691,28 @@ class FusedSchurStep(SchurStep):
         # a direct solve is one linear iteration (kept on the device)
         self.one = torch.ones((), dtype=torch.int32, device=dev)
 
+    @staticmethod
+    def _unsupported(program, options, meta):
+        return unsupported_reason(program, options, meta, implicit=False)
+
+    def _chunks(self):
+        """The chunk layout's rows and mask [ne, k] (numpy) of the
+        points this step linearizes."""
+        bs = self.meta.buckets[0]
+        return bs.chunk_rows, bs.chunk_mask
+
+    def point_state(self, x):
+        """The points' f64 state [ne, te]."""
+        return x[self.e_slab:self.e_slab + self.ne * self.te].view(
+            self.ne, self.te)
+
     def _bind_data(self, program):
         """SchurStep's data fields and the observations of K1 or K5 in
         the chunk layout (K1: masked lanes carry observation 0)."""
         super()._bind_data(program)
-        bk, bs = program.buckets[0], self.meta.buckets[0]
+        bk = program.buckets[0]
         if self.k5 is None:
-            rows, cmask = bs.chunk_rows, bs.chunk_mask
+            rows, cmask = self._chunks()
             obs = np.stack([bk.data[f].cpu().numpy().astype(np.float32)
                             for f in ("observed_x", "observed_y")], axis=1)
             self.dat = torch.as_tensor(np.ascontiguousarray(
@@ -670,7 +727,7 @@ class FusedSchurStep(SchurStep):
         if known_cost is None:
             known_cost = self.program.cost_fn(x)
         ne, kf, nf, te = self.ne, self.kf, self.nf, self.te
-        xe = x[self.e_slab:self.e_slab + ne * te].view(ne, te).float()
+        xe = self.point_state(x).float()
         xf = x[self.f_slab:self.f_slab + nf].float()
         if self.k5 is None:
             out = lin(xf, xe, self.cam, self.mask, self.dat, s_e.contiguous(),
@@ -680,7 +737,10 @@ class FusedSchurStep(SchurStep):
                               self.dat, s_e.contiguous(), first,
                               self.use_scaling, self.loss, self.plan)
         ete, ge, se = out["ete"], out["ge"], out["se"]
-        FtF, g_f = out["ftf"], out["gf"]
+        ge_max = ge.abs().max()
+        ge_sq = torch.dot(ge.reshape(-1), ge.reshape(-1))
+        FtF, g_f, ge_sq = self.red.sum(out["ftf"], out["gf"], ge_sq)
+        ge_max = self.red.max(ge_max)
         cn_f = torch.diagonal(FtF, dim1=-2, dim2=-1)
         if not self.use_scaling:
             s_f = torch.ones_like(cn_f)
@@ -689,9 +749,8 @@ class FusedSchurStep(SchurStep):
         se_outer = (se[:, :, None] * se[:, None, :]).reshape(ne, te * te)
         cn_e = ete[:, ::te + 1]
         g_f_flat = g_f.reshape(nf)
-        grad_max = torch.maximum(ge.abs().max(), g_f_flat.abs().max())
-        grad_norm = torch.sqrt(torch.dot(ge.reshape(-1), ge.reshape(-1))
-                               + torch.dot(g_f_flat, g_f_flat))
+        grad_max = torch.maximum(ge_max, g_f_flat.abs().max())
+        grad_norm = torch.sqrt(ge_sq + torch.dot(g_f_flat, g_f_flat))
         return Linearization(
             cost=known_cost, A=out["A"], etes=ete * se_outer, gse=ge * se,
             diag_e=torch.clamp(se * se * cn_e, self.min_diag, self.max_diag),
@@ -726,6 +785,7 @@ class FusedSchurStep(SchurStep):
             S_corr_u, rhsa_u, inv, _ = elim(art.A, art.etes, art.gse,
                                             art.diag_e,
                                             float(np.float32(radius)))
+        S_corr_u, rhsa_u = self.red.sum(S_corr_u, rhsa_u)
         rhs = -art.g_sf - sA * rhsa_u
         S = -(S_corr_u * (sA[:, None] * sA[None, :]))
         S = S.view(kf, tf, kf, tf)
@@ -762,25 +822,28 @@ class FusedSchurStep(SchurStep):
         # back-substitution: d_e = inv (b_e - A y)
         Ay = torch.einsum("nuf,f->nu", art.A, sA * y)
         d_e = torch.einsum("nij,nj->ni", inv, -art.gse - Ay)
-        d_dot_g = torch.sum(d_e * art.gse) + torch.dot(y, art.g_sf)
+        e_dot = torch.sum(d_e * art.gse)
         if self.iterative:
             # the Gram identity: J^T J = [[EtE, A], [A^T, blockdiag(FtF)]]
             # for the BA structure, with Ay reused from the back-substitution
             yb = y.view(kf, self.tf)
-            Jd_sq = (torch.sum(d_e * torch.einsum(
-                         "nuv,nv->nu", art.etes.view(-1, self.te, self.te),
-                         d_e))
-                     + 2.0 * torch.sum(d_e * Ay)
+            e_gram, e_cross = (
+                torch.sum(d_e * torch.einsum(
+                    "nuv,nv->nu", art.etes.view(-1, self.te, self.te), d_e)),
+                torch.sum(d_e * Ay))
+            e_dot, e_gram, e_cross = self.red.sum(e_dot, e_gram, e_cross)
+            d_dot_g = e_dot + torch.dot(y, art.g_sf)
+            Jd_sq = (e_gram + 2.0 * e_cross
                      + torch.sum(yb * torch.einsum("ctu,cu->ct", art.FtF_s,
                                                    yb)))
         else:
-            Dd_sq = (torch.sum((art.diag_e / rad) * d_e * d_e)
-                     + torch.sum((art.diag_f / rad).reshape(nf) * y * y))
+            e_dot, Dd_e = self.red.sum(
+                e_dot, torch.sum((art.diag_e / rad) * d_e * d_e))
+            d_dot_g = e_dot + torch.dot(y, art.g_sf)
+            Dd_sq = Dd_e + torch.sum((art.diag_f / rad).reshape(nf) * y * y)
             Jd_sq = -d_dot_g - Dd_sq          # exact direct solve
         mcc = -(d_dot_g + 0.5 * Jd_sq)
-        # the state layout is [points | cameras] (unsupported_reason)
-        delta = torch.cat([(art.s_e * d_e).double().reshape(-1),
-                           (sA * y).double()])
+        delta = self.step_delta(art.s_e * d_e, sA * y)
         return {
             "cost": art.cost,
             "gradient_max_norm": art.grad_max,
@@ -872,20 +935,20 @@ class ImplicitSchurStep(SchurStep):
     def linearize(self, x, s_e_in, s_f_in, first: bool,
                   known_cost=None):
         """Per bucket: the f64 residual pass (the cost, unless the loop
-        carries it), the f32 Jacobian (K11 where a hand or auto spec
-        matches, else jacfwd), the robust-loss correction, the chunk
-        gather, and the bucket's part of E^T E, g_e, F^T F and g_f (the
-        camera parts by camera-chunk gather and sum). Then the Jacobi
+        carries it), the Jacobian in `work` (in f32 K11 where a hand or
+        auto spec matches, else jacfwd), the robust-loss correction, the
+        chunk gather, and the bucket's part of E^T E, g_e, F^T F and g_f
+        (the camera parts by camera-chunk gather and sum). Then the Jacobi
         scales, the scaled Grams and the clipped diagonals."""
         program = self.program
         ne, te, kf, tf = self.ne, self.te, self.kf, self.tf
-        f32, dev = torch.float32, program.device
+        work, dev = self.work, program.device
         total = torch.tensor(program.fixed_cost, dtype=torch.float64,
                              device=dev)
-        EtE = torch.zeros(ne, te, te, dtype=f32, device=dev)
-        g_e = torch.zeros(ne, te, dtype=f32, device=dev)
-        FtF = torch.zeros(kf, tf, tf, dtype=f32, device=dev)
-        g_f = torch.zeros(kf, tf, dtype=f32, device=dev)
+        EtE = torch.zeros(ne, te, te, dtype=work, device=dev)
+        g_e = torch.zeros(ne, te, dtype=work, device=dev)
+        FtF = torch.zeros(kf, tf, tf, dtype=work, device=dev)
+        g_f = torch.zeros(kf, tf, dtype=work, device=dev)
         chunks = []
         for p in self.plans:
             r64 = program._bucket_residuals(p.bk, x)
@@ -893,10 +956,10 @@ class ImplicitSchurStep(SchurStep):
                 cost, _, _ = correct_residuals_and_jacobian(p.bk.loss, r64,
                                                             None)
                 total = total + torch.sum(cost)
-            _, J32 = program._bucket_linearize32(p.bk, x)
+            _, J = program._bucket_linearize(p.bk, x, work)
             _, rc, Jc = correct_residuals_and_jacobian(
-                p.bk.loss, r64.to(f32), J32.to(f32))
-            rc, Jc = rc.to(f32), Jc.to(f32)
+                p.bk.loss, r64.to(work), J.to(work))
+            rc, Jc = rc.to(work), Jc.to(work)
             Je = Jf = None
             if p.kind == "f":
                 Jf = Jc[..., p.fo:p.fo + tf]                    # [n, r, tf]
@@ -921,6 +984,10 @@ class ImplicitSchurStep(SchurStep):
         if known_cost is not None:
             total = known_cost
 
+        ge_max = g_e.abs().max()
+        ge_sq = torch.dot(g_e.reshape(-1), g_e.reshape(-1))
+        FtF, g_f, ge_sq = self.red.sum(FtF, g_f, ge_sq)
+        ge_max = self.red.max(ge_max)
         cn_e = torch.diagonal(EtE, dim1=-2, dim2=-1)            # [ne, te]
         cn_f = torch.diagonal(FtF, dim1=-2, dim2=-1)            # [kf, tf]
         if not self.use_scaling:
@@ -941,15 +1008,14 @@ class ImplicitSchurStep(SchurStep):
             diag_f=torch.clamp(s_f * s_f * cn_f, self.min_diag,
                                self.max_diag),
             s_e=s_e, s_f=s_f,
-            grad_max=torch.maximum(g_e.abs().max(),
-                                   g_f_flat.abs().max()).double(),
-            grad_norm=torch.sqrt(torch.dot(g_e.reshape(-1), g_e.reshape(-1))
+            grad_max=torch.maximum(ge_max, g_f_flat.abs().max()).double(),
+            grad_norm=torch.sqrt(ge_sq
                                  + torch.dot(g_f_flat, g_f_flat)).double(),
             chunks=chunks)
 
     def damped_inverse(self, art: ImplicitLinearization, rad):
-        """inv = (E^T E_s + D_e^2)^-1 [ne, te, te] at the f32 radius
-        tensor `rad`."""
+        """inv = (E^T E_s + D_e^2)^-1 [ne, te, te] at the radius tensor
+        `rad` (in `work`)."""
         return _spd_inv_e(art.EtE_s + torch.diag_embed(art.diag_e / rad))
 
     def scaled_chunks(self, art: ImplicitLinearization):
@@ -977,8 +1043,8 @@ class ImplicitSchurStep(SchurStep):
         chunk tensors (an inexact CG step breaks the direct solve's
         identity)."""
         ne, te, kf, tf, nf = self.ne, self.te, self.kf, self.tf, self.nf
-        f32, dev = torch.float32, self.program.device
-        rad = torch.tensor(radius, dtype=f32, device=dev)
+        work, dev = self.work, self.program.device
+        rad = torch.tensor(radius, dtype=work, device=dev)
         D2_f = art.diag_f / rad                                 # [kf, tf]
         inv = self.damped_inverse(art, rad)
         b_e, b_f = -art.g_se, -art.g_sf
@@ -991,12 +1057,12 @@ class ImplicitSchurStep(SchurStep):
 
             def apply_S(v):
                 C = implicit_apply(Je_s0, Jf_s0, inv, p0.fids32, v)
-                return (cam_reduce(C, p0.camr, p0.camm)
+                return (self.red.sum(cam_reduce(C, p0.camr, p0.camm))[0]
                         + D2_f * v.view(kf, tf)).reshape(nf)
         else:
             def apply_S(v):
                 vb = v.view(kf, tf)
-                u = torch.zeros(ne, te, dtype=f32, device=dev)
+                u = torch.zeros(ne, te, dtype=work, device=dev)
                 ws = []
                 for kind, Je_s, Jf_s, p in sstore:
                     w = mv(Jf_s, vb[p.fids])
@@ -1004,20 +1070,20 @@ class ImplicitSchurStep(SchurStep):
                         u = u + torch.sum(rvec_rt(Je_s, w), dim=1)
                     ws.append(w)
                 zz = torch.sum(inv * u[:, None, :], dim=-1)
-                out = torch.zeros(kf, tf, dtype=f32, device=dev)
+                out = torch.zeros(kf, tf, dtype=work, device=dev)
                 for (kind, Je_s, Jf_s, p), w in zip(sstore, ws):
                     if kind == "e":
                         w = w - mv(Je_s, zz[:, None, :])
                     out = out + cam_reduce(rvec_rt(Jf_s, w), p.camr,
                                            p.camm)
-                return (out + D2_f * vb).reshape(nf)
+                return (self.red.sum(out)[0] + D2_f * vb).reshape(nf)
 
         # reduced rhs: b_f - F_s^T E_s z
-        acc = torch.zeros(kf, tf, dtype=f32, device=dev)
+        acc = torch.zeros(kf, tf, dtype=work, device=dev)
         for _, Je_s, Jf_s, p in es:
             acc = acc + cam_reduce(rvec_rt(Jf_s, mv(Je_s, z[:, None, :])),
                                    p.camr, p.camm)
-        rhs = b_f - acc.reshape(nf)
+        rhs = b_f - self.red.sum(acc)[0].reshape(nf)
 
         precond = None
         if self.preconditioner != PreconditionerType.IDENTITY:
@@ -1026,17 +1092,17 @@ class ImplicitSchurStep(SchurStep):
                 Ges = [_outer_rt(Je_s, Jf_s) for _, Je_s, Jf_s, _ in es]
                 for Ge_s, (_, _, _, p) in zip(Ges, es):
                     M = torch.einsum("nij,nkjt->nkit", inv, Ge_s)
-                    blocks = blocks - cam_reduce(
+                    blocks = blocks - self.red.sum(cam_reduce(
                         sj_chunk_blocks(Ge_s, M, p.fids, p.dup).reshape(
                             ne, -1, tf * tf), p.camr, p.camm).view(kf, tf,
-                                                                   tf)
+                                                                   tf))[0]
                 for i1, i2 in self.cross_pairs:
                     p1, p2 = es[i1][3], es[i2][3]
-                    blocks = blocks - cam_reduce(
+                    blocks = blocks - self.red.sum(cam_reduce(
                         sj_cross_pair_blocks(Ges[i1], Ges[i2], inv,
                                              p1.fids, p2.fids).reshape(
                             ne, -1, tf * tf), p1.camr, p1.camm).view(
-                                kf, tf, tf)
+                                kf, tf, tf))[0]
             precond = precond_from_blocks(blocks)
 
         result = conjugate_gradients(apply_S, rhs, torch.zeros_like(rhs),
@@ -1046,17 +1112,16 @@ class ImplicitSchurStep(SchurStep):
 
         # back-substitution: d_e = inv (b_e - E_s^T F_s y)
         yb = y.view(kf, tf)
-        u2 = torch.zeros(ne, te, dtype=f32, device=dev)
+        u2 = torch.zeros(ne, te, dtype=work, device=dev)
         for _, Je_s, Jf_s, p in es:
             u2 = u2 + torch.sum(rvec_rt(Je_s, mv(Jf_s, yb[p.fids])), dim=1)
         d_e = torch.sum(inv * (b_e - u2)[:, None, :], dim=-1)
 
         # ||J_s d||^2 from the unscaled chunks and the scaled step
-        d_dot_g = torch.dot(d_e.reshape(-1), art.g_se.reshape(-1)) \
-            + torch.dot(y, art.g_sf)
+        e_dot = torch.dot(d_e.reshape(-1), art.g_se.reshape(-1))
         dw_e = art.s_e * d_e
         dw_fb = (art.s_f.reshape(-1) * y).view(kf, tf)
-        Jd_sq = torch.zeros((), dtype=f32, device=dev)
+        Jd_sq = torch.zeros((), dtype=work, device=dev)
         for kind, Je, Jf, p in art.chunks:
             if kind == "f":
                 Jd = mv(Jf, dw_fb[p.fids])
@@ -1065,10 +1130,10 @@ class ImplicitSchurStep(SchurStep):
                 if kind == "e":
                     Jd = Jd + mv(Jf, dw_fb[p.fids])
             Jd_sq = Jd_sq + torch.sum(Jd * Jd)
+        e_dot, Jd_sq = self.red.sum(e_dot, Jd_sq)
+        d_dot_g = e_dot + torch.dot(y, art.g_sf)
         mcc = -(d_dot_g + 0.5 * Jd_sq)
-        # the state layout is [points | cameras] (unsupported_reason)
-        delta = torch.cat([dw_e.double().reshape(-1),
-                           dw_fb.double().reshape(-1)])
+        delta = self.step_delta(dw_e, dw_fb)
         return {
             "cost": art.cost,
             "gradient_max_norm": art.grad_max,

@@ -327,6 +327,11 @@ class SolverOptions:
     # torch device of the solve's tensors and kernels: "cuda" runs the
     # hand-written kernels, "cpu" their plain PyTorch versions.
     device: str = "cuda"
+    # The ranks of a sharded solve (parallel/): a torch.distributed
+    # ProcessGroup, or an int n, the default group, initialized with world
+    # size n (one process a rank; the JAX package's int is n local
+    # devices of one process). Each rank calls solve with the same problem.
+    mesh: Any = None
     fused_iterations: bool = False    # run the LM loop without per-iteration
     #                                   host records (the slice's only loop)
     # Leave the solved state on the device: Solve() fills the summary but
@@ -346,8 +351,8 @@ class SolverOptions:
         program (excludes callbacks and host-side-only knobs)."""
         parts = []
         for f in dataclasses.fields(self):
-            if f.name == "defer_parameter_writeback":
-                continue   # host-side result handling; same executable
+            if f.name in ("defer_parameter_writeback", "mesh"):
+                continue   # host-side result handling, or the ranks
             v = getattr(self, f.name)
             if f.name == "residual_blocks_for_subset_preconditioner":
                 v = (tuple(sorted(rb.index for rb in v))

@@ -31,8 +31,14 @@ More-Garbow-Hillstrom problem (EXAMPLE_RUNS, MGH_REF), the gradient
 checker (GRADCHECK), slice 12's paths (`solver_options_paths`), slice
 13's (`slice13_paths`: solve_batched in pipeline and batch mode, the C
 API's curve_fitting.c, denoising, the libmv and NIST examples; its
-comment block names each gate) and on tests/test_solver_e2e.py's
-helloworld, Powell and bounded problems:
+comment block names each gate), slice 14's (`sharded_paths`: solves
+sharded over torch.distributed ranks that parallel/launch.py spawns on
+the card, NCCL at world 1 and gloo at worlds 4 and 2 with the ranks
+sharing the card: bench.py's DENSE_SCHUR and ITERATIVE_SCHUR and the dry
+run at BAL-16-22106, the large case in the implicit mode and the SE2
+graph's sharded CGNR host loop, each rank's kernel and collective counts
+read inside the rank; its comment block names each gate) and on
+tests/test_solver_e2e.py's helloworld, Powell and bounded problems:
 
 1. checks each kernel against its plain PyTorch version on the card, at
    the shapes its path gives it: K1-K4 (slice 1, DENSE_SCHUR; K3 bit for
@@ -3953,6 +3959,384 @@ def slice13_paths(counters, by_path, device="cuda"):
                          f"{fails}")
 
 
+# slice 14 (`sharded_paths`): solves sharded over torch.distributed ranks
+# (ceres_tpu_torch/parallel/), each rank a process spawned by
+# parallel/launch.py run_ranks on the one card. NCCL refuses two ranks on
+# one device, so world 1 runs NCCL and worlds 2 and 4 gloo, the ranks
+# sharing the card (kernels on the card, collectives staged through host
+# memory): these runs prove the sharded program and its kernels on the
+# card, and their walls are not a measure of scaling. Paths:
+#   SHARDED_NCCL_W1: bench.py's mixed DENSE_SCHUR at BAL-16-22106 (K1-K4);
+#   SHARDED_DRYRUN_W4: parallel/dryrun.py's four parts (its f64 DENSE_SCHUR
+#     solve within 1e-6 of the single-device solve in rank 0);
+#   SHARDED_DENSE_W4, SHARDED_ITERATIVE_W4: bench.py's mixed DENSE_SCHUR
+#     (K1-K4) and ITERATIVE_SCHUR + SCHUR_JACOBI (K1, K6, K7, K4);
+#   SHARDED_IMPLICIT_W2: the large case (IMPLICIT_SHAPE) with
+#     large_options, the implicit mode (K11, K10, K4);
+#   SHARDED_CGNR_SE2_W2: the 1,000-pose SE2 graph, CGNR in f64 on the
+#     sharded CGNR host loop (no kernel: f64, as in the JAX package).
+# Gates: CONVERGENCE; the BAL-16 paths within REF_REL_TOL of the main
+# path's cost and, with the f64 dry run, of the JAX package's sharded
+# solve on SHARDED_WORLD virtual CPU devices (SHARDED_REF, from
+# scripts/slice14_reference.py on the card's machine's CPU: f64 its LM
+# count and 1e-9, mixed 1e-5); the implicit path within
+# IMPLICIT_REF_REL_TOL of IMPLICIT_REF_COST; the SE2 path in an LM count
+# that a JAX sharded run reached (its CG, truncated at eta 0.1, takes the
+# trajectory to 17 or 14 LM on rounding alone: ROADMAP.md section 3) and
+# its final cost within SHARDED_F64_TOL of JAX's run of that count (the
+# unscaled run for 17; for another count the run from the smallest scaled
+# start that reached it, within the larger of SHARDED_F64_TOL and twice
+# the spread of JAX's runs of that count), and its first LM step at the
+# start within SHARDED_STEP_TOL of JAX's (model cost change and step
+# norm), which the f32 control, the single-device mixed CGNR step (K8,
+# K9) at the same start, must miss: the final cost of an f32 CGNR lands
+# within 1e-9 of JAX's f64 solve on this graph, so the step tells f32
+# from f64, not the cost; every rank's x the same bits; each
+# kernel of a path launched in every rank at least once per LM iteration
+# (the linearizing kernels, K1 and K11, at least once per accepted step:
+# a rejected step keeps its linearization) and no other kernel.
+SHARDED_WORLD = 4
+SHARDED_CGNR_WORLD = 2
+# the scaled starts of scripts/slice14_reference.py --spread
+SPREAD_SCALES = (1e-9, 3e-9, 1e-8, 3e-8, 1e-7, 3e-7, 1e-6)
+SHARDED_F64_TOL = 1e-9
+SHARDED_STEP_TOL = 1e-9
+SHARDED_TIMEOUT_S = 600.0
+# the JAX package's sharded solves (scripts/slice14_reference.py on the
+# CPU of the H100's host): LM iterations and final cost
+SHARDED_REF = {
+    "f64_dense": dict(ref_cost=50287.7269104353, ref_iterations=6),
+    "dense": dict(ref_cost=50287.726910436075, ref_iterations=6),
+    "iterative": dict(ref_cost=50287.727273822005, ref_iterations=8),
+    # with --spread: the runs from starts scaled by 1 -+ SPREAD_SCALES by
+    # LM count ("branches": the unscaled start and eleven scaled ones end
+    # 17 LM in, within 7.7e-10 of each other; the starts scaled by 1 +
+    # 1e-8, 3e-8 and 1e-7 end 14 LM in, within 5.4e-9 of the first);
+    # first_step: make_sharded_lm_step at the start
+    "cgnr_se2": dict(ref_cost=98.97160671510446, ref_iterations=17,
+                     branches={
+                         17: dict(ref_cost=98.97160671510446, scale=0.0,
+                                  runs=12, spread=7.714417517581856e-10),
+                         14: dict(ref_cost=98.9716289149105, scale=1e-08,
+                                  runs=3, spread=5.430940030160809e-09)},
+                     first_step=dict(model_cost_change=1311.168399317959,
+                                     step_norm=6.865585026182902,
+                                     lin_iters=16)),
+}
+SHARDED_KERNELS = {
+    "dense": (("K1 lin",), ("K2 elim", "K3 chol_solve", "K4 cost")),
+    "iterative": (("K1 lin",), ("K6 elim_v1", "K7 dense_pcg", "K4 cost")),
+    "implicit": (("K11 bucket_linearize",), ("K10 implicit_apply",
+                                             "K4 cost")),
+    "cgnr_se2": ((), ()),
+}
+
+
+def sharded_options(mod, path, **extra):
+    """The options of a BAL-16 sharded path ("f64_dense": the dry run's,
+    "dense" / "iterative": bench.py's) in package `mod`."""
+    if path == "f64_dense":
+        kw = dict(linear_solver_type=mod.LinearSolverType.DENSE_SCHUR,
+                  max_num_iterations=50, function_tolerance=1e-6)
+    else:
+        kw = dict(linear_solver_type=getattr(
+            mod.LinearSolverType, {"dense": "DENSE_SCHUR",
+                                   "iterative": "ITERATIVE_SCHUR"}[path]),
+            preconditioner_type=mod.PreconditionerType.SCHUR_JACOBI,
+            max_num_iterations=50, function_tolerance=1e-6,
+            max_linear_solver_iterations=100,
+            use_mixed_precision_solves=True, fused_iterations=True)
+    kw.update(extra)
+    return mod.SolverOptions(**kw)
+
+
+def sharded_rank(paths):
+    """A spawned rank's part of `sharded_paths`: each path in turn, its
+    kernel counts and the group's collective counts set to 0 just before
+    its solve and read just after. Returns per path the summary's
+    numbers, the wall, the state's sha256 and the counts."""
+    import hashlib
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    import ceres_tpu_torch as ctt
+    from ceres_tpu_torch.io.bal import (build_bal_ceres_problem,
+                                        synthetic_bal_problem)
+    from ceres_tpu_torch.parallel.dryrun import dryrun_rank
+    from ceres_tpu_torch.parallel.group import as_group
+    from ceres_tpu_torch.program import CompiledProgram
+    world = dist.get_world_size()
+    group = as_group(world)
+    counters = kernel_counters()
+    out = {}
+    for path in paths:
+        t0 = time.time()
+        if path == "dryrun":
+            out[path] = dryrun_rank("cuda")
+            out[path]["build_s"] = 0.0
+            continue
+        if path == "implicit":
+            bal = synthetic_bal_problem(**IMPLICIT_SHAPE, seed=7,
+                                        pixel_noise=1.0)
+            bal.perturb(**IMPLICIT_PERTURB, seed=8)
+            problem, cams, pts = build_bal_ceres_problem(bal)
+            arrays = cams + pts
+            options = large_options(ctt, mesh=world, device="cuda")
+        elif path == "cgnr_se2":
+            from ceres_tpu_torch.examples import slam
+            from ceres_tpu_torch.io import g2o
+            cfg = POSE_GRAPHS["2d"]
+            poses, edges, _ = getattr(g2o, cfg["generator"])(**cfg["args"])
+            problem, positions, yaws = getattr(slam, cfg["build"])(poses,
+                                                                   edges)
+            arrays = list(positions.values()) + list(yaws.values())
+            options = pose_graph_options(ctt, use_mixed_precision_solves=False,
+                                         mesh=world, device="cuda")
+        else:
+            bal = synthetic_bal_problem(**SHAPE, seed=7, pixel_noise=1.0)
+            bal.perturb(**PERTURB, seed=8)
+            problem, cams, pts = build_bal_ceres_problem(bal)
+            arrays = cams + pts
+            options = sharded_options(ctt, path, mesh=world, device="cuda")
+        start = [np.array(a, copy=True) for a in arrays]
+        # the program built outside the timed solve, as it is for the
+        # single-device solves printed beside it
+        CompiledProgram.get_cached(problem, options)
+        build_s = time.time() - t0
+        # BAL-16's paths: a warm-up solve, then the timed one
+        for trial in range(1 if path in ("implicit", "cgnr_se2") else 2):
+            for a, a0 in zip(arrays, start):
+                a[:] = a0
+            for fn in counters.values():
+                fn.launches = 0
+            group.reset_counts()
+            torch.cuda.synchronize()
+            t0 = time.time()
+            s = ctt.solve(options, problem)
+            torch.cuda.synchronize()
+            wall = time.time() - t0
+        x = np.concatenate([np.ravel(a) for a in arrays])
+        out[path] = dict(
+            message=s.message, termination=str(s.termination_type),
+            iterations=lm_iterations(s), accepted=s.num_successful_steps,
+            cg=s.num_linear_solver_iterations,
+            linearizations=getattr(s, "num_linearizations_fused", None),
+            initial_cost=s.initial_cost, final_cost=s.final_cost,
+            wall=wall, minimizer_s=s.minimizer_time_in_seconds,
+            build_s=build_s,
+            sha=hashlib.sha256(x.tobytes()).hexdigest(),
+            launches={n: fn.launches for n, fn in counters.items()},
+            calls=dict(group.calls), bytes=dict(group.bytes))
+        if path == "cgnr_se2":
+            out[path].update(se2_first_steps(problem, arrays, start,
+                                             options, world))
+    return out
+
+
+def se2_first_steps(problem, arrays, start, options, world):
+    """The first LM step at the SE2 graph's start and the initial radius:
+    the sharded CGNR step in f64 (make_sharded_lm_step) and, in rank 0,
+    its f32 control, the single-device mixed CGNR step (GenericLMStep:
+    K11, K9, K8). Each as (model cost change, step norm, CG
+    iterations)."""
+    import torch.distributed as dist
+    import ceres_tpu_torch as ctt
+    from ceres_tpu_torch.parallel.sharded import make_sharded_lm_step
+    from ceres_tpu_torch.program import CompiledProgram
+    from ceres_tpu_torch.solver import GenericLMStep
+
+    def numbers(o):
+        return (float(o["model_cost_change"]), float(o["step_norm"]),
+                int(o["lin_iters"]))
+
+    for a, a0 in zip(arrays, start):
+        a[:] = a0
+    radius = options.initial_trust_region_radius
+    program = CompiledProgram.get_cached(problem, options)
+    step, _ = make_sharded_lm_step(program, options, world)
+    out = {"first_step": numbers(step(program.initial_state(), radius))}
+    if dist.get_rank() == 0:
+        opt32 = pose_graph_options(ctt, device="cuda")
+        p32 = CompiledProgram.get_cached(problem, opt32)
+        s32 = GenericLMStep(p32, opt32)
+        out["first_step_f32"] = numbers(s32.solve(
+            s32.linearize(p32.initial_state(), None, True), radius))
+    return out
+
+
+def sharded_paths(counters, by_path, smi, problem, reset_state, meta,
+                  big_problem, reset_big, big_meta, device="cuda"):
+    """Slice 14's phase (its comment block above): three spawns of ranks
+    on the card, NCCL world 1, gloo world SHARDED_WORLD and gloo world
+    SHARDED_CGNR_WORLD; the single-device solves of the same options in
+    this process for the walls. Adds rank 0's launches to `by_path`;
+    raises once every path has printed its numbers, if one was off its
+    gate."""
+    import numpy as np
+    import torch
+    import ceres_tpu_torch as ctt
+    import chip_smoke
+    from ceres_tpu_torch.parallel.launch import run_ranks
+    from ceres_tpu_torch.parallel.sharded_fused import collective_footprint
+    fails = []
+    t_phase = time.time()
+    single = {}
+    # the single-device walls of the same options (a warm-up, then timed)
+    for path in ("dense", "iterative"):
+        opts = sharded_options(ctt, path, device=device)
+        for _ in range(2):
+            reset_state()
+            torch.cuda.synchronize()
+            t0 = time.time()
+            s_ = ctt.solve(opts, problem)
+            torch.cuda.synchronize()
+            single[path] = (time.time() - t0, lm_iterations(s_),
+                            s_.minimizer_time_in_seconds)
+    reset_big()
+    torch.cuda.synchronize()
+    t0 = time.time()
+    s_ = ctt.solve(large_options(ctt, device=device), big_problem)
+    torch.cuda.synchronize()
+    single["implicit"] = (time.time() - t0, lm_iterations(s_),
+                          s_.minimizer_time_in_seconds)
+    reset_state()
+    reset_big()
+    for fn in counters.values():
+        fn.launches = 0
+
+    runs = [("SHARDED_NCCL_W1", 1, "nccl", ["dense"]),
+            (f"SHARDED_W{SHARDED_WORLD}", SHARDED_WORLD, "gloo",
+             ["dryrun", "dense", "iterative"]),
+            (f"SHARDED_W{SHARDED_CGNR_WORLD}", SHARDED_CGNR_WORLD, "gloo",
+             ["implicit", "cgnr_se2"])]
+    for label, world, backend, paths in runs:
+        t0 = time.time()
+        res = run_ranks(chip_smoke.sharded_rank, world, backend, device,
+                        SHARDED_TIMEOUT_S, args=(paths,))
+        print(f"{label}: {world} rank(s), backend {backend}, ranks sharing "
+              f"one card ({smi}); spawn and paths {time.time() - t0:.1f} s",
+              flush=True)
+        for path in paths:
+            name = (f"SHARDED_{path.upper()}_W{world}" if world > 1
+                    else "SHARDED_NCCL_W1")
+            rs = [r[path] for r in res]
+            r0 = rs[0]
+            if len({r["sha"] for r in rs}) != 1:
+                fails.append(f"{name}: the ranks' x differ")
+            if path == "dryrun":
+                ref = SHARDED_REF.get("f64_dense")
+                print(f"{name} [{backend}]: sharded f64 DENSE_SCHUR "
+                      f"{r0['sharded_iterations']} LM to "
+                      f"{r0['sharded_cost']!r} in {r0['sharded_wall']:.3f} s "
+                      f"(ranks sharing one card over {backend}, not "
+                      f"scaling) beside the single-device solve "
+                      f"{r0['single_iterations']} LM to "
+                      f"{r0['single_cost']!r} in {r0['single_wall']:.3f} s "
+                      f"(rel {r0['rel']:.2e}); cgnr {r0['cgnr']}, schur "
+                      f"{r0['schur']}, implicit {r0['implicit'][:3]}; JAX's "
+                      f"sharded solve on {SHARDED_WORLD} CPU devices: {ref}",
+                      flush=True)
+                if ref is not None and not (
+                        r0["sharded_iterations"] == ref["ref_iterations"]
+                        and abs(r0["sharded_cost"] - ref["ref_cost"])
+                        <= SHARDED_F64_TOL * ref["ref_cost"]):
+                    fails.append(f"{name}: off the JAX sharded solve")
+                continue
+            launches = r0["launches"]
+            by_path[name] = launches
+            its = max(r0["iterations"], 1)
+            per_it = {k: round(v / its, 3) for k, v in r0["calls"].items()}
+            bytes_it = {k: round(v / its, 1) for k, v in r0["bytes"].items()}
+            extra = ""
+            if path in ("dense", "iterative", "implicit"):
+                m_ = big_meta if path == "implicit" else meta
+                fp = collective_footprint(
+                    m_, large_options(ctt) if path == "implicit" else
+                    sharded_options(ctt, path), world,
+                    cg_iterations=(r0["cg"] // its if path != "dense"
+                                   else 0), dtype_bytes=4)
+                extra = (f"; collective_footprint per LM iteration "
+                         f"({world} devices, f32, "
+                         f"{r0['cg'] // its} CG): {fp}")
+                w1, lm1, m1 = single[path]
+                extra += (f"; single-device solve of the same options "
+                          f"{lm1} LM in {w1:.4f} s (minimizer {m1:.4f} s)")
+            print(f"{name} [{backend}, {world} rank(s) on one card: not "
+                  f"scaling]: {r0['termination']}, {r0['iterations']} LM "
+                  f"({r0['accepted']} accepted), {r0['cg']} linear "
+                  f"iterations, final cost {r0['final_cost']!r}, wall "
+                  f"{r0['wall']:.4f} s (minimizer {r0['minimizer_s']:.4f} "
+                  f"s; problem and program build {r0['build_s']:.1f} s); "
+                  f"rank 0's launches { {k: v for k, v in launches.items() if v} }; "
+                  f"collectives per LM iteration {per_it}, bytes a rank "
+                  f"per LM iteration {bytes_it}{extra}; {r0['message']}",
+                  flush=True)
+            if r0["termination"] != "CONVERGENCE":
+                fails.append(f"{name}: {r0['termination']}")
+            if path == "implicit":
+                ref_cost, tol = IMPLICIT_REF_COST, IMPLICIT_REF_REL_TOL
+            elif path == "cgnr_se2":
+                ref = SHARDED_REF["cgnr_se2"]
+                branch = ref["branches"].get(r0["iterations"])
+                if branch is None:
+                    fails.append(f"{name}: {r0['iterations']} LM, JAX's "
+                                 f"runs {sorted(ref['branches'])}")
+                    branch = ref["branches"][ref["ref_iterations"]]
+                ref_cost = branch["ref_cost"]
+                tol = max(SHARDED_F64_TOL, 2.0 * branch["spread"])
+                print(f"  {name}: {r0['iterations']} LM, "
+                      f"{abs(r0['final_cost'] - ref_cost) / ref_cost:.3e} "
+                      f"from JAX's run of that count ({branch}; limit "
+                      f"{tol:.3e}); JAX's runs by LM count "
+                      f"{ {k: v['runs'] for k, v in ref['branches'].items()} }",
+                      flush=True)
+                want = ref["first_step"]
+                wn = (want["model_cost_change"], want["step_norm"])
+                errs = {}
+                for key in ("first_step", "first_step_f32"):
+                    got = r0[key]
+                    errs[key] = max(abs(g - w) / abs(w)
+                                    for g, w in zip(got[:2], wn))
+                    print(f"  {name} {key}: model cost change, step norm, "
+                          f"CG {got} (JAX's sharded step "
+                          f"{(*wn, want['lin_iters'])}), largest relative "
+                          f"difference {errs[key]:.3e} (limit "
+                          f"{SHARDED_STEP_TOL:g})", flush=True)
+                if not errs["first_step"] <= SHARDED_STEP_TOL:
+                    fails.append(f"{name}: the first step is off JAX's")
+                if errs["first_step_f32"] <= SHARDED_STEP_TOL:
+                    fails.append(f"{name}: the f32 control passes the step "
+                                 "gate")
+            else:
+                ref_cost, tol = REF_FINAL_COST, REF_REL_TOL
+                ref = SHARDED_REF.get(path) if world > 1 else None
+                if ref is not None and abs(r0["final_cost"] - ref[
+                        "ref_cost"]) > REF_REL_TOL * ref["ref_cost"]:
+                    fails.append(f"{name}: {r0['final_cost']} is off the "
+                                 f"JAX sharded solve's {ref['ref_cost']}")
+            if abs(r0["final_cost"] - ref_cost) > tol * ref_cost:
+                fails.append(f"{name}: final cost {r0['final_cost']} off "
+                             f"{ref_cost} by more than {tol}")
+            once_lin, once_it = SHARDED_KERNELS[path]
+            for r in rs:
+                ln = r["launches"]
+                for k in once_lin:
+                    if ln[k] < r["accepted"]:
+                        fails.append(f"{name}: {k} {ln[k]} < "
+                                     f"{r['accepted']} accepted steps")
+                for k in once_it:
+                    if ln[k] < r["iterations"]:
+                        fails.append(f"{name}: {k} {ln[k]} < "
+                                     f"{r['iterations']} LM iterations")
+                stray = [k for k, v in ln.items() if v and k not in
+                         once_lin + once_it and "(shared)" not in k]
+                if stray:
+                    fails.append(f"{name}: other kernels launched: {stray}")
+    print(f"sharded_paths: {time.time() - t_phase:.1f} s", flush=True)
+    if fails:
+        raise SystemExit("sharded_paths: " + "; ".join(fails))
+
+
 def pipeline_problems(bal_io, seeds=PIPELINE_SEEDS):
     """PIPELINE's elements: [(problem, arrays)]."""
     out = []
@@ -5030,6 +5414,9 @@ def main():
     problem_api_paths(counters, by_path)
     solver_options_paths(counters, by_path, kernels, smi)
     slice13_paths(counters, by_path)
+    sharded_paths(counters, by_path, smi, problem, reset_state, meta,
+                  big_problem, reset_big,
+                  detect_schur_structure(big_program, big_options))
 
     # tests/test_solver_e2e.py's helloworld, Powell and bounded problems
     # on the card, at those tests' tolerances

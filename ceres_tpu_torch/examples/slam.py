@@ -23,12 +23,20 @@ def normalize_angle(a):
     return torch.atan2(torch.sin(a), torch.cos(a))
 
 
+def _angle_plus(x, d):
+    return normalize_angle(x + d)
+
+
+def _angle_minus(y, x):
+    return normalize_angle(y - x)
+
+
 def angle_manifold() -> AutoDiffManifold:
-    """SO(2) by 2-pi wrapping (reference angle_manifold.h:41)."""
-    return AutoDiffManifold(
-        plus_fn=lambda x, d: normalize_angle(x + d),
-        minus_fn=lambda y, x: normalize_angle(y - x),
-        ambient_size=1, tangent_size=1)
+    """SO(2) by 2-pi wrapping (reference angle_manifold.h:41). Its plus and
+    minus are module functions, so that the graphs of two calls share
+    their buckets' keys (a batched solve needs one structure)."""
+    return AutoDiffManifold(plus_fn=_angle_plus, minus_fn=_angle_minus,
+                            ambient_size=1, tangent_size=1)
 
 
 class PoseGraph2dErrorTerm:

@@ -60,8 +60,8 @@ _SIGNATURES = {
                    _I, _I, _I, _P, _P, _P, _P, _P, _P, _P],
     "ceres_elim_v1": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P,
                       _P, _P, _P],
-    "ceres_chol_solve": [_P, _P, _I, _P, _P, _P],
-    "ceres_chol_solve_shared": [_P, _P, _I, _P, _P],
+    "ceres_chol_solve": [_P, _P, _I, _I, _P, _P, _P],
+    "ceres_chol_solve_shared": [_P, _P, _I, _I, _P, _P],
     "ceres_fast_math_check": [_P, _P, _I, _I, _P, _P, _P, _P],
     "ceres_pcg": [_P, _P, _P, _I, _I, _I, _I, ctypes.c_float, _I,
                   _P, _P, _P, _P],

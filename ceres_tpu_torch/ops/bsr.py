@@ -34,6 +34,22 @@ import torch
 from .kernels import group_gram_blocks, group_grams
 
 
+def sorted_segments(targets: Sequence[np.ndarray], device):
+    """(perm, lengths, index) of a fixed-order sum of contributions into a
+    flat output: `targets` lists each part's output places (int64, in the
+    parts' scatter order, the parts concatenated); perm sorts the
+    contributions stably by place, `index` holds the distinct places and
+    `lengths` their counts, so that torch.segment_reduce(flat[perm], "sum",
+    lengths=lengths) gives out[index] in the scatter order."""
+    tgt = (np.concatenate(targets) if len(targets)
+           else np.zeros(0, np.int64))
+    order = np.argsort(tgt, kind="stable")
+    index, counts = np.unique(tgt[order], return_counts=True)
+    return (torch.as_tensor(order, device=device),
+            torch.as_tensor(counts, device=device),
+            torch.as_tensor(index, device=device))
+
+
 class ColumnSum:
     """Fixed-order segment sum: out[c] = the sum of the units at the
     positions listed for c, added in list order."""
@@ -68,25 +84,15 @@ class ColumnSum:
         place c_i * num_cols + c_j in H; `index` the distinct places and
         `lengths` their counts."""
         if getattr(self, "_gram", None) is None:
-            positions, targets, base = [], [], 0
+            targets = []
             for slots in self.bucket_cols:
                 if not slots:
                     continue
                 c = np.concatenate([np.asarray(s, dtype=np.int64)
                                     for s in slots], axis=1)
-                n, t = c.shape
                 targets.append((c[:, :, None] * self.num_cols
                                 + c[:, None, :]).reshape(-1))
-                positions.append(base + np.arange(n * t * t))
-                base += n * t * t
-            tgt = np.concatenate(targets)
-            order = np.argsort(tgt, kind="stable")
-            index, counts = np.unique(tgt[order], return_counts=True)
-            dev = self.perm.device
-            self._gram = (torch.as_tensor(np.concatenate(positions)[order],
-                                          device=dev),
-                          torch.as_tensor(counts, device=dev),
-                          torch.as_tensor(index, device=dev))
+            self._gram = sorted_segments(targets, self.perm.device)
         return self._gram
 
 

@@ -36,27 +36,29 @@ _F32, _I32 = torch.float32, torch.int32
 
 
 def chol_solve_plain(S, b):
-    """Plain PyTorch K3: y with S y = b, S SPD [m, m] (f32), b [m]."""
-    m = S.shape[0]
+    """Plain PyTorch K3: y with S y = b, S SPD [..., m, m] (f32), b
+    [..., m]: one system, or a batch of them along the leading axes."""
+    m = S.shape[-1]
     U = S.clone()
     nan = torch.tensor(float("nan"), dtype=S.dtype, device=S.device)
     for j in range(m):
-        piv = U[j, j]
+        piv = U[..., j, j]
         d = torch.where(piv > 0, torch.sqrt(torch.clamp(piv, min=0)), nan)
-        U[j, j + 1:] = U[j, j + 1:] / d
-        U[j, j] = d
-        urow = U[j, j + 1:]
-        U[j + 1:, j + 1:] -= torch.triu(urow[:, None] * urow[None, :])
+        U[..., j, j + 1:] = U[..., j, j + 1:] / d[..., None]
+        U[..., j, j] = d
+        urow = U[..., j, j + 1:]
+        U[..., j + 1:, j + 1:] -= torch.triu(urow[..., :, None]
+                                             * urow[..., None, :])
     acc = b.clone()
     z = torch.empty_like(b)
     for j in range(m):
-        z[j] = acc[j] / U[j, j]
-        acc[j + 1:] -= z[j] * U[j, j + 1:]
+        z[..., j] = acc[..., j] / U[..., j, j]
+        acc[..., j + 1:] -= z[..., j, None] * U[..., j, j + 1:]
     acc = z.clone()
     y = torch.empty_like(b)
     for j in range(m - 1, -1, -1):
-        y[j] = acc[j] / U[j, j]
-        acc[:j] -= U[:j, j] * y[j]
+        y[..., j] = acc[..., j] / U[..., j, j]
+        acc[..., :j] -= U[..., :j, j] * y[..., j, None]
     return y
 
 
@@ -79,18 +81,27 @@ def chol_variant(m):
 
 def _chol_launch(S, b, variant):
     """Launch K3's `variant` ("shared" or "global", csrc/chol.cu) on the
-    card and count it in chol_solve.launches and CHOL_VARIANTS[variant].
+    card, on one system (S [m, m], b [m]) or a batch of them (S [B, m, m],
+    b [B, m]: one block a system, one launch), and count it in
+    chol_solve.launches and CHOL_VARIANTS[variant].
     The tests and chip_smoke.py call it to hold each variant against the
     plain version; an m the variant cannot take is refused by its entry
     point, and the refusal raises."""
-    m = S.shape[0]
-    _cuda.check(S, (m, m), _F32, "chol_solve: S")
-    _cuda.check(b, (m,), _F32, "chol_solve: b")
+    m = S.shape[-1]
+    lead = tuple(S.shape[:-2])
+    if len(lead) > 1:
+        raise ValueError(f"chol_solve: S {tuple(S.shape)}: one batch axis "
+                         f"at most")
+    nb = lead[0] if lead else 1
+    _cuda.check(S, lead + (m, m), _F32, "chol_solve: S")
+    _cuda.check(b, lead + (m,), _F32, "chol_solve: b")
     y = torch.empty_like(b)
+    if nb == 0:
+        return y
     if variant == "shared":
-        _cuda.launch("ceres_chol_solve_shared", S, b, m, y)
+        _cuda.launch("ceres_chol_solve_shared", S, b, m, nb, y)
     elif variant == "global":
-        _cuda.launch("ceres_chol_solve", S, b, m, torch.empty_like(S), y)
+        _cuda.launch("ceres_chol_solve", S, b, m, nb, torch.empty_like(S), y)
     else:
         raise ValueError(f"chol_solve: no variant {variant!r}")
     chol_solve.launches += 1
@@ -99,11 +110,12 @@ def _chol_launch(S, b, variant):
 
 
 def chol_solve(S, b):
-    """K3: see chol_solve_plain; m <= MAX_M on the card, the variant from
+    """K3: see chol_solve_plain; one system or a batch ([B, m, m], [B, m])
+    in one launch; m <= MAX_M on the card, the variant from
     chol_variant(m)."""
     if not S.is_cuda:
         return chol_solve_plain(S, b)
-    return _chol_launch(S, b, chol_variant(S.shape[0]))
+    return _chol_launch(S, b, chol_variant(S.shape[-1]))
 
 
 chol_solve.launches = 0

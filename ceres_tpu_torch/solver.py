@@ -364,6 +364,58 @@ class GenericLMStep:
         return d64, lin_iters
 
 
+def subspace_model(g, gn, jmv, jdot, dot, mv) -> dict:
+    """The radius-free part of SUBSPACE_DOGLEG (ceres_tpu _subspace_solve,
+    :278-331) for one step (g, gn [n]) or a batch of them ([B, n]): the
+    basis (b1, b2) of span{g, gn} by Gram-Schmidt, B = basis^T J^T J
+    basis, gr = basis^T g, the unconstrained minimum y_unc, eigh(B) and
+    gh = Q^T gr. jmv(v) is J_s v, jdot the dot of two of its results, dot
+    the dot over the last axis and mv(M, v) the matrix-vector product:
+    the single step's scalar reductions, or batch mode's per element."""
+    dt = g.dtype
+    b1 = g / torch.clamp(torch.linalg.vector_norm(g, dim=-1),
+                         min=1e-300)[..., None]
+    v = gn - dot(b1, gn)[..., None] * b1
+    v_norm = torch.linalg.vector_norm(v, dim=-1)
+    degenerate = v_norm < 1e-12
+    b2 = torch.where(degenerate[..., None], b1,
+                     v / torch.where(v_norm == 0, 1.0, v_norm)[..., None])
+    Jb1, Jb2 = jmv(b1), jmv(b2)
+    B01 = jdot(Jb1, Jb2)
+    B = torch.stack([torch.stack([jdot(Jb1, Jb1), B01], -1),
+                     torch.stack([B01, jdot(Jb2, Jb2)], -1)], -2).to(dt)
+    gr = torch.stack([dot(b1, g), dot(b2, g)], -1)
+    eye = torch.eye(2, dtype=dt, device=g.device)
+    y_unc = -torch.linalg.solve(B + 1e-30 * eye, gr)
+    evals, Q = torch.linalg.eigh(B)
+    return dict(b1=b1, b2=b2, degenerate=degenerate, y_unc=y_unc,
+                evals=evals, Q=Q, gh=mv(Q.transpose(-2, -1), gr))
+
+
+def subspace_solve(dl, radius, dot, mv):
+    """The subspace model's minimum within `radius` (one radius, or one an
+    element): y_unc inside, else the secular equation sum gh_i^2 / (d_i +
+    lam)^2 = radius^2 by a fixed 64-step bisection; (d_sub, degenerate).
+    dot and mv as in subspace_model."""
+    d, gh = dl["evals"], dl["gh"]
+    inside = torch.linalg.vector_norm(dl["y_unc"], dim=-1) <= radius
+    lam_lo = torch.clamp(-d[..., 0], min=0.0) + 1e-12
+    lam_hi = (lam_lo + torch.linalg.vector_norm(gh, dim=-1)
+              / torch.clamp(radius, min=1e-300) + d.abs().amax(dim=-1)
+              + 1.0)
+    r_sq = radius * radius
+    lo, hi = lam_lo, lam_hi
+    for _ in range(64):
+        mid = 0.5 * (lo + hi)
+        y = gh / (d + mid[..., None])
+        too_big = dot(y, y) > r_sq
+        lo, hi = torch.where(too_big, mid, lo), torch.where(too_big, hi, mid)
+    lam = 0.5 * (lo + hi)
+    y = torch.where(inside[..., None], dl["y_unc"],
+                    mv(dl["Q"], -gh / (d + lam[..., None])))
+    return y[..., :1] * dl["b1"] + y[..., 1:] * dl["b2"], dl["degenerate"]
+
+
 class DoglegStep(GenericLMStep):
     """The dogleg step of ceres_tpu's make_step_impl (dogleg_step,
     :333-437; the reference's dogleg_strategy.cc:130-265), in the
@@ -433,54 +485,11 @@ class DoglegStep(GenericLMStep):
                   cauchy_norm=torch.linalg.vector_norm(cauchy),
                   gn_norm=torch.linalg.vector_norm(gn))
         if self.subspace:
-            dl.update(self._subspace_model(jac_s, g, gn))
+            dl.update(subspace_model(g, gn, jac_s.matvec,
+                                     lambda a, b: a.dot(b), torch.dot,
+                                     torch.mv))
         art.dogleg = dl
         return art
-
-    @staticmethod
-    def _subspace_model(jac_s, g, gn):
-        """The radius-free part of _subspace_solve: the basis (b1, b2) of
-        span{g, gn} by Gram-Schmidt, B = basis^T J^T J basis, gr =
-        basis^T g, the unconstrained minimum y_unc and eigh(B)."""
-        dt = g.dtype
-        b1 = g / torch.clamp(torch.linalg.vector_norm(g), min=1e-300)
-        v = gn - torch.dot(b1, gn) * b1
-        v_norm = torch.linalg.vector_norm(v)
-        degenerate = v_norm < 1e-12
-        b2 = torch.where(degenerate, b1,
-                         v / torch.where(v_norm == 0, 1.0, v_norm))
-        Jb1, Jb2 = jac_s.matvec(b1), jac_s.matvec(b2)
-        B01 = Jb1.dot(Jb2)
-        B = torch.stack([torch.stack([Jb1.squared_norm(), B01]),
-                         torch.stack([B01, Jb2.squared_norm()])]).to(dt)
-        gr = torch.stack([torch.dot(b1, g), torch.dot(b2, g)])
-        eye = torch.eye(2, dtype=dt, device=g.device)
-        y_unc = -torch.linalg.solve(B + 1e-30 * eye, gr)
-        evals, Q = torch.linalg.eigh(B)
-        return dict(b1=b1, b2=b2, degenerate=degenerate, y_unc=y_unc,
-                    evals=evals, Q=Q, gh=Q.T @ gr)
-
-    @staticmethod
-    def _subspace_solve(dl, radius):
-        """The subspace model's minimum within `radius`: y_unc inside, else
-        the secular equation sum gh_i^2 / (d_i + lam)^2 = radius^2 by a
-        fixed 64-step bisection; (d_sub, degenerate)."""
-        d, gh = dl["evals"], dl["gh"]
-        inside = torch.linalg.vector_norm(dl["y_unc"]) <= radius
-        lam_lo = torch.clamp(-d[0], min=0.0) + 1e-12
-        lam_hi = (lam_lo + torch.linalg.vector_norm(gh)
-                  / torch.clamp(radius, min=1e-300) + d.abs().max() + 1.0)
-        r_sq = radius * radius
-        lo, hi = lam_lo, lam_hi
-        for _ in range(64):
-            mid = 0.5 * (lo + hi)
-            y = gh / (d + mid)
-            too_big = torch.dot(y, y) > r_sq
-            lo, hi = torch.where(too_big, mid, lo), torch.where(too_big, hi,
-                                                                mid)
-        lam = 0.5 * (lo + hi)
-        y = torch.where(inside, dl["y_unc"], dl["Q"] @ (-gh / (d + lam)))
-        return y[0] * dl["b1"] + y[1] * dl["b2"], dl["degenerate"]
 
     def solve(self, art: GenericLinearization, radius: float) -> dict:
         dl, g = art.dogleg, art.grad_s
@@ -499,7 +508,7 @@ class DoglegStep(GenericLMStep):
             dl["cauchy_norm"] >= r,
             -(r / torch.sqrt(torch.clamp(dl["g_sq"], min=1e-300))) * g, seg))
         if self.subspace:
-            d_sub, degenerate = self._subspace_solve(dl, r)
+            d_sub, degenerate = subspace_solve(dl, r, torch.dot, torch.mv)
             d = torch.where(inside, gn, torch.where(degenerate, d, d_sub))
         Jd = art.jac_s.matvec(d)
         mcc = -(torch.dot(d, g) + 0.5 * Jd.squared_norm())

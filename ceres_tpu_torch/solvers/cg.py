@@ -92,6 +92,89 @@ def conjugate_gradients(
                     final_norm=torch.linalg.vector_norm(r))
 
 
+class BatchedCGResult(NamedTuple):
+    x: torch.Tensor                  # [B, n]
+    num_iterations: torch.Tensor     # int64 [B]
+    final_norm: torch.Tensor         # [B]
+
+
+def _edot(a, b):
+    """Per-element dot products [B] of [B, n] tensors."""
+    return torch.sum(a * b, dim=1)
+
+
+def conjugate_gradients_batched(
+        apply_A: Callable,
+        b,
+        x0,
+        apply_preconditioner: Callable = None,
+        max_iterations: int = 100,
+        min_iterations: int = 0,
+        q_tolerance: float = 0.0,
+        r_tolerance: float = 0.0,
+        residual_reset_period: int = 10) -> BatchedCGResult:
+    """`conjugate_gradients` on B independent systems at once: b and x0
+    [B, n], apply_A and apply_preconditioner map [B, n] to [B, n]. Each
+    element runs the single loop's rules (the Q-based stop, the
+    indefiniteness guard, the r-norm tolerance, the residual refresh)
+    under its own mask: once it stops, its x, r and p keep their bits
+    and its count stays, as under the JAX package's vmapped while_loop.
+    The elements still running share one iteration count, so the refresh
+    falls on the same iteration for all of them. One host read an
+    iteration: is any element still running."""
+    if apply_preconditioner is None:
+        def apply_preconditioner(v):
+            return v
+    B = b.shape[0]
+    zero = torch.zeros((), dtype=b.dtype, device=b.device)
+    one = torch.ones((), dtype=b.dtype, device=b.device)
+    tol_r = r_tolerance * torch.linalg.vector_norm(b, dim=1)
+    if x0 is None:
+        x0, r = torch.zeros_like(b), b
+    else:
+        r = b - apply_A(x0)
+    x = x0
+    z = apply_preconditioner(r)
+    rho = _edot(r, z)
+    p = z
+    Q0 = 0.5 * _edot(x0, r + b)
+    its = torch.zeros(B, dtype=torch.int64, device=b.device)
+    active = torch.ones(B, dtype=torch.bool, device=b.device)
+    i = 0
+    while i < max_iterations and bool(active.any()):   # the one host read
+        Ap = apply_A(p)
+        pAp = _edot(p, Ap)
+        bad = (pAp <= 0) | ~torch.isfinite(pAp)
+        alpha = torch.where(bad, zero, rho / torch.where(pAp == 0, one, pAp))
+        x_new = x + alpha[:, None] * p
+        i += 1
+        if i % residual_reset_period == 0:
+            r_new = b - apply_A(x_new)
+        else:
+            r_new = r - alpha[:, None] * Ap
+        z_new = apply_preconditioner(r_new)
+        rho_new = _edot(r_new, z_new)
+        beta = rho_new / torch.where(rho == 0, one, rho)
+        p_new = z_new + beta[:, None] * p
+        Q1 = 0.5 * _edot(x_new, r_new + b)
+        zeta = i * (Q1 - Q0) / torch.where(Q1 == 0, one, Q1)
+        done = bad
+        if q_tolerance > 0 and i >= max(min_iterations, 1):
+            done = done | ((Q1 != 0) & (torch.abs(zeta) < q_tolerance))
+        if r_tolerance > 0:
+            done = done | (torch.linalg.vector_norm(r_new, dim=1) <= tol_r)
+        keep = active[:, None]
+        x = torch.where(keep, x_new, x)
+        r = torch.where(keep, r_new, r)
+        p = torch.where(keep, p_new, p)
+        rho = torch.where(active, rho_new, rho)
+        Q0 = torch.where(active, Q1, Q0)
+        its = its + active.long()
+        active = active & ~done
+    return BatchedCGResult(x=x, num_iterations=its,
+                           final_norm=torch.linalg.vector_norm(r, dim=1))
+
+
 def solve_cgnr(jac, res, D, apply_preconditioner=None,
                max_iterations: int = 100, q_tolerance: float = 1e-1,
                r_tolerance: float = 0.0, min_iterations: int = 0):

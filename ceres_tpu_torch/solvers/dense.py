@@ -41,15 +41,17 @@ def _cholesky(H):
     (as the JAX package's factorization gives); nothing is read on the
     host."""
     L, info = torch.linalg.cholesky_ex(H)
-    return torch.where(info == 0, L, torch.full_like(L, float("nan")))
+    return torch.where((info == 0)[..., None, None], L,
+                       torch.full_like(L, float("nan")))
 
 
 def _cho_solve(L, b):
-    return torch.cholesky_solve(b[:, None], L)[:, 0]
+    return torch.cholesky_solve(b[..., None], L)[..., 0]
 
 
 def cholesky_solve(S, b):
-    """y with S y = b for a dense SPD S [m, m] by the library Cholesky
+    """y with S y = b for a dense SPD S [m, m] (or a batch [B, m, m] with
+    b [B, m]) by the library Cholesky
     (torch.linalg.cholesky_ex: cuSOLVER on the card, LAPACK on the CPU),
     all NaN when S is not positive definite; nothing is read on the
     host."""

@@ -21,6 +21,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .. import native
+from ..ops.kernels import row_grams
 from .sparse_direct import SparseNormalCholeskyContext, bucket_grams, to_host
 
 
@@ -106,6 +108,89 @@ class SubsetPreconditioner:
             v_h.copy_(v)
             self.ctx.host_apply(v_np, out=x_np)
             # a copy: the next application overwrites x_h
+            return x_h.to(self.device, dtype=v.dtype, copy=True)
+
+        return apply
+
+
+def batched_block_jacobi(jtj_blocks, D, groups):
+    """make_block_jacobi_preconditioner on the element axis: `jtj_blocks`
+    the stacked groups' [B * k, t, t] J^T J blocks (element after
+    element), D [B, n], `groups` the template program's GroupMeta list;
+    apply(v) maps [B, n] to [B, n]."""
+    B = D.shape[0]
+    factors = []
+    for g, M in zip(groups, jtj_blocks):
+        k, t = g.num_blocks, g.tangent_size
+        d = D[:, g.tan_start:g.tan_start + k * t].reshape(B * k, t)
+        factors.append(spd_inv_small(M + torch.diag_embed(d * d)))
+
+    def apply(v):
+        return torch.cat([
+            torch.sum(inv * v[:, g.tan_start:g.tan_start + g.num_blocks
+                              * g.tangent_size].reshape(
+                                  B * g.num_blocks, 1, g.tangent_size),
+                      dim=-1).reshape(B, -1)
+            for g, inv in zip(groups, factors)], dim=1)
+
+    return apply
+
+
+class BatchedSubset:
+    """SUBSET on the element axis (the JAX package's sequential host
+    callback under vmap): the subset rows' Grams of every element formed
+    on the device from the stacked Jacobian (row_grams, one einsum: the
+    JAX package's vmapped route calls no Gram kernel) and copied to the
+    host once a linearization; each damped
+    solve factors each element's M = Q^T Q + D^2 on its own native LDL^T
+    (one instance an element, the template's pattern), in element order;
+    each CG application copies every element's v to the host once,
+    backsolves the elements in order and copies them back once. A
+    breakdown makes that element's preconditioner the identity."""
+
+    def __init__(self, subset: "SubsetPreconditioner", stack):
+        ctx = subset.ctx
+        self.ctx, self.B, self.device = ctx, stack.B, subset.device
+        self.lanes = stack.lanes(subset.lanes)
+        self.chols = [native.SparseCholesky(ctx.n, ctx.Ap, ctx.Ai,
+                                            ordering=ctx._ordering)
+                      for _ in range(stack.B)]
+
+    def system(self, jac):
+        B, n = self.B, self.ctx.n
+        grams = []
+        for b, ln in zip(jac.buckets, self.lanes):
+            J = b.J[torch.as_tensor(ln, device=b.J.device)]
+            grams.append(row_grams(J) if J.shape[0] and J.shape[2]
+                         else J.new_zeros((J.shape[0], J.shape[2],
+                                           J.shape[2])))
+        flats = to_host(*grams)
+        values = [self.ctx.assemble([f.reshape(B, -1)[e] for f in flats])
+                  for e in range(B)]
+        pin = self.device.type == "cuda"
+        bufs = (torch.empty(B, n, dtype=torch.float64, pin_memory=pin),
+                torch.empty(B, n, dtype=torch.float64, pin_memory=pin))
+        return values, bufs
+
+    def make(self, system, D):
+        """apply(v) = M^-1 v for v [B, n] at the damping D [B * n]."""
+        values, (v_h, x_h) = system
+        (d_sq,) = to_host(D * D)
+        d_sq = d_sq.reshape(self.B, -1)
+        ok = []
+        for e, chol in enumerate(self.chols):
+            vals = values[e].copy()
+            vals[self.ctx.diag_pos] += d_sq[e]
+            ok.append(chol.factor(vals) == 0)
+        v_np, x_np = v_h.numpy(), x_h.numpy()
+
+        def apply(v):
+            v_h.copy_(v)
+            for e, chol in enumerate(self.chols):
+                if ok[e]:
+                    chol.solve(v_np[e], out=x_np[e])
+                else:
+                    x_np[e] = v_np[e]
             return x_h.to(self.device, dtype=v.dtype, copy=True)
 
         return apply

@@ -37,16 +37,18 @@ none either (jsl.cho_factor, a lax CG and einsums).
 
 from __future__ import annotations
 
+import copy
 from collections import Counter
 from typing import List, Optional
 
 import numpy as np
 import torch
 
-from ..ops.bsr import BlockJacobian, ColumnSum, RVec, column_sum_for
+from ..ops.bsr import (BlockJacobian, ColumnSum, RVec, column_sum_for,
+                       sorted_segments)
 from ..ops.kernels import row_grams
 from ..types import LinearSolverType, PreconditionerType
-from .cg import conjugate_gradients
+from .cg import conjugate_gradients, conjugate_gradients_batched
 from .clustering import cluster_membership
 from .dense import cholesky_solve
 from .preconditioners import spd_inv_small
@@ -71,6 +73,10 @@ class SchurMeta:
         self.f_groups = []           # [{t, kf, cols [kf, t], slots}]
         self._plans = {}             # device -> _Plan
         self._sparse_ctx = None      # (ordering, SparseSchurContext)
+        # a stacked meta (stack_meta): B elements as one block-diagonal
+        # structure, and each element's ne, nf and tangent size
+        self.elements = None
+        self.ne_el = self.nf_el = self.n_el = None
 
     def plan(self, device) -> "_Plan":
         """The meta's index tensors and fixed-order sums on `device`
@@ -294,6 +300,46 @@ def bk_slot_keys(program, bk, si):
     return cache[si]
 
 
+def stack_meta(meta: SchurMeta, B: int, n_eff: int,
+               bucket_n) -> SchurMeta:
+    """The SchurMeta of B elements of `meta`'s structure as one
+    block-diagonal structure (batch.py ElementStack's layout: bucket rows
+    element after element, element b's tangent column c at b n_eff + c):
+    element b's point k is point b ne + k, its f column j is b nf + j, its
+    camera k of an f group is b kf + k. Every single-solve sum over the
+    stack is then the elements' sums side by side; `elements` marks the
+    meta, so that SchurOps forms the explicit S as [B, nf, nf] and
+    SchurLinearSolver runs the batched CG."""
+    out = SchurMeta()
+    out.elements, out.ne_el, out.nf_el, out.n_el = B, meta.ne, meta.nf, n_eff
+    b = np.arange(B, dtype=np.int64)
+    out.ne, out.te, out.nf = B * meta.ne, meta.te, B * meta.nf
+
+    def shift(a, step):
+        a = np.asarray(a, np.int64)
+        return (a[None] + step * b.reshape((B,) + (1,) * a.ndim)).reshape(
+            (B * a.shape[0],) + a.shape[1:])
+
+    out.e_cols = shift(meta.e_cols, n_eff)
+    out.f_global_cols = shift(meta.f_global_cols, n_eff)
+    for bs, n in zip(meta.buckets, bucket_n):
+        q = _BucketSchur()
+        q.e_slot, q.f_slots = bs.e_slot, bs.f_slots
+        q.e_ids = None if bs.e_ids is None else shift(bs.e_ids, meta.ne)
+        q.f_cols = None if bs.f_cols is None else shift(bs.f_cols, meta.nf)
+        q.chunk_rows = (None if bs.chunk_rows is None
+                        else shift(bs.chunk_rows, n))
+        q.chunk_mask = (None if bs.chunk_mask is None
+                        else np.tile(bs.chunk_mask, (B, 1)))
+        out.buckets.append(q)
+    for g in meta.f_groups:
+        out.f_groups.append({
+            "t": g["t"], "kf": B * g["kf"], "cols": shift(g["cols"], meta.nf),
+            "slots": [(bi, si, shift(local, g["kf"]))
+                      for (bi, si, local) in g["slots"]]})
+    return out
+
+
 # ----------------------------------------------------------------------
 # runtime Schur operations
 
@@ -351,13 +397,24 @@ class _Plan:
         self.group_cols = [torch.as_tensor(g["cols"].astype(np.int64),
                                            device=device)
                            for g in meta.f_groups]
-        self._a_order = None
+        self._a_order = self._ftf_order = None
         self._block_sums = {}
 
     def ftf_order(self):
         """(perm, lengths, index) of the dense F^T F over the f buckets'
-        per-row Grams [n, tf, tf] (ColumnSum.gram_order)."""
-        return self.ft_sum.gram_order()
+        per-row Grams [n, tf, tf] (ColumnSum.gram_order's order): entry
+        (i, j) of element b at b nf^2 + i nf + j, a stacked meta's F^T F
+        being [B, nf, nf] (one element: [nf, nf])."""
+        if self._ftf_order is None:
+            nf = self.meta.nf_el or self.meta.nf
+            targets = []
+            for bi in self.f_buckets:
+                c = self.meta.buckets[bi].f_cols.astype(np.int64)
+                e, loc = c // nf, c % nf
+                targets.append((e[:, :, None] * nf * nf + loc[:, :, None]
+                                * nf + loc[:, None, :]).reshape(-1))
+            self._ftf_order = sorted_segments(targets, self.device)
+        return self._ftf_order
 
     def a_order(self):
         """(perm, lengths, index) of the dense A = E^T F [ne, te, nf]: each
@@ -365,21 +422,16 @@ class _Plan:
         f_col j, sorted stably; rows in (bucket, row) order."""
         if self._a_order is None:
             meta, te, nf = self.meta, self.meta.te, self.meta.nf
+            if meta.elements is not None:    # [B ne, te, nf_el]
+                nf = meta.nf_el
             targets = []
             for bi in self.ef_buckets:
                 bs = meta.buckets[bi]
                 e = bs.e_ids.astype(np.int64)[:, None, None]
-                f = bs.f_cols.astype(np.int64)[:, None, :]
+                f = bs.f_cols.astype(np.int64)[:, None, :] % nf
                 i = np.arange(te, dtype=np.int64)[None, :, None]
                 targets.append((e * te * nf + i * nf + f).reshape(-1))
-            tgt = (np.concatenate(targets) if targets
-                   else np.zeros(0, np.int64))
-            order = np.argsort(tgt, kind="stable")
-            index, counts = np.unique(tgt[order], return_counts=True)
-            dev = self.device
-            self._a_order = (torch.as_tensor(order, device=dev),
-                             torch.as_tensor(counts, device=dev),
-                             torch.as_tensor(index, device=dev))
+            self._a_order = sorted_segments(targets, self.device)
         return self._a_order
 
     def block_sum(self, gi) -> ColumnSum:
@@ -437,7 +489,12 @@ class SchurSystem:
         if "ftf_a" not in self.cache:
             meta, plan = self.meta, self.plan
             nf, te = meta.nf, meta.te
-            FtF = torch.zeros(nf * nf, dtype=self.dtype, device=self.device)
+            shape = (nf, nf)
+            if meta.elements is not None:    # [B, nf, nf], [B ne, te, nf]
+                nf = meta.nf_el
+                shape = (meta.elements, nf, nf)
+            FtF = torch.zeros(int(np.prod(shape)), dtype=self.dtype,
+                              device=self.device)
             if plan.f_buckets:
                 perm, lengths, index = plan.ftf_order()
                 flat = torch.cat([row_grams(self.Jf[bi]).reshape(-1)
@@ -453,7 +510,7 @@ class SchurSystem:
                                   for bi in plan.ef_buckets])
                 A[index] = torch.segment_reduce(
                     flat[perm], "sum", lengths=lengths, axis=0, unsafe=True)
-            self.cache["ftf_a"] = (FtF.view(nf, nf), A.view(meta.ne, te, nf))
+            self.cache["ftf_a"] = (FtF.view(shape), A.view(meta.ne, te, nf))
         return self.cache["ftf_a"]
 
 
@@ -560,6 +617,13 @@ class SchurOps:
         product."""
         FtF, A = self.system.ftf_and_a()
         Y = torch.einsum("nuv,nvf->nuf", self.inv_ete, A)
+        B = self.meta.elements
+        if B is not None:                   # a stacked meta: [B, nf, nf]
+            nf = self.meta.nf_el
+            S_corr = torch.bmm(A.reshape(B, -1, nf).transpose(1, 2),
+                               Y.reshape(B, -1, nf))
+            D_f = self.D_f.view(B, nf)
+            return FtF + torch.diag_embed(D_f * D_f) - S_corr, A
         nf = self._nf
         S_corr = A.reshape(-1, nf).T @ Y.reshape(-1, nf)
         return FtF + torch.diag(self.D_f * self.D_f) - S_corr, A
@@ -574,6 +638,12 @@ class SchurOps:
 
     def explicit_S_and_rhs(self, b_e, b_f):
         S, A = self._assemble_S()
+        B = self.meta.elements
+        if B is not None:
+            ne, nf = self.meta.ne_el, self.meta.nf_el
+            return S, b_f.view(B, nf) - torch.einsum(
+                "bitf,bit->bf", A.view(B, ne, self._te, nf),
+                self.esolve(b_e).view(B, ne, self._te))
         return S, b_f - torch.einsum("itf,it->f", A, self.esolve(b_e))
 
     # ---- preconditioners
@@ -649,8 +719,10 @@ class SchurOps:
         L, _ = cluster_factor(self.explicit_S(), mask, diag_mask)
 
         def apply(v):
-            y = torch.linalg.solve_triangular(L, v[:, None], upper=False)
-            return torch.linalg.solve_triangular(L.T, y, upper=True)[:, 0]
+            y = torch.linalg.solve_triangular(
+                L, v.reshape(L.shape[:-1] + (1,)), upper=False)
+            return torch.linalg.solve_triangular(
+                L.transpose(-1, -2), y, upper=True).reshape(v.shape)
 
         return apply
 
@@ -680,11 +752,11 @@ def cluster_factor(S, mask, diag_mask):
     then the cluster-diagonal pattern, a principal submatrix of S and so
     positive definite, is factored instead, picked on the device with no
     host read (fell_back, a 0-d bool tensor)."""
-    jitter = torch.diag(1e-12 * torch.diagonal(S))
+    jitter = torch.diag_embed(1e-12 * torch.diagonal(S, dim1=-2, dim2=-1))
     L1, info1 = torch.linalg.cholesky_ex(S * mask.to(S.dtype) + jitter)
     L2, _ = torch.linalg.cholesky_ex(S * diag_mask.to(S.dtype) + jitter)
-    bad = (info1 != 0) | torch.isnan(L1).any()
-    return torch.where(bad, L2, L1), bad
+    bad = (info1 != 0) | torch.isnan(L1).flatten(-2).any(-1)
+    return torch.where(bad[..., None, None], L2, L1), bad
 
 
 def camera_clustering(program, meta, kind, clustering_type):
@@ -777,6 +849,21 @@ class SchurLinearSolver:
         self.mode = "generic " + self.mode + (
             ", mixed" if self.mixed else ", f64")
 
+    def stacked(self, meta_s: SchurMeta) -> "SchurLinearSolver":
+        """This solver on a stacked meta (stack_meta) of B elements of its
+        structure: the same maths on the stack, the explicit S [B, nf, nf],
+        the batched CG (solvers/cg.py conjugate_gradients_batched), the
+        block-sparse S formed on the stack and factored an element
+        (schur_sparse.py StackedSparseSchur); solve_b then returns
+        (d [B n], iterations [B])."""
+        from .schur_sparse import StackedSparseSchur
+        lin = copy.copy(self)
+        lin.meta = meta_s
+        if self.sparse is not None:
+            lin.sparse = StackedSparseSchur(self.sparse, meta_s,
+                                            self.program.device)
+        return lin
+
     def system(self, jac) -> SchurSystem:
         """The radius-free part of a linearization's solves; mixed, its
         Jacobian cast to f32 (make_schur_solver, :1009-1023)."""
@@ -798,15 +885,19 @@ class SchurLinearSolver:
         if self.mixed:
             D, b = D.to(torch.float32), b.to(torch.float32)
         meta, plan = self.meta, system.plan
+        B = meta.elements
         ops = SchurOps(system, D)
         b_e = b[plan.e_cols]                           # [ne, te]
         b_f = b[plan.f_global]                         # [nf]
         iters = torch.ones((), dtype=torch.int32, device=b.device)
+        if B is not None:
+            iters = torch.ones(B, dtype=torch.int64, device=b.device)
         if not self.iterative:
             if self.sparse is not None:
                 y = self.sparse.reduced_solve(ops, ops.rhs(b_e, b_f))
             else:
                 y = cholesky_solve(*ops.explicit_S_and_rhs(b_e, b_f))
+                y = y.reshape(-1)
         else:
             rhs = ops.rhs(b_e, b_f)
             precond = ops.make_preconditioner(self.precond_kind, self.masks)
@@ -814,19 +905,30 @@ class SchurLinearSolver:
                 S = ops.explicit_S()
 
                 def apply_S(v):
+                    if B is not None:
+                        return torch.bmm(S, v.view(B, -1, 1)).reshape(-1)
                     return S @ v
             else:
                 apply_S = ops.apply_S
             x0 = torch.zeros_like(rhs)
             if self.spse is not None:
                 x0 = self._spse(ops, apply_S, rhs)
-            result = conjugate_gradients(apply_S, rhs, x0,
-                                         apply_preconditioner=precond,
-                                         **self.cg_args)
-            y, iters = result.x, result.num_iterations
+            if B is None:
+                result = conjugate_gradients(apply_S, rhs, x0,
+                                             apply_preconditioner=precond,
+                                             **self.cg_args)
+                y, iters = result.x, result.num_iterations
+            else:
+                def flat(fn):
+                    return None if fn is None else (
+                        lambda v: fn(v.reshape(-1)).view(B, -1))
+                result = conjugate_gradients_batched(
+                    flat(apply_S), rhs.view(B, -1), x0.view(B, -1),
+                    apply_preconditioner=flat(precond), **self.cg_args)
+                y, iters = result.x.reshape(-1), result.num_iterations
         d_e = ops.back_substitute(b_e, y)
-        d = torch.zeros(self.program.num_effective, dtype=y.dtype,
-                        device=y.device)
+        n = self.program.num_effective * (1 if B is None else B)
+        d = torch.zeros(n, dtype=y.dtype, device=y.device)
         d[plan.f_global] = y
         d[plan.e_cols.reshape(-1)] = d_e.reshape(-1)
         return d.to(system.out_dtype), iters
@@ -841,6 +943,20 @@ class SchurLinearSolver:
         p_apply = ops._make_block_diag_preconditioner(True)
         x = dx = p_apply(rhs)
         i = 1
+        B = self.meta.elements
+        if B is not None:
+            # each element its own loop: a stopped element keeps its x
+            def norm(v):
+                return torch.linalg.vector_norm(v.view(B, -1), dim=1)
+            going = norm(dx) > spse_tol * norm(x)
+            while i < spse_max and bool(going.any()):
+                dx_new = p_apply(rhs - apply_S(x))
+                keep = going.repeat_interleave(rhs.numel() // B)
+                x = torch.where(keep, x + dx_new, x)
+                dx = torch.where(keep, dx_new, dx)
+                i += 1
+                going = going & (norm(dx) > spse_tol * norm(x))
+            return x
         while i < spse_max and bool(torch.linalg.vector_norm(dx) > spse_tol
                                     * torch.linalg.vector_norm(x)):
             dx = p_apply(rhs - apply_S(x))

@@ -875,6 +875,19 @@ class ImplicitSchurStep(SchurStep):
         if reason is not None:
             raise NotImplementedError(f"not in the ported slice: {reason}")
         super().__init__(program, options, meta)
+        self.plans, e_entries = self._build_plans(program, meta, self.kf)
+        self.k10 = _k10_bucket(program, meta)
+        self.cross_pairs = detect_cross_bucket_dups(e_entries)
+        self.mode = ("implicit (matrix-free) Schur complement, CG operator "
+                     + ("K10" if self.k10 else "in plain PyTorch over "
+                        f"{len(self.plans)} buckets"))
+        self._bind_data(program)
+
+    @staticmethod
+    def _build_plans(program, meta, kf):
+        """The per-bucket plans (_BucketPlan) of `meta` with kf cameras in
+        its f group, on the program's device, and the e entries of the
+        cross-bucket duplicate check."""
         grp = meta.f_groups[0]
         dev = program.device
 
@@ -882,7 +895,7 @@ class ImplicitSchurStep(SchurStep):
             return torch.as_tensor(np.ascontiguousarray(a), dtype=dtype,
                                    device=dev)
 
-        self.plans, e_entries = [], []
+        plans, e_entries = [], []
         for bi, (bk, bs) in enumerate(zip(program.buckets, meta.buckets)):
             var = [sl for sl in bk.slots if sl.variable]
             offs = np.cumsum([0] + [sl.tangent_size for sl in var])
@@ -900,7 +913,7 @@ class ImplicitSchurStep(SchurStep):
                 chunked = p.kind == "e"
                 camr, camm = build_cam_chunks(
                     local, bs.chunk_rows if chunked else None,
-                    bs.chunk_mask if chunked else None, self.kf)
+                    bs.chunk_mask if chunked else None, kf)
                 p.camr, p.camm = on_dev(camr, torch.long), on_dev(camm)
             if bs.e_slot is not None:
                 p.rows = on_dev(bs.chunk_rows, torch.long)
@@ -913,13 +926,8 @@ class ImplicitSchurStep(SchurStep):
                 e_entries.append((fids, bs.chunk_mask > 0))
             elif p.kind == "f":
                 p.fids = on_dev(local, torch.long)
-            self.plans.append(p)
-        self.k10 = _k10_bucket(program, meta)
-        self.cross_pairs = detect_cross_bucket_dups(e_entries)
-        self.mode = ("implicit (matrix-free) Schur complement, CG operator "
-                     + ("K10" if self.k10 else "in plain PyTorch over "
-                        f"{len(self.plans)} buckets"))
-        self._bind_data(program)
+            plans.append(p)
+        return plans, e_entries
 
     def _bind_data(self, program):
         """SchurStep's data fields, and each plan on its bucket of
@@ -941,15 +949,10 @@ class ImplicitSchurStep(SchurStep):
         (the camera parts by camera-chunk gather and sum). Then the Jacobi
         scales, the scaled Grams and the clipped diagonals."""
         program = self.program
-        ne, te, kf, tf = self.ne, self.te, self.kf, self.tf
         work, dev = self.work, program.device
         total = torch.tensor(program.fixed_cost, dtype=torch.float64,
                              device=dev)
-        EtE = torch.zeros(ne, te, te, dtype=work, device=dev)
-        g_e = torch.zeros(ne, te, dtype=work, device=dev)
-        FtF = torch.zeros(kf, tf, tf, dtype=work, device=dev)
-        g_f = torch.zeros(kf, tf, dtype=work, device=dev)
-        chunks = []
+        rows = []
         for p in self.plans:
             r64 = program._bucket_residuals(p.bk, x)
             if known_cost is None:
@@ -959,7 +962,22 @@ class ImplicitSchurStep(SchurStep):
             _, J = program._bucket_linearize(p.bk, x, work)
             _, rc, Jc = correct_residuals_and_jacobian(
                 p.bk.loss, r64.to(work), J.to(work))
-            rc, Jc = rc.to(work), Jc.to(work)
+            rows.append((rc.to(work), Jc.to(work)))
+        if known_cost is not None:
+            total = known_cost
+        return self.linearization(rows, total, s_e_in, s_f_in, first)
+
+    def linearization(self, rows, total, s_e_in, s_f_in, first: bool):
+        """The linearization from each plan's corrected (residuals [n, r],
+        Jacobian [n, r, t]) in `work` and the cost `total`."""
+        ne, te, kf, tf = self.ne, self.te, self.kf, self.tf
+        work, dev = self.work, self.program.device
+        EtE = torch.zeros(ne, te, te, dtype=work, device=dev)
+        g_e = torch.zeros(ne, te, dtype=work, device=dev)
+        FtF = torch.zeros(kf, tf, tf, dtype=work, device=dev)
+        g_f = torch.zeros(kf, tf, dtype=work, device=dev)
+        chunks = []
+        for p, (rc, Jc) in zip(self.plans, rows):
             Je = Jf = None
             if p.kind == "f":
                 Jf = Jc[..., p.fo:p.fo + tf]                    # [n, r, tf]
@@ -981,11 +999,9 @@ class ImplicitSchurStep(SchurStep):
                     g_f = g_f + cam_reduce(rvec_rt(Jf, rg), p.camr,
                                            p.camm)
             chunks.append((p.kind, Je, Jf, p))
-        if known_cost is not None:
-            total = known_cost
 
-        ge_max = g_e.abs().max()
-        ge_sq = torch.dot(g_e.reshape(-1), g_e.reshape(-1))
+        ge_max = self._rmax(g_e.abs())
+        ge_sq = self._rdot(g_e, g_e)
         FtF, g_f, ge_sq = self.red.sum(FtF, g_f, ge_sq)
         ge_max = self.red.max(ge_max)
         cn_e = torch.diagonal(EtE, dim1=-2, dim2=-1)            # [ne, te]
@@ -1008,10 +1024,25 @@ class ImplicitSchurStep(SchurStep):
             diag_f=torch.clamp(s_f * s_f * cn_f, self.min_diag,
                                self.max_diag),
             s_e=s_e, s_f=s_f,
-            grad_max=torch.maximum(ge_max, g_f_flat.abs().max()).double(),
-            grad_norm=torch.sqrt(ge_sq
-                                 + torch.dot(g_f_flat, g_f_flat)).double(),
+            grad_max=torch.maximum(ge_max,
+                                   self._rmax(g_f_flat.abs())).double(),
+            grad_norm=torch.sqrt(ge_sq + self._rdot(g_f_flat, g_f_flat)
+                                 ).double(),
             chunks=chunks)
+
+    # the reductions to a step's scalars: over everything here; over each
+    # element's part in the batched step (batch.py BatchedImplicitStep)
+    @staticmethod
+    def _rmax(t):
+        return t.max()
+
+    @staticmethod
+    def _rdot(a, b):
+        return torch.dot(a.reshape(-1), b.reshape(-1))
+
+    @staticmethod
+    def _rsum(t):
+        return torch.sum(t)
 
     def damped_inverse(self, art: ImplicitLinearization, rad):
         """inv = (E^T E_s + D_e^2)^-1 [ne, te, te] at the radius tensor
@@ -1042,11 +1073,33 @@ class ImplicitSchurStep(SchurStep):
         back-substitution, and the model cost change from the stored
         chunk tensors (an inexact CG step breaks the direct solve's
         identity)."""
+        rad = torch.tensor(radius, dtype=self.work,
+                           device=self.program.device)
+        sys_ = self.reduced_system(art, rad, rad)
+        result = conjugate_gradients(sys_["apply_S"], sys_["rhs"],
+                                     torch.zeros_like(sys_["rhs"]),
+                                     apply_preconditioner=sys_["precond"],
+                                     **self.pcg_args)
+        delta, mcc = self.step_from(art, sys_, result.x)
+        return {
+            "cost": art.cost,
+            "gradient_max_norm": art.grad_max,
+            "gradient_norm": art.grad_norm,
+            "delta": delta,
+            "model_cost_change": mcc.double(),
+            "step_norm": torch.linalg.vector_norm(delta),
+            "lin_iters": result.num_iterations,
+        }
+
+    def reduced_system(self, art: ImplicitLinearization, rad_e, rad_f):
+        """The damped system at the radius (rad_e for the points' damping,
+        rad_f for the cameras'; both the radius tensor here): inv, b_e, the
+        scaled chunks, the operator S v, the reduced rhs and the
+        preconditioner apply (None for IDENTITY)."""
         ne, te, kf, tf, nf = self.ne, self.te, self.kf, self.tf, self.nf
         work, dev = self.work, self.program.device
-        rad = torch.tensor(radius, dtype=work, device=dev)
-        D2_f = art.diag_f / rad                                 # [kf, tf]
-        inv = self.damped_inverse(art, rad)
+        D2_f = art.diag_f / rad_f                               # [kf, tf]
+        inv = self.damped_inverse(art, rad_e)
         b_e, b_f = -art.g_se, -art.g_sf
         z = torch.einsum("nij,nj->ni", inv, b_e)
         sstore = self.scaled_chunks(art)
@@ -1104,21 +1157,23 @@ class ImplicitSchurStep(SchurStep):
                             ne, -1, tf * tf), p1.camr, p1.camm).view(
                                 kf, tf, tf))[0]
             precond = precond_from_blocks(blocks)
+        return dict(inv=inv, b_e=b_e, es=es, apply_S=apply_S, rhs=rhs,
+                    precond=precond)
 
-        result = conjugate_gradients(apply_S, rhs, torch.zeros_like(rhs),
-                                     apply_preconditioner=precond,
-                                     **self.pcg_args)
-        y = result.x
-
-        # back-substitution: d_e = inv (b_e - E_s^T F_s y)
+    def step_from(self, art: ImplicitLinearization, sys_, y):
+        """(the f64 step, the model cost change) from the reduced solution
+        y: the back-substitution d_e = inv (b_e - E_s^T F_s y) and
+        ||J_s d||^2 from the unscaled chunks and the scaled step."""
+        ne, te, kf, tf = self.ne, self.te, self.kf, self.tf
+        work, dev = self.work, self.program.device
+        inv, b_e = sys_["inv"], sys_["b_e"]
         yb = y.view(kf, tf)
         u2 = torch.zeros(ne, te, dtype=work, device=dev)
-        for _, Je_s, Jf_s, p in es:
+        for _, Je_s, Jf_s, p in sys_["es"]:
             u2 = u2 + torch.sum(rvec_rt(Je_s, mv(Jf_s, yb[p.fids])), dim=1)
         d_e = torch.sum(inv * (b_e - u2)[:, None, :], dim=-1)
 
-        # ||J_s d||^2 from the unscaled chunks and the scaled step
-        e_dot = torch.dot(d_e.reshape(-1), art.g_se.reshape(-1))
+        e_dot = self._rdot(d_e, art.g_se)
         dw_e = art.s_e * d_e
         dw_fb = (art.s_f.reshape(-1) * y).view(kf, tf)
         Jd_sq = torch.zeros((), dtype=work, device=dev)
@@ -1129,17 +1184,8 @@ class ImplicitSchurStep(SchurStep):
                 Jd = torch.einsum("nkrt,nt->nkr", Je, dw_e)
                 if kind == "e":
                     Jd = Jd + mv(Jf, dw_fb[p.fids])
-            Jd_sq = Jd_sq + torch.sum(Jd * Jd)
+            Jd_sq = Jd_sq + self._rsum(Jd * Jd)
         e_dot, Jd_sq = self.red.sum(e_dot, Jd_sq)
-        d_dot_g = e_dot + torch.dot(y, art.g_sf)
+        d_dot_g = e_dot + self._rdot(y, art.g_sf)
         mcc = -(d_dot_g + 0.5 * Jd_sq)
-        delta = self.step_delta(dw_e, dw_fb)
-        return {
-            "cost": art.cost,
-            "gradient_max_norm": art.grad_max,
-            "gradient_norm": art.grad_norm,
-            "delta": delta,
-            "model_cost_change": mcc.double(),
-            "step_norm": torch.linalg.vector_norm(delta),
-            "lin_iters": result.num_iterations,
-        }
+        return self.step_delta(dw_e, dw_fb), mcc

@@ -95,7 +95,10 @@ class SparseSchurContext:
     scalar CSC expansion and the native LDL^T. `solves` counts the damped
     solves that this context served."""
 
-    def __init__(self, meta, device, ordering: Optional[int] = None):
+    def __init__(self, meta, device, ordering: Optional[int] = None,
+                 with_host: bool = True):
+        """with_host=False builds the device side only (the pair blocks'
+        sums; StackedSparseSchur factors on its template's context)."""
         self.meta, self.device = meta, torch.device(device)
         self.solves = 0
         grp = meta.f_groups[0]
@@ -156,6 +159,8 @@ class SparseSchurContext:
                        for (bi, si, local) in e_slots]
         self.cols_flat = torch.as_tensor(
             grp["cols"].reshape(-1).astype(np.int64), device=self.device)
+        if not with_host:
+            return
 
         # ---- scalar CSC expansion (group-local order, n = kf t) ----
         bi_of, bj_of = pair_keys // kf, pair_keys % kf
@@ -250,3 +255,35 @@ def get_sparse_schur_context(meta, program, options) -> SparseSchurContext:
         meta._sparse_ctx = (key, SparseSchurContext(meta, program.device,
                                                     ordering=ordering))
     return meta._sparse_ctx[1]
+
+
+class StackedSparseSchur:
+    """SPARSE_SCHUR past the dense cap on the element axis (the JAX
+    package's sequential host callback under vmap): the pair blocks of
+    every element's S formed on the device over a stacked meta
+    (solvers/schur.py stack_meta; its pair keys sort element after
+    element, each element's in the template's order), one copy of all
+    elements' blocks, D_f^2 and rhs to the host, the template context's
+    native LDL^T refactored and solved an element in element order, one
+    copy back."""
+
+    def __init__(self, template: SparseSchurContext, meta_s, device):
+        self.host, self.B = template, meta_s.elements
+        self.stacked = SparseSchurContext(meta_s, device, with_host=False)
+
+    def reduced_solve(self, ops, rhs):
+        """y [B nf] = S^-1 rhs of every element, in rhs's precision."""
+        B, host = self.B, self.host
+        vals = self.stacked.block_values(ops)
+        nf = rhs.numel() // B
+        c = host.cols_flat
+        d_sq = (ops.D_f * ops.D_f).view(B, nf)[:, c]
+        vals_h, d_sq_h, rhs_h = to_host(vals, d_sq, rhs.view(B, nf)[:, c])
+        vals_h, d_sq_h, rhs_h = (a.reshape(B, -1)
+                                 for a in (vals_h, d_sq_h, rhs_h))
+        y_g = np.stack([host.host_solve(vals_h[e], d_sq_h[e], rhs_h[e])
+                        for e in range(B)])
+        y = torch.zeros((B, nf), dtype=rhs.dtype, device=rhs.device)
+        y[:, c] = torch.from_numpy(y_g).to(device=rhs.device,
+                                           dtype=rhs.dtype)
+        return y.reshape(-1)

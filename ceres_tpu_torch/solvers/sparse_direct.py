@@ -222,3 +222,37 @@ class SparseNormalCholeskySolver:
         else:
             x = np.full(self.ctx.n, np.nan)
         return torch.from_numpy(x).to(self.device)
+
+
+class BatchedSparseNormalCholesky:
+    """SPARSE_NORMAL_CHOLESKY on the element axis (the JAX package's
+    sequential host callback under vmap): `system(jac, res)` forms every
+    element's per-row Grams (row_grams, one einsum: the JAX package's
+    vmapped route calls no Gram kernel) and
+    -J^T r on the device from the stacked Jacobian, copies them to the
+    host once and assembles each element's CSC values on the template's
+    pattern; `solve(system, D)` copies D^2 once, refactors and solves the
+    elements one after another on the template's native LDL^T (NaN for an
+    element that breaks down) and copies the steps back once: the f64
+    step [B * n]."""
+
+    def __init__(self, ctx: SparseNormalCholeskyContext, B: int):
+        self.ctx, self.B = ctx, B
+
+    def system(self, jac, res):
+        B = self.B
+        grams = [row_grams(b.J) for b in jac.buckets]
+        rhs = -jac.rmatvec(res)
+        *flats, rhs_h = to_host(*grams, rhs)
+        values = [self.ctx.assemble([f.reshape(B, -1)[e] for f in flats])
+                  for e in range(B)]
+        return SparseNormalSystem(values, rhs_h.reshape(B, -1))
+
+    def solve(self, system: SparseNormalSystem, D):
+        (d_sq,) = to_host(D * D)
+        d_sq = d_sq.reshape(self.B, -1)
+        out = np.full((self.B, self.ctx.n), np.nan)
+        for e in range(self.B):
+            if self.ctx.factor_values(system.values[e], d_sq[e]):
+                out[e] = self.ctx.host_apply(system.rhs[e])
+        return torch.from_numpy(out.reshape(-1)).to(D.device)

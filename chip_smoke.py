@@ -37,8 +37,13 @@ the card, NCCL at world 1 and gloo at worlds 4 and 2 with the ranks
 sharing the card: bench.py's DENSE_SCHUR and ITERATIVE_SCHUR and the dry
 run at BAL-16-22106, the large case in the implicit mode and the SE2
 graph's sharded CGNR host loop, each rank's kernel and collective counts
-read inside the rank; its comment block names each gate) and on
-tests/test_solver_e2e.py's helloworld, Powell and bounded problems:
+read inside the rank; its comment block names each gate), slice 15's
+(`slice15_paths`: the rest of batch mode, each part in batch and
+pipeline mode on BA, pose-graph and curve-fit elements, held to the
+JAX package's batched run, with a launch check of CGNR and
+ITERATIVE_SCHUR at two batch sizes; its comment block names each gate)
+and on tests/test_solver_e2e.py's helloworld, Powell and bounded
+problems:
 
 1. checks each kernel against its plain PyTorch version on the card, at
    the shapes its path gives it: K1-K4 (slice 1, DENSE_SCHUR; K3 bit for
@@ -220,6 +225,7 @@ true, "device":
 any phase fails.
 """
 
+import collections
 import json
 import os
 import statistics
@@ -4348,6 +4354,552 @@ def pipeline_problems(bal_io, seeds=PIPELINE_SEEDS):
     return out
 
 
+# slice 15 (`slice15_paths`): the rest of batch mode. Each part solves
+# its elements with solve_batched(batch_mode="batch"), and the first
+# SLICE15_PIPELINE[kind] of them in pipeline mode (pipeline mode on all
+# 16 SE2 graphs and 1,024 curve fits took 57-176 s a part on the card,
+# over the phase's whole budget), the programs built before both
+# timings, every kernel count set to 0 just before the batch run and read
+# just after. Batch mode launches the kernels of SLICE15_KERNELS[part]
+# and no other: the JAX package's vmapped solve turns its Pallas kernels
+# off but two, K3 in its fused step's f32 dense solve and K8 in CGNR on
+# f32 buckets, and batch mode launches their counterparts once for all
+# elements (K3 once an LM iteration: its count is the batch's
+# iterations); the first call of each is captured and its kernel held
+# against its plain version on those inputs. Each kind's elements are
+# built once and reset to their starts before every run. Elements:
+#   ba: SLICE15_BA_ELEMENTS starts of one BA graph (SLICE15_BA_SHAPE,
+#     graph seed 11, pixel noise 0.5), perturbed by SLICE15_BA_PERTURB
+#     with seeds 1, 2, ...;
+#   implicit: SLICE15_IMPLICIT_ELEMENTS starts of a graph past the
+#     explicit cap (nf 4,608), perturbed so; at four observations a point
+#     it is loosely tied (at half its size neither package converges in
+#     100 LM iterations), so the part runs SLICE15_IMPLICIT_ITERATIONS
+#     and stops at that cap in both packages, in f64 (mixed, the JAX
+#     runs from moved starts spread by 1.9e-3 at that cap, and an H100's
+#     run lay at 3.71e-3 of the 3.73e-3 gate); its costs at the cap are
+#     held by spread, and its first step by the step gate: each element's
+#     first batch-mode step at its start (model cost change, step norm)
+#     within SLICE15_STEP_TOL of the JAX package's batched step, the CG
+#     count equal, and the same step in mixed precision (the f32 control)
+#     off that gate;
+#   se2: SLICE15_SE2_ELEMENTS SE2 pose graphs of SLICE15_SE2_POSES poses
+#     (io/g2o.py's generator, seeds 1, 2, ...: one structure, each its
+#     own noise);
+#   curve: SLICE15_CURVES fits of the tutorial's exponential to its 67
+#     points, element e's y moved by SLICE15_CURVE_NOISE N(0, 1) from
+#     numpy's default_rng(e), from m = c = 0.
+# Gates (SLICE15_REF, scripts/slice15_reference.py: the JAX package's
+# batched run on the CPU): "f64" parts take each element's LM and linear
+# iteration counts of the JAX run, its final cost within SLICE15_F64_TOL
+# of JAX's and of pipeline mode's; "spread" parts part by rounding (f32
+# order; dogleg's ladder on BA; the SE2 graph's f64 CGNR at eta 0.1,
+# ROADMAP.md section 3; the capped implicit runs): each final cost within
+# twice the part's spread (the largest
+# relative distance from JAX's batched run at the start of its runs from
+# the starts moved by a -> a s + s - 1, s in SLICE15_MOVES, and of its
+# pipeline run, whose single solves sum in another order), and at least
+# within the part's function tolerance (an LM run that stops on it fixes
+# its final cost to that relative resolution only), counts printed. Every
+# element ends as JAX's does (CONVERGENCE; the implicit part at its
+# cap). The launch check: torch.profiler's kernels (the host's launch
+# records) of batch solves
+# of 1 and 2 LM iterations at 3 CG iterations an LM iteration and of 1 at
+# 6 (min = max linear solver iterations; a warm-up of each first, then two
+# profiled runs, which must launch the same) on
+# SLICE15_LAUNCH_BATCHES elements, mixed CGNR (K8 a bucket a CG
+# iteration) on SE2 graphs of
+# SLICE15_LAUNCH_POSES poses and mixed ITERATIVE_SCHUR + SCHUR_JACOBI on
+# BATCH_BA_SHAPE: the kernels and the device-to-host copies (the host
+# reads) of a CG iteration and of an LM iteration outside the CG loop are
+# the same at every batch size.
+SLICE15_BA_ELEMENTS = 16
+SLICE15_BA_SHAPE = dict(num_cameras=16, num_points=2500,
+                        num_observations=10000)
+SLICE15_BA_PERTURB = dict(rotation_sigma=0.02, translation_sigma=0.1,
+                          point_sigma=0.05)
+SLICE15_IMPLICIT_ELEMENTS = 2
+SLICE15_IMPLICIT_SHAPE = dict(num_cameras=512, num_points=20000,
+                              num_observations=80000)
+SLICE15_IMPLICIT_ITERATIONS = 10
+SLICE15_PIPELINE = dict(ba=8, implicit=2, se2=2, curve=8)
+SLICE15_SE2_ELEMENTS = 16
+SLICE15_SE2_POSES = 1000
+SLICE15_CURVES = 1024
+SLICE15_CURVE_NOISE = 0.01
+SLICE15_MOVES = (1.0 - 1e-7, 1.0 + 1e-7)
+SLICE15_F64_TOL = 1e-9
+SLICE15_STEP_TOL = 1e-9
+SLICE15_FIRST_STEP_PARTS = ("IMPLICIT",)
+SLICE15_LAUNCH_BATCHES = (8, 64)
+SLICE15_LAUNCH_POSES = 100
+_MIXED = dict(use_mixed_precision_solves=True)
+# part: (elements, options, how it is gated)
+SLICE15_PARTS = {
+    "BA_IS_SCHUR_JACOBI_MIXED": ("ba", dict(
+        _MIXED, linear_solver_type="ITERATIVE_SCHUR",
+        preconditioner_type="SCHUR_JACOBI"), "spread"),
+    "BA_IS_CLUSTER_JACOBI": ("ba", dict(
+        linear_solver_type="ITERATIVE_SCHUR",
+        preconditioner_type="CLUSTER_JACOBI"), "f64"),
+    "BA_SPARSE_SCHUR": ("ba", dict(linear_solver_type="SPARSE_SCHUR"),
+                        "f64"),
+    "BA_DENSE_SCHUR_MIXED": ("ba", dict(
+        _MIXED, linear_solver_type="DENSE_SCHUR"), "spread"),
+    "BA_DENSE_SCHUR_REFINED": ("ba", dict(
+        _MIXED, linear_solver_type="DENSE_SCHUR",
+        max_num_refinement_iterations=2), "spread"),
+    "BA_DOGLEG_DENSE_SCHUR": ("ba", dict(
+        linear_solver_type="DENSE_SCHUR",
+        trust_region_strategy_type="DOGLEG"), "spread"),
+    "IMPLICIT": ("implicit", dict(
+        linear_solver_type="ITERATIVE_SCHUR",
+        preconditioner_type="SCHUR_JACOBI",
+        max_num_iterations=SLICE15_IMPLICIT_ITERATIONS), "spread"),
+    "SE2_CGNR": ("se2", dict(linear_solver_type="CGNR",
+                             preconditioner_type="JACOBI"), "spread"),
+    "SE2_CGNR_MIXED": ("se2", dict(_MIXED, linear_solver_type="CGNR",
+                                   preconditioner_type="JACOBI"), "spread"),
+    "SE2_SPARSE_NORMAL_CHOLESKY": ("se2", dict(
+        linear_solver_type="SPARSE_NORMAL_CHOLESKY"), "f64"),
+    "CURVE_DOGLEG": ("curve", dict(linear_solver_type="DENSE_QR",
+                                   trust_region_strategy_type="DOGLEG"),
+                     "f64"),
+    "CURVE_SUBSPACE_DOGLEG": ("curve", dict(
+        linear_solver_type="DENSE_QR", trust_region_strategy_type="DOGLEG",
+        dogleg_type="SUBSPACE_DOGLEG"), "f64"),
+    "CURVE_DNC_REFINED": ("curve", dict(
+        _MIXED, linear_solver_type="DENSE_NORMAL_CHOLESKY",
+        max_num_refinement_iterations=3), "spread"),
+}
+# the kernels a part's batch run launches (every other count stays 0)
+SLICE15_KERNELS = {
+    "BA_DENSE_SCHUR_MIXED": ("K3 chol_solve", "K3 chol_solve (shared)"),
+    "SE2_CGNR_MIXED": ("K8 bucket_jtjv",),
+}
+_ENUMS = {"linear_solver_type": "LinearSolverType",
+          "preconditioner_type": "PreconditionerType",
+          "trust_region_strategy_type": "TrustRegionStrategyType",
+          "dogleg_type": "DoglegType"}
+
+
+def slice15_elements(kind, pk, move=1.0, n=None, poses=None):
+    """[(problem, [parameter arrays])] of a slice-15 part in the package
+    whose modules `pk` holds (mod, bal_io, slam, g2o, tutorial); each
+    start moved by a -> a move + move - 1."""
+    import numpy as np
+    out = []
+    if kind in ("ba", "implicit"):
+        shape, count = ((SLICE15_BA_SHAPE, SLICE15_BA_ELEMENTS)
+                        if kind == "ba" else
+                        (SLICE15_IMPLICIT_SHAPE, SLICE15_IMPLICIT_ELEMENTS))
+        if n is not None:
+            shape, count = BATCH_BA_SHAPE, n
+        for seed in range(1, count + 1):
+            bal = pk["bal_io"].synthetic_bal_problem(**shape, seed=11,
+                                                     pixel_noise=0.5)
+            bal.perturb(**SLICE15_BA_PERTURB, seed=seed)
+            problem, cams, pts = pk["bal_io"].build_bal_ceres_problem(bal)
+            out.append((problem, list(cams) + list(pts)))
+    elif kind == "se2":
+        for seed in range(1, (n or SLICE15_SE2_ELEMENTS) + 1):
+            poses_, edges, _ = pk["g2o"].synthetic_pose_graph_2d(
+                num_poses=poses or SLICE15_SE2_POSES, seed=seed)
+            problem, pos, yaws = pk["slam"].build_pose_graph_2d_problem(
+                poses_, edges)
+            out.append((problem, [pos[i] for i in sorted(pos)]
+                        + [yaws[i] for i in sorted(yaws)]))
+    else:
+        data = np.asarray(pk["tutorial"].CURVE_DATA)
+        mod = pk["mod"]
+        for e in range(n or SLICE15_CURVES):
+            ys = data[:, 1] + SLICE15_CURVE_NOISE * np.random.default_rng(
+                e).standard_normal(len(data))
+            m, c = np.array([0.0]), np.array([0.0])
+            problem = mod.Problem()
+            for x, y in zip(data[:, 0], ys):
+                problem.add_residual_block(mod.AutoDiffCostFunction(
+                    pk["tutorial"].ExponentialResidual(float(x), float(y)),
+                    1, [1, 1]), None, m, c)
+            out.append((problem, [m, c]))
+    if move != 1.0:
+        for _, arrs in out:
+            for a in arrs:
+                a[...] = a * move + (move - 1.0)
+    return out
+
+
+def slice15_options(mod, kind, kw, **extra):
+    """A part's SolverOptions in package `mod`."""
+    o = dict(max_num_iterations=50, fused_iterations=True,
+             function_tolerance=1e-12 if kind == "curve" else 1e-9)
+    o.update({k: (getattr(mod, _ENUMS[k])[v] if k in _ENUMS else v)
+              for k, v in kw.items()})
+    o.update(extra)
+    return mod.SolverOptions(**o)
+
+
+# scripts/slice15_reference.py's output (the JAX package on the CPU of
+# the H100 machine): per part each element's [LM, linear] iteration
+# counts, final cost and termination, and the spread (None for the f64
+# parts)
+SLICE15_REF_FILE = os.path.join("scripts", "slice15_reference.json")
+
+
+def slice15_reference():
+    with open(os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           SLICE15_REF_FILE)) as f:
+        return json.load(f)
+
+
+def batch_first_steps(options, problems):
+    """The port's batch-mode step at each element's start and the
+    initial radius (what batched_tr_solve's first iteration computes):
+    per element (model cost change, step norm, linear iterations)."""
+    import torch
+    from ceres_tpu_torch import batch as batch_mod
+    from ceres_tpu_torch.program import CompiledProgram
+    programs = [CompiledProgram.get_cached(p, options) for p in problems]
+    data = batch_mod._Batch(programs)
+    step = batch_mod.make_batched_step(programs[0], options).bind(data)
+    x0 = data.x0
+    art = step.linearize(x0, None, first=True, cost=step.cost(x0))
+    radius = torch.full((x0.shape[0],), options.initial_trust_region_radius,
+                        dtype=torch.float64, device=x0.device)
+    delta, mcc, its = step.solve(art, radius)
+    return [(float(m), float(n), int(i)) for m, n, i in zip(
+        mcc, torch.linalg.vector_norm(delta, dim=1), its)]
+
+
+def slice15_kernel_checks(captured, check):
+    """Hold each kernel a batch run launched against its plain version
+    on the inputs of its first call there (slice15_paths' captures, which
+    it empties): K3 on every element's reduced system at once, K8 on each
+    bucket of the elements' stacked Jacobian."""
+    import torch
+    from ceres_tpu_torch.ops import kernels as kern
+    runs = []
+    if "K3" in captured:
+        S, rhs = captured.pop("K3")
+        nb, m = S.shape[0], S.shape[-1]
+        runs.append((
+            f"K3 chol_solve (batch mode: {nb} systems, m {m}, one launch)",
+            lambda: kern.chol_solve(S, rhs),
+            lambda: kern.chol_solve_plain(S, rhs), K3_LIMIT,
+            "ceres_tpu_torch/csrc/chol.cu",
+            "ceres_tpu/ops/pallas_kernels.py:190", (S, rhs),
+            nb * (m ** 3 / 3 + 2 * m * m),
+            ("torch.linalg.solve(S, rhs)",
+             lambda: torch.linalg.solve(S, rhs))))
+    if "K8" in captured:
+        jac, v = captured.pop("K8")
+        for bi, b in enumerate(jac.buckets):
+            J, cols = b.J, b.cols32
+            n, r, t = J.shape
+            runs.append((
+                f"K8 bucket_jtjv (batch mode: bucket {bi} of the stacked "
+                f"Jacobian, [{n}, {r}, {t}])",
+                lambda J=J, cols=cols: kern.bucket_jtjv(J, v, cols),
+                lambda J=J, cols=cols: kern.bucket_jtjv_plain(J, v, cols),
+                F32_LIMIT, "ceres_tpu_torch/csrc/jtjv.cu",
+                "ceres_tpu/ops/pallas_kernels.py:111", (J, v, cols),
+                4 * n * r * t, None))
+    for (name, kernel, plain, limit, source, replaces, inputs, flops,
+         library) in runs:
+        try:
+            check_kernel(name, kernel, plain, lambda g, w: [rel_err(g, w)],
+                         limit, source, replaces, inputs, flops,
+                         F32_FLOP_PER_S, library=library)
+            ok = True
+        except SystemExit:
+            ok = False
+        check(ok, f"{name}: kernel and plain version agree")
+
+
+def slice15_step_gate(part, want, elems, starts, options, check):
+    """The first batch-mode step at each element's start in f64 and in
+    mixed precision (options: the two SolverOptions) against the JAX
+    package's batched f64 step `want` ([model cost change, step norm, CG
+    iterations] an element): the f64 step within SLICE15_STEP_TOL with
+    JAX's CG count, the f32 control off the gate."""
+    steps = []
+    for o in options:
+        for (_, arrs), st in zip(elems, starts):
+            for a, a0 in zip(arrs, st):
+                a[...] = a0
+        steps.append(batch_first_steps(o, [p for p, _ in elems]))
+
+    def err(got):
+        return max(max(abs(g[0] - w[0]) / abs(w[0]),
+                       abs(g[1] - w[1]) / abs(w[1]))
+                   for g, w in zip(got, want))
+    if not want:
+        check(False, f"{part}: the reference holds the JAX first steps")
+        return
+    print(f"SLICE15 {part} first step at the start (model cost change, "
+          f"step norm, CG): f64 {steps[0]}, f32 control {steps[1]}, JAX "
+          f"{want}; largest relative distance to JAX: f64 "
+          f"{err(steps[0]):.3e}, f32 {err(steps[1]):.3e} (gate "
+          f"{SLICE15_STEP_TOL:.0e})", flush=True)
+    check(err(steps[0]) <= SLICE15_STEP_TOL
+          and [g[2] for g in steps[0]] == [w[2] for w in want],
+          f"{part}: first f64 step within {SLICE15_STEP_TOL:.0e} of JAX's, "
+          f"its CG count JAX's")
+    check(err(steps[1]) > SLICE15_STEP_TOL,
+          f"{part}: the f32 control is off the step gate")
+
+
+def slice15_paths(counters, by_path, device="cuda"):
+    """Slice 15's phase: each of SLICE15_PARTS in batch and pipeline mode
+    with its gates, then the launch check (the comment above). Prints
+    each part's walls and the phase's time; raises once every part has
+    printed its numbers, if one was off its gate."""
+    import numpy as np
+    import torch
+    import ceres_tpu_torch as ctt
+    from ceres_tpu_torch import batch as batch_mod
+    from ceres_tpu_torch.examples import slam, tutorial
+    from ceres_tpu_torch.io import bal as bal_io
+    from ceres_tpu_torch.io import g2o
+    from ceres_tpu_torch.ops import kernels as kern
+    from ceres_tpu_torch.program import CompiledProgram
+    pk = dict(mod=ctt, bal_io=bal_io, slam=slam, g2o=g2o, tutorial=tutorial)
+    fails, t_phase = [], time.time()
+    refs = slice15_reference()
+    on_card = torch.device(device).type == "cuda"
+    captured = {}
+
+    def capturing(key, fn):
+        """fn, with the inputs of its first call kept under `key`."""
+        def call(*args):
+            if key not in captured:
+                captured[key] = tuple(a.clone() if isinstance(
+                    a, torch.Tensor) else a for a in args)
+            return fn(*args)
+        return call
+
+    def sync():
+        if torch.device(device).type == "cuda":
+            torch.cuda.synchronize()
+
+    def check(ok, msg):
+        print(("  ok: " if ok else "  FAIL: ") + msg, flush=True)
+        if not ok:
+            fails.append(msg)
+
+    walls, built = {}, {}
+    for part, (kind, kw, how) in SLICE15_PARTS.items():
+        if kind not in built:
+            elems = slice15_elements(kind, pk)
+            built.clear()           # one kind's elements alive at a time
+            built[kind] = (elems, [[a.copy() for a in arrs]
+                                   for _, arrs in elems])
+        elems, starts = built[kind]
+        npipe = SLICE15_PIPELINE[kind]
+        probs = [p for p, _ in elems]
+        opts = {mode: slice15_options(ctt, kind, kw, batch_mode=mode,
+                                      device=device)
+                for mode in ("batch", "pipeline")}
+        for p in probs:
+            CompiledProgram.get_cached(p, opts["batch"])
+        out = {}
+        for mode, subset in (("batch", probs), ("pipeline", probs[:npipe])):
+            for (_, arrs), st in zip(elems, starts):
+                for a, a0 in zip(arrs, st):
+                    a[...] = a0
+            if mode == "batch":
+                batch_mod.chol_solve = capturing("K3", kern.chol_solve)
+                batch_mod.jac_normal_matvec = capturing(
+                    "K8", kern.jac_normal_matvec)
+            for fn in counters.values():
+                fn.launches = 0
+            sync()
+            t0 = time.time()
+            try:
+                ss = ctt.solve_batched(opts[mode], subset)
+                sync()
+            finally:
+                batch_mod.chol_solve = kern.chol_solve
+                batch_mod.jac_normal_matvec = kern.jac_normal_matvec
+            out[mode] = (time.time() - t0, ss)
+            if mode == "batch":
+                by_path[f"SLICE15_{part}"] = {
+                    n: fn.launches for n, fn in counters.items()}
+        (wb, bs), (wp, ps) = out["batch"], out["pipeline"]
+        walls[part] = (wb, len(bs), wp, len(ps))
+        launched = {n: c for n, c in by_path[f"SLICE15_{part}"].items() if c}
+        counts = [(s.num_iterations, s.num_linear_solver_iterations)
+                  for s in bs]
+        pcounts = [(s.num_iterations, s.num_linear_solver_iterations)
+                   for s in ps]
+        cb = np.array([s.final_cost for s in bs])
+        cp = np.array([s.final_cost for s in ps])
+        ref = refs[part]
+        cj = np.asarray(ref.get("costs", cb))
+        terms = [s.termination_type.name for s in bs]
+        print(f"SLICE15 {part} ({len(bs)} {kind} elements, {how}): batch "
+              f"wall {wb:.4f} s ({wb / len(bs):.5f} s an element), "
+              f"pipeline wall {wp:.4f} s on the first {len(ps)} "
+              f"({wp / len(ps):.5f} s an element); counts (LM, linear) "
+              f"batch {counts}, pipeline {pcounts}, JAX {ref.get('counts')};"
+              f" terminations {sorted(set(terms))}; largest relative cost "
+              f"distance to JAX {np.max(np.abs(cb - cj) / cj):.3e}, to "
+              f"pipeline {np.max(np.abs(cb[:len(cp)] - cp) / cp):.3e}; "
+              f"launches {launched}", flush=True)
+        check(terms == ref.get("terminations")
+              and [s.termination_type.name for s in ps] == terms[:len(ps)]
+              and all(s.is_solution_usable() for s in bs + ps),
+              f"{part}: every element ends as JAX's does")
+        want_k = SLICE15_KERNELS.get(part, ()) if on_card else ()
+        check(set(launched) == set(want_k),
+              f"{part}: batch mode launches {list(want_k) or 'no kernel'}"
+              f" and no other")
+        if "K3 chol_solve" in want_k:
+            check(launched.get("K3 chol_solve") == max(
+                s.num_iterations for s in bs),
+                f"{part}: K3 once an LM iteration for all {len(bs)} "
+                f"elements")
+        if on_card:
+            slice15_kernel_checks(captured, check)
+        captured.clear()
+        if part in SLICE15_FIRST_STEP_PARTS:
+            slice15_step_gate(part, ref.get("first_steps"), elems, starts,
+                              [slice15_options(
+                                  ctt, kind, kw, batch_mode="batch",
+                                  device=device,
+                                  use_mixed_precision_solves=f32)
+                               for f32 in (False, True)], check)
+        check(all(f"[batch]" in s.message for s in bs)
+              and all(f"[pipeline]" in s.message for s in ps),
+              f"{part}: the modes asked for")
+        if how == "f64":
+            check([list(c) for c in counts] == ref.get("counts"),
+                  f"{part}: counts the JAX batched run's")
+            check(bool(np.all(np.abs(cb - cj) <= SLICE15_F64_TOL * cj)),
+                  f"{part}: costs within {SLICE15_F64_TOL} of JAX's")
+            check(bool(np.all(np.abs(cb[:len(cp)] - cp)
+                              <= SLICE15_F64_TOL * cp)),
+                  f"{part}: costs within {SLICE15_F64_TOL} of pipeline's")
+        else:
+            tol = max(2.0 * (ref.get("spread") or 0.0),
+                      opts["batch"].function_tolerance)
+            check(bool(np.all(np.abs(cb - cj) <= tol * cj)),
+                  f"{part}: costs within twice JAX's spread or the "
+                  f"function tolerance ({tol:.3e}) of JAX's")
+        del out, bs, ps
+    built.clear()
+    t_parts = time.time() - t_phase
+
+    # ---- the launch check ----
+    batches = SLICE15_LAUNCH_BATCHES if torch.device(device).type == \
+        "cuda" else ()
+    for label, kind, kw in (
+            ("CGNR", "se2", dict(_MIXED, linear_solver_type="CGNR",
+                                 preconditioner_type="JACOBI")),
+            ("ITERATIVE_SCHUR", "ba", dict(
+                _MIXED, linear_solver_type="ITERATIVE_SCHUR",
+                preconditioner_type="SCHUR_JACOBI"))):
+        kernels, names = {}, {}
+        for B in batches:
+            elems = slice15_elements(kind, pk, n=B,
+                                     poses=SLICE15_LAUNCH_POSES)
+            starts = [[a.copy() for a in arrs] for _, arrs in elems]
+            for iters, cg in ((1, 3), (1, 6), (2, 3)):
+                o = slice15_options(
+                    ctt, kind, kw, batch_mode="batch", device=device,
+                    max_num_iterations=iters, gradient_tolerance=1e-300,
+                    function_tolerance=1e-300, parameter_tolerance=1e-300,
+                    min_linear_solver_iterations=cg,
+                    max_linear_solver_iterations=cg)
+                # a warm-up (a new configuration's first solve builds its
+                # step and launches its set-up kernels), then two profiled
+                # runs. Kernels are counted where the host launches them
+                # (the profiler's cudaLaunchKernel / cudaLaunchKernelExC
+                # records): the profiler now and then drops the device
+                # records of the first kernels after it starts (on an
+                # H100, 2 of 144 profiled runs lacked the 23 kernels of a
+                # solve's first cost evaluation while their host records
+                # and every CPU op were those of the other runs), so a
+                # device count is printed, not gated
+                runs = []
+                for rep_ in range(3):
+                    for (_, arrs), st in zip(elems, starts):
+                        for a, a0 in zip(arrs, st):
+                            a[...] = a0
+                    sync()
+                    if rep_ == 0:
+                        ctt.solve_batched(o, [p for p, _ in elems])
+                        continue
+                    with torch.profiler.profile(activities=[
+                            torch.profiler.ProfilerActivity.CUDA]) as prof:
+                        ss = ctt.solve_batched(o, [p for p, _ in elems])
+                        sync()
+                    ev = prof.events()
+                    host = sum(1 for e in ev
+                               if e.device_type == torch.autograd.DeviceType.CPU
+                               and e.name.startswith(("cudaLaunchKernel",
+                                                      "cuLaunchKernel")))
+                    dev = [e.name for e in ev if e.device_type
+                           == torch.autograd.DeviceType.CUDA]
+                    kern = collections.Counter(
+                        n for n in dev if not n.startswith(("Memcpy",
+                                                            "Memset")))
+                    runs.append((host, len([n for n in dev if n.startswith(
+                        "Memcpy DtoH")]), sum(kern.values()), kern))
+                if len({r[:3] for r in runs}) > 1:
+                    print(f"  launch check {label} B={B} ({iters}, {cg}): "
+                          f"(host launches, device-to-host copies, device "
+                          f"kernel records) of the runs "
+                          f"{[r[:3] for r in runs]}", flush=True)
+                check(len({r[0] for r in runs}) == 1
+                      and all(r[2] <= r[0] for r in runs),
+                      f"launch check {label} B={B} ({iters}, {cg}): the "
+                      f"profiled runs launch the same kernels")
+                kernels[(B, iters, cg)] = (runs[0][0],
+                                           max(r[1] for r in runs))
+                names[(B, iters, cg)] = max(runs, key=lambda r: r[2])[3]
+                check(all(s.num_iterations == iters
+                          and s.num_linear_solver_iterations == iters * cg
+                          for s in ss),
+                      f"launch check {label} B={B}: {iters} LM and "
+                      f"{iters * cg} CG iterations an element")
+        # (kernels, device-to-host copies) a CG iteration and an LM
+        # iteration outside the CG loop
+        per = {B: tuple(
+            ((k[(B, 1, 6)][i] - k[(B, 1, 3)][i]) / 3,
+             k[(B, 2, 3)][i] - k[(B, 1, 3)][i]
+             - (k[(B, 1, 6)][i] - k[(B, 1, 3)][i]))
+            for i in (0, 1)) for B in batches for k in (kernels,)}
+        print(f"SLICE15 launch check {label} (torch.profiler, kernels "
+              f"launched by the host; device-to-host copies): " + ", ".join(
+                  f"{B} elements: {kernels[(B, 1, 3)]} for a 1-iteration "
+                  f"solve, {per[B][0][0]} kernels and {per[B][1][0]} "
+                  f"copies a CG iteration, {per[B][0][1]} kernels and "
+                  f"{per[B][1][1]} copies an LM iteration outside the CG "
+                  f"loop" for B in batches), flush=True)
+        same = not batches or (len(set(per.values())) == 1
+                               and per[batches[0]][0][0] > 0)
+        if not same:        # which kernels a batch size changes
+            for a, b_ in (((1, 6), (1, 3)), ((2, 3), (1, 3))):
+                d = {B: names[(B,) + a] - names[(B,) + b_]
+                     for B in batches}
+                print(f"  launch check {label}, kernels of {a} less "
+                      f"{b_}, by batch size: "
+                      + "; ".join(f"{B}: {sorted(d[B].items())}"
+                                  for B in batches), flush=True)
+        check(same, f"{label}: kernels and host copies a CG iteration and "
+              "an LM iteration independent of the batch")
+    took = time.time() - t_phase
+    print(f"slice15_paths: {took:.1f} s (the parts {t_parts:.1f} s, the "
+          f"launch check {took - t_parts:.1f} s; batch walls on B elements / "
+          f"pipeline walls on the first n: " + ", ".join(
+              f"{p} {b:.3f} s / {nb} : {q:.3f} s / {nq}"
+              for p, (b, nb, q, nq) in walls.items()) + ")", flush=True)
+    if fails:
+        raise SystemExit(f"slice15_paths: {len(fails)} checks failed: "
+                         + "; ".join(fails))
+
+
 def main():
     import numpy as np
     import torch
@@ -5417,6 +5969,7 @@ def main():
     sharded_paths(counters, by_path, smi, problem, reset_state, meta,
                   big_problem, reset_big,
                   detect_schur_structure(big_program, big_options))
+    slice15_paths(counters, by_path)
 
     # tests/test_solver_e2e.py's helloworld, Powell and bounded problems
     # on the card, at those tests' tolerances

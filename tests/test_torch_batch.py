@@ -274,16 +274,30 @@ def test_registry_not_reused_across_graphs(mode):
 
 
 def test_out_of_slice_batch_configuration_raises():
-    """Batch mode serves LM with DENSE_QR, DENSE_NORMAL_CHOLESKY (f64) and
-    DENSE_SCHUR; any other fused-capable configuration names item 49 and
-    never runs pipeline mode quietly."""
+    """The configurations that batch mode once refused (CGNR, DOGLEG and
+    mixed DENSE_QR) now solve in batch mode: no element raises or falls
+    back to pipeline mode, and each element's LM and linear iteration
+    counts and termination are those of the JAX package's batched run,
+    its final cost within 1e-9 relative of JAX's."""
     for kw in (dict(linear_solver_type=ctt.LinearSolverType.CGNR),
                dict(trust_region_strategy_type=ctt.TrustRegionStrategyType
                     .DOGLEG),
                dict(use_mixed_precision_solves=True)):
         opts = curve_options(ctt, batch_mode="batch", **kw)
-        with pytest.raises(NotImplementedError, match="item 49"):
-            ctt.solve_batched(opts, [b[0] for b in curve_problems(ctt)])
+        ss = ctt.solve_batched(opts, [b[0] for b in curve_problems(ctt)])
+        jkw = {k: (getattr(ct, type(v).__name__)[v.name]
+                   if hasattr(v, "name") else v) for k, v in kw.items()}
+        js = ct.solve_batched(curve_options(ct, batch_mode="batch", **jkw),
+                              [b[0] for b in curve_problems(ct)])
+        for s, j in zip(ss, js):
+            assert "batched fused mode [batch]" in s.message
+            assert s.termination_type == ctt.TerminationType.CONVERGENCE
+            assert (s.num_iterations, s.num_linear_solver_iterations,
+                    s.termination_type.name) == (
+                j.num_iterations, j.num_linear_solver_iterations,
+                j.termination_type.name)
+            np.testing.assert_allclose(s.final_cost, j.final_cost,
+                                       rtol=1e-9)
 
 
 def test_batch_mode_validated():

@@ -47,6 +47,23 @@ def test_k3_plain_matches_jax_and_f64(m):
     assert rel(y, y_jax) < 1e-4
 
 
+@pytest.mark.parametrize("m", [3, 36, 144])
+def test_k3_plain_batch_matches_single_solves(m):
+    """The plain K3 on a batch of systems [B, m, m] (batch mode's
+    reduced solves) gives each system's single-solve bits; an indefinite
+    element gives NaN there alone."""
+    systems = [_spd(m, seed) for seed in range(4)]
+    S = torch.as_tensor(np.stack([a for a, _ in systems]))
+    b = torch.as_tensor(np.stack([v for _, v in systems]))
+    S[2, 0, 0] = -1.0
+    y = chol_solve(S, b)
+    for i in range(4):
+        want = chol_solve_plain(S[i], b[i])
+        assert torch.equal(y[i], want) or (
+            i == 2 and torch.isnan(y[i]).all() and torch.isnan(want).all())
+    assert not torch.isnan(y[[0, 1, 3]]).any()
+
+
 def test_k3_indefinite_gives_nan():
     S = torch.as_tensor(np.diag([1.0, -1.0, 2.0]).astype(np.float32))
     y = chol_solve(S, torch.ones(3))
@@ -109,6 +126,25 @@ def test_cuda_k3_bit_equal_to_plain(m):
     y64 = np.linalg.solve(S.double().cpu().numpy(),
                           b.double().cpu().numpy())
     assert rel(got.cpu().numpy(), y64) < 1e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [3, 144, 223, 224, 512])
+def test_cuda_k3_batch_one_launch_bit_equal_to_plain(m):
+    """K3 on a batch of 16 systems in one launch (both variants) gives
+    the plain version's bits on each."""
+    _cuda_or_skip()
+    systems = [_spd(m, seed) for seed in range(16)]
+    S = torch.as_tensor(np.stack([a for a, _ in systems])).cuda()
+    b = torch.as_tensor(np.stack([v for _, v in systems])).cuda()
+    want = chol_solve_plain(S, b)
+    total0 = chol_solve.launches
+    got = chol_solve(S, b)
+    torch.cuda.synchronize()
+    assert chol_solve.launches == total0 + 1
+    assert torch.equal(got, want)
+    if chol_variant(m) == "shared":
+        assert torch.equal(_chol_launch(S, b, "global"), want)
 
 
 @pytest.mark.cuda

@@ -41,8 +41,9 @@ one of two modes, SolverOptions.batch_mode:
     else "pipeline".
 
 Contract (as in the JAX package): all problems share the same structure:
-block sizes, residual counts, cost and loss classes (and loss scalars,
-which the port keys its buckets by) and sparsity, i.e. the same
+block sizes, residual counts, cost and loss classes (and a bucket's
+loss scalars where they are one set; per-row scalars are data) and
+sparsity, i.e. the same
 construction code with different numeric data. The per-problem constant
 sets (`program_constants`) must agree in name, shape and dtype, and every
 integer constant (the index layouts) must be bitwise equal; float data may
@@ -70,7 +71,7 @@ from .minimizers.fused import TERMINATION_BY_CODE, fused_tr_solve
 from .ops.bsr import (BlockJacobian, BucketJacobian, GroupMeta, RVec,
                       column_sum_for)
 from .ops.kernels import MAX_M, chol_solve, group_grams, jac_normal_matvec
-from .program import CompiledProgram, _loss_key
+from .program import CompiledProgram, bucket_loss_key, rows_loss
 from .solver import subspace_model, subspace_solve
 from .solvers import schur_fused
 from .solvers.cg import _edot, conjugate_gradients_batched
@@ -122,7 +123,7 @@ def _signature(program):
     the state and the key of every bucket (cost and loss class, loss
     scalars, slots)."""
     buckets = tuple(
-        (bk.cost.bucket_key(), _loss_key(bk.loss), bk.n, bk.r, bk.jac_mode,
+        (bk.cost.bucket_key(), bucket_loss_key(bk), bk.n, bk.r, bk.jac_mode,
          tuple((sl.variable, sl.amb_size, sl.tangent_size,
                 sl.manifold.bucket_key() if sl.manifold is not None
                 else None, sl.amb_gid) for sl in bk.slots))
@@ -135,12 +136,15 @@ def _signature(program):
 
 def program_constants(program) -> dict:
     """The per-problem constants of a program, by name, as numpy: each
-    bucket's data fields (float: data; integer: structure), its rows'
-    residual-block indices and each slot's block and column maps."""
+    bucket's data fields (float: data; integer: structure) and per-row
+    loss scalars (data), its rows' residual-block indices and each slot's
+    block and column maps."""
     out = {}
     for i, bk in enumerate(program.buckets):
         for name, v in bk.data.items():
             out[f"b{i}.data.{name}"] = v.detach().cpu().numpy()
+        for name, v in (bk.loss_attrs or {}).items():
+            out[f"b{i}.lossattr.{name}"] = v
         out[f"b{i}.rows"] = bk.orig_indices
         for j, sl in enumerate(bk.slots):
             out[f"b{i}.s{j}.blocks"] = sl.amb_local.cpu().numpy()
@@ -259,18 +263,26 @@ class _Batch:
     """The elements' data, stacked along a leading axis: per bucket each
     data field [B * n, ...] (rows of element 0 first), stacked on the host
     from the constants the structure check read and copied to the device
-    once a field, so binding launches no kernel a element; and the
-    initial states [B, num_ambient], one copy."""
+    once a field, so binding launches no kernel a element, and the loss
+    over those rows (`losses`: the bucket's, or its class over the
+    elements' per-row scalars stacked the same way); and the initial
+    states [B, num_ambient], one copy."""
 
     def __init__(self, programs):
         t = programs[0]
-        self.data = []
+        self.data, self.losses = [], []
         for i, bk in enumerate(t.buckets):
             self.data.append({
                 name: torch.as_tensor(np.concatenate(
                     [_constants(pr)[f"b{i}.data.{name}"] for pr in programs]),
                     device=t.device)
                 for name in bk.data})
+            self.losses.append(rows_loss(bk.loss_proto, None if
+                                         bk.loss_attrs is None else {
+                name: np.concatenate(
+                    [_constants(pr)[f"b{i}.lossattr.{name}"]
+                     for pr in programs])
+                for name in bk.loss_attrs}, device=t.device))
         self.x0 = torch.as_tensor(np.stack(
             [pr.initial_state_numpy() for pr in programs]), device=t.device)
 
@@ -406,9 +418,10 @@ class _BatchedBase:
         B = x.shape[0]
         total = torch.full((B,), self.program.fixed_cost,
                            dtype=torch.float64, device=x.device)
-        for bk, data in zip(self.program.buckets, self.batch.data):
+        for bk, data, loss in zip(self.program.buckets, self.batch.data,
+                                  self.batch.losses):
             r = CompiledProgram.rows_residuals(bk, self.params(bk, x), data)
-            c, _, _ = correct_residuals_and_jacobian(bk.loss, r, None)
+            c, _, _ = correct_residuals_and_jacobian(loss, r, None)
             total = total + c.reshape(B, bk.n).sum(dim=1)
         return total
 
@@ -420,19 +433,20 @@ class _BatchedBase:
         CompiledProgram.linearize_fn_mixed)."""
         f32 = self.mixed if f32 is None else f32
         B, out = x.shape[0], []
-        for bk, data in zip(self.program.buckets, self.batch.data):
+        for bk, data, loss in zip(self.program.buckets, self.batch.data,
+                                  self.batch.losses):
             ps = self.params(bk, x)
             if f32:
                 r64 = CompiledProgram.rows_residuals(bk, ps, data)
                 J = CompiledProgram.rows_linearize(
                     bk, [p.float() for p in ps], data, torch.float32)[1]
                 _, rc, Jc = correct_residuals_and_jacobian(
-                    bk.loss, r64.float(), J.float())
+                    loss, r64.float(), J.float())
                 rc, Jc = rc.float(), Jc.float()
             else:
                 r, J = CompiledProgram.rows_linearize(bk, ps, data,
                                                       torch.float64)
-                _, rc, Jc = correct_residuals_and_jacobian(bk.loss, r, J)
+                _, rc, Jc = correct_residuals_and_jacobian(loss, r, J)
             out.append((rc.reshape(B, bk.n, bk.r),
                         Jc.reshape(B, bk.n, bk.r, -1)))
         return out

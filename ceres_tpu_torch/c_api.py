@@ -140,14 +140,18 @@ def _loss_class(loss_ptr: int):
 
         def evaluate(self, s):
             """(rho, rho', rho'') of s, the C function on each entry on
-            the host (one copy each way)."""
+            the host (one copy each way). user_data is one pointer, or one
+            a residual block where a bucket's blocks carry differing ones
+            (program.py loss_attrs)."""
             s = torch.as_tensor(s)
             flat = s.detach().to("cpu", torch.float64).numpy().reshape(-1)
+            uds = np.broadcast_to(np.asarray(
+                torch.as_tensor(self.user_data).cpu(), dtype=np.float64),
+                s.shape).reshape(-1)
             out = np.zeros((flat.size, 3), dtype=np.float64)
             buf = (c_double * 3)()
-            ud = c_void_p(self.user_data)
             for i, si in enumerate(flat):
-                lfn(ud, float(si), buf)
+                lfn(c_void_p(int(uds[i])), float(si), buf)
                 out[i] = buf[:]
             trip = torch.from_numpy(out).to(s.device, s.dtype)
             trip = trip.reshape(tuple(s.shape) + (3,))

@@ -8,8 +8,9 @@
 // the bucket's per-row program and ops/lin_auto.py emits it as a struct
 //   struct Chain {
 //     static constexpr int TE, TF, R, NT, EO, FO, ND;
+//     template <class LP>
 //     static __device__ void run(const float* xf_c, const float* xe_n,
-//                                const float* d, const LossParams& lp,
+//                                const float* d, const LP& lp,
 //                                bool valid, float (&rv)[R],
 //                                float (&J)[R][NT]);
 //   };
@@ -77,6 +78,12 @@
 // overlap (a persistent grid that could overlap them is slower:
 // scripts/k5_variants.py). Past the card's 227 KB (a point on more than
 // ~1,200 lanes at TE 3, TF 10) the launch is refused.
+// The loss's scalars, lp.p[i] in the chain, are read through LossRow at
+// the lane's row of lrows: [ne * k, nlp] for per-row loss parameters
+// (the chunk layout's gather of the bucket's stacked scalars, a masked
+// lane carrying a valid lane's), or the bucket's one set at row stride 0.
+// (One set by value as a kernel argument took the same time and gave the
+// same bits: scripts/loss_paths_ab.py, PERF.md section 6.)
 // Registers of the quaternion unit for sm_90a (scripts/time_kernels.py,
 // cuobjdump -res-usage): lane_kernel 64 (72 with HuberLoss), 16 B of
 // stack, no spill to local memory; ftf_partial_kernel 30; ftf_final_kernel
@@ -89,11 +96,9 @@
 #include <math.h>
 #include <stdint.h>
 
-constexpr int LIN_AUTO_MAX_LOSS_PARAMS = 16;
-
-// a robust loss's scalars (kernel arguments: one build per loss class)
-struct LossParams {
-  float p[LIN_AUTO_MAX_LOSS_PARAMS];
+// one lane's loss scalars in device memory
+struct LossRow {
+  const float* __restrict__ p;
 };
 
 namespace lin_auto {
@@ -137,7 +142,8 @@ template <class C>
 __global__ void __launch_bounds__(THREADS)
     lane_kernel(const float* __restrict__ xf, const float* __restrict__ xe,
                 const int* __restrict__ cam, const float* __restrict__ mask,
-                const float* __restrict__ dat, LossParams lp,
+                const float* __restrict__ dat,
+                const float* __restrict__ lrows, int lstride,
                 const float* __restrict__ se_in, int first, int use_scaling,
                 int ne, int k, int nf, int pb, const int* __restrict__ pos,
                 float* __restrict__ ete, float* __restrict__ ge,
@@ -178,8 +184,8 @@ __global__ void __launch_bounds__(THREADS)
       const float mk = mask[row];
       const bool valid = mk > 0.5f;
       const int c = cam[row];
-      C::run(xf + (size_t)c * TF, xe + (size_t)n * TE, dat + row * ND, lp,
-             valid, rv, J);
+      C::run(xf + (size_t)c * TF, xe + (size_t)n * TE, dat + row * ND,
+             LossRow{lrows + row * lstride}, valid, rv, J);
 #pragma unroll
       for (int s = 0; s < R; ++s) {
         rv[s] *= mk;
@@ -426,27 +432,27 @@ __global__ void ftf_final_kernel(const float* __restrict__ partial,
 
 }  // namespace lin_auto
 
-// The three launches of K5 on `stream`; lp_host holds the loss's nlp
-// scalars (host memory); pos [ne*k] and off [nchunks*kf + 1] are the
-// camera plan, q [rows, NQ] scratch in its order and partial [nchunks,
-// kf*NQ] scratch. Returns cudaGetLastError(), or cudaErrorInvalidValue
-// for arguments it refuses (shared memory past the card's, A unaligned).
+// The three launches of K5 on `stream`; lrows (device memory) holds the
+// loss's nlp scalars, a lane's at lrows + (n * k + j) * lstride (lstride
+// 0: one set for every lane; unread when nlp is 0); pos [ne*k] and off
+// [nchunks*kf + 1] are the camera plan, q [rows, NQ] scratch in its order
+// and partial [nchunks, kf*NQ] scratch. Returns cudaGetLastError(), or
+// cudaErrorInvalidValue for arguments it refuses (shared memory past the
+// card's, A unaligned, scalars without a pointer).
 template <class C>
 int lin_auto_launch(const float* xf, const float* xe, const int* cam,
-                    const float* mask, const float* dat, const float* lp_host,
-                    int nlp, const float* se_in, int first, int use_scaling,
+                    const float* mask, const float* dat, int nlp,
+                    const float* lrows, int lstride,
+                    const float* se_in, int first, int use_scaling,
                     int ne, int k, int kf, int pb, const int* pos,
                     const int* off, int nchunks, float* ete, float* ge,
                     float* se_out, float* A, float* q, float* partial,
                     float* ftf, float* gf, cudaStream_t stream) {
-  if (nlp < 0 || nlp > LIN_AUTO_MAX_LOSS_PARAMS || k < 1 || pb < 1 ||
-      ((uintptr_t)A & 15) != 0)
+  if (nlp < 0 || (nlp > 0 && lrows == nullptr) || lstride < 0 || k < 1 ||
+      pb < 1 || ((uintptr_t)A & 15) != 0)
     return (int)cudaErrorInvalidValue;
   const size_t smem = lin_auto::smem_bytes<C>(pb, k);
   if (smem > (size_t)lin_auto::MAX_SMEM) return (int)cudaErrorInvalidValue;
-  LossParams lp;
-  for (int i = 0; i < LIN_AUTO_MAX_LOSS_PARAMS; ++i)
-    lp.p[i] = i < nlp ? lp_host[i] : 0.f;
   constexpr int NQ = C::TF * (C::TF + 1) / 2 + C::TF;
   const int nf = kf * C::TF;
   const int nseg = nchunks * kf;
@@ -456,9 +462,9 @@ int lin_auto_launch(const float* xf, const float* xe, const int* cam,
                            cudaFuncAttributeMaxDynamicSharedMemorySize,
                            (int)smem);
     lin_auto::lane_kernel<C><<<(ne + pb - 1) / pb, lin_auto::THREADS, smem,
-                               stream>>>(xf, xe, cam, mask, dat, lp, se_in,
-                                         first, use_scaling, ne, k, nf, pb,
-                                         pos, ete, ge, se_out, A, q);
+                               stream>>>(
+        xf, xe, cam, mask, dat, lrows, lstride, se_in, first, use_scaling,
+        ne, k, nf, pb, pos, ete, ge, se_out, A, q);
   }
   if (nseg > 0)
     lin_auto::ftf_partial_kernel<C::TF><<<(nseg * NQ + 255) / 256, 256, 0,

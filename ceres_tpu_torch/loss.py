@@ -4,6 +4,10 @@ Counterpart of ceres_tpu/loss.py (the reference's loss_function.h:87-392
 and corrector.cc). `evaluate(s) -> (rho, rho', rho'')` on the squared
 residual norm s = ||r||^2, elementwise over a batch of residual blocks;
 every branch is a `torch.where`, so one call covers the whole batch.
+A loss's scalar attributes may also be tensors of s's shape, one value a
+residual block (`stacked_loss`: the program's per-row loss parameters,
+ceres_tpu program.py _bucket_loss); they broadcast against s, and the
+result takes their dtype where it is wider, as the JAX package's does.
 """
 
 from __future__ import annotations
@@ -11,6 +15,22 @@ from __future__ import annotations
 import math
 
 import torch
+
+
+def _full(s, v):
+    """v at every entry of s: a number in s's dtype, a per-row tensor
+    broadcast to s's shape."""
+    if isinstance(v, torch.Tensor):
+        return torch.broadcast_to(v, s.shape)
+    return torch.full_like(s, v)
+
+
+def stacked_loss(loss, attrs: dict):
+    """A copy of the flat loss `loss` whose attributes named in `attrs`
+    are replaced (by tensors of one value a residual block)."""
+    obj = object.__new__(type(loss))
+    object.__setattr__(obj, "__dict__", {**vars(loss), **attrs})
+    return obj
 
 
 class LossFunction:
@@ -85,7 +105,7 @@ class ArctanLoss(LossFunction):
     def evaluate(self, s):
         total = 1.0 + s * s * self.b
         inv = 1.0 / total
-        return (self.a * torch.atan2(s, torch.full_like(s, self.a)), inv,
+        return (self.a * torch.atan2(s, _full(s, self.a)), inv,
                 -2.0 * s * self.b * inv * inv)
 
 
@@ -123,7 +143,7 @@ class TukeyLoss(LossFunction):
         value = torch.clamp(1.0 - s / self.a2, min=0.0)
         inlier = s <= self.a2
         return (torch.where(inlier, self.a2 / 6.0 * (1.0 - value ** 3),
-                            torch.full_like(s, self.a2 / 6.0)),
+                            _full(s, self.a2 / 6.0)),
                 torch.where(inlier, 0.5 * value * value,
                             torch.zeros_like(s)),
                 torch.where(inlier, -value / self.a2, torch.zeros_like(s)))

@@ -50,9 +50,8 @@ _I = ctypes.c_int
 _SIGNATURES = {
     # K1 takes K5's arguments (generated units' ceres_lin_auto, argtypes
     # set by ops/lin_auto.py from this list)
-    "ceres_lin": [_P, _P, _P, _P, _P, ctypes.POINTER(ctypes.c_float), _I, _P,
-                  _I, _I, _I, _I, _I, _I, _P, _P, _I, _P, _P, _P, _P, _P, _P,
-                  _P, _P, _P],
+    "ceres_lin": [_P, _P, _P, _P, _P, _I, _P, _I, _P, _I, _I, _I, _I, _I,
+                  _I, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P],
     # K1's instances with a robust loss take the same arguments
     **{f"ceres_lin_{name}": None for name in (
         "huber", "soft_l_one", "cauchy", "arctan", "tolerant", "tukey")},
@@ -71,7 +70,9 @@ _SIGNATURES = {
     "ceres_jtjv": [_P, _P, _P, _I, _I, _I, _P, _P],
     "ceres_gram_group": [_P, _I, _P, _P, _I, _I, _P, _P],
     "ceres_implicit_apply": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                             _P, _P],
+                             _I, _I, _P, _P, _P],
+    "ceres_implicit_plan": [_I, _I, _I, _I, _I, _I, _I, _I,
+                            ctypes.POINTER(ctypes.c_int)],
 }
 for _name, _types in _SIGNATURES.items():
     if _types is None:

@@ -12,18 +12,74 @@ camera of each lane fids [ne, k] (int32) and v [kf * tf]:
 
 The camera-chunk reduce of C and the + D_f^2 v term stay with the caller
 (solvers/schur_fused.py), as in the JAX package. `implicit_apply`
-launches csrc/implicit.cu for CUDA tensors (te <= 4, tf <= 16, r <= 4)
-and runs `implicit_apply_plain` for CPU tensors; it counts its launches
-in `implicit_apply.launches`.
+launches csrc/implicit.cu for CUDA tensors, at any (r, te, tf): the
+kernel's smallest tier that holds the shape (TIERS: two instances with
+compile-time maxima, then the general one, which walks the shape at run
+time), and runs `implicit_apply_plain` for CPU tensors. It counts its
+launches in `implicit_apply.launches`, and each tier's in
+`TIER_COUNTERS[tier].launches`. `implicit_plan` gives a launch's plan
+(threads, whether v is staged in shared memory, shared memory, the
+general tier's scratch in device memory).
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
 from . import _cuda
 
-MAX_TE, MAX_TF, MAX_R = 4, 16, 4
+# csrc/implicit.cu's tiers 0 and 1 with their (r, te, tf) maxima; any
+# other shape takes tier 2, the general kernel. The wrapper picks the
+# first tier of TIERS that holds the shape; a check that holds a larger
+# tier at a smaller shape leaves the smaller ones out of TIERS for its run.
+TIERS = {0: (4, 4, 16), 1: (4, 4, 32)}
+GENERAL_TIER = 2
+# the most shared memory (bytes) the general kernel's scratch may take
+# before it goes to device memory; None: the card's opt-in. A check of the
+# device-memory path sets it to 0.
+SCRATCH_SMEM_BYTES = None
+
+
+class _Counter:
+    """The launches of one tier of K10."""
+
+    def __init__(self):
+        self.launches = 0
+
+
+TIER_COUNTERS = [_Counter() for _ in range(GENERAL_TIER + 1)]
+
+
+def implicit_tier(r: int, te: int, tf: int) -> int:
+    """The tier of csrc/implicit.cu that a launch at (r, te, tf) takes."""
+    for tier, (mr, mte, mtf) in TIERS.items():
+        if r <= mr and te <= mte and tf <= mtf:
+            return tier
+    return GENERAL_TIER
+
+
+def _scratch_smem() -> int:
+    return -1 if SCRATCH_SMEM_BYTES is None else int(SCRATCH_SMEM_BYTES)
+
+
+def implicit_plan(ne, k, r, te, tf, kf) -> dict:
+    """The plan of a K10 launch at this shape on the current card
+    (csrc/implicit.cu ceres_implicit_plan): its tier, threads a block,
+    whether v is staged in shared memory ("stage"), the dynamic shared
+    memory in bytes, and the general tier's scratch in device memory
+    (floats a block and blocks; 0 when it fits in shared memory)."""
+    tier = implicit_tier(r, te, tf)
+    out = (ctypes.c_int * 6)()
+    _cuda.library()
+    err = _cuda._ENTRY["ceres_implicit_plan"](ne, k, r, te, tf, kf, tier,
+                                              _scratch_smem(), out)
+    if err:
+        raise ValueError(f"implicit_plan: no plan at (ne, k, r, te, tf, kf)"
+                         f" = {(ne, k, r, te, tf, kf)}")
+    return dict(tier=out[0], threads=out[1], stage=bool(out[2]),
+                smem=out[3], scratch_floats=out[4], scratch_blocks=out[5])
 
 
 def _sum_in_order(terms):
@@ -65,9 +121,6 @@ def implicit_apply(Je_s, Jf_s, inv, fids, v):
         return implicit_apply_plain(Je_s, Jf_s, inv, fids, v)
     ne, k, r, te = Je_s.shape
     tf = Jf_s.shape[-1]
-    if not (1 <= te <= MAX_TE and 1 <= tf <= MAX_TF and 1 <= r <= MAX_R):
-        raise ValueError(f"implicit_apply: (r, te, tf) = {(r, te, tf)} past "
-                         f"the kernel's ({MAX_R}, {MAX_TE}, {MAX_TF})")
     if v.numel() % tf:
         raise ValueError("implicit_apply: v is not a whole number of f "
                          "blocks")
@@ -78,10 +131,20 @@ def implicit_apply(Je_s, Jf_s, inv, fids, v):
     _cuda.check(inv, (ne, te, te), f32, "implicit_apply: inv")
     _cuda.check(fids, (ne, k), torch.int32, "implicit_apply: fids")
     _cuda.check(v, (kf * tf,), f32, "implicit_apply: v")
+    tier = implicit_tier(r, te, tf)
     C = torch.empty(ne, k, tf, dtype=f32, device=Je_s.device)
+    scratch = None
+    if tier == GENERAL_TIER:
+        plan = implicit_plan(ne, k, r, te, tf, kf)
+        if plan["scratch_floats"]:
+            scratch = torch.empty(plan["scratch_floats"]
+                                  * plan["scratch_blocks"], dtype=f32,
+                                  device=Je_s.device)
     _cuda.launch("ceres_implicit_apply", Je_s, Jf_s, inv, fids, v, ne, k, r,
-                 te, tf, kf, C)
+                 te, tf, kf, tier, _scratch_smem(),
+                 0 if scratch is None else scratch, C)
     implicit_apply.launches += 1
+    TIER_COUNTERS[tier].launches += 1
     return C
 
 

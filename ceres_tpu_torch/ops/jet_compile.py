@@ -669,11 +669,26 @@ class LossSpec(NamedTuple):
     digest: str
 
 
+def _is_scalar(v) -> bool:
+    """A number attribute of a loss: a Python or numpy int or float (not a
+    bool), or a 0-d numpy array or tensor of a real dtype."""
+    if isinstance(v, (bool, np.bool_)):
+        return False
+    if isinstance(v, (int, float, np.integer, np.floating)):
+        return True
+    if isinstance(v, (np.ndarray, torch.Tensor)) and v.ndim == 0:
+        return not (v.dtype == torch.bool or v.dtype == np.bool_ or (
+            isinstance(v, torch.Tensor) and v.is_complex()) or (
+            isinstance(v, np.ndarray) and v.dtype.kind not in "iuf"))
+    return False
+
+
 def loss_structure(loss):
     """(structure key, scalar values) of a loss, nested losses walked in
     attribute order; a bool or str attribute is part of the structure
-    with its value; raises _Unsupported (a TypeError) on any other
-    attribute. The program keys its buckets by it, K5 its builds."""
+    with its value; a number (`_is_scalar`) is a scalar; raises
+    _Unsupported (a TypeError) on any other attribute. The program keys
+    its buckets by it, K1 and K5 their builds."""
     from ..loss import LossFunction
     parts, values = [], []
     for k, v in vars(loss).items():
@@ -683,7 +698,7 @@ def loss_structure(loss):
             values += vals
         elif v is None or isinstance(v, (bool, str)):
             parts.append((k, v))
-        elif isinstance(v, (int, float)):
+        elif _is_scalar(v):
             parts.append((k, "scalar"))
             values.append(float(v))
         else:
@@ -698,7 +713,7 @@ def _loss_rebuild(loss, params):
     for k, v in vars(loss).items():
         if isinstance(v, LossFunction):
             v = _loss_rebuild(v, params)
-        elif isinstance(v, (int, float)) and not isinstance(v, bool):
+        elif _is_scalar(v):
             v = next(params)
         object.__setattr__(obj, k, v)
     return obj

@@ -18,16 +18,23 @@ makes one on the host); K1 is K5's kernel (csrc/lin_auto.cuh) with a
 hand-written Snavely chain, launched as K5 is (ops/lin_auto.py
 `lane_launch`: K5's block choice, outputs and scratch in one
 allocation; the kernel writes every entry of A itself).
-A uniform robust loss runs inside K1 (the Triggs corrector after the
-Snavely chain, csrc/lin.cu): one instance of the chain per stock scalar
-loss class, picked by the loss's exact class (`K1_ENTRIES`), its scalars
-passed as K5's are; any other loss raises (ROADMAP.md item 9).
+A robust loss runs inside K1 (the Triggs corrector after the Snavely
+chain, csrc/lin_k1.cuh): one instance of the chain per stock scalar loss
+class in csrc/lin.cu, picked by the loss's exact class (`K1_ENTRIES`);
+any other loss that the jet compiler traces (ScaledLoss, ComposedLoss,
+LossFunctionWrapper, TrivialLoss, nestings, a user's loss) a generated
+unit: its rho' and rho'' emitted from make_loss_spec's trace as the loss
+struct of the same chain (`k1_loss_unit`), built into _build/ at first
+use, one unit a loss structure. The loss's scalars are passed as K5's
+are: one set at a row stride of 0, or each lane's (`loss_rows` [ne, k,
+nlp], the bucket's per-row scalars in the chunk layout).
 `elim_plan` sizes K2's and K6's split-K product (tiles, point ranges,
 shared memory, partial sums) in Python, so that the CPU tests reach it.
 """
 
 from __future__ import annotations
 
+import ctypes
 import functools
 import math
 from typing import Optional
@@ -35,8 +42,9 @@ from typing import Optional
 import torch
 
 from . import _cuda
-from .jet_compile import loss_structure
-from .lin_auto import CameraPlan, lane_launch
+from . import jetlib as jl
+from .jet_compile import eval_loss, loss_structure
+from .lin_auto import CameraPlan, lane_launch, lane_loss, loss_spec_of
 from ..loss import (ArctanLoss, CauchyLoss, HuberLoss, SoftLOneLoss,
                     TolerantLoss, TukeyLoss, correct_residuals_and_jacobian)
 from ..rotation import angle_axis_rotate_point
@@ -84,10 +92,11 @@ def _snavely_lane(cam, pt, ox, oy, valid):
 
 
 def lin_plain(xf, xe, cam, mask, obsx, obsy, se_in, first: bool,
-              use_scaling: bool = True, loss=None):
+              use_scaling: bool = True, loss=None, loss_rows=None):
     """Plain PyTorch K1. Inputs (f32 unless noted): xf [kf*9] cameras,
     xe [ne, 3] points, cam [ne, k] int32, mask/obsx/obsy [ne, k],
-    se_in [ne, 3] carried scale. Returns a dict:
+    se_in [ne, 3] carried scale, loss_rows [ne, k, nlp] the lanes' own
+    loss scalars (or None). Returns a dict:
       ete [ne, 9], ge [ne, 3], se [ne, 3], A [ne, 3, kf*9] (e-scaled),
       ftf [kf, 9, 9], gf [kf, 9]; all unscaled but A's e factor."""
     ne, k = cam.shape
@@ -104,7 +113,8 @@ def lin_plain(xf, xe, cam, mask, obsx, obsy, se_in, first: bool,
     r = r.view(ne, k, 2) * m
     J = torch.cat([Jc, Jp], dim=-1).view(ne, k, 2, TF + TE) * m[..., None]
     if loss is not None:
-        _, r, J = correct_residuals_and_jacobian(loss, r, J)
+        _, r, J = correct_residuals_and_jacobian(lane_loss(loss, loss_rows),
+                                                 r, J)
     Jf, Je = J[..., :TF], J[..., TF:]
     ge = torch.einsum("nkra,nkr->na", Je, r)
     ete = torch.einsum("nkra,nkrb->nab", Je, Je)
@@ -128,33 +138,81 @@ def lin_plain(xf, xe, cam, mask, obsx, obsy, se_in, first: bool,
 
 def lin(xf, xe, cam, mask, dat, se_in, first: bool,
         use_scaling: bool = True, loss=None,
-        plan: Optional[CameraPlan] = None):
+        plan: Optional[CameraPlan] = None, loss_rows=None):
     """K1: lin_plain's contract, with the observations as dat [ne, k, 2]
     f32 (observed_x, observed_y) and `plan` camera_plan(cam, mask, kf),
     made here when not given (the CPU takes neither)."""
     if not xf.is_cuda:
         return lin_plain(xf, xe, cam, mask, dat[..., 0], dat[..., 1], se_in,
-                         first, use_scaling, loss)
+                         first, use_scaling, loss, loss_rows)
     entry, lp = k1_entry(loss)
-    out = lane_launch(functools.partial(_cuda.launch, entry), "lin",
-                      TE, TF, 2, xf, xe, cam, mask, dat, lp, se_in, first,
-                      use_scaling, plan)
+    launch = (functools.partial(_cuda.launch, entry) if isinstance(entry, str)
+              else functools.partial(_cuda.call, entry, "ceres_lin_gen"))
+    out = lane_launch(launch, "lin", TE, TF, 2, xf, xe, cam, mask, dat, lp,
+                      se_in, first, use_scaling, plan, loss_rows)
     lin.launches += 1
+    if not isinstance(entry, str):
+        lin.generated_launches += 1
     return out
 
 
 lin.launches = 0
+lin.generated_launches = 0       # of them, through a generated loss unit
+
+
+def k1_loss_unit(loss) -> str:
+    """The CUDA unit of K1 for a loss with no hand instance: the loss
+    struct of csrc/lin_k1.cuh's chain (rho' and rho'' of s, as loss.py
+    evaluates them in f32, emitted from make_loss_spec's trace with the
+    loss's scalars as lp.p[i]) and the entry point ceres_lin_gen."""
+    spec = loss_spec_of(loss)
+    em = jl.Emitter()
+    _, rho1, rho2 = eval_loss(spec, em.input("s"),
+                              [em.input(f"lp.p[{i}]")
+                               for i in range(spec.n_params)])
+    body = "\n".join("    " + ln for ln in em.lines + [
+        f"rho1 = {jl.operand(rho1)};", f"rho2 = {jl.operand(rho2)};"])
+    return f"""// K1 for loss {spec.key[0]} (graph {spec.digest}), generated by
+// ceres_tpu_torch/ops/lin.py; the kernel is csrc/lin_k1.cuh's.
+#include "lin_k1.cuh"
+
+namespace {{
+struct GeneratedLoss {{
+  static constexpr bool kCorrect = true;
+  template <class LP>
+  static __device__ __forceinline__ void eval(float s, const LP& lp,
+                                              float& rho1, float& rho2) {{
+{body}
+  }}
+}};
+}}  // namespace
+
+CERES_LIN_ENTRY(ceres_lin_gen, GeneratedLoss)
+"""
+
+
+_GENERATED: dict = {}             # loss structure -> ceres_lin_gen
 
 
 def k1_entry(loss):
     """(K1's entry point for `loss`, the loss's scalars in loss_structure
-    order). Raises NotImplementedError for a loss with no K1 instance."""
+    order): the name of a hand instance of csrc/lin.cu for no loss and the
+    stock scalar losses (by exact class), else the ceres_lin_gen of the
+    loss structure's generated unit (built at first use). Raises
+    NotImplementedError for a loss that does not trace."""
     entry = K1_ENTRIES.get(None if loss is None else type(loss))
+    if loss is None:
+        return entry, []
+    key, lp = loss_structure(loss)
     if entry is None:
-        raise NotImplementedError(
-            f"{type(loss).__name__} in K1, which runs the stock scalar "
-            "losses only (ROADMAP.md item 9)")
-    return entry, ([] if loss is None else loss_structure(loss)[1])
+        entry = _GENERATED.get(key)
+        if entry is None:
+            lib = _cuda.build_generated("lin_k1", k1_loss_unit(loss))
+            entry = lib.ceres_lin_gen
+            entry.argtypes = _cuda._SIGNATURES["ceres_lin"]
+            entry.restype = ctypes.c_int
+            _GENERATED[key] = entry
+    return entry, lp
 
 
 def spd_inv3(M):

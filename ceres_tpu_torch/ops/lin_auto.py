@@ -17,6 +17,13 @@ lane's camera and data (`safe_rows`), so a generic chain stays finite
 there. Returns ete [ne, te*te], ge [ne, te], se [ne, te], A [ne, te, nf]
 (e-scaled), ftf [kf, tf, tf], gf [kf, tf], all unscaled but A's e factor.
 
+The loss's scalars reach the kernel in device memory: one set for the
+bucket (`loss`'s, at a row stride of 0, `loss_pointer`), or each lane's
+own, `loss_rows` [ne, k, nlp] f32 (a bucket whose rows carry differing
+scalars of one flat loss class: the program's `loss_attrs` gathered into
+the chunk layout once, `chunk_loss_rows`), which the plain version
+broadcasts over the lanes (`lane_loss`).
+
 `lin_auto` launches the kernel for CUDA tensors through `lane_launch`
 (shared with K1, ops/lin.py `lin`, whose hand chain runs the same
 kernel) and counts its launches in `lin_auto.launches`; for CPU tensors
@@ -41,12 +48,11 @@ from . import _cuda
 from . import jetlib as jl
 from .jet_compile import (AutoSpec, LossSpec, chain_body, eval_loss,
                           loss_structure, make_loss_spec)
-from ..loss import correct_residuals_and_jacobian
+from ..loss import correct_residuals_and_jacobian, stacked_loss
 
 # the JAX package's caps of its gate (pallas_lin.py:563): the unrolled
 # channel loops and the registers of one lane's jets
 MAX_TE, MAX_TF, MAX_R = 6, 12, 8
-MAX_LOSS_PARAMS = 16              # csrc/lin_auto.cuh LossParams
 _ROWS_PER_CHUNK = 1024            # lanes per camera-Gram partial
 _THREADS = 128                    # csrc/lin_auto.cuh lin_auto::THREADS
 _ABUF = 2048                      # and lin_auto::ABUF, its A tile
@@ -160,9 +166,10 @@ def chain_source(spec: LinAutoSpec, loss_spec: Optional[LossSpec] = None,
   static constexpr int TE = {spec.te}, TF = {spec.tf}, R = {spec.r};
   static constexpr int NT = {auto.nt}, EO = {spec.eo}, FO = {spec.fo};
   static constexpr int ND = {auto.p_dat};
+  template <class LP>
   static __device__ __forceinline__ void run(
       const float* __restrict__ xf_c, const float* __restrict__ xe_n,
-      const float* __restrict__ d, const LossParams& lp, bool valid,
+      const float* __restrict__ d, const LP& lp, bool valid,
       float (&rv)[R], float (&J)[R][NT]) {{
 {chain_body(em, jets, auto.nt)}
   }}
@@ -181,15 +188,15 @@ def generated_unit(spec: LinAutoSpec, loss_spec: Optional[LossSpec]) -> str:
 {chain_source(spec, loss_spec)}
 extern "C" int ceres_lin_auto(
     const float* xf, const float* xe, const int* cam, const float* mask,
-    const float* dat, const float* lp_host, int nlp, const float* se_in,
-    int first, int use_scaling, int ne, int k, int kf, int pb,
-    const int* pos, const int* off, int nchunks, float* ete, float* ge,
-    float* se_out, float* A, float* q, float* partial, float* ftf,
-    float* gf, cudaStream_t stream) {{
-  return lin_auto_launch<Chain>(xf, xe, cam, mask, dat, lp_host, nlp, se_in,
-                                first, use_scaling, ne, k, kf, pb, pos, off,
-                                nchunks, ete, ge, se_out, A, q, partial, ftf,
-                                gf, stream);
+    const float* dat, int nlp, const float* lrows, int lstride,
+    const float* se_in, int first, int use_scaling, int ne,
+    int k, int kf, int pb, const int* pos, const int* off, int nchunks,
+    float* ete, float* ge, float* se_out, float* A, float* q,
+    float* partial, float* ftf, float* gf, cudaStream_t stream) {{
+  return lin_auto_launch<Chain>(xf, xe, cam, mask, dat, nlp, lrows, lstride,
+                                se_in, first, use_scaling, ne, k,
+                                kf, pb, pos, off, nchunks, ete, ge, se_out, A,
+                                q, partial, ftf, gf, stream);
 }}
 """
 
@@ -197,14 +204,18 @@ extern "C" int ceres_lin_auto(
 _ARGTYPES = _cuda._SIGNATURES["ceres_lin"]     # K1's entry takes K5's
 
 
-def _loss_spec_of(loss):
+def loss_spec_of(loss):
+    """The traced loss of `loss` (None for no loss); raises
+    NotImplementedError for a loss that does not trace."""
     if loss is None:
         return None
     spec = make_loss_spec(loss)
     if spec is None:
         raise NotImplementedError(
             f"a robust loss ({type(loss).__name__}) that does not trace to "
-            "scalar code (ROADMAP.md item 9)")
+            "scalar code: an attribute other than numbers, bools, strings "
+            "and nested losses, or a torch op outside the jet compiler's "
+            "rules (ROADMAP.md item 9)")
     return spec
 
 
@@ -214,7 +225,7 @@ _ENTRIES: dict = {}
 def build(spec: LinAutoSpec, loss=None):
     """The ceres_lin_auto entry point of this functor and loss class
     (built into ceres_tpu_torch/_build/ at first use)."""
-    loss_spec = _loss_spec_of(loss)
+    loss_spec = loss_spec_of(loss)
     key = (spec.auto.digest, spec[1:],
            None if loss_spec is None else loss_spec.digest)
     if key not in _ENTRIES:
@@ -228,7 +239,7 @@ def build(spec: LinAutoSpec, loss=None):
 
 
 _CALLS: dict = {}                 # (id(spec), loss structure) -> entry
-_NO_LOSS = (ctypes.c_float * 1)()     # the scalars of no loss
+_SCALARS: dict = {}               # (scalars, device) -> their f32 tensor
 
 
 def _entry(spec: LinAutoSpec, loss):
@@ -243,6 +254,52 @@ def _entry(spec: LinAutoSpec, loss):
     if hit is None or hit[0] is not spec:
         hit = _CALLS[(id(spec), lkey)] = (spec, build(spec, loss))
     return hit[1], lp
+
+
+# ----------------------------------------------------------------------
+# per-row loss scalars
+
+def chunk_loss_rows(bk, rows: np.ndarray, device) -> Optional[torch.Tensor]:
+    """A bucket's per-row loss scalars (program.py `loss_attrs`) in the
+    chunk layout: [ne, k, nlp] f32 on `device`, in loss_structure order,
+    gathered from the chunk layout's `rows` [ne, k] (each masked lane
+    carrying a valid lane's row, as `safe_rows` gives them, so that its
+    scalars keep its terms finite); None for a bucket with one set."""
+    attrs = getattr(bk, "loss_attrs", None)
+    if attrs is None:
+        return None
+    table = np.stack([np.asarray(attrs[k], np.float64)
+                      for k in loss_attr_names(bk.loss_proto)], axis=1)
+    return torch.as_tensor(table[rows].astype(np.float32), device=device)
+
+
+def loss_attr_names(loss) -> list:
+    """The scalar attributes of a flat loss in loss_structure order."""
+    return [k for k, v in vars(loss).items()
+            if isinstance(v, (int, float)) and not isinstance(v, bool)]
+
+
+def lane_loss(loss, loss_rows):
+    """The loss that the plain versions apply over [ne, k] lanes: `loss`
+    itself, or with loss_rows [ne, k, nlp] its scalars lane by lane."""
+    if loss_rows is None:
+        return loss
+    return stacked_loss(loss, {k: loss_rows[..., i] for i, k in
+                               enumerate(loss_attr_names(loss))})
+
+
+def loss_pointer(lp, loss_rows, device):
+    """(lrows, lstride) of a kernel call: the lanes' scalars, the
+    bucket's one set in device memory at row stride 0 (made once for each
+    set and device), or (None, 0) for no loss."""
+    if loss_rows is not None:
+        return loss_rows, loss_rows.shape[-1]
+    if not lp:
+        return None, 0
+    key = (tuple(lp), str(device))
+    if key not in _SCALARS:
+        _SCALARS[key] = torch.tensor(lp, dtype=torch.float32, device=device)
+    return _SCALARS[key], 0
 
 
 # ----------------------------------------------------------------------
@@ -277,7 +334,8 @@ def _epilogue(r, J, cam, mask, se_in, first, use_scaling, kf, spec):
 
 
 def lin_auto_plain(spec: LinAutoSpec, xf, xe, cam, mask, dat, se_in,
-                   first: bool, use_scaling: bool = True, loss=None):
+                   first: bool, use_scaling: bool = True, loss=None,
+                   loss_rows=None):
     """Plain PyTorch K5: see the module docstring for the contract."""
     ne, k = cam.shape
     te, tf, R, auto = spec.te, spec.tf, spec.r, spec.auto
@@ -296,18 +354,20 @@ def lin_auto_plain(spec: LinAutoSpec, xf, xe, cam, mask, dat, se_in,
     r = r.to(f32).view(ne, k, R) * m
     J = J.to(f32).view(ne, k, R, auto.nt) * m[..., None]
     if loss is not None:
-        _, r, J = correct_residuals_and_jacobian(loss, r, J)
+        _, r, J = correct_residuals_and_jacobian(lane_loss(loss, loss_rows),
+                                                 r, J)
     return _epilogue(r, J, cam, mask, se_in, first, use_scaling, kf, spec)
 
 
 def lane_launch(launch, name: str, te: int, tf: int, p_dat: int, xf, xe,
                 cam, mask, dat, lp, se_in, first: bool, use_scaling: bool,
-                plan: Optional[CameraPlan]):
+                plan: Optional[CameraPlan], loss_rows=None):
     """One call of csrc/lin_auto.cuh's kernels, K5's or K1's (whose
     C entry points take the same arguments): checks the CUDA inputs,
     makes the camera plan when not given, allocates the outputs and the
     scratch (one allocation) and calls launch(*arguments of the entry);
-    returns the outputs. `lp` holds the loss's scalars."""
+    returns the outputs. `lp` holds the loss's scalars, `loss_rows`
+    [ne, k, nlp] each lane's own (or None)."""
     ne, k = cam.shape
     kf = xf.numel() // tf
     f32 = torch.float32
@@ -317,6 +377,8 @@ def lane_launch(launch, name: str, te: int, tf: int, p_dat: int, xf, xe,
     _cuda.check(mask, (ne, k), f32, f"{name}: mask")
     _cuda.check(dat, (ne, k, p_dat), f32, f"{name}: dat")
     _cuda.check(se_in, (ne, te), f32, f"{name}: se_in")
+    if loss_rows is not None:
+        _cuda.check(loss_rows, (ne, k, len(lp)), f32, f"{name}: loss_rows")
     pb, smem = lane_block(k, te, tf)
     if smem > _MAX_SMEM:
         raise ValueError(f"{name}: {k} lanes a point need {smem} B of "
@@ -327,7 +389,7 @@ def lane_launch(launch, name: str, te: int, tf: int, p_dat: int, xf, xe,
     _cuda.check(plan.pos, (ne * k,), torch.int32, f"{name}: plan.pos")
     _cuda.check(plan.off, (plan.nchunks * kf + 1,), torch.int32,
                 f"{name}: plan.off")
-    lp_host = (ctypes.c_float * len(lp))(*lp) if lp else _NO_LOSS
+    lrows, lstride = loss_pointer(lp, loss_rows, xf.device)
     dev = xf.device
     out = {
         "ete": torch.empty(ne, te * te, dtype=f32, device=dev),
@@ -343,7 +405,8 @@ def lane_launch(launch, name: str, te: int, tf: int, p_dat: int, xf, xe,
     scratch = torch.empty((plan.nvalid + plan.nchunks * kf) * nq, dtype=f32,
                           device=dev)
     q = scratch.data_ptr()
-    launch(xf, xe, cam, mask, dat, lp_host, len(lp), se_in,
+    launch(xf, xe, cam, mask, dat, len(lp), 0 if lrows is None else lrows,
+           lstride, se_in,
            int(bool(first)), int(bool(use_scaling)), ne, k, kf, pb, plan.pos,
            plan.off, plan.nchunks, out["ete"], out["ge"], out["se"],
            out["A"], q, q + 4 * plan.nvalid * nq, out["ftf"], out["gf"])
@@ -352,16 +415,18 @@ def lane_launch(launch, name: str, te: int, tf: int, p_dat: int, xf, xe,
 
 def lin_auto(spec: LinAutoSpec, xf, xe, cam, mask, dat, se_in, first: bool,
              use_scaling: bool = True, loss=None,
-             plan: Optional[CameraPlan] = None):
+             plan: Optional[CameraPlan] = None, loss_rows=None):
     """K5: see the module docstring for the contract. `plan` is
-    camera_plan(cam, mask, kf), made here when not given."""
+    camera_plan(cam, mask, kf), made here when not given; `loss_rows`
+    [ne, k, nlp] f32 the lanes' own loss scalars (`chunk_loss_rows`)."""
     if not xf.is_cuda:
         return lin_auto_plain(spec, xf, xe, cam, mask, dat, se_in, first,
-                              use_scaling, loss)
+                              use_scaling, loss, loss_rows)
     fn, lp = _entry(spec, loss)
     out = lane_launch(lambda *a: _cuda.call(fn, "ceres_lin_auto", *a),
                       "lin_auto", spec.te, spec.tf, spec.auto.p_dat, xf, xe,
-                      cam, mask, dat, lp, se_in, first, use_scaling, plan)
+                      cam, mask, dat, lp, se_in, first, use_scaling, plan,
+                      loss_rows)
     lin_auto.launches += 1
     return out
 

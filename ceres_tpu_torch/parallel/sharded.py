@@ -51,8 +51,8 @@ def _slot_local_ids(program, bi, var_si):
 def build_row_shards(program, num_shards: int):
     """Per-bucket padded row arrays (ceres_tpu's build_row_shards, whose
     arrays these equal): "data", "amb", "cols", "slot_cols", "local_ids",
-    "mask", the leading axis shardable. A bucket of the port has one loss,
-    so no "loss_attrs" (ROADMAP.md item 9)."""
+    "mask", and "loss_attrs" where the bucket has per-row loss scalars,
+    the leading axis shardable."""
     shards = []
     for bi, bk in enumerate(program.buckets):
         n_pad = int(math.ceil(bk.n / num_shards) * num_shards)
@@ -72,6 +72,9 @@ def build_row_shards(program, num_shards: int):
         mask = np.zeros(n_pad)
         mask[:bk.n] = 1.0
         entry["mask"] = mask
+        if bk.loss_attrs is not None:
+            entry["loss_attrs"] = {k: _pad_rows(v, n_pad)
+                                   for k, v in bk.loss_attrs.items()}
         shards.append(entry)
     return shards
 

@@ -55,6 +55,7 @@ from ..minimizers.fused import FusedResult, fused_tr_solve
 from ..ops.kernels import MAX_M, chol_solve
 from ..ops.pcg import dense_pcg
 from ..ops.cost import snavely_sq
+from ..program import rows_loss
 from ..solvers.dense import cholesky_solve
 from ..solvers.preconditioners import spd_inv_small
 from ..solvers.schur_fused import (
@@ -232,9 +233,8 @@ def build_chunk_shards(program, meta, num_shards: int,
     divides the shard count (ceres_tpu's build_chunk_shards, whose arrays
     these equal): a list of dicts of numpy arrays whose leading axis
     shards ("data", "amb", "mask", "f_ids"; with cam_chunks the implicit
-    mode's "cam_rows" / "cam_mask" [num_shards * kf, kc]), and ne_pad. A
-    bucket of the port has one loss, so no "loss_attrs" (ROADMAP.md item
-    9)."""
+    mode's "cam_rows" / "cam_mask" [num_shards * kf, kc]; "loss_attrs"
+    where the bucket has per-row loss scalars), and ne_pad."""
     layout, ne_pad = shard_rows(program, meta, num_shards)
     kf = meta.f_groups[0]["kf"]
     shards = []
@@ -245,6 +245,9 @@ def build_chunk_shards(program, meta, num_shards: int,
                           for k, v in bk.data.items()} if bk.data else ())
         entry["amb"] = tuple(_amb_idx(program, sl)[rows] for sl in bk.slots)
         entry["mask"] = lay["mask"]
+        if bk.loss_attrs is not None:
+            entry["loss_attrs"] = {k: v[rows]
+                                   for k, v in bk.loss_attrs.items()}
         if "f_ids" in lay:
             entry["f_ids"] = lay["f_ids"]
             if cam_chunks:
@@ -267,7 +270,8 @@ ShardedFusedResult = FusedResult
 def bucket_rows(bk, rows: np.ndarray):
     """Bucket `bk` restricted to `rows` (in that order), as a bucket that
     CompiledProgram's evaluation reads: its slots' block indices, its
-    data and K11's data matrix taken at the rows."""
+    data, its per-row loss scalars and K11's data matrix taken at the
+    rows."""
     out = object.__new__(type(bk))
     for name in type(bk).__slots__:
         if hasattr(bk, name):
@@ -278,6 +282,11 @@ def bucket_rows(bk, rows: np.ndarray):
     out.data = {k: v[idx] for k, v in bk.data.items()}
     out.dat32 = None if bk.dat32 is None else bk.dat32[idx].contiguous()
     out.orig_indices = bk.orig_indices[np.asarray(rows, np.int64)]
+    if bk.loss_attrs is not None:
+        out.loss_attrs = {k: v[np.asarray(rows, np.int64)]
+                          for k, v in bk.loss_attrs.items()}
+        out.loss = rows_loss(bk.loss_proto, out.loss_attrs,
+                             device=idx.device)
     slots = []
     for sl in bk.slots:
         s2 = object.__new__(type(sl))
@@ -431,7 +440,8 @@ class ShardedExplicitStep(FusedSchurStep):
             local = _views_cost(self.program, self.shard, x)
         else:
             sq = snavely_sq(x, self.k4)
-            rho = sq if self.loss is None else self.loss.evaluate(sq)[0]
+            rho = sq if self.k4_loss is None else self.k4_loss.evaluate(
+                sq)[0]
             local = 0.5 * torch.sum(rho)
         return self.program.fixed_cost + self.red.sum(local)[0]
 

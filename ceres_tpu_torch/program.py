@@ -8,7 +8,10 @@ port exactly (`state_from_numpy`):
   - tangent space: the variable blocks grouped by tangent size;
   - residual blocks grouped into buckets by (cost code, loss, slot
     signature), each bucket's rows ordered by the block index of its slot
-    with the most blocks (the point slot in bundle adjustment).
+    with the most blocks (the point slot in bundle adjustment); a flat
+    loss class of plain numbers is one bucket whatever its scalars, which
+    ride along per row where they differ (`loss_attrs`, as the JAX
+    package's), a nested loss keys by structure and value (F2).
 Per-bucket data and index maps are tensors on the program's device.
 
 The generic trust-region path reads the program through `plus` (batched
@@ -33,7 +36,7 @@ import numpy as np
 import torch
 
 from .cost import NumericDiffCostFunction, SizedCostFunction
-from .loss import correct_residuals_and_jacobian
+from .loss import correct_residuals_and_jacobian, stacked_loss
 from .manifolds import EuclideanManifold
 from .ops.bsr import (BlockJacobian, BucketJacobian, GroupMeta, RVec,
                       column_sum_for)
@@ -42,19 +45,72 @@ from .ops.linearize import (bucket_linearize, bucket_linearize_auto,
                             linearize_spec)
 
 
+def _loss_vectorizable(loss) -> bool:
+    """A loss whose attributes are all plain numbers: one bucket takes
+    every loss of its class, the scalars that differ riding along as
+    per-row tensors (ceres_tpu program.py _loss_vectorizable)."""
+    try:
+        return all(isinstance(v, (int, float)) for v in vars(loss).values())
+    except TypeError:                   # no __dict__ (a loss of __slots__)
+        return False
+
+
 def _loss_key(loss):
-    """Losses with equal keys share a bucket: the class, its scalar
-    attributes and its bool and str attributes, nested losses walked
+    """Losses with equal keys share a bucket. A flat loss of plain
+    numbers is keyed by its class alone, its scalars stacked per row when
+    they differ (as in the JAX package: 24 per-filter FoE alphas make one
+    bucket). Any other loss by its class, its scalar attributes and its
+    bool and str attributes, nested losses walked
     (ScaledLoss(HuberLoss(0.1), 1) and ScaledLoss(CauchyLoss(10), 1)
-    differ, as in Ceres); a loss with any other attribute is its own
+    differ, as in Ceres; the JAX package's key leaves nested losses out,
+    ROADMAP.md section 3, F2); a loss with any other attribute is its own
     key."""
     if loss is None:
         return None
+    if _loss_vectorizable(loss):
+        return (type(loss).__name__, "vectorized")
     try:
         structure, values = loss_structure(loss)
     except TypeError:
         return ("loss-id", id(loss))
     return (structure, tuple(values))
+
+
+def bucket_loss_key(bk):
+    """What a batch of programs must share of a bucket's loss: its class
+    structure and, when the bucket has one set of scalars, their values
+    (per-row scalars are data, stacked with the rows)."""
+    if bk.loss_proto is None:
+        return None
+    try:
+        structure, values = loss_structure(bk.loss_proto)
+    except TypeError:
+        return ("loss-id", id(bk.loss_proto))
+    return (structure, "rows" if bk.loss_attrs is not None
+            else tuple(values))
+
+
+def loss_attrs_of(losses) -> "dict | None":
+    """The per-row scalars of a bucket's flat losses (one a row), by
+    attribute, as f64 numpy [n], or None when they agree (ceres_tpu
+    program.py:427-439)."""
+    sets = [vars(lf) for lf in losses]
+    names = list(sets[0])
+    if all(a[k] == sets[0][k] for a in sets for k in names):
+        return None
+    return {k: np.asarray([a[k] for a in sets], dtype=np.float64)
+            for k in names}
+
+
+def rows_loss(proto, attrs, rows=None, device=None):
+    """The loss over a bucket's rows: `proto` when `attrs` is None, else
+    its class with the per-row scalars `attrs` (rows `rows` of them) as
+    f64 tensors on `device`."""
+    if attrs is None:
+        return proto
+    return stacked_loss(proto, {
+        k: torch.as_tensor(v if rows is None else v[rows], device=device)
+        for k, v in attrs.items()})
 
 
 class _Slot:
@@ -63,8 +119,9 @@ class _Slot:
 
 
 class _Bucket:
-    __slots__ = ("cost", "loss", "residual_fn", "data", "slots", "n", "r",
-                 "orig_indices", "_slot_keys", "spec", "dat32", "jac_mode")
+    __slots__ = ("cost", "loss", "loss_proto", "loss_attrs", "residual_fn",
+                 "data", "slots", "n", "r", "orig_indices", "_slot_keys",
+                 "spec", "dat32", "jac_mode")
 
 
 def _jac_mode(cost) -> str:
@@ -244,7 +301,17 @@ class CompiledProgram:
                         rb.param_keys[sort_si]][1])
             bk = _Bucket()
             bk.cost = rbs[0].cost
-            bk.loss = rbs[0].loss if apply_loss else None
+            # loss_proto: the first row's loss (its class and, with no
+            # loss_attrs, its scalars); loss_attrs: the rows' scalars of a
+            # flat loss class where they differ; loss: what the rows
+            # apply (loss_proto, or its class over the per-row scalars)
+            bk.loss_proto = rbs[0].loss if apply_loss else None
+            bk.loss_attrs = None
+            if bk.loss_proto is not None and _loss_vectorizable(
+                    bk.loss_proto):
+                bk.loss_attrs = loss_attrs_of([rb.loss for rb in rbs])
+            bk.loss = rows_loss(bk.loss_proto, bk.loss_attrs,
+                                device=self.device)
             bk.n = len(rbs)
             bk.r = bk.cost.num_residuals
             bk.orig_indices = np.asarray([rb.index for rb in rbs],

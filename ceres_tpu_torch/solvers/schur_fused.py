@@ -70,14 +70,14 @@ import torch
 from ..loss import correct_residuals_and_jacobian
 from ..ops import lin_auto as k5
 from ..ops.cost import SnavelyCost, snavely_sq
-from ..ops.implicit import MAX_R, MAX_TE, MAX_TF, implicit_apply
-from ..ops.jet_compile import (loss_param_values, make_auto_spec,
-                               make_loss_spec)
+from ..ops.implicit import implicit_apply
+from ..ops.jet_compile import make_auto_spec, make_loss_spec
 from ..ops.kernels import MAX_M, chol_solve
 from ..ops.linearize import is_snavely_bucket
 from ..ops.lin import (K1_ENTRIES, K2_MAX_TE, elim, elim_v1, lin,
                       spd_inv_closed)
 from ..ops.pcg import _block_apply, dense_pcg
+from ..program import rows_loss
 from ..types import LinearSolverType, PreconditionerType
 from .cg import conjugate_gradients
 from .dense import cholesky_solve
@@ -94,12 +94,14 @@ _FUSED_PRECONDITIONERS = (PreconditionerType.IDENTITY,
 
 class KernelLimit(str):
     """A refusal of a configuration that the JAX package's fused step
-    runs on its Pallas kernels but a kernel of the port cannot take
-    (ROADMAP.md items 9 and 39). The configuration keeps the
-    fused step's route (solver.py takes_fused_schur_step), whose
-    constructor raises it: the generic Schur step does not stand in for
-    a kernel. Every other refusal names a configuration that the generic
-    step serves."""
+    runs but a kernel of the port cannot take: since items 39 and 9
+    closed, only a robust loss that the jet compiler does not trace (an
+    attribute other than numbers, bools, strings and nested losses, or a
+    torch op outside its rules; ROADMAP.md item 9), which K1 on the card
+    and K5 cannot run. The configuration keeps the fused step's route
+    (solver.py takes_fused_schur_step), whose constructor raises it: the
+    generic Schur step does not stand in for a kernel. Every other
+    refusal names a configuration that the generic step serves."""
 
 
 def _slab_of(cols: np.ndarray) -> Optional[int]:
@@ -138,8 +140,8 @@ def _k10_bucket(program, meta) -> bool:
 def _implicit_unsupported(program, options, meta) -> Optional[str]:
     """unsupported_reason's checks of the implicit step: ITERATIVE_SCHUR,
     every e-bucket in the chunk layout, one f slot per bucket (ceres_tpu's
-    fused_structure_ok without one-hots), the [points | cameras] state
-    layout, and K10's compile-time maxima on the card."""
+    fused_structure_ok without one-hots) and the [points | cameras] state
+    layout. K10 takes any (r, te, tf) (ops/implicit.py TIERS)."""
     if options.linear_solver_type != LinearSolverType.ITERATIVE_SCHUR:
         return (f"{options.linear_solver_type} in the implicit mode, which "
                 "serves ITERATIVE_SCHUR only (as in the JAX package)")
@@ -156,12 +158,6 @@ def _implicit_unsupported(program, options, meta) -> Optional[str]:
         return ("constant blocks or another state layout than [points | "
                 "cameras] (ROADMAP.md item 11, the rest of "
                 "solvers/schur_fused.py)")
-    if torch.device(options.device).type == "cuda" and \
-            _k10_bucket(program, meta) and (
-                meta.te > MAX_TE or grp["t"] > MAX_TF
-                or program.buckets[0].r > MAX_R):
-        return KernelLimit(f"K10 past r <= {MAX_R}, te <= {MAX_TE}, tf <= "
-                           f"{MAX_TF} (ROADMAP.md item 39)")
     return None
 
 
@@ -206,9 +202,10 @@ def _k5_unsupported(program, options, meta) -> Optional[str]:
     """The JAX package's gate of K5 (pallas_lin.py:525-567) for a bucket
     that is not Snavely's: two variable slots with no manifold, te <= 6,
     tf <= 12, r <= 8 (its kf <= 64 is a TPU cost cap, not kept), a
-    functor the jet compiler traces, and a loss it traces. Every bucket
-    of the port is differentiated by autodiff (its jac_mode "ad"). K2 takes
-    te <= 3 and K6 te <= 6, K5's own bound."""
+    functor the jet compiler traces, and a loss it traces (its scalars by
+    value, or per lane when they differ by row, any number of them).
+    Every bucket of the port is differentiated by autodiff (its jac_mode
+    "ad"). K2 takes te <= 3 and K6 te <= 6, K5's own bound."""
     bk, grp = program.buckets[0], meta.f_groups[0]
     if len(bk.slots) != 2 or any(not sl.variable or sl.manifold is not None
                                  for sl in bk.slots):
@@ -222,11 +219,18 @@ def _k5_unsupported(program, options, meta) -> Optional[str]:
     if make_auto_spec(program, bk) is None:
         return ("a functor that the jet compiler does not trace "
                 "(ROADMAP.md item 11, the generic fused lin phase)")
-    if bk.loss is not None and (
-            make_loss_spec(bk.loss) is None or len(loss_param_values(
-                bk.loss)) > k5.MAX_LOSS_PARAMS):
-        return KernelLimit("a robust loss that does not trace to scalar "
-                           "code (ROADMAP.md item 9)")
+    return _loss_untraced(bk)
+
+
+def _loss_untraced(bk) -> Optional[str]:
+    """The KernelLimit of a bucket loss that the jet compiler does not
+    trace (K5's, and K1's on the card for a loss with no hand instance)."""
+    if bk.loss_proto is not None and make_loss_spec(bk.loss_proto) is None:
+        return KernelLimit(
+            f"{type(bk.loss_proto).__name__}, a robust loss that does not "
+            "trace to scalar code: an attribute other than numbers, bools, "
+            "strings and nested losses, or a torch op outside the jet "
+            "compiler's rules (ROADMAP.md item 9)")
     return None
 
 
@@ -255,13 +259,13 @@ def _explicit_unsupported(program, options, meta,
                 "solvers/schur_fused.py)")
     if not is_snavely_bucket(bk):
         reason = _k5_unsupported(program, options, meta)
-        if reason is not None:
-            return reason
-    elif (bk.loss is not None and type(bk.loss) not in K1_ENTRIES
-          and torch.device(options.device).type == "cuda"):
-        return KernelLimit(f"{type(bk.loss).__name__} on the Snavely "
-                           "bucket, whose K1 runs the stock scalar losses "
-                           "only (ROADMAP.md item 9)")
+    elif torch.device(options.device).type == "cuda" and \
+            type(bk.loss_proto) not in K1_ENTRIES:
+        reason = _loss_untraced(bk)       # K1's generated loss units
+    else:
+        reason = None
+    if reason is not None:
+        return reason
     if not (_explicit_viable(meta) if viable is None else viable):
         return (f"{options.linear_solver_type} on a reduced camera system "
                 "too large to form densely in the fused step (the generic "
@@ -581,13 +585,15 @@ class SchurStep:
         bk, bs = program.buckets[0], meta.buckets[0]
         grp = meta.f_groups[0]
         self.program = program
-        self.loss = bk.loss
+        self.loss = bk.loss_proto         # its class and uniform scalars
+        self.k4_loss = None               # the loss over K4's rows
         if (len(program.buckets) == 1 and is_snavely_bucket(bk)
                 and bs.e_slot is not None and bs.f_cols is not None
                 and (self.te, self.tf, bk.r) == (TE, TF, 2)):
             dev = program.device
             local = next(s[2] for s in grp["slots"] if s[0] == 0)
             rows = self._k4_rows()
+            self.k4_loss = rows_loss(bk.loss_proto, bk.loss_attrs, rows, dev)
             sel = slice(None) if rows is None else rows
             tsel = (slice(None) if rows is None
                     else torch.as_tensor(rows, device=dev))
@@ -631,7 +637,7 @@ class SchurStep:
         if self.k4 is None:
             return self.program.cost_fn(x)
         sq = snavely_sq(x, self.k4)
-        rho = sq if self.loss is None else self.loss.evaluate(sq)[0]
+        rho = sq if self.k4_loss is None else self.k4_loss.evaluate(sq)[0]
         return self.program.fixed_cost + 0.5 * torch.sum(rho)
 
 
@@ -707,12 +713,16 @@ class FusedSchurStep(SchurStep):
             self.ne, self.te)
 
     def _bind_data(self, program):
-        """SchurStep's data fields and the observations of K1 or K5 in
-        the chunk layout (K1: masked lanes carry observation 0)."""
+        """SchurStep's data fields, the observations of K1 or K5 in the
+        chunk layout (K1: masked lanes carry observation 0), and the
+        lanes' loss scalars where they differ by row (masked lanes: their
+        point's first valid lane's)."""
         super()._bind_data(program)
         bk = program.buckets[0]
+        rows, cmask = self._chunks()
+        self.loss_rows = k5.chunk_loss_rows(bk, k5.safe_rows(rows, cmask),
+                                            program.device)
         if self.k5 is None:
-            rows, cmask = self._chunks()
             obs = np.stack([bk.data[f].cpu().numpy().astype(np.float32)
                             for f in ("observed_x", "observed_y")], axis=1)
             self.dat = torch.as_tensor(np.ascontiguousarray(
@@ -731,11 +741,13 @@ class FusedSchurStep(SchurStep):
         xf = x[self.f_slab:self.f_slab + nf].float()
         if self.k5 is None:
             out = lin(xf, xe, self.cam, self.mask, self.dat, s_e.contiguous(),
-                      first, self.use_scaling, self.loss, self.plan)
+                      first, self.use_scaling, self.loss, self.plan,
+                      self.loss_rows)
         else:
             out = k5.lin_auto(self.k5, xf, xe, self.cam, self.mask,
                               self.dat, s_e.contiguous(), first,
-                              self.use_scaling, self.loss, self.plan)
+                              self.use_scaling, self.loss, self.plan,
+                              self.loss_rows)
         ete, ge, se = out["ete"], out["ge"], out["se"]
         ge_max = ge.abs().max()
         ge_sq = torch.dot(ge.reshape(-1), ge.reshape(-1))

@@ -137,7 +137,24 @@ problems:
    EXAMPLE_RUNS and the 29 MGH solves, GRADCHECK (GradientChecker.probe
    on GRADCHECK_BLOCKS Snavely blocks at their start, at
    GRADCHECK_PRECISION, check_gradients solves of
-   circle_fit and robot_pose_mle, GRADCHECK_WRONG);
+   circle_fit and robot_pose_mle, GRADCHECK_WRONG); slice 16
+   (`slice16_paths`, after slice 15's): K10's tiers bit for bit their
+   plain version (K10_SEEDED's shapes past tier 0's bounds, and
+   OPENCV_IMPLICIT's first linearization at (2, 3, 18)), registers and
+   spills (cuobjdump -res-usage) and each launch's v staging printed, the
+   general tier with its scratch in shared and in device memory;
+   OPENCV_IMPLICIT (the large case with COLMAP's FULL_OPENCV camera) once
+   through tier 1 and once through the general tier 2, which must
+   repeat tier 1's counts and cost bits, each within twice the JAX runs'
+   spread of the JAX final cost with K10 once a CG application; the
+   LOSS_PATHS (ScaledLoss through K1's generated loss unit, per-row
+   Huber through K1 with the lanes' scalars, quaternion per-row Cauchy
+   with Ceres's quaternion functor through K5), K1 or K5 checked at the
+   start within twice its plain version's own distance from its f64 run,
+   one warm-up and one timed solve each in CONVERGENCE within
+   LOSS_REL_TOL of the JAX cost with their kernels launched, K1 or K5
+   once a linearization; DENOISING's K8 and K9 launches printed beside
+   the 9-bucket grouping's;
 3. fails unless every kernel agrees within its limit (K7 with the same CG
    iteration count, K10 bit for bit), every BAL-16-22106 solve ends in
    CONVERGENCE with a final cost within 1e-5 relative of 5.028773e+04,
@@ -226,7 +243,9 @@ any phase fails.
 """
 
 import collections
+import contextlib
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -4900,6 +4919,672 @@ def slice15_paths(counters, by_path, device="cuda"):
                          + "; ".join(fails))
 
 
+# slice 16 (`slice16_paths`): the last kernel limits on the card.
+# OPENCV_IMPLICIT: the large case's shape and IMPLICIT_PERTURB with
+# COLMAP's FULL_OPENCV camera (opencv_functor: angle-axis, translation,
+# fx, fy, cx, cy, k1, k2, p1, p2, k3, k4, k5, k6; 18 parameters, so nf =
+# 18,432 and K10 runs at (r, te, tf) = (2, 3, 18), past tier 0's tf <= 16),
+# solved with large_options (ITERATIVE_SCHUR, SCHUR_JACOBI, mixed) in
+# the implicit step. synthetic_bal_problem's cameras and observation
+# structure at that shape, with its points drawn uniformly in a ball of
+# OPENCV_CLOUD_RADIUS about the ring's centre, so that from the ring
+# (radius 8) the observations fill a wide-angle image: normalized radius
+# up to tan(asin(6 / 8)) = 1.13, a field of view of 97 degrees across,
+# 567 px from the centre at the ring's focal length of 500. The
+# intrinsics are those of a calibrated wide-angle lens under FULL_OPENCV
+# (k1 -0.28, k2 0.09, k3 -0.012, k4 0.05, k5 0.015, k6 0.002, each varied
+# a camera), over whose radii k1..k6 are identifiable
+# (scripts/slice16_reference.py --conditioning prints the radial
+# Jacobian's condition number). Observations are the model's projections
+# at synthetic_bal_problem's pixel noise (opencv_data).
+OPENCV_INTRINSICS_SEED = 16
+OPENCV_PIXEL_NOISE = 1.0
+OPENCV_CLOUD_RADIUS = 6.0
+# LOSSES: the main path's problem under Ceres's documented weighting of a
+# robust loss (ScaledLoss), and under per-observation scalars: a level in
+# 0..7 a observation (numpy default_rng(LOSS_LEVEL_SEED)), ORB-SLAM2's
+# octave scales (scaleFactor 1.2, nLevels 8)
+LOSS_LEVEL_SEED = 16
+LOSS_LEVEL_SCALE = 1.2
+LOSS_LEVELS = 8
+LOSS_PATHS = {
+    # DENSE_SCHUR under ScaledLoss(HuberLoss(1.0), 0.5): K1 through its
+    # generated loss unit, K2, K3, K4
+    "SCALED_HUBER": dict(loss="scaled_huber", quaternions=False,
+                         solver="DENSE_SCHUR"),
+    # DENSE_SCHUR under HuberLoss(1.2 ** level): one bucket, K1 with the
+    # lanes' own scalars
+    "ROW_HUBER": dict(loss="row_huber", quaternions=False,
+                      solver="DENSE_SCHUR"),
+    # quaternion cameras (Euclidean quaternion blocks), ITERATIVE_SCHUR
+    # under CauchyLoss(2 * 1.2 ** level): K5 with the lanes' own scalars,
+    # K6, K7. The functor is Ceres's own (quaternion_functor, which
+    # normalizes q); with the packages' SnavelyReprojectionErrorWith-
+    # Quaternions, which does not, both packages stop in FAILURE here
+    # (scripts/slice16_reference.py --parts CAUCHY_DIAGNOSIS; ROADMAP.md
+    # section 3)
+    "QUAT_ROW_CAUCHY": dict(loss="row_cauchy", quaternions=True,
+                            solver="ITERATIVE_SCHUR", functor="ceres"),
+}
+# each path's final cost within LOSS_REL_TOL of the JAX package's run
+# (scripts/slice16_reference.py), as Robust BAL-16's gate
+LOSS_REL_TOL = 1e-5
+SLICE16_REF_FILE = "scripts/slice16_reference.json"
+# the LM cap of OPENCV_IMPLICIT: the JAX runs' largest count
+# (scripts/slice16_reference.json) with a quarter of headroom
+OPENCV_CAP_HEADROOM = 1.25
+
+
+def quaternion_functor(T, rot):
+    """Ceres's SnavelyReprojectionErrorWithQuaternions (examples/
+    snavely_reprojection_error.h) in array module T with rotation module
+    `rot`: camera [quaternion 4 (w first), translation 3, f, k1, k2],
+    point [3]. It rotates with QuaternionRotatePoint, which divides q by
+    its norm, since the bundle adjuster may optimize all four quaternion
+    parameters with no manifold; the packages' functor of that name
+    rotates with UnitQuaternionRotatePoint, so there |q| scales the view
+    by |q|^2."""
+    class SnavelyQuaternion:
+        def __init__(self, observed_x, observed_y):
+            self.observed_x, self.observed_y = observed_x, observed_y
+
+        def __call__(self, camera, point):
+            q = camera[:4]
+            scale = 1.0 / T.sqrt(q[0] * q[0] + q[1] * q[1] + q[2] * q[2]
+                                 + q[3] * q[3])
+            p = rot.unit_quaternion_rotate_point(q * scale, point) \
+                + camera[4:7]
+            xp = -p[0] / p[2]
+            yp = -p[1] / p[2]
+            r2 = xp * xp + yp * yp
+            distortion = 1.0 + r2 * (camera[8] + camera[9] * r2)
+            return T.stack([camera[7] * distortion * xp - self.observed_x,
+                            camera[7] * distortion * yp - self.observed_y])
+    return SnavelyQuaternion
+
+
+def opencv_functor(T, rot):
+    """COLMAP's FULL_OPENCV camera model (colmap/src/colmap/sensor/
+    models.h FullOpenCVCameraModel) on an angle-axis pose, in array module
+    T with rotation module `rot` (torch and the port's, or jax.numpy and
+    the JAX package's): camera [angle-axis 3, translation 3, fx, fy, cx,
+    cy, k1, k2, p1, p2, k3, k4, k5, k6], point [3]; u = p_x / p_z,
+    v = p_y / p_z (the geometry's cameras look down their -z axis, a
+    reflection that the model absorbs), the rational radial and the
+    tangential terms, then fx x + cx - observed_x, fy y + cy - observed_y.
+    T and rot are closed over, not attributes (the JAX package batches a
+    functor's numeric attributes)."""
+    class FullOpenCV:
+        def __init__(self, observed_x, observed_y):
+            self.observed_x, self.observed_y = observed_x, observed_y
+
+        def __call__(self, camera, point):
+            p = rot.angle_axis_rotate_point(camera[:3], point) + camera[3:6]
+            u = p[0] / p[2]
+            v = p[1] / p[2]
+            uu, vv, uv = u * u, v * v, u * v
+            r2 = uu + vv
+            radial = ((1.0 + r2 * (camera[10] + r2 * (camera[11]
+                                                      + r2 * camera[14])))
+                      / (1.0 + r2 * (camera[15] + r2 * (camera[16]
+                                                        + r2 * camera[17]))))
+            x = u * radial + 2.0 * camera[12] * uv + camera[13] * (
+                r2 + 2.0 * uu)
+            y = v * radial + 2.0 * camera[13] * uv + camera[12] * (
+                r2 + 2.0 * vv)
+            return T.stack([camera[6] * x + camera[8] - self.observed_x,
+                            camera[7] * y + camera[9] - self.observed_y])
+    return FullOpenCV
+
+
+def opencv_project(cameras, points, cam_idx, pt_idx):
+    """opencv_functor's prediction (x, y) of each observation, numpy f64."""
+    import numpy as np
+    c, X = cameras[cam_idx], points[pt_idx]
+    aa = c[:, :3]
+    theta = np.linalg.norm(aa, axis=1, keepdims=True)
+    w = aa / np.where(theta > 0, theta, 1.0)
+    ct, st = np.cos(theta), np.sin(theta)
+    p = (X * ct + np.cross(w, X) * st
+         + w * np.sum(w * X, axis=1, keepdims=True) * (1.0 - ct)) + c[:, 3:6]
+    u, v = p[:, 0] / p[:, 2], p[:, 1] / p[:, 2]
+    r2 = u * u + v * v
+    radial = ((1.0 + r2 * (c[:, 10] + r2 * (c[:, 11] + r2 * c[:, 14])))
+              / (1.0 + r2 * (c[:, 15] + r2 * (c[:, 16] + r2 * c[:, 17]))))
+    x = u * radial + 2.0 * c[:, 12] * u * v + c[:, 13] * (r2 + 2.0 * u * u)
+    y = v * radial + 2.0 * c[:, 13] * u * v + c[:, 12] * (r2 + 2.0 * v * v)
+    return np.stack([c[:, 6] * x + c[:, 8], c[:, 7] * y + c[:, 9]], axis=1)
+
+
+def opencv_data(bal_io, shape=None, seed=7):
+    """(cameras [nc, 18], points [np, 3], camera_index, point_index,
+    observations [no, 2]) of OPENCV_IMPLICIT: synthetic_bal_problem's
+    cameras and observation structure at `shape` (IMPLICIT_SHAPE), its
+    points redrawn uniformly in a ball of OPENCV_CLOUD_RADIUS and the
+    FULL_OPENCV intrinsics drawn from OPENCV_INTRINSICS_SEED (fx, fy the
+    geometry's focal length, a principal point of a few pixels, a
+    wide-angle lens's distortion), the model's projections plus
+    OPENCV_PIXEL_NOISE pixels of Gaussian noise, then the cameras' pose
+    and the points perturbed as BALProblem.perturb does with
+    IMPLICIT_PERTURB and seed 8."""
+    import numpy as np
+    shape = IMPLICIT_SHAPE if shape is None else shape
+    bal = bal_io.synthetic_bal_problem(**shape, seed=seed, pixel_noise=0.0)
+    nc, npt = bal.num_cameras, bal.num_points
+    rng = np.random.default_rng(OPENCV_INTRINSICS_SEED)
+    d = rng.normal(size=(npt, 3))
+    points = (OPENCV_CLOUD_RADIUS * d / np.linalg.norm(d, axis=1,
+                                                      keepdims=True)
+              * rng.random((npt, 1)) ** (1.0 / 3.0))
+    cams = np.zeros((nc, 18))
+    cams[:, :6] = bal.cameras[:, :6]
+    cams[:, 6] = bal.cameras[:, 6]
+    cams[:, 7] = bal.cameras[:, 6] * (1.0 + 0.01 * rng.normal(size=nc))
+    cams[:, 8:10] = 3.0 * rng.normal(size=(nc, 2))
+    for i, (mean, sd) in zip(range(10, 18), (
+            (-0.28, 0.02), (0.09, 0.01), (0.0, 5e-4), (0.0, 5e-4),
+            (-0.012, 0.002), (0.05, 0.01), (0.015, 0.003), (0.002, 5e-4))):
+        cams[:, i] = mean + sd * rng.normal(size=nc)
+    obs = opencv_project(cams, points, bal.camera_index, bal.point_index)
+    obs += OPENCV_PIXEL_NOISE * rng.normal(size=obs.shape)
+    prng = np.random.default_rng(8)        # BALProblem.perturb's order
+    points += prng.normal(0, IMPLICIT_PERTURB["point_sigma"], points.shape)
+    cams[:, 3:6] += prng.normal(0, IMPLICIT_PERTURB["translation_sigma"],
+                                (nc, 3))
+    cams[:, :3] += prng.normal(0, IMPLICIT_PERTURB["rotation_sigma"],
+                               (nc, 3))
+    return cams, points, bal.camera_index, bal.point_index, obs
+
+
+def opencv_problem(mod, T, rot, data, scale=1.0):
+    """(problem, camera arrays, point arrays) of opencv_data's `data` in
+    package `mod`, the start scaled by `scale`."""
+    import numpy as np
+    cams, points, cam_idx, pt_idx, obs = data
+    functor = opencv_functor(T, rot)
+    cam_arrays = [np.array(c) * scale for c in cams]
+    pt_arrays = [np.array(p) * scale for p in points]
+    problem = mod.Problem()
+    for i in range(obs.shape[0]):
+        problem.add_residual_block(mod.AutoDiffCostFunction(
+            functor(float(obs[i, 0]), float(obs[i, 1])), 2, [18, 3]), None,
+            cam_arrays[cam_idx[i]], pt_arrays[pt_idx[i]])
+    return problem, cam_arrays, pt_arrays
+
+
+def loss_levels(n):
+    """Each observation's octave level in 0..LOSS_LEVELS - 1."""
+    import numpy as np
+    return np.random.default_rng(LOSS_LEVEL_SEED).integers(0, LOSS_LEVELS, n)
+
+
+def loss_path_problem(mod, bal_io, path, scale=1.0, cfg=None):
+    """(problem, camera arrays, point arrays) of LOSS_PATHS[path] (or of
+    `cfg`, a dict of its form) in package `mod` with its io.bal module:
+    the main path's problem (or its quaternion form, Euclidean quaternion
+    blocks) under the path's loss, one loss object for every block or one
+    a block, the start scaled by `scale`; the package's Snavely functor,
+    or quaternion_functor where the path's `functor` is "ceres"."""
+    import numpy as np
+    cfg = LOSS_PATHS[path] if cfg is None else cfg
+    bal = (quaternion_bal(bal_io) if cfg["quaternions"] else
+           bal_io.synthetic_bal_problem(**SHAPE, seed=7, pixel_noise=1.0))
+    if not cfg["quaternions"]:
+        bal.perturb(**PERTURB, seed=8)
+    bal.cameras *= scale
+    bal.points *= scale
+    if cfg["loss"] == "scaled_huber":
+        return bal_io.build_bal_ceres_problem(
+            bal, loss=mod.ScaledLoss(mod.HuberLoss(1.0), 0.5),
+            use_manifolds=False)
+    from importlib import import_module
+    snav = import_module(mod.__name__ + ".examples.snavely")
+    functor, csize = ((snav.SnavelyReprojectionErrorWithQuaternions, 10)
+                      if cfg["quaternions"]
+                      else (snav.SnavelyReprojectionError, 9))
+    if cfg.get("functor") == "ceres":
+        functor = quaternion_functor(
+            import_module("torch" if mod.__name__.endswith("_torch")
+                          else "jax.numpy"),
+            import_module(mod.__name__ + ".rotation"))
+    scales = LOSS_LEVEL_SCALE ** loss_levels(bal.num_observations)
+    cams = [bal.cameras[i].copy() for i in range(bal.num_cameras)]
+    pts = [bal.points[i].copy() for i in range(bal.num_points)]
+    problem = mod.Problem()
+    for i in range(bal.num_observations):
+        ox, oy = (float(v) for v in bal.observations[i])
+        loss = (mod.HuberLoss(float(scales[i])) if cfg["loss"] == "row_huber"
+                else mod.CauchyLoss(2.0 * float(scales[i])))
+        problem.add_residual_block(
+            mod.AutoDiffCostFunction(functor(ox, oy), 2, [csize, 3]), loss,
+            cams[bal.camera_index[i]], pts[bal.point_index[i]])
+    return problem, cams, pts
+
+
+def loss_path_options(mod, path, cfg=None, **extra):
+    """LOSS_PATHS[path]'s (or `cfg`'s) options in package `mod`: the main
+    path's (bench.py's) with the path's solver, 100 LM iterations at
+    most."""
+    cfg = LOSS_PATHS[path] if cfg is None else cfg
+    kw = dict(linear_solver_type=getattr(
+        mod.LinearSolverType, cfg["solver"]),
+        preconditioner_type=mod.PreconditionerType.SCHUR_JACOBI,
+        max_num_iterations=100, function_tolerance=1e-6,
+        max_linear_solver_iterations=100, use_mixed_precision_solves=True,
+        fused_iterations=True)
+    kw.update(extra)
+    return mod.SolverOptions(**kw)
+
+
+def slice16_reference():
+    """scripts/slice16_reference.json (the JAX package's runs), or {}."""
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        SLICE16_REF_FILE)
+    if not os.path.exists(path):
+        return {}
+    with open(path) as fh:
+        return json.load(fh)
+
+
+# K10's launch counters by tier (ops/implicit.py TIER_COUNTERS): each
+# tier's record in the kernels line reads its counter from the
+# OPENCV_IMPLICIT run that took it (tier 1 is the path's own; the general
+# tier 2 is held to the same solve with the register tiers left out)
+K10_TIER_PATHS = {1: "OPENCV_IMPLICIT", 2: "OPENCV_IMPLICIT_GENERAL"}
+# K10 on seeded inputs past each of tier 0's bounds (r 4, te 4, tf 16),
+# each shape at ne points of k lanes on kf cameras
+K10_SEEDED = dict(shapes=((6, 3, 9), (2, 6, 9), (6, 6, 24)), ne=50000,
+                  k=5, kf=1024)
+# DENOISING mixed with the loss scalars keyed by value (9 buckets): K8
+# 7,470 for 741 CG iterations, K9 200 (CHANGES.md)
+DENOISE_NINE_BUCKET_LAUNCHES = {"K8 bucket_jtjv": 7470, "K9 group_gram_blocks": 200}
+
+
+def k10_seeded(ne, k, r, te, tf, kf, seed):
+    """Seeded K10 inputs on the card: a fifth of the lanes masked (zero
+    rows, lane 0 always real), an SPD-like inverse, v on kf cameras."""
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(seed)
+    mask = (rng.random((ne, k)) < 0.8).astype(np.float32)
+    mask[:, 0] = 1.0
+    Je = rng.standard_normal((ne, k, r, te)).astype(np.float32) \
+        * mask[..., None, None]
+    Jf = rng.standard_normal((ne, k, r, tf)).astype(np.float32) \
+        * mask[..., None, None]
+    a = rng.standard_normal((ne, te, te))
+    inv = (np.einsum("nij,nkj->nik", a, a) / te + np.eye(te)).astype(
+        np.float32)
+    fids = rng.integers(0, kf, (ne, k)).astype(np.int32)
+    v = rng.standard_normal(kf * tf).astype(np.float32)
+    return tuple(torch.as_tensor(x, device="cuda")
+                 for x in (Je, Jf, inv, fids, v))
+
+
+def k10_res_usage():
+    """Registers, spills (local memory) and shared memory of each K10
+    instance in the built library (cuobjdump -res-usage), by mangled
+    kernel name."""
+    from ceres_tpu_torch.ops import _cuda
+    tool = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
+                        "bin", "cuobjdump")
+    out = subprocess.run([tool, "-res-usage", str(_cuda.build())],
+                         capture_output=True, text=True).stdout
+    usage, name = {}, None
+    for line in out.splitlines():
+        line = line.strip()
+        if line.startswith("Function "):
+            name = line[len("Function "):].rstrip(":")
+        elif line.startswith("REG:") and name and "implicit_apply" in name:
+            usage[name] = line
+    return usage
+
+
+def slice16_paths(counters, by_path, kernels, smi):
+    """Slice 16's phase: K10's tiers against their plain version (the
+    comment above K10_SEEDED and OPENCV_IMPLICIT's first linearization),
+    OPENCV_IMPLICIT through tier 1 and through the general tier, the
+    LOSS_PATHS with their K1 or K5 check, and DENOISING's launches beside
+    the 9-bucket grouping's. Adds the new K10, K1 and K5 instances to `kernels`; raises
+    once every part has printed its numbers, if one was off its gate."""
+    import numpy as np
+    import torch
+    import ceres_tpu_torch as ctt
+    from ceres_tpu_torch import rotation as trot
+    from ceres_tpu_torch.io import bal as bal_io
+    from ceres_tpu_torch.ops import implicit as k10
+    from ceres_tpu_torch.ops import lin as k1
+    from ceres_tpu_torch.ops import lin_auto as k5
+    from ceres_tpu_torch.ops.jet_compile import make_loss_spec
+    from ceres_tpu_torch.program import CompiledProgram
+    from ceres_tpu_torch.solvers import schur_fused
+    from ceres_tpu_torch.solvers.schur import detect_schur_structure
+    fails, t_phase = [], time.time()
+    refs = slice16_reference()
+
+    def check(ok, msg):
+        print(("  ok: " if ok else "  FAIL: ") + msg, flush=True)
+        if not ok:
+            fails.append(msg)
+
+    def bits(got, want):
+        same = torch.equal(got, want) and torch.equal(
+            got.view(torch.int32), want.view(torch.int32))
+        err = rel_err(got, want)
+        return [(err[0] if same else max(err[0], 1e-30), err[1])]
+
+    def k10_flops(ne, k, r, te, tf):
+        # per lane w twice, u, w2, C; per point zz
+        return ne * k * r * (6 * tf + 4 * te) + 2 * ne * te ** 2
+
+    usage = k10_res_usage()
+    print(f"K10 instances, cuobjdump -res-usage ({smi}):", flush=True)
+    for name, line in sorted(usage.items()):
+        print(f"  {name}: {line}", flush=True)
+
+    @contextlib.contextmanager
+    def k10_forced(tier, scratch_smem=None):
+        # the wrapper's tier choice with the register tiers below `tier`
+        # left out, and the general tier's scratch capped at scratch_smem
+        # bytes of shared memory (0: in device memory)
+        held = k10.TIERS, k10.SCRATCH_SMEM_BYTES
+        k10.TIERS = {t: m for t, m in held[0].items() if t >= tier}
+        k10.SCRATCH_SMEM_BYTES = scratch_smem
+        try:
+            yield
+        finally:
+            k10.TIERS, k10.SCRATCH_SMEM_BYTES = held
+
+    def k10_launches(r, te, tf):
+        # (tier, scratch_smem) of every launch that holds the shape
+        return ([(t, None) for t, m in k10.TIERS.items()
+                 if all(x <= y for x, y in zip((r, te, tf), m))]
+                + [(k10.GENERAL_TIER, None), (k10.GENERAL_TIER, 0)])
+
+    def check_k10(label, args, tier, scratch_smem, record=False):
+        Je, Jf, inv, fids, v = args
+        ne, k, r, te = Je.shape
+        tf = Jf.shape[-1]
+        where = "" if scratch_smem is None else ", scratch in device memory"
+        with k10_forced(tier, scratch_smem):
+            plan = k10.implicit_plan(ne, k, r, te, tf, v.numel() // tf)
+            check(plan["tier"] == tier, f"K10 takes tier {tier} at "
+                  f"{(r, te, tf)}{where}")
+            rec = check_kernel(
+                f"K10 implicit_apply (tier {tier}{where}, {label}, "
+                f"(r, te, tf) = {(r, te, tf)})",
+                lambda: k10.implicit_apply(*args),
+                lambda: k10.implicit_apply_plain(*args), bits, K10_LIMIT,
+                "ceres_tpu_torch/csrc/implicit.cu",
+                "ceres_tpu/ops/pallas_implicit.py:49", args,
+                k10_flops(ne, k, r, te, tf), F32_FLOP_PER_S)
+        where = ("staged in shared memory" if plan["stage"]
+                 else "read from device memory")
+        print(f"  plan: {plan['threads']} threads a block, v {where}, "
+              f"{plan['smem']} B of shared memory"
+              + (f", scratch {plan['scratch_floats']} floats x "
+                 f"{plan['scratch_blocks']} blocks in device memory"
+                 if plan["scratch_floats"] else ""), flush=True)
+        rec["plan"] = plan
+        if record:
+            rec["name"] = f"K10 implicit_apply (tier {tier})"
+            rec["counter"] = f"K10 implicit_apply (tier {tier})"
+            MAIN_PATH[rec["name"]] = K10_TIER_PATHS[tier]
+            kernels.append(rec)
+        return rec
+
+    # ---- K10 on seeded inputs past each old bound ----
+    for r, te, tf in K10_SEEDED["shapes"]:
+        args = k10_seeded(K10_SEEDED["ne"], K10_SEEDED["k"], r, te, tf,
+                          K10_SEEDED["kf"], seed=r * 100 + te * 10 + tf)
+        for tier, scratch_smem in k10_launches(r, te, tf):
+            check_k10("seeded", args, tier, scratch_smem)
+        del args
+
+    # ---- OPENCV_IMPLICIT ----
+    t0 = time.time()
+    data = opencv_data(bal_io)
+    problem, cams, pts = opencv_problem(ctt, torch, trot, data)
+    arrays = cams + pts
+    start = [a.copy() for a in arrays]
+    ref = refs.get("OPENCV_IMPLICIT", {})
+    runs = ref.get("runs", [])
+    cap = math.ceil(OPENCV_CAP_HEADROOM * max([r_["lm"] for r_ in runs]
+                                              or [0]))
+    options = large_options(ctt, device="cuda", max_num_iterations=cap)
+    program = CompiledProgram.get_cached(problem, options)
+    meta = detect_schur_structure(program, options)
+    step = schur_fused.schur_step(program, options, meta)
+    bk = program.buckets[0]
+    print(f"OPENCV_IMPLICIT: data and problem {time.time() - t0:.1f} s; "
+          f"ne={meta.ne} kf={step.kf} nf={step.nf} (r, te, tf) = "
+          f"{(bk.r, step.te, step.tf)}; {step.mode}; K11 "
+          f"{bk.spec.name if bk.spec is not None else 'none (jacfwd)'}",
+          flush=True)
+    check(isinstance(step, schur_fused.ImplicitSchurStep) and step.k10
+          and (bk.r, step.te, step.tf) == (2, 3, 18),
+          "OPENCV_IMPLICIT runs the implicit step with K10 at (2, 3, 18)")
+    x0 = program.initial_state()
+    art = step.linearize(x0, *step.initial_scales(), first=True,
+                         known_cost=step.cost(x0))
+    inv = step.damped_inverse(art, torch.tensor(
+        RADIUS, dtype=torch.float32, device="cuda"))
+    _, Je_s, Jf_s, plan0 = step.scaled_chunks(art)[0]
+    args = (Je_s, Jf_s, inv, plan0.fids32, torch.as_tensor(
+        np.random.default_rng(2).standard_normal(step.nf),
+        dtype=torch.float32, device="cuda"))
+    for tier, scratch_smem in k10_launches(bk.r, step.te, step.tf):
+        check_k10("OPENCV_IMPLICIT's first linearization", args, tier,
+                  scratch_smem, record=scratch_smem is None)
+    del art, inv, Je_s, Jf_s, plan0, args
+
+    apps = [0]
+    cg = schur_fused.conjugate_gradients
+
+    def counting_cg(apply_A, *a, **kw):
+        def counted(v):
+            apps[0] += 1
+            return apply_A(v)
+        return cg(counted, *a, **kw)
+
+    costs = [r_["final_cost"] for r_ in runs]
+    ref_cost = costs[0] if costs else None
+    tol = (2.0 * (max(costs) - min(costs)) / ref_cost if costs else None)
+    if costs:
+        print(f"OPENCV_IMPLICIT: the JAX package on the CPU from starts x "
+              f"{[r_['scale'] for r_ in runs]}: "
+              f"{[(r_['lm'], r_['linear']) for r_ in runs]} LM / CG "
+              f"iterations to {costs} ({[r_['termination'] for r_ in runs]}"
+              f"); gate {tol:.3e} of {ref_cost!r}; LM cap {cap}", flush=True)
+    else:
+        check(False, "OPENCV_IMPLICIT has its JAX reference "
+              f"({SLICE16_REF_FILE})")
+    seen = {}
+    schur_fused.conjugate_gradients = counting_cg
+    try:
+        for path, tier in (("OPENCV_IMPLICIT", 1),
+                           ("OPENCV_IMPLICIT_GENERAL", k10.GENERAL_TIER)):
+            for a, a0 in zip(arrays, start):
+                a[:] = a0
+            for fn in list(counters.values()) + k10.TIER_COUNTERS:
+                fn.launches = 0
+            apps[0] = 0
+            torch.cuda.synchronize()
+            t0 = time.time()
+            with k10_forced(tier):
+                s_ = ctt.solve(options, problem)
+            torch.cuda.synchronize()
+            wall = time.time() - t0
+            launched = {n: fn.launches for n, fn in counters.items()}
+            for t, fn in enumerate(k10.TIER_COUNTERS):
+                launched[f"K10 implicit_apply (tier {t})"] = fn.launches
+            by_path[path] = launched
+            print(f"{path}: {s_.termination_type}, {lm_iterations(s_)} LM "
+                  f"({s_.num_successful_steps} accepted), "
+                  f"{s_.num_linear_solver_iterations} CG iterations, "
+                  f"{apps[0]} CG applications, initial cost "
+                  f"{s_.initial_cost!r}, final cost {s_.final_cost!r}, wall "
+                  f"{wall:.4f} s ({smi}), launches "
+                  f"{ {n: c for n, c in launched.items() if c} }", flush=True)
+            check(s_.is_solution_usable(), f"{path} usable")
+            check(launched["K10 implicit_apply"] == apps[0] > 0 and
+                  launched[f"K10 implicit_apply (tier {tier})"] == apps[0],
+                  f"{path}: K10 (tier {tier}) once a CG application")
+            if ref_cost is not None:
+                check(abs(s_.final_cost - ref_cost) <= tol * ref_cost,
+                      f"{path} final cost within {tol:.3e} of JAX")
+            seen[path] = (s_.num_iterations, s_.num_linear_solver_iterations,
+                          s_.final_cost)
+    finally:
+        schur_fused.conjugate_gradients = cg
+    check(len(set(seen.values())) == 1,
+          f"the general tier's solve repeats tier 1's counts and cost bits: "
+          f"{seen}")
+    del problem, program, step, data, arrays, start, cams, pts
+
+    # ---- LOSSES ----
+    for path, cfg in LOSS_PATHS.items():
+        t0 = time.time()
+        problem, cams, pts = loss_path_problem(ctt, bal_io, path)
+        arrays = cams + pts
+        start = [a.copy() for a in arrays]
+        options = loss_path_options(ctt, path, device="cuda")
+        program = CompiledProgram.get_cached(problem, options)
+        meta = detect_schur_structure(program, options)
+        step = schur_fused.schur_step(program, options, meta)
+        bk = program.buckets[0]
+        print(f"{path}: problem and step {time.time() - t0:.1f} s; "
+              f"{len(program.buckets)} bucket(s), loss "
+              f"{type(bk.loss_proto).__name__}, per-row scalars "
+              f"{sorted(bk.loss_attrs) if bk.loss_attrs else None}; "
+              f"{step.mode}", flush=True)
+        per_row = cfg["loss"].startswith("row_")
+        check(len(program.buckets) == 1 and (step.loss_rows is not None)
+              == per_row, f"{path}: one bucket, per-row scalars {per_row}")
+        # the linearize kernel at the start, against its plain version;
+        # each output's limit F32_LIMIT or twice the plain version's own
+        # distance from its f64 run, as K1's loss instances' check
+        x0 = program.initial_state()
+        ne = step.ne
+        lin_in = (x0[step.f_slab:step.f_slab + step.nf].float(),
+                  step.point_state(x0).float().contiguous(), step.cam,
+                  step.mask, step.dat,
+                  torch.ones(ne, step.te, device="cuda"))
+        rows = step.loss_rows
+
+        def as64(t):
+            return None if t is None else t.double()
+        if step.k5 is None:
+            def kern(a=lin_in, lr=rows):
+                return k1.lin(*a, True, True, step.loss, step.plan, lr)
+
+            def plain(a=lin_in, lr=rows):
+                return k1.lin_plain(*a[:4], a[4][..., 0], a[4][..., 1],
+                                    a[5], True, True, step.loss, lr)
+            how = "per-row scalars" if per_row else "generated loss unit"
+            name, counter = f"K1 lin ({how}, {path})", "K1 lin"
+            flops = (516 + 55) * program.num_residual_blocks
+            source = "ceres_tpu_torch/csrc/lin_k1.cuh"
+            replaces = "ceres_tpu/ops/pallas_lin.py:66"
+        else:
+            def kern(a=lin_in, lr=rows):
+                return k5.lin_auto(step.k5, *a, True, True, step.loss,
+                                   step.plan, lr)
+
+            def plain(a=lin_in, lr=rows):
+                return k5.lin_auto_plain(step.k5, *a, True, True, step.loss,
+                                         lr)
+            name, counter = f"K5 lin_auto (per-row scalars, {path})", \
+                "K5 lin_auto"
+            chain_ops = sum(1 for ln in k5.chain_source(
+                step.k5, make_loss_spec(step.loss)).splitlines()
+                if ln.lstrip().startswith("const "))
+            flops = chain_ops * program.num_residual_blocks
+            source = "ceres_tpu_torch/csrc/lin_auto.cuh"
+            replaces = "ceres_tpu/ops/pallas_lin.py:272"
+        lin64 = tuple(t.double() if t.is_floating_point() else t
+                      for t in lin_in)
+        want32 = plain()
+        want64 = plain(lin64, as64(rows))
+        own = [rel_err(want32[k], want64[k])[0] for k in want32]
+        got = kern()
+        mine = [rel_err(got[k], want64[k])[0] for k in want32]
+        print(f"{name}: the plain version (f32) from its f64 run "
+              f"{', '.join(f'{e:.3e}' for e in own)}; the kernel from the "
+              f"f64 run {', '.join(f'{e:.3e}' for e in mine)}", flush=True)
+        rec = check_kernel(
+            name, kern, plain,
+            lambda g_, w: [rel_err(g_[k], w[k]) for k in w],
+            [max(F32_LIMIT, 2.0 * e) for e in own], source, replaces,
+            lin_in + ((rows,) if rows is not None else ()), flops,
+            F32_FLOP_PER_S)
+        rec["counter"] = counter
+        MAIN_PATH[name] = path
+        kernels.append(rec)
+        del want32, want64, got, lin64
+
+        ref_run = refs.get(path, {}).get("runs", [{}])[0]
+        want_cost, ref_lm = ref_run.get("final_cost"), ref_run.get("lm")
+        lin_k = "K1 lin" if step.k5 is None else "K5 lin_auto"
+        runs_k = ((lin_k, "K2 elim", "K3 chol_solve", "K4 cost")
+                  if step.k5 is None else (lin_k, "K6 elim_v1",
+                                           "K7 dense_pcg"))
+        gen0 = k1.lin.generated_launches
+        lins = [0]
+        linearize = schur_fused.FusedSchurStep.linearize
+
+        def counted(self, *a, **kw):
+            lins[0] += 1
+            return linearize(self, *a, **kw)
+
+        def reset(a_=arrays, s0=start):
+            for a, a0 in zip(a_, s0):
+                a[:] = a0
+            lins[0] = 0
+
+        def gate(summary, launches, path=path, runs_k=runs_k, lin_k=lin_k):
+            print(f"  {path}: the JAX package on the CPU {ref_lm} LM "
+                  f"iterations to {want_cost!r}; here "
+                  f"{lm_iterations(summary)}; {lins[0]} linearizations, "
+                  f"{launches[lin_k]} {lin_k} launches", flush=True)
+            short = [n for n in runs_k if launches[n] <= 0]
+            if short:
+                raise SystemExit(f"{path}: kernels not launched: {short}")
+            if launches[lin_k] != lins[0]:
+                raise SystemExit(f"{path}: {lin_k} launched "
+                                 f"{launches[lin_k]} times for {lins[0]} "
+                                 f"linearizations")
+        if ref_run.get("termination") != "CONVERGENCE":
+            check(False, f"{path} has a converged JAX reference "
+                  f"({SLICE16_REF_FILE}: {ref_run.get('termination')})")
+            continue
+        schur_fused.FusedSchurStep.linearize = counted
+        try:
+            by_path[path] = drive(path, options, problem, reset, counters, 2,
+                                  gate, ref_cost=want_cost,
+                                  ref_tol=LOSS_REL_TOL)
+        except SystemExit as e:
+            check(False, str(e))
+        finally:
+            schur_fused.FusedSchurStep.linearize = linearize
+        if cfg["loss"] == "scaled_huber":
+            check(k1.lin.generated_launches > gen0,
+                  f"{path}: K1 through its generated loss unit")
+        del problem, program, step, arrays, start
+
+    # ---- DENOISING ----
+    den = by_path.get("DENOISING_MIXED", {})
+    print(f"DENOISING mixed, the JAX package's bucket count: K8 "
+          f"{den.get('K8 bucket_jtjv')} and K9 "
+          f"{den.get('K9 group_gram_blocks')} launches (9 buckets: "
+          f"{DENOISE_NINE_BUCKET_LAUNCHES['K8 bucket_jtjv']} and "
+          f"{DENOISE_NINE_BUCKET_LAUNCHES['K9 group_gram_blocks']})", flush=True)
+    print(f"slice16_paths: {time.time() - t_phase:.1f} s", flush=True)
+    if fails:
+        raise SystemExit(f"slice16_paths: {len(fails)} check(s) failed: "
+                         f"{fails}")
+
+
 def main():
     import numpy as np
     import torch
@@ -5970,6 +6655,7 @@ def main():
                   big_problem, reset_big,
                   detect_schur_structure(big_program, big_options))
     slice15_paths(counters, by_path)
+    slice16_paths(counters, by_path, kernels, smi)
 
     # tests/test_solver_e2e.py's helloworld, Powell and bounded problems
     # on the card, at those tests' tolerances
@@ -6058,7 +6744,7 @@ def main():
     for rec in kernels:
         counter = rec.get("counter", rec["name"])
         rec["launches"] = by_path[MAIN_PATH[rec["name"]]][counter]
-        rec["launches_by_path"] = {p: c[counter]
+        rec["launches_by_path"] = {p: c.get(counter, 0)
                                    for p, c in by_path.items()}
         if rec["name"] == "K3 chol_solve":
             rec["variant_launches"] = {

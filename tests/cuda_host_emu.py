@@ -6,7 +6,9 @@ compiles a header with the host g++ under a shim that stands in for the
 CUDA qualifiers and runtime calls, and emulates each launch one block at
 a time, one std::thread per CUDA thread, with a std::barrier as
 __syncthreads. A warp's __shfl_down_sync and __shfl_xor_sync go through
-exchange slots between two barriers of its 32 threads, and a bulk copy on an mbarrier
+exchange slots between two barriers of its 32 threads (__shfl_sync
+from any source lane too), __syncwarp meets a warp's threads, and a bulk
+copy on an mbarrier
 (`bulk_load` / `bulk_wait`, which a source defines for the card unless
 CUDA_HOST_EMU is set) is a copy by the issuing thread that then
 releases the waiters; a source's cp.async helpers copy at once under
@@ -80,6 +82,23 @@ inline float __shfl_xor_sync(unsigned, float v, int mask) {
   bar.arrive_and_wait();
   return out;
 }
+inline float __shfl_sync(unsigned, float v, int src) {
+  const unsigned t = threadIdx.x;
+  std::barrier<>& bar = *emu_warp_bar[t >> 5];
+  emu_shfl[t] = v;
+  bar.arrive_and_wait();
+  const float out = emu_shfl[(t & ~31u) + (unsigned)src];
+  bar.arrive_and_wait();
+  return out;
+}
+inline void __syncwarp() { emu_warp_bar[threadIdx.x >> 5]->arrive_and_wait(); }
+// round-to-nearest products and sums (the host compiles them without
+// fused multiply-adds)
+inline float __fmul_rn(float a, float b) { return a * b; }
+inline float __fadd_rn(float a, float b) { return a + b; }
+inline float __fsub_rn(float a, float b) { return a - b; }
+template <class T>
+inline T __ldcs(const T* p) { return *p; }
 inline unsigned __brev(unsigned x) {
   unsigned r = 0;
   for (int i = 0; i < 32; ++i) r |= ((x >> i) & 1u) << (31 - i);

@@ -458,9 +458,10 @@ _K5_MAIN = r"""
   float* partial = emu_alloc<float>((size_t)nchunks * kf * NQ);
   float* ftf = emu_alloc<float>((size_t)kf * TF * TF);
   float* gf = emu_alloc<float>((size_t)kf * TF);
-  if (lin_auto_launch<Chain>(xf, xe, cam, mask, dat, lp, nlp, se_in, first,
-                             use_scaling, ne, k, kf, pb, pos, off, nchunks,
-                             ete, ge, se, A, q, partial, ftf, gf, nullptr))
+  if (lin_auto_launch<Chain>(xf, xe, cam, mask, dat, nlp, lp, 0,
+                             se_in, first, use_scaling, ne, k, kf, pb, pos,
+                             off, nchunks, ete, ge, se, A, q, partial, ftf,
+                             gf, nullptr))
     return 3;
   emu_write("ete", ete, (size_t)ne * TE * TE);
   emu_write("ge", ge, (size_t)ne * TE);

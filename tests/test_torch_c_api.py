@@ -175,6 +175,26 @@ def test_c_loss_evaluates_on_host():
     assert rho.shape == s.shape and d2.dtype == torch.float64
 
 
+def test_c_loss_takes_one_user_data_a_row():
+    """Blocks whose C losses differ only in their user_data share a
+    bucket (a flat loss of plain numbers, program.py loss_attrs): the
+    stacked pointers reach the C function a row each."""
+    from ceres_tpu_torch import c_api
+    from ceres_tpu_torch.loss import stacked_loss
+    loss_fn = c_api.CERES_LOSS_FUNC_T(_cauchy)
+    cls = c_api._loss_class(ctypes.cast(loss_fn, c_void_p).value)
+    a = [(c_double * 1)(0.5), (c_double * 1)(2.0)]
+    s = torch.tensor([0.3, 0.3], dtype=torch.float64)
+    ptrs = torch.tensor([float(ctypes.addressof(x)) for x in a],
+                        dtype=torch.float64)
+    rows = stacked_loss(cls(ctypes.addressof(a[0])), {"user_data": ptrs})
+    got = rows.evaluate(s)[0]
+    for i, x in enumerate(a):
+        want = cls(ctypes.addressof(x)).evaluate(s[i:i + 1])[0]
+        assert float(got[i]) == float(want[0])
+    assert float(got[0]) != float(got[1])
+
+
 def _embedding_ok():
     return (shutil.which("gcc") is not None
             and shutil.which("python3-config") is not None

@@ -236,13 +236,25 @@ def test_out_of_slice_options_raise(extra, monkeypatch):
 
 
 def test_robust_loss_on_cuda_raises_not_implemented():
-    """The CUDA linearize kernel runs the stock scalar losses (one K1
-    instance a class); a composed loss has none: the solve keeps the
-    fused step's route (a port kernel's limit is not handed to the
-    generic Schur step) and the step refuses it, naming ROADMAP.md item
-    9. A HuberLoss passes the gate."""
+    """The CUDA linearize kernel runs any loss that the jet compiler
+    traces (a hand K1 instance for a stock scalar loss, a generated loss
+    unit for any other, ScaledLoss among them); a loss that does not
+    trace (an attribute other than numbers, bools, strings and nested
+    losses) has none: the solve keeps the fused step's route (a port
+    kernel's limit is not handed to the generic Schur step) and the step
+    refuses it, naming ROADMAP.md item 9. A HuberLoss and a ScaledLoss
+    pass the gate."""
+
+    class Opaque(ctt.LossFunction):
+        def __init__(self):
+            self.table = np.ones(3)
+
+        def evaluate(self, s):
+            return s, torch.ones_like(s), torch.zeros_like(s)
+
     opts = main_path_options(ctt, device="cuda")
-    for loss, refused in ((ctt.ScaledLoss(ctt.HuberLoss(1.0), 2.0), True),
+    for loss, refused in ((Opaque(), True),
+                          (ctt.ScaledLoss(ctt.HuberLoss(1.0), 2.0), False),
                           (ctt.HuberLoss(1.0), False)):
         problem = torch_problem(small_bal(), loss=loss)
         program = TorchProgram(problem, device="cpu")

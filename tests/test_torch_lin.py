@@ -30,8 +30,8 @@ from ceres_tpu.ops.pallas_lin import make_pallas_lin
 from ceres_tpu.program import CompiledProgram as JaxProgram
 from ceres_tpu.solvers.schur import detect_schur_structure as jax_detect
 from ceres_tpu_torch.ops import lin_auto as k5
-from ceres_tpu_torch.ops.lin import (K1_ENTRIES, elim_plain, k1_entry, lin,
-                                     lin_plain)
+from ceres_tpu_torch.ops.lin import (K1_ENTRIES, elim_plain, k1_entry,
+                                     k1_loss_unit, lin, lin_plain)
 from ceres_tpu_torch.program import CompiledProgram as TorchProgram
 from ceres_tpu_torch.solvers.schur import detect_schur_structure
 from ceres_tpu_torch.solvers.schur_fused import FusedSchurStep
@@ -266,9 +266,9 @@ _K1_MAIN = r"""
   float* gf = emu_alloc<float>((size_t)kf * 9);
   auto entry = loss == 1 ? ceres_lin_huber
                : loss == 2 ? ceres_lin_cauchy : ceres_lin;
-  if (entry(xf, xe, cam, mask, dat, lp, nlp, se_in, first, use_scaling, ne, k,
-            kf, pb, pos, off, nchunks, ete, ge, se, A, q, partial, ftf, gf,
-            nullptr))
+  if (entry(xf, xe, cam, mask, dat, nlp, lp, 0, se_in, first,
+            use_scaling, ne, k, kf, pb, pos, off, nchunks, ete, ge, se, A, q,
+            partial, ftf, gf, nullptr))
     return 3;
   emu_write("ete", ete, (size_t)ne * 9);
   emu_write("ge", ge, (size_t)ne * 3);
@@ -394,8 +394,9 @@ def test_k1_loss_kernel_source_on_the_host(tmp_path_factory, name):
 
 def test_k1_entries_cover_the_stock_losses():
     """One K1 instance a stock scalar loss class, with the wrapper's
-    scalars in loss_structure order; any other loss raises, naming
-    ROADMAP.md item 9."""
+    scalars in loss_structure order; any other loss that traces gets a
+    generated unit of the same chain (ops/lin.py k1_loss_unit), and one
+    that does not trace raises, naming ROADMAP.md item 9."""
     from ceres_tpu_torch.ops import _cuda
     for cls, entry in K1_ENTRIES.items():
         assert _cuda._SIGNATURES[entry] is _cuda._SIGNATURES["ceres_lin"]
@@ -404,8 +405,19 @@ def test_k1_entries_cover_the_stock_losses():
     assert k1_entry(ctt.HuberLoss(2.0)) == ("ceres_lin_huber", [2.0, 4.0])
     assert k1_entry(ctt.CauchyLoss(2.0)) == ("ceres_lin_cauchy",
                                               [4.0, 0.25])
+    unit = k1_loss_unit(ctt.ScaledLoss(ctt.HuberLoss(1.0), 2.0))
+    assert '#include "lin_k1.cuh"' in unit
+    assert "CERES_LIN_ENTRY(ceres_lin_gen, GeneratedLoss)" in unit
+
+    class Opaque(ctt.LossFunction):
+        def __init__(self):
+            self.table = np.ones(3)      # an attribute that does not trace
+
+        def evaluate(self, s):
+            return s, torch.ones_like(s), torch.zeros_like(s)
+
     with pytest.raises(NotImplementedError, match="item 9"):
-        k1_entry(ctt.ScaledLoss(ctt.HuberLoss(1.0), 2.0))
+        k1_loss_unit(Opaque())
 
 
 @pytest.mark.cuda

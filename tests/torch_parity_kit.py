@@ -6,7 +6,10 @@ same numpy arrays, with the main path's solver options.
 """
 
 import contextlib
+import fcntl
 import os
+import tempfile
+import time
 
 import jax.numpy as jnp
 import numpy as np
@@ -24,6 +27,43 @@ from ceres_tpu_torch.io.bal import build_bal_ceres_problem as torch_build
 from ceres_tpu_torch.rotation import angle_axis_rotate_point
 
 torch.set_num_threads(1)      # the suite runs several workers
+
+
+def _load_jax_native():
+    """Load the JAX package's native library once per process, one
+    process at a time.
+
+    ceres_tpu/native builds libceres_native.so in place at its first use
+    and latches a failed load for the life of the process. Test workers
+    that start together race there: one loads the file while another is
+    still writing it, and every native test of that worker fails. Every
+    worker collects every test module before it runs a test, so loading
+    here, under an exclusive lock on a file in the temp directory, makes
+    each worker load the library built by the first one that held the
+    lock. test_native.py asks for the library while it is collected,
+    before this module is imported, so a load latched there is retried
+    here, while the worker whose build it raced may still be writing:
+    wait for it, and build again (under the lock) only when no wait
+    helps."""
+    from ceres_tpu import native
+    path = os.path.join(tempfile.gettempdir(), "ceres_tpu_native.lock")
+    with open(path, "a") as fh:
+        fcntl.flock(fh, fcntl.LOCK_EX)
+        try:
+            for _ in range(30):
+                if native.available() or not os.path.exists(native._LIB):
+                    break
+                native._tried = False           # retry a latched failure
+                time.sleep(2.0)
+            else:
+                native._build()
+                native._tried = False
+                native.available()
+        finally:
+            fcntl.flock(fh, fcntl.LOCK_UN)
+
+
+_load_jax_native()
 
 
 def small_bal():
